@@ -1,11 +1,11 @@
 """Configuration of the PyTorch/CUDA port.
 
-The port's own copy of what the benchmark render needs from
-``nerf_tpu/config.py``: the model architecture (all fields, same names and
-defaults, so one ``ModelConfig`` dict describes the same network to both
-packages), the compositing constants and the compute dtype. Sampling
-schedules, training, occupancy-grid and mesh settings arrive with the
-slices that read them.
+The port's own copy of what the benchmark and hierarchical renders need
+from ``nerf_tpu/config.py``: the model architecture (all fields, same names
+and defaults, so one ``ModelConfig`` dict describes the same network to both
+packages), the sampling schedule, the compositing constants and the compute
+dtype. Training, occupancy-grid and mesh settings arrive with the slices
+that read them.
 """
 
 from __future__ import annotations
@@ -43,11 +43,16 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class RenderConfig:
-    """Depth range and compositing constants."""
+    """Depth range, sampling schedule and compositing constants."""
 
     near: float = 2.0
     far: float = 6.0
+    n_coarse: int = 64
+    n_fine: int = 128
+    perturb: bool = True              # stratified jitter during training
+    use_importance: bool = True       # fine depths by inverse CDF of the coarse weights
     white_background: bool = False
+    raw_noise_std: float = 0.0        # density noise during training
     dist_sentinel: float = 1e10       # distance after the last sample
     transmittance_eps: float = 1e-10
 
@@ -69,9 +74,14 @@ def default_config() -> Config:
 
 
 def reference_compat_config() -> Config:
-    """Float32 compute (the JAX package's version also turns off the
-    importance sampling and jitter this slice does not have)."""
-    return dataclasses.replace(Config(), train=TrainConfig(compute_dtype="float32"))
+    """The reference's numerics: uniform fine pass (no importance sampling),
+    no jitter, float32 compute."""
+    cfg = default_config()
+    return dataclasses.replace(
+        cfg,
+        render=dataclasses.replace(cfg.render, use_importance=False, perturb=False),
+        train=dataclasses.replace(cfg.train, compute_dtype="float32"),
+    )
 
 
 def bmild_config() -> Config:

@@ -1,8 +1,15 @@
-// Fused ray kernel: uniform samples along each ray + the whole NeRF MLP.
+// Fused ray kernels: samples along each ray + the whole NeRF MLP, and
+// optionally the volume rendering of those samples.
 //
-// Replaces the Pallas TPU kernel `_ray_kernel` (nerf_tpu/ops/render_kernel.py,
-// reached through `fused_render_samples`). Plain PyTorch twin and wrapper:
-// nerf_tpu_torch/ops/render_kernel.py; weight layout: ops/mlp_kernel.py.
+// Replaces the Pallas TPU kernels of nerf_tpu/ops/render_kernel.py:
+// - ray_kernel: `_ray_kernel` (uniform depths, `fused_render_samples`);
+// - ray_z_kernel: `_ray_z_kernel` (per-ray depths z [R, S] read from memory,
+//   `_zvals_forward` -> `fused_render_zvals_raw`);
+// - ray_composite_kernel / ray_z_composite_kernel: their `composited=True`
+//   modes (`_composite_flat` + `_segmented_cumsum_excl`), which write per ray
+//   (r, g, b, depth, acc, 0, 0, 0) and optionally the weights [R, S].
+// Plain PyTorch twins and wrappers: nerf_tpu_torch/ops/render_kernel.py;
+// weight layout: ops/mlp_kernel.py.
 //
 // What bounds it: tensor-core operations. Per sample the MLP is ~0.52 M
 // multiply-adds (8 x 256 trunk, skip, heads) against 24 bytes of ray input
@@ -25,6 +32,16 @@
 //   cp.async while the previous rows are multiplied;
 // - epilogue: fp32 accumulator + fp32 bias (+ direction term), ReLU, then
 //   round to bf16; density (one column) and rgb (three) as dot products.
+// - per-ray depths (K3) are read exactly, one per row; the TPU kernel's
+//   hi/lo split gather of z has no counterpart here.
+//
+// Composited modes: a 128-row tile cuts rays, so a block owns
+// rb = lcm(S, 128) / S whole rays and walks their samples 128 rows at a
+// time. After each tile's MLP, one warp per ray segment of the tile runs the
+// exclusive log-transmittance scan with __shfl_up_sync (the TPU kernel's
+// segmented roll scan and one-hot reduction matmul), continuing from the
+// ray's carried log-transmittance and five sums, kept in shared memory in
+// exact fp32 between tiles. sigma and rgb never leave shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,11 +71,16 @@ constexpr size_t ENC_BYTES = size_t(M) * LDE * sizeof(bf16);
 constexpr size_t WBUF_BYTES = size_t(STAGES) * KC * LDW * sizeof(bf16);
 constexpr size_t STAGE_BYTES = size_t(WARPS) * 256 * sizeof(float);
 constexpr size_t FIXED_BYTES = ACT_BYTES + ENC_BYTES + WBUF_BYTES + STAGE_BYTES +
-                               M * sizeof(float) + M * sizeof(int) + M * 3 * sizeof(float);
+                               M * sizeof(float) + M * sizeof(int) + M * 3 * sizeof(float) +
+                               M * sizeof(float);
+constexpr int STATE = 6;        // per ray: log-transmittance carry, r, g, b, depth, acc
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
   const float* rays_o;
   const float* rays_d;
+  const float* z;        // per-ray depths (ray_z kernels), row stride z_stride
+  long long z_stride;
   const bf16* w0;
   const float* b0;
   const bf16* wt;
@@ -73,10 +95,11 @@ struct Params {
   const bf16* wdir;
   const bf16* wc1;
   const float* bc1;
-  float* out;
-  long long total;  // n_rays * S
-  int S, Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs, nr_max;
-  float near, span, band_scale;
+  float* out;            // raw [R * S, 4], or composited [R, 8]
+  float* w;              // composited weights [R, S], or null
+  long long total;       // n_rays * S
+  int n_rays, S, Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs, nr_max, rb;
+  float near, span, band_scale, dz, sentinel, eps;
 };
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
@@ -189,44 +212,76 @@ __device__ void epilogue(Acc (&acc)[2][4], bf16* out, const float* __restrict__ 
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) ray_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem);
-  bf16* enc = reinterpret_cast<bf16*>(smem + ACT_BYTES);
-  bf16* wbuf = reinterpret_cast<bf16*>(smem + ACT_BYTES + ENC_BYTES);
-  float* stage = reinterpret_cast<float*>(smem + ACT_BYTES + ENC_BYTES + WBUF_BYTES);
-  float* sig = stage + WARPS * 256;
-  int* slot = reinterpret_cast<int*>(sig + M);
-  float* pos = reinterpret_cast<float*>(slot + M);    // [M, 3]
-  float* cdir = pos + M * 3;                          // [nr_max, CH]
-  float* denc = cdir + p.nr_max * CH;                 // [nr_max, KDIR]
+// Views of the dynamic shared memory.
+struct Tile {
+  bf16* act;
+  bf16* enc;
+  bf16* wbuf;
+  float* stage;
+  float* sig;    // [M] density per row
+  int* slot;     // [M] ray of the row, relative to the tile's first ray
+  float* pos;    // [M, 3]
+  float* zrow;   // [M] depth per row
+  float* cdir;   // [nr_max, CH] direction term per ray of the tile
+  float* denc;   // [nr_max, KDIR]
+  float* state;  // [rb, STATE] composited modes: per-ray running state
+};
 
+__device__ __forceinline__ Tile carve(unsigned char* smem, const Params& p) {
+  Tile t;
+  t.act = reinterpret_cast<bf16*>(smem);
+  t.enc = reinterpret_cast<bf16*>(smem + ACT_BYTES);
+  t.wbuf = reinterpret_cast<bf16*>(smem + ACT_BYTES + ENC_BYTES);
+  t.stage = reinterpret_cast<float*>(smem + ACT_BYTES + ENC_BYTES + WBUF_BYTES);
+  t.sig = t.stage + WARPS * 256;
+  t.slot = reinterpret_cast<int*>(t.sig + M);
+  t.pos = reinterpret_cast<float*>(t.slot + M);
+  t.zrow = t.pos + M * 3;
+  t.cdir = t.zrow + M;
+  t.denc = t.cdir + p.nr_max * CH;
+  t.state = t.denc + p.nr_max * KDIR;
+  return t;
+}
+
+// The network on flat rows n = n0 .. n0 + M - 1 (row n is sample n % S of
+// ray n / S; rows at or past n_end are padding). Leaves per row the density
+// in t.sig, rgb in t.stage[row * 4 + 1 .. 3] and the depth in t.zrow, and
+// ends with __syncthreads().
+template <bool ZIN>
+__device__ void eval_tile(const Params& p, const Tile& t, long long n0, long long n_end) {
   const int tid = threadIdx.x;
-  const long long n0 = (long long)blockIdx.x * M;
   const long long r_lo = n0 / p.S;
-  const long long n_last = min(n0 + M, p.total) - 1;
+  const long long n_last = min(n0 + M, n_end) - 1;
   const int nr = int(n_last / p.S - r_lo) + 1;       // rays touched by this tile
 
-  // 1. sample position per row (pos = o + d * z in fp32, no fma), then its
-  //    encoding, one (row, column) per step
+  // 1. depth and sample position per row (pos = o + d * z in fp32, no fma),
+  //    then its encoding, one (row, column) per step
   if (tid < M) {
     const long long n = n0 + tid;
-    const bool valid = n < p.total;
+    const bool valid = n < n_end;
     const long long r = valid ? n / p.S : 0;
     const int s = int(n - r * p.S);
-    const float t = __fdiv_rn(float(s), float(p.S - 1));
-    const float z = __fadd_rn(p.near, __fmul_rn(p.span, t));
+    float z = 0.f;
+    if (valid) {
+      if (ZIN) {
+        z = p.z[r * p.z_stride + s];
+      } else {
+        const float u = __fdiv_rn(float(s), float(p.S - 1));
+        z = __fadd_rn(p.near, __fmul_rn(p.span, u));
+      }
+    }
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      pos[tid * 3 + c] =
+      t.pos[tid * 3 + c] =
           valid ? __fadd_rn(p.rays_o[r * 3 + c], __fmul_rn(p.rays_d[r * 3 + c], z)) : 0.f;
-    slot[tid] = valid ? int(r - r_lo) : 0;
+    t.zrow[tid] = z;
+    t.slot[tid] = valid ? int(r - r_lo) : 0;
   }
   __syncthreads();
   for (int e = tid; e < M * KPOS; e += THREADS) {
     const int row = e / KPOS, k = e % KPOS;
-    const float v = n0 + row < p.total ? encode_col(pos + row * 3, k, p.Lp, p.band_scale) : 0.f;
-    enc[row * LDE + k] = __float2bfloat16_rn(v);
+    const float v = n0 + row < n_end ? encode_col(t.pos + row * 3, k, p.Lp, p.band_scale) : 0.f;
+    t.enc[row * LDE + k] = __float2bfloat16_rn(v);
   }
 
   // 2. direction branch once per ray of the tile: cdir = bf16(denc) @ wdir
@@ -241,7 +296,7 @@ __global__ void __launch_bounds__(THREADS, 1) ray_kernel(const Params p) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) d[c] = __fmul_rn(d[c], inv);
     }
-    denc[e] = __bfloat162float(__float2bfloat16_rn(encode_col(d, k, p.Ld, p.band_scale)));
+    t.denc[e] = __bfloat162float(__float2bfloat16_rn(encode_col(d, k, p.Ld, p.band_scale)));
   }
   __syncthreads();
   for (int e = tid; e < nr * CH; e += THREADS) {
@@ -249,8 +304,8 @@ __global__ void __launch_bounds__(THREADS, 1) ray_kernel(const Params p) {
     float acc = 0.f;
 #pragma unroll 8
     for (int k = 0; k < KDIR; ++k)
-      acc = fmaf(denc[sl * KDIR + k], __bfloat162float(p.wdir[k * CH + col]), acc);
-    cdir[e] = acc;
+      acc = fmaf(t.denc[sl * KDIR + k], __bfloat162float(p.wdir[k * CH + col]), acc);
+    t.cdir[e] = acc;
   }
   __syncthreads();
 
@@ -258,14 +313,14 @@ __global__ void __launch_bounds__(THREADS, 1) ray_kernel(const Params p) {
   //    the encoding rows into the same accumulators
   Acc acc[2][4];
   zero<HID>(acc);
-  gemm_acc<HID>(acc, enc, LDE, KPOS, p.w0, wbuf);
-  epilogue<HID>(acc, act, p.b0, nullptr, slot, true, stage);
+  gemm_acc<HID>(acc, t.enc, LDE, KPOS, p.w0, t.wbuf);
+  epilogue<HID>(acc, t.act, p.b0, nullptr, t.slot, true, t.stage);
   __syncthreads();
   for (int i = 1; i < 8; ++i) {
     zero<HID>(acc);
-    gemm_acc<HID>(acc, act, LDA, HID, p.wt + size_t(i - 1) * HID * HID, wbuf);
-    if (i == p.skip_pos) gemm_acc<HID>(acc, enc, LDE, KPOS, p.wskip, wbuf);
-    epilogue<HID>(acc, act, p.bt + (i - 1) * HID, nullptr, slot, true, stage);
+    gemm_acc<HID>(acc, t.act, LDA, HID, p.wt + size_t(i - 1) * HID * HID, t.wbuf);
+    if (i == p.skip_pos) gemm_acc<HID>(acc, t.enc, LDE, KPOS, p.wskip, t.wbuf);
+    epilogue<HID>(acc, t.act, p.bt + (i - 1) * HID, nullptr, t.slot, true, t.stage);
     __syncthreads();
   }
 
@@ -274,12 +329,12 @@ __global__ void __launch_bounds__(THREADS, 1) ray_kernel(const Params p) {
     const int row = tid >> 2, q = tid & 3;
     float part = 0.f;
     for (int k = q * 64; k < q * 64 + 64; ++k)
-      part = fmaf(__bfloat162float(act[row * LDA + k]), __bfloat162float(p.wsig[k]), part);
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    part += __shfl_xor_sync(0xffffffffu, part, 2);
+      part = fmaf(__bfloat162float(t.act[row * LDA + k]), __bfloat162float(p.wsig[k]), part);
+    part += __shfl_xor_sync(FULL, part, 1);
+    part += __shfl_xor_sync(FULL, part, 2);
     if (q == 0) {
       float s = part + p.bsig[0];
-      sig[row] = p.relu_sigma ? fmaxf(s, 0.f) : s;
+      t.sig[row] = p.relu_sigma ? fmaxf(s, 0.f) : s;
     }
   }
   __syncthreads();
@@ -288,35 +343,166 @@ __global__ void __launch_bounds__(THREADS, 1) ray_kernel(const Params p) {
   //    per-ray direction term, both in place
   if (p.bmild) {
     zero<HID>(acc);
-    gemm_acc<HID>(acc, act, LDA, HID, p.wbn, wbuf);
-    epilogue<HID>(acc, act, p.bbn, nullptr, slot, false, stage);
+    gemm_acc<HID>(acc, t.act, LDA, HID, p.wbn, t.wbuf);
+    epilogue<HID>(acc, t.act, p.bbn, nullptr, t.slot, false, t.stage);
     __syncthreads();
   }
   zero<CH>(acc);
-  gemm_acc<CH>(acc, act, LDA, HID, p.wc0, wbuf);
-  epilogue<CH>(acc, act, p.bc0, cdir, slot, true, stage);
+  gemm_acc<CH>(acc, t.act, LDA, HID, p.wc0, t.wbuf);
+  epilogue<CH>(acc, t.act, p.bc0, t.cdir, t.slot, true, t.stage);
   __syncthreads();
 
-  // 6. rgb = sigmoid(c @ wc1 + bc1); out row = (sigma, r, g, b)
-  float* res = stage;  // [M, 4]
+  // 6. rgb = sigmoid(c @ wc1 + bc1) into stage[row * 4 + 1 .. 3]
   for (int e = tid; e < M * 3; e += THREADS) {
     const int row = e / 3, ch = e % 3;
     float v = 0.f;
     for (int k = 0; k < CH; ++k)
-      v = fmaf(__bfloat162float(act[row * LDA + k]), __bfloat162float(p.wc1[k * 3 + ch]), v);
+      v = fmaf(__bfloat162float(t.act[row * LDA + k]), __bfloat162float(p.wc1[k * 3 + ch]), v);
     v += p.bc1[ch];
-    res[row * 4 + 1 + ch] = 1.f / (1.f + expf(-v));
+    t.stage[row * 4 + 1 + ch] = 1.f / (1.f + expf(-v));
   }
   __syncthreads();
+}
+
+// Raw modes: one 128-row tile per block, out row = (sigma, r, g, b).
+template <bool ZIN>
+__device__ void raw_body(const Params& p, unsigned char* smem) {
+  const Tile t = carve(smem, p);
+  const int tid = threadIdx.x;
+  const long long n0 = (long long)blockIdx.x * M;
+  eval_tile<ZIN>(p, t, n0, p.total);
   if (tid < M && n0 + tid < p.total) {
-    float4 o = make_float4(sig[tid], res[tid * 4 + 1], res[tid * 4 + 2], res[tid * 4 + 3]);
-    reinterpret_cast<float4*>(p.out)[n0 + tid] = o;
+    const float* res = t.stage + tid * 4;
+    reinterpret_cast<float4*>(p.out)[n0 + tid] = make_float4(t.sig[tid], res[1], res[2], res[3]);
   }
 }
 
-// Shared memory the kernel needs: the fixed tiles plus the direction
-// branch of every ray a tile can touch.
-size_t smem_bytes(int nr_max) { return FIXED_BYTES + size_t(nr_max) * (CH + KDIR) * sizeof(float); }
+// Volume rendering of the tile's rows n0 .. stop - 1: one warp per ray
+// segment, lanes over 32 samples at a time. dist = z[s+1] - z[s] (per-ray
+// depths) or dz (uniform), the sentinel for the last sample, times ||d||;
+// alpha = 1 - exp(-relu(sigma) * dist); T = exp(carry + exclusive sum of
+// log(max(1 - alpha, eps))); w = alpha * T.
+template <bool ZIN>
+__device__ void composite_tile(const Params& p, const Tile& t, long long n0, long long n_end,
+                               long long r_first) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long stop = min(n0 + M, n_end);
+  const long long r_lo = n0 / p.S;
+  const int nr = int((stop - 1) / p.S - r_lo) + 1;
+  for (int seg = warp; seg < nr; seg += WARPS) {
+    const long long r = r_lo + seg;
+    const long long a = max(n0, r * p.S), b = min(stop, (r + 1) * p.S);
+    float* st = t.state + (r - r_first) * STATE;
+    const float dx = p.rays_d[r * 3], dy = p.rays_d[r * 3 + 1], dzr = p.rays_d[r * 3 + 2];
+    const float dnorm =
+        sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dzr, dzr)));
+    float carry = st[0];
+    float sr = 0.f, sg = 0.f, sb = 0.f, sd = 0.f, sa = 0.f;
+    for (long long c = a; c < b; c += 32) {
+      const long long n = c + lane;
+      const bool valid = n < b;
+      const int row = int(n - n0);
+      const int s = int(n - r * p.S);
+      float sigma = 0.f, cr = 0.f, cg = 0.f, cb = 0.f, zs = 0.f, dist = 0.f;
+      if (valid) {
+        sigma = t.sig[row];
+        cr = t.stage[row * 4 + 1];
+        cg = t.stage[row * 4 + 2];
+        cb = t.stage[row * 4 + 3];
+        zs = t.zrow[row];
+        if (s == p.S - 1)
+          dist = p.sentinel;
+        else
+          dist = ZIN ? __fsub_rn(p.z[r * p.z_stride + s + 1], zs) : p.dz;
+        dist = __fmul_rn(dist, dnorm);
+      }
+      const float alpha = valid ? 1.f - expf(-fmaxf(sigma, 0.f) * dist) : 0.f;
+      const float lt = valid ? logf(fmaxf(1.f - alpha, p.eps)) : 0.f;
+      float incl = lt;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float v = __shfl_up_sync(FULL, incl, off);
+        if (lane >= off) incl += v;
+      }
+      float excl = __shfl_up_sync(FULL, incl, 1);
+      if (lane == 0) excl = 0.f;
+      const float wv = alpha * expf(carry + excl);
+      if (valid && p.w) p.w[r * p.S + s] = wv;
+      sr = fmaf(wv, cr, sr);
+      sg = fmaf(wv, cg, sg);
+      sb = fmaf(wv, cb, sb);
+      sd = fmaf(wv, zs, sd);
+      sa += wv;
+      carry += __shfl_sync(FULL, incl, 31);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sr += __shfl_xor_sync(FULL, sr, off);
+      sg += __shfl_xor_sync(FULL, sg, off);
+      sb += __shfl_xor_sync(FULL, sb, off);
+      sd += __shfl_xor_sync(FULL, sd, off);
+      sa += __shfl_xor_sync(FULL, sa, off);
+    }
+    if (lane == 0) {
+      st[0] = carry;
+      st[1] += sr;
+      st[2] += sg;
+      st[3] += sb;
+      st[4] += sd;
+      st[5] += sa;
+    }
+  }
+}
+
+// Composited modes: the block owns rays r_first .. r_first + rb - 1 and
+// walks their samples one 128-row tile at a time.
+template <bool ZIN>
+__device__ void composite_body(const Params& p, unsigned char* smem) {
+  const Tile t = carve(smem, p);
+  const int tid = threadIdx.x;
+  const long long r_first = (long long)blockIdx.x * p.rb;
+  const int nrb = int(min((long long)p.rb, (long long)p.n_rays - r_first));
+  const long long n_end = (r_first + nrb) * p.S;
+  for (int e = tid; e < nrb * STATE; e += THREADS) t.state[e] = 0.f;
+  for (long long n0 = r_first * p.S; n0 < n_end; n0 += M) {
+    eval_tile<ZIN>(p, t, n0, n_end);
+    composite_tile<ZIN>(p, t, n0, n_end, r_first);
+    __syncthreads();  // state, and the tile's rows, are free for the next tile
+  }
+  for (int e = tid; e < nrb * 8; e += THREADS) {
+    const int rl = e >> 3, k = e & 7;
+    p.out[(r_first + rl) * 8 + k] = k < 5 ? t.state[rl * STATE + 1 + k] : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) ray_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  raw_body<false>(p, smem);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) ray_z_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  raw_body<true>(p, smem);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) ray_composite_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  composite_body<false>(p, smem);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) ray_z_composite_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  composite_body<true>(p, smem);
+}
+
+// Shared memory the kernel needs: the fixed tiles, the direction branch of
+// every ray a tile can touch and the running state of a block's rays.
+size_t smem_bytes(int nr_max, int rb) {
+  return FIXED_BYTES + size_t(nr_max) * (CH + KDIR) * sizeof(float) +
+         size_t(rb) * STATE * sizeof(float);
+}
+
+int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
 
 }  // namespace
 
@@ -324,16 +510,19 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-int render_samples(const float* rays_o, const float* rays_d, int n_rays, int n_samples,
-                   float near, float span, const void* w0, const float* b0, const void* wt,
-                   const float* bt, const void* wskip, const void* wsig, const float* bsig,
-                   const void* wbn, const float* bbn, const void* wc0, const float* bc0,
-                   const void* wdir, const void* wc1, const float* bc1, int Lp, int Ld,
-                   int skip_pos, int bmild, int relu_sigma, int normalize_dirs,
-                   float band_scale, float* out, void* stream) {
+int ray_render(const float* rays_o, const float* rays_d, const float* z, long long z_stride,
+               int n_rays, int n_samples, float near, float span, const void* w0,
+               const float* b0, const void* wt, const float* bt, const void* wskip,
+               const void* wsig, const float* bsig, const void* wbn, const float* bbn,
+               const void* wc0, const float* bc0, const void* wdir, const void* wc1,
+               const float* bc1, int Lp, int Ld, int skip_pos, int bmild, int relu_sigma,
+               int normalize_dirs, float band_scale, int composited, float dz, float sentinel,
+               float eps, float* out, float* w, void* stream) {
   Params p;
   p.rays_o = rays_o;
   p.rays_d = rays_d;
+  p.z = z;
+  p.z_stride = z_stride;
   p.w0 = static_cast<const bf16*>(w0);
   p.b0 = b0;
   p.wt = static_cast<const bf16*>(wt);
@@ -349,7 +538,9 @@ int render_samples(const float* rays_o, const float* rays_d, int n_rays, int n_s
   p.wc1 = static_cast<const bf16*>(wc1);
   p.bc1 = bc1;
   p.out = out;
+  p.w = w;
   p.total = (long long)n_rays * n_samples;
+  p.n_rays = n_rays;
   p.S = n_samples;
   p.Lp = Lp;
   p.Ld = Ld;
@@ -358,16 +549,23 @@ int render_samples(const float* rays_o, const float* rays_d, int n_rays, int n_s
   p.relu_sigma = relu_sigma;
   p.normalize_dirs = normalize_dirs;
   p.nr_max = (M - 1) / n_samples + 2;
+  p.rb = composited ? M / gcd(n_samples, M) : 0;
   p.near = near;
   p.span = span;
   p.band_scale = band_scale;
-  if (n_samples < 2 || 3 + 6 * Lp > KPOS || 3 + 6 * Ld > KDIR) return int(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(p.nr_max);
+  p.dz = dz;
+  p.sentinel = sentinel;
+  p.eps = eps;
+  if (n_samples < (z ? 1 : 2) || 3 + 6 * Lp > KPOS || 3 + 6 * Ld > KDIR)
+    return int(cudaErrorInvalidValue);
+  void (*kernel)(const Params) = z ? (composited ? ray_z_composite_kernel : ray_z_kernel)
+                                   : (composited ? ray_composite_kernel : ray_kernel);
+  const size_t smem = smem_bytes(p.nr_max, p.rb);
   cudaError_t err =
-      cudaFuncSetAttribute(ray_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  const long long blocks = (p.total + M - 1) / M;
-  ray_kernel<<<unsigned(blocks), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  const long long blocks = composited ? (n_rays + p.rb - 1) / p.rb : (p.total + M - 1) / M;
+  kernel<<<unsigned(blocks), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return int(cudaGetLastError());
 }
 

@@ -22,7 +22,7 @@ launch in ``launches``; on a CPU tensor it runs
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,16 +36,18 @@ launches = 0
 
 def fused_volume_render_interleaved_plain(
     raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
-    sentinel: float = 1e10, eps: float = 1e-10,
+    sentinel: float = 1e10, eps: float = 1e-10, dz: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-PyTorch version of the kernel: ``(out [N, 8], w [N, S])`` with
-    ``out = (r, g, b, depth, acc, 0, 0, 0)``."""
+    ``out = (r, g, b, depth, acc, 0, 0, 0)``. With ``dz`` the distances are
+    that constant step (uniform depths, as the composited ray kernels take
+    them) instead of adjacent depth differences; the sentinel stays last."""
     raw = raw.float()
     sigma, rgb = raw[:, 0::4], torch.stack([raw[:, 1::4], raw[:, 2::4],
                                             raw[:, 3::4]], dim=-1)
     z = z_vals.float()
-    dists = torch.cat([z[:, 1:] - z[:, :-1],
-                       torch.full_like(z[:, :1], sentinel)], dim=-1)
+    steps = z[:, 1:] - z[:, :-1] if dz is None else torch.full_like(z[:, 1:], dz)
+    dists = torch.cat([steps, torch.full_like(z[:, :1], sentinel)], dim=-1)
     dists = dists * torch.linalg.norm(rays_d.float(), dim=-1, keepdim=True)
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
     log_t = torch.log(torch.clamp(1.0 - alpha, min=eps))

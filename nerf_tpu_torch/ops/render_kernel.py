@@ -1,16 +1,25 @@
-"""Ray-blocked sample generation + NeRF MLP: the fused ray kernel.
+"""Ray-blocked sample generation + NeRF MLP: the fused ray kernels.
 
-Counterpart of ``fused_render_samples`` in ``nerf_tpu/ops/render_kernel.py``
-(the Pallas kernel ``_ray_kernel``). For every ray it places ``S`` uniform
-depths ``z = near + (far - near) * s / (S - 1)``, forms ``pos = o + d * z``,
-encodes it, runs the whole MLP (8 x 256 trunk with the skip, density head,
-color branch with the per-ray direction encoding) and writes
-``(sigma, r, g, b)`` per sample, sample-major within the ray, so the
-``[R * S, 4]`` output is a free ``[R, 4S]`` view for the compositor.
+Counterparts of ``nerf_tpu/ops/render_kernel.py``:
 
-On a CUDA tensor ``fused_render_samples`` launches the CUDA kernel
-(``csrc/render_samples.cu``) and counts the launch in ``launches``; on a CPU
-tensor it runs ``fused_render_samples_plain``, the same arithmetic in plain
+- ``fused_render_samples`` (K1, the Pallas kernel ``_ray_kernel``) places
+  ``S`` uniform depths ``z = near + (far - near) * s / (S - 1)`` per ray;
+- ``fused_render_zvals_raw`` (K3, ``_ray_z_kernel``) reads per-ray depths
+  ``z_vals [R, S]`` (the hierarchical fine pass).
+
+Both form ``pos = o + d * z``, encode it, run the whole MLP (8 x 256 trunk
+with the skip, density head, color branch with the per-ray direction
+encoding) and write ``(sigma, r, g, b)`` per sample, sample-major within the
+ray, so the ``[R * S, 4]`` output is a free ``[R, 4S]`` view for the
+compositor. Their composited modes (``fused_render_samples_composited``,
+``fused_render_zvals_composited``; the TPU kernels' ``composited=True``,
+``_composite_flat``) volume-render inside the kernel instead and write
+``[R, 8] = (r, g, b, depth, acc, 0, 0, 0)`` and, optionally, the weights
+``[R, S]``: the per-sample field never reaches device memory.
+
+On a CUDA tensor each wrapper launches its CUDA kernel
+(``csrc/render_samples.cu``) and counts the launch in ``launches[name]``; on
+a CPU tensor it runs its ``*_plain`` twin, the same arithmetic in plain
 PyTorch. Nothing falls back: a CUDA launch either runs or raises.
 
 Arithmetic shared by both versions, and the tolerances it sets:
@@ -33,14 +42,15 @@ occasional other bf16 rounding of an activation.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from nerf_tpu_torch.config import ModelConfig
+from nerf_tpu_torch.config import ModelConfig, RenderConfig
 from nerf_tpu_torch.models.encoding import positional_encoding
 from nerf_tpu_torch.ops import _ext
+from nerf_tpu_torch.ops.composite_kernel import fused_volume_render_interleaved_plain
 from nerf_tpu_torch.ops.mlp_kernel import (
     DIR_ROWS,
     HID,
@@ -50,34 +60,29 @@ from nerf_tpu_torch.ops.mlp_kernel import (
     skip_position,
 )
 from nerf_tpu_torch.utils.device import disable_tf32
+from nerf_tpu_torch.utils.rendering import RenderOutputs
 
-# Launches of the CUDA kernel (not of the plain version).
-launches = 0
+# Launches of each CUDA kernel (not of the plain versions).
+launches = {"render_samples": 0, "render_zvals": 0,
+            "render_samples_composited": 0, "render_zvals_composited": 0}
 
 
 def _pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
 
 
-def fused_render_samples_plain(packed: PackedWeights, rays_o, rays_d,
-                               near: float, far: float, n_samples: int,
-                               cfg: ModelConfig) -> torch.Tensor:
-    """Plain-PyTorch version of the kernel. Returns ``raw [R, 4S]``. The
-    compute dtype is that of the packed matrices."""
+def _mlp_plain(packed: PackedWeights, pos: torch.Tensor, d: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """The kernels' network on positions ``pos [R, S, 3]`` of rays with
+    directions ``d [R, 3]``: ``raw [R, 4S]``, per sample ``(sigma, r, g, b)``.
+    The compute dtype is that of the packed matrices."""
     disable_tf32()
     dt = packed.w0.dtype
-    S = n_samples
-    R = rays_o.shape[0]
-    dev = rays_o.device
-    o = rays_o.float()
-    d = rays_d.float()
+    R, S = pos.shape[:2]
 
     def mm(a, w):
         return a.to(dt).float() @ w.float()
 
-    t = torch.arange(S, dtype=torch.float32, device=dev) / (S - 1)
-    z = near + (far - near) * t                                      # [S]
-    pos = o[:, None, :] + d[:, None, :] * z[None, :, None]           # [R, S, 3]
     enc = _pad_cols(positional_encoding(pos.reshape(-1, 3), cfg.pos_freqs,
                                         cfg.posenc_pi), POS_ROWS).to(dt)
 
@@ -107,20 +112,70 @@ def fused_render_samples_plain(packed: PackedWeights, rays_o, rays_d,
     return torch.cat([sigma[:, None], rgb], dim=-1).reshape(R, 4 * S)
 
 
+def _uniform_z(near: float, far: float, n_samples: int, device) -> torch.Tensor:
+    """The kernels' depth grid ``near + (far - near) * s / (S - 1)`` [S]."""
+    t = torch.arange(n_samples, dtype=torch.float32, device=device) / (n_samples - 1)
+    return near + (far - near) * t
+
+
+def fused_render_samples_plain(packed: PackedWeights, rays_o, rays_d,
+                               near: float, far: float, n_samples: int,
+                               cfg: ModelConfig) -> torch.Tensor:
+    """Plain-PyTorch version of the uniform-depth kernel (K1). Returns
+    ``raw [R, 4S]``."""
+    o, d = rays_o.float(), rays_d.float()
+    z = _uniform_z(near, far, n_samples, o.device)                   # [S]
+    pos = o[:, None, :] + d[:, None, :] * z[None, :, None]           # [R, S, 3]
+    return _mlp_plain(packed, pos, d, cfg)
+
+
+def fused_render_zvals_plain(packed: PackedWeights, rays_o, rays_d, z_vals,
+                             cfg: ModelConfig) -> torch.Tensor:
+    """Plain-PyTorch version of the per-ray-depth kernel (K3). Returns
+    ``raw [R, 4S]``."""
+    o, d, z = rays_o.float(), rays_d.float(), z_vals.float()
+    pos = o[:, None, :] + d[:, None, :] * z[..., None]               # [R, S, 3]
+    return _mlp_plain(packed, pos, d, cfg)
+
+
+def fused_render_samples_composited_plain(packed, rays_o, rays_d, near, far,
+                                          n_samples, cfg, sentinel=1e10, eps=1e-10):
+    """Plain-PyTorch version of K1's composited mode: ``(out [R, 8], w)``,
+    the distances the constant step ``(far - near) / (S - 1)``."""
+    raw = fused_render_samples_plain(packed, rays_o, rays_d, near, far, n_samples, cfg)
+    z = _uniform_z(near, far, n_samples, raw.device).expand(raw.shape[0], n_samples)
+    return fused_volume_render_interleaved_plain(raw, z, rays_d, sentinel, eps,
+                                                 dz=(far - near) / (n_samples - 1))
+
+
+def fused_render_zvals_composited_plain(packed, rays_o, rays_d, z_vals, cfg,
+                                        sentinel=1e10, eps=1e-10):
+    """Plain-PyTorch version of K3's composited mode: ``(out [R, 8], w)``."""
+    raw = fused_render_zvals_plain(packed, rays_o, rays_d, z_vals, cfg)
+    return fused_volume_render_interleaved_plain(raw, z_vals, rays_d, sentinel, eps)
+
+
 _ARGTYPES = (
-    [ctypes.c_void_p] * 2                 # rays_o, rays_d
+    [ctypes.c_void_p] * 3                 # rays_o, rays_d, z_vals (NULL: uniform)
+    + [ctypes.c_longlong]                 # z row stride
     + [ctypes.c_int] * 2                  # n_rays, n_samples
     + [ctypes.c_float] * 2                # near, far - near
     + [ctypes.c_void_p] * 14              # weights (PackedWeights order)
     + [ctypes.c_int] * 6                  # Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs
     + [ctypes.c_float]                    # band scale (pi or 1)
-    + [ctypes.c_void_p] * 2               # out, stream
+    + [ctypes.c_int]                      # composited
+    + [ctypes.c_float] * 3                # uniform step dz, sentinel, eps
+    + [ctypes.c_void_p] * 3               # out, w (NULL: none), stream
 )
 
 
 def _launch(packed: PackedWeights, rays_o, rays_d, near, far, S,
-            cfg: ModelConfig) -> torch.Tensor:
-    global launches
+            cfg: ModelConfig, z_vals: Optional[torch.Tensor] = None,
+            composited: bool = False, with_weights: bool = False,
+            sentinel: float = 1e10, eps: float = 1e-10):
+    """Launch one of the four kernels of ``csrc/render_samples.cu``: depths
+    uniform (``z_vals`` None, K1) or per ray (K3), output raw ``[R, 4S]`` or
+    composited ``(out [R, 8], w [R, S] or None)``."""
     dev = rays_o.device
     R = rays_o.shape[0]
     for name, t in (("rays_o", rays_o), ("rays_d", rays_d)):
@@ -138,25 +193,51 @@ def _launch(packed: PackedWeights, rays_o, rays_d, near, far, S,
                               or not w.is_contiguous()):
             raise ValueError(f"packed weight {name} must be contiguous {want} on "
                              f"{dev} (the CUDA ray kernel computes in bfloat16)")
+    z_stride = 0
+    if z_vals is not None:
+        if (z_vals.dtype != torch.float32 or z_vals.device != dev
+                or z_vals.shape != (R, S) or z_vals.stride(1) != 1):
+            raise ValueError(f"z_vals must be float32 [R, S] = {(R, S)} with unit "
+                             f"sample stride on {dev}, got {z_vals.dtype} "
+                             f"{tuple(z_vals.shape)} on {z_vals.device}")
+        z_stride = z_vals.stride(0)
+    elif S < 2:
+        raise ValueError("need at least 2 samples for uniform depths")
     rays_o = rays_o.contiguous()
     rays_d = rays_d.contiguous()
-    out = torch.empty(R * S, 4, dtype=torch.float32, device=dev)
+    if composited:
+        out = torch.empty(R, 8, dtype=torch.float32, device=dev)
+        w = torch.empty(R, S, dtype=torch.float32, device=dev) if with_weights else None
+    else:
+        out = torch.empty(R * S, 4, dtype=torch.float32, device=dev)
+        w = None
+    result = (out, w) if composited else out.reshape(R, 4 * S)
     if R == 0:
-        return out.reshape(R, 4 * S)
+        return result
     lib = _ext.load("render_samples")
-    fn = lib.render_samples
+    fn = lib.ray_render
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(_ext.ptr(rays_o), _ext.ptr(rays_d), R, S, float(near),
-             float(far - near),
-             *[None if w is None else _ext.ptr(w) for w in packed],
-             cfg.pos_freqs, cfg.dir_freqs, skip_position(cfg), int(bmild),
-             int(cfg.variant == "reference"), int(cfg.normalize_dirs),
+    dz = (far - near) / (S - 1) if z_vals is None else 0.0
+    err = fn(_ext.ptr(rays_o), _ext.ptr(rays_d),
+             None if z_vals is None else _ext.ptr(z_vals), z_stride, R, S,
+             float(near), float(far - near),
+             *[None if w_ is None else _ext.ptr(w_) for w_ in packed],
+             cfg.pos_freqs, cfg.dir_freqs, skip_position(cfg),
+             int(cfg.variant == "bmild"), int(cfg.variant == "reference"),
+             int(cfg.normalize_dirs),
              float(np.float32(np.pi)) if cfg.posenc_pi else 1.0,
-             _ext.ptr(out), _ext.stream_ptr(dev))
-    _ext.check(lib, err, "render_samples launch")
-    launches += 1
-    return out.reshape(R, 4 * S)
+             int(composited), float(dz), float(sentinel), float(eps),
+             _ext.ptr(out), None if w is None else _ext.ptr(w), _ext.stream_ptr(dev))
+    name = ("render_samples" if z_vals is None else "render_zvals") + (
+        "_composited" if composited else "")
+    _ext.check(lib, err, f"{name} launch")
+    launches[name] += 1
+    return result
+
+
+def _packed(params, cfg: ModelConfig, dtype) -> PackedWeights:
+    return params if isinstance(params, PackedWeights) else pack_params(params, cfg, dtype)
 
 
 def fused_render_samples(
@@ -170,7 +251,7 @@ def fused_render_samples(
     raw: bool = False,
     dtype: torch.dtype = torch.bfloat16,
 ) -> Tuple[torch.Tensor, ...]:
-    """Evaluate the network at uniform depths along every ray.
+    """Evaluate the network at uniform depths along every ray (K1).
 
     Returns ``(sigma [R, S], rgb [R, S, 3], z_vals [R, S])``, or with
     ``raw=True`` ``(raw [R, 4S], z_vals)``: the interleaved per-sample
@@ -179,8 +260,7 @@ def fused_render_samples(
     ``z_vals`` is a broadcast view, ``near + (far - near) * linspace``."""
     S = n_samples
     assert S >= 2, "need at least 2 samples for the linspace"
-    packed = params if isinstance(params, PackedWeights) else pack_params(
-        params, cfg, dtype)
+    packed = _packed(params, cfg, dtype)
     if rays_o.device.type == "cpu":
         out = fused_render_samples_plain(packed, rays_o, rays_d, near, far, S, cfg)
     else:
@@ -192,3 +272,89 @@ def fused_render_samples(
         return out, z_vals
     out = out.reshape(R, S, 4)
     return out[..., 0], out[..., 1:4], z_vals
+
+
+def fused_render_zvals_raw(
+    params: Union[dict, PackedWeights],
+    rays_o: torch.Tensor,     # [R, 3]
+    rays_d: torch.Tensor,     # [R, 3]
+    z_vals: torch.Tensor,     # [R, S]
+    cfg: ModelConfig,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Evaluate the network at per-ray depths (K3): ``raw [R, 4S]``, the
+    interleaved per-sample ``(sigma, r, g, b)`` for
+    ``fused_volume_render_interleaved``."""
+    packed = _packed(params, cfg, dtype)
+    if rays_o.device.type == "cpu":
+        return fused_render_zvals_plain(packed, rays_o, rays_d, z_vals, cfg)
+    return _launch(packed, rays_o, rays_d, 0.0, 0.0, z_vals.shape[1], cfg,
+                   z_vals=z_vals)
+
+
+def fused_render_samples_composited(
+    params: Union[dict, PackedWeights],
+    rays_o: torch.Tensor,     # [R, 3]
+    rays_d: torch.Tensor,     # [R, 3]
+    near: float,
+    far: float,
+    n_samples: int,
+    cfg: ModelConfig,
+    dtype: torch.dtype = torch.bfloat16,
+    with_weights: bool = False,
+    sentinel: float = 1e10,
+    eps: float = 1e-10,
+):
+    """Uniform-depth render with volume rendering in the same kernel (K1
+    composited): the per-sample field never reaches device memory. Returns
+    ``(out [R, 8], z_vals)`` or ``(out, weights [R, S], z_vals)``, ``out =
+    (r, g, b, depth, acc, 0, 0, 0)``; the white background is the caller's
+    (``composited_to_outputs``)."""
+    S = n_samples
+    if S < 2:
+        raise ValueError("need at least 2 samples for uniform depths")
+    packed = _packed(params, cfg, dtype)
+    if rays_o.device.type == "cpu":
+        out, w = fused_render_samples_composited_plain(packed, rays_o, rays_d, near,
+                                                       far, S, cfg, sentinel, eps)
+    else:
+        out, w = _launch(packed, rays_o, rays_d, near, far, S, cfg, composited=True,
+                         with_weights=with_weights, sentinel=sentinel, eps=eps)
+    z_vals = _uniform_z(near, far, S, rays_o.device).expand(rays_o.shape[0], S)
+    return (out, w, z_vals) if with_weights else (out, z_vals)
+
+
+def fused_render_zvals_composited(
+    params: Union[dict, PackedWeights],
+    rays_o: torch.Tensor,     # [R, 3]
+    rays_d: torch.Tensor,     # [R, 3]
+    z_vals: torch.Tensor,     # [R, S]
+    cfg: ModelConfig,
+    dtype: torch.dtype = torch.bfloat16,
+    with_weights: bool = False,
+    sentinel: float = 1e10,
+    eps: float = 1e-10,
+):
+    """Per-ray-depth render with in-kernel volume rendering (K3
+    composited). Returns ``out [R, 8]`` or ``(out, weights [R, S])``."""
+    packed = _packed(params, cfg, dtype)
+    if rays_o.device.type == "cpu":
+        out, w = fused_render_zvals_composited_plain(packed, rays_o, rays_d, z_vals,
+                                                     cfg, sentinel, eps)
+    else:
+        out, w = _launch(packed, rays_o, rays_d, 0.0, 0.0, z_vals.shape[1], cfg,
+                         z_vals=z_vals, composited=True, with_weights=with_weights,
+                         sentinel=sentinel, eps=eps)
+    return (out, w) if with_weights else out
+
+
+def composited_to_outputs(out8: torch.Tensor, weights: Optional[torch.Tensor],
+                          rcfg: RenderConfig) -> RenderOutputs:
+    """``[R, 8]`` composited output -> ``RenderOutputs``, with the white
+    background blended on the per-ray maps. ``weights`` is ``[R, S]`` or
+    None when the caller did not ask for them."""
+    rgb = out8[:, 0:3]
+    acc = out8[:, 4]
+    if rcfg.white_background:
+        rgb = rgb + (1.0 - acc[:, None])
+    return RenderOutputs(rgb, out8[:, 3], acc, weights)

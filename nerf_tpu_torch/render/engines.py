@@ -1,20 +1,26 @@
 """Execution engines: the same weights through different execution methods.
 
-Counterpart of ``nerf_tpu/render/engines.py`` for the benchmark render
-(fine network only, uniform unperturbed samples, chunked frame):
+Counterpart of ``nerf_tpu/render/engines.py`` for its two render modes:
+``benchmark`` (fine network only, ``samples_per_ray`` uniform unperturbed
+samples) and ``hierarchical`` (coarse network at ``rcfg.n_coarse`` uniform
+depths, ``rcfg.n_fine`` inverse-CDF depths from its weights, fine network
+at the merged, sorted ``n_coarse + n_fine`` depths):
 
 - ``torch`` (``TorchEngine``, the ``XLAEngine`` counterpart): plain PyTorch,
-  ``sample_points_on_rays`` -> ``apply_nerf`` -> ``volume_render``;
+  ``sample_points_on_rays`` -> ``apply_nerf`` -> ``volume_render``, and
+  ``render_rays`` for the hierarchical mode;
 - ``cuda`` (``CudaEngine``, the ``PallasEngine`` counterpart): the fused
-  ray kernel (``ops/render_kernel.py``) writes interleaved per-sample
-  ``(sigma, r, g, b)`` and the compositor kernel
-  (``ops/composite_kernel.py``) reduces it per ray. On the CPU (tests) both
-  run their plain versions; on the card they launch the CUDA kernels.
+  ray kernels (``ops/render_kernel.py``: K1 at uniform depths, K3 at per-ray
+  depths) write interleaved per-sample ``(sigma, r, g, b)`` and the
+  compositor kernel (``ops/composite_kernel.py``, K2) reduces it per ray;
+  with ``fuse_composite=True`` the ray kernels composite in the same pass.
+  ``sample_pdf``, the merge and the sort between the passes are plain
+  PyTorch. On the CPU (tests) the kernels run their plain versions; on the
+  card they launch the CUDA kernels.
 
 A frame is cut into chunks of ``chunk_rays`` rays; the last chunk is padded
 with rays of zero origin and unit direction so every chunk has one shape.
-The hierarchical mode, the compressed, int8 and accel engines arrive with
-later slices.
+The compressed, int8 and accel engines arrive with later slices.
 """
 
 from __future__ import annotations
@@ -38,12 +44,19 @@ from nerf_tpu_torch.models.nerf import (
 )
 from nerf_tpu_torch.ops.composite_kernel import fused_volume_render_interleaved
 from nerf_tpu_torch.ops.mlp_kernel import pack_params
-from nerf_tpu_torch.ops.render_kernel import fused_render_samples
+from nerf_tpu_torch.ops.render_kernel import (
+    composited_to_outputs,
+    fused_render_samples,
+    fused_render_samples_composited,
+    fused_render_zvals_composited,
+    fused_render_zvals_raw,
+)
+from nerf_tpu_torch.render.pipeline import render_rays
 from nerf_tpu_torch.train.checkpoint import has_checkpoint_meta, restore_bare_params
 from nerf_tpu_torch.utils.cameras import BENCHMARK_FOCAL, generate_rays
 from nerf_tpu_torch.utils.device import resolve_device
 from nerf_tpu_torch.utils.monitor import PerformanceMonitor, PerfStats
-from nerf_tpu_torch.utils.rendering import sample_points_on_rays, volume_render
+from nerf_tpu_torch.utils.rendering import sample_pdf, sample_points_on_rays, volume_render
 
 
 class SharedModel:
@@ -122,11 +135,11 @@ class Engine:
         return self.shared.params
 
     def render_chunk(self, params, ro: torch.Tensor, rd: torch.Tensor, spp: int,
-                     rcfg: RenderConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                     rcfg: RenderConfig, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(rgb [N, 3], depth [N])`` for one chunk of rays."""
         raise NotImplementedError
 
-    def _render(self, params, pose, width, height, focal, spp, chunk, rcfg):
+    def _render(self, params, pose, width, height, focal, spp, chunk, rcfg, mode):
         n = width * height
         n_pad = -(-n // chunk) * chunk
         ro, rd = generate_rays(pose, width, height, focal, self.device)
@@ -134,7 +147,8 @@ class Engine:
         if n_pad != n:
             ro = torch.cat([ro, ro.new_zeros(n_pad - n, 3)])
             rd = torch.cat([rd, rd.new_ones(n_pad - n, 3)])
-        outs = [self.render_chunk(params, ro[i:i + chunk], rd[i:i + chunk], spp, rcfg)
+        outs = [self.render_chunk(params, ro[i:i + chunk], rd[i:i + chunk], spp, rcfg,
+                                  mode)
                 for i in range(0, n_pad, chunk)]
         rgb = torch.cat([o[0] for o in outs])[:n].reshape(height, width, 3)
         depth = torch.cat([o[1] for o in outs])[:n].reshape(height, width)
@@ -149,23 +163,21 @@ class Engine:
         mode: str = "benchmark",
         monitor: bool = True,
     ) -> RenderResult:
-        if mode == "hierarchical":
-            raise NotImplementedError(
-                "hierarchical render arrives with the hierarchical slice "
-                "(ROADMAP A4: sample_pdf + kernel B3)")
-        if mode != "benchmark":
+        """Render one view. The hierarchical mode ignores ``samples_per_ray``
+        and takes ``rcfg.n_coarse`` and ``rcfg.n_fine``."""
+        if mode not in ("benchmark", "hierarchical"):
             raise ValueError(f"unknown render mode {mode}")
         width, height = resolution
         chunk = min(self.chunk_rays, width * height)
         rcfg = self.cfg.render
         params = self.engine_params()
-        args = (params, pose, width, height, focal, samples_per_ray, chunk, rcfg)
+        args = (params, pose, width, height, focal, samples_per_ray, chunk, rcfg, mode)
 
         mon = PerformanceMonitor(self.device) if monitor else None
         if mon:
-            # one untimed frame per (spp, chunk): the first CUDA call builds
-            # and loads the kernels
-            key = (samples_per_ray, chunk)
+            # one untimed frame per (mode, spp, chunk): the first CUDA call
+            # of each kernel builds and loads it
+            key = (mode, samples_per_ray, chunk)
             if key not in self._warmed:
                 self._render(*args)
                 self._warmed.add(key)
@@ -179,7 +191,11 @@ class Engine:
 class TorchEngine(Engine):
     name = "torch"
 
-    def render_chunk(self, params, ro, rd, spp, rcfg):
+    def render_chunk(self, params, ro, rd, spp, rcfg, mode):
+        if mode == "hierarchical":
+            res = render_rays(params["coarse"], params["fine"], ro, rd, self.cfg.model,
+                              rcfg, compute_dtype=self.compute_dtype)
+            return res.fine.rgb, res.fine.depth
         pts, z = sample_points_on_rays(ro, rd, rcfg.near, rcfg.far, spp)
         dirs = rd[:, None, :].expand(pts.shape)
         sigma, rgb = apply_nerf(params["fine"], pts, dirs, self.cfg.model,
@@ -189,21 +205,62 @@ class TorchEngine(Engine):
 
 
 class CudaEngine(Engine):
+    """The kernels' engine. Benchmark mode: K1 -> K2, or K1 composited with
+    ``fuse_composite``. Hierarchical mode: K1 (coarse) -> K2 (weights) ->
+    ``sample_pdf`` -> sort -> K3 (fine) -> K2, or with ``fuse_composite``
+    K1 composited with weights -> ``sample_pdf`` -> sort -> K3 composited."""
+
     name = "cuda"
 
-    def __init__(self, shared: Optional[SharedModel] = None, chunk_rays: int = 16384):
+    def __init__(self, shared: Optional[SharedModel] = None, chunk_rays: int = 16384,
+                 fuse_composite: bool = False):
         super().__init__(shared, chunk_rays)
+        self.fuse_composite = fuse_composite
         self._packed = None
 
     def engine_params(self):
-        """The fine network packed once for the ray kernel."""
+        """Both networks packed once for the ray kernels (once if they are
+        the same weights)."""
         if self._packed is None:
-            self._packed = pack_params(super().engine_params()["fine"],
-                                       self.cfg.model, self.compute_dtype)
+            params = super().engine_params()
+            fine = pack_params(params["fine"], self.cfg.model, self.compute_dtype)
+            coarse = (fine if params["coarse"] is params["fine"] else
+                      pack_params(params["coarse"], self.cfg.model, self.compute_dtype))
+            self._packed = {"coarse": coarse, "fine": fine}
         return self._packed
 
-    def render_chunk(self, packed, ro, rd, spp, rcfg):
-        raw, z = fused_render_samples(packed, ro, rd, rcfg.near, rcfg.far, spp,
-                                      self.cfg.model, raw=True)
-        out = fused_volume_render_interleaved(raw, z, rd, rcfg)
+    def _uniform(self, packed, ro, rd, spp, rcfg, with_weights):
+        """One network at uniform depths: ``(RenderOutputs, z)``."""
+        mcfg = self.cfg.model
+        if self.fuse_composite:
+            res = fused_render_samples_composited(
+                packed, ro, rd, rcfg.near, rcfg.far, spp, mcfg, with_weights=with_weights,
+                sentinel=rcfg.dist_sentinel, eps=rcfg.transmittance_eps)
+            out8, w, z = res if with_weights else (res[0], None, res[1])
+            return composited_to_outputs(out8, w, rcfg), z
+        raw, z = fused_render_samples(packed, ro, rd, rcfg.near, rcfg.far, spp, mcfg,
+                                      raw=True)
+        return fused_volume_render_interleaved(raw, z, rd, rcfg), z
+
+    def render_chunk(self, packed, ro, rd, spp, rcfg, mode):
+        if mode == "benchmark":
+            out, _ = self._uniform(packed["fine"], ro, rd, spp, rcfg, False)
+            return out.rgb, out.depth
+        if not rcfg.use_importance:
+            raise NotImplementedError(
+                "CudaEngine's hierarchical mode with use_importance=False runs the "
+                "per-sample kernels K4 + K6, which arrive with ROADMAP A5/B4/B6; "
+                "TorchEngine renders it")
+        out_c, z_c = self._uniform(packed["coarse"], ro, rd, rcfg.n_coarse, rcfg, True)
+        z_new = sample_pdf(z_c, out_c.weights, rcfg.n_fine, deterministic=True)
+        z_f = torch.sort(torch.cat([z_c, z_new], dim=-1), dim=-1).values
+        mcfg = self.cfg.model
+        if self.fuse_composite:
+            out8 = fused_render_zvals_composited(
+                packed["fine"], ro, rd, z_f, mcfg, sentinel=rcfg.dist_sentinel,
+                eps=rcfg.transmittance_eps)
+            out = composited_to_outputs(out8, None, rcfg)
+        else:
+            raw = fused_render_zvals_raw(packed["fine"], ro, rd, z_f, mcfg)
+            out = fused_volume_render_interleaved(raw, z_f, rd, rcfg)
         return out.rgb, out.depth

@@ -1,11 +1,11 @@
 """Volume-rendering math in plain PyTorch.
 
-Counterpart of ``nerf_tpu/utils/rendering.py`` for the benchmark render:
-uniform (optionally jittered) depths ``z = near*(1-t) + far*t`` and the
-compositor with a 1e10 sentinel last distance scaled by ``||d||``,
+Counterpart of ``nerf_tpu/utils/rendering.py``: uniform (optionally
+jittered) depths ``z = near*(1-t) + far*t``; hierarchical inverse-CDF
+sampling from coarse weights (``sample_pdf``, ``importance_sample``); and
+the compositor with a 1e10 sentinel last distance scaled by ``||d||``,
 ``alpha = 1 - exp(-relu(sigma) * dist)`` and exclusive cumulative-product
-transmittance with a ``+1e-10`` epsilon. Hierarchical sampling
-(``sample_pdf``, ``importance_sample``) arrives with the hierarchical slice.
+transmittance with a ``+1e-10`` epsilon.
 """
 
 from __future__ import annotations
@@ -51,6 +51,74 @@ def sample_points_on_rays(
         z_vals = lower + (upper - lower) * t_rand
     points = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
     return points, z_vals
+
+
+def sample_pdf(
+    z_vals: torch.Tensor,
+    weights: torch.Tensor,
+    n_importance: int,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = False,
+) -> torch.Tensor:
+    """Inverse-CDF sampling of ``n_importance`` new depths from the coarse
+    weights: ``z_vals [N, S]``, ``weights [N, S]`` -> ``[N, n_importance]``.
+
+    A piecewise-constant pdf over the coarse depths (weights + 1e-5), a CDF
+    with a leading zero, draws ``u`` (evenly spaced midpoints
+    ``(i + 0.5) / n`` when ``deterministic``, else uniform from
+    ``generator``), the bin of each draw and linear interpolation between
+    the bracketing knots (a bin narrower than 1e-5 counts as 1 wide). The
+    bin is the last knot ``j < S`` with ``cdf[j] <= u``: the final knot
+    counts as +inf, so a draw past ``cdf[-1]`` (rounding can leave the sum
+    just under 1) falls in the last bin."""
+    n_rays, n_bins = z_vals.shape
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)      # [N, S+1]
+
+    if deterministic:
+        u = (torch.arange(n_importance, dtype=z_vals.dtype, device=z_vals.device)
+             + 0.5) / n_importance
+        u = u.expand(n_rays, n_importance).contiguous()
+    else:
+        if generator is None:
+            raise ValueError("stochastic sample_pdf requires a torch.Generator")
+        u = torch.rand((n_rays, n_importance), dtype=z_vals.dtype,
+                       device=z_vals.device, generator=generator)
+
+    below = torch.searchsorted(cdf[:, :n_bins].contiguous(), u, right=True) - 1
+    below = below.clamp(0, n_bins - 1)
+    above = (below + 1).clamp(max=n_bins - 1)
+    cdf_below = torch.gather(cdf, 1, below)
+    cdf_above = torch.gather(cdf, 1, below + 1)
+    z_below = torch.gather(z_vals, 1, below)
+    z_above = torch.gather(z_vals, 1, above)
+
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_below) / denom
+    return z_below + t * (z_above - z_below)
+
+
+def importance_sample(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    z_vals: torch.Tensor,
+    weights: torch.Tensor,
+    n_importance: int,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hierarchical fine sampling: ``(points [N, S', 3], z [N, S'])`` with
+    ``S' = S + n_importance``, the coarse and new depths merged and sorted
+    (so adjacent differences stay valid distances). No gradient flows into
+    the weights."""
+    z_new = sample_pdf(z_vals, weights.detach(), n_importance,
+                       generator=generator, deterministic=deterministic)
+    z_all = torch.sort(torch.cat([z_vals, z_new], dim=-1), dim=-1).values
+    points = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., :, None]
+    return points, z_all
 
 
 def volume_render(
