@@ -3,34 +3,51 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``nerf_tpu_torch/csrc`` (into ``build/``),
+Builds the CUDA kernels from ``nerf_tpu_torch/csrc`` (into ``build/``) and
 holds each kernel against its plain PyTorch version at the main paths'
-shapes (K1 uniform ray kernel, K2 compositor, K3 per-ray-depth ray kernel,
-and the composited modes of K1 and K3), then drives each path of
-``CudaEngine`` with trained weights from
-``results/convergence/final_params.npz`` at 800x600:
+shapes: K1 uniform ray kernel, K2 compositor, K3 per-ray-depth ray kernel,
+the composited modes of K1 and K3, K4 per-sample MLP forward, K5 MLP
+backward (also against float32 and bf16 autograd, and run twice for bit
+equality) and K6 planar compositor. Then it drives each path of the port,
+with every launch count set to 0 just before and read just after, and fails
+unless every kernel of the path ran its expected number of times:
 
 - ``frame``: the benchmark render, 64 uniform samples (K1 -> K2);
 - ``hier_frame``: the hierarchical render, 64 coarse + 128 importance
   samples (K1 -> K2 -> sample_pdf -> sort -> K3 at 192 depths -> K2);
 - ``fused_frames``: both modes with ``fuse_composite=True`` (composited K1,
-  composited K3, no K2).
+  composited K3, no K2);
+- ``uniform_hier_frame``: the hierarchical render with
+  ``use_importance=False`` (``render_rays`` on K4 + K6);
+- ``train_steps``: ``NeRFTrainer`` on the procedural sphere scene at the
+  default ``TrainConfig`` (2,048 rays, 64 + 128, bf16, jitter), full-width
+  model from seed ``TRAIN_SEED``: 2 launches of K4 and 2 of K5 per step and
+  no render kernel; the loss must fall, and the first step's loss must match
+  the same step through bf16 autograd of ``apply_nerf``;
+- ``train_resume``: a checkpoint saved and restored into a fresh trainer,
+  then one more step in both: parameters bit-equal;
+- ``train_default_seed``: the same steps from ``TrainConfig``'s default seed,
+  as a record (nothing is required of its loss): the share of samples on
+  which each network's ReLU'd density is positive before and after, and each
+  network's loss.
 
-Each path runs with every launch count set to 0 just before it and read
-just after, and fails unless every kernel of the path ran its expected
-number of times. Each frame is compared with the float32 plain PyTorch
-engine (>= 40 dB). Each phase prints one JSON line. The last three lines
-are the per-kernel summary, the card's name and power limit as
-``nvidia-smi`` reports them, and ``{"ok": true, "device": ...}``. Any failed
-check exits non-zero before that last line. Needs a CUDA device and
-``nvcc`` (sm_90a); it has no CPU path.
+The frames use trained weights from ``results/convergence/final_params.npz``
+at 800x600 and are compared with the float32 plain PyTorch engine
+(>= 40 dB). Each phase prints one JSON line. The last three lines are the
+per-kernel summary, the card's name and power limit as ``nvidia-smi``
+reports them, and ``{"ok": true, "device": ...}``. Any failed check exits
+non-zero before that last line. Needs a CUDA device and ``nvcc`` (sm_90a);
+it has no CPU path.
 """
 
+import ctypes
 import dataclasses
 import json
 import math
 import os
 import subprocess
+import tempfile
+import time
 
 import numpy as np
 import torch
@@ -49,6 +66,16 @@ B9_TOL = 1e-5                 # composited vs plain on the kernel's own raw: rgb
 PSNR_MIN = 40.0
 N_FINE = 128                  # the hierarchical fine pass: 64 coarse + 128 drawn depths
 S3 = SPP + N_FINE             # depths per ray of the fine pass
+TRAIN_RAYS = 2048             # TrainConfig.n_rays
+N_COARSE_TRAIN = TRAIN_RAYS * SPP     # 131,072 samples: a train step's coarse pass
+N_FINE_TRAIN = TRAIN_RAYS * S3        # 393,216 samples: its fine pass
+K5_PLAIN_TOL = 2e-2           # K5 vs its plain version, per leaf ||a - b|| / ||b||
+K5_MIN_TOL = 0.02             # worst leaf vs float32 autograd: max(2 x bf16 autograd's, this)
+TRAIN_STEPS = 200             # 25 passes over 8 views
+TRAIN_SEED = 3                # both networks' densities are alive at this seed's start
+LOSS_DROP = 0.75              # mean loss of the last 10 steps <= this x the first 10's
+                              # (observed on the H100: 0.61, from 0.391 to 0.240)
+LOSS_TOL = 2e-2               # a loss through the kernels vs through bf16 autograd, relative
 
 
 def emit(phase, **kw):
@@ -175,20 +202,57 @@ def profile_frame(render):
     return res, us, n
 
 
+def profiled_ms(fn, kernel, reps):
+    """Device ms per launch of the CUDA kernel named ``kernel`` over ``reps``
+    calls of ``fn`` (torch.profiler), or None if it did not run once a call."""
+    def run():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    fn()
+    _, us, n = profile_frame(run)
+    return us[kernel] / reps / 1e3 if n.get(kernel) == reps else None
+
+
 def psnr(a, b):
-    return float(-10.0 * np.log10(np.mean((a - b) ** 2)))
+    from nerf_tpu_torch.utils.metrics import psnr as psnr_db
+
+    return float(psnr_db(a, b))
+
+
+def mlp_macs(cfg, with_dgrad_only=False):
+    """Multiply-adds per sample of the per-sample network (direction branch
+    per sample); ``with_dgrad_only``: those of its layers whose input needs a
+    gradient (all but the products that read an encoding)."""
+    h, ch = 256, 128
+    enc = cfg.pos_dim * h * 2 + cfg.dir_dim * ch          # layer 0, skip rows, direction rows
+    rest = 7 * h * h + h + h * ch + ch * 3
+    if cfg.variant == "bmild":
+        rest += h * h
+    return rest if with_dgrad_only else enc + rest
+
+
+def worst_rel(a, b):
+    """(largest ||a - b|| / ||b|| over the leaves of two dicts, per leaf)."""
+    rels = {str(k): ((a[k] - b[k]).norm() / (b[k].norm() + 1e-20)).item() for k in a}
+    return max(rels.values()), rels
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
     from nerf_tpu_torch.config import default_config, bmild_config
-    from nerf_tpu_torch.models.nerf import init_nerf_params, params_from_numpy
-    from nerf_tpu_torch.ops import _ext, composite_kernel, render_kernel
+    from nerf_tpu_torch.data.synthetic import make_procedural_dataset
+    from nerf_tpu_torch.models.nerf import apply_nerf, init_nerf_params, params_from_numpy
+    from nerf_tpu_torch.ops import _ext, composite_kernel, mlp_kernel, render_kernel, train_kernel
     from nerf_tpu_torch.ops.mlp_kernel import pack_params
     from nerf_tpu_torch.render.engines import CudaEngine, SharedModel, TorchEngine
+    from nerf_tpu_torch.render.pipeline import render_rays
     from nerf_tpu_torch.train.checkpoint import restore_bare_params
-    from nerf_tpu_torch.utils.cameras import focal_from_angle, spherical_pose
+    from nerf_tpu_torch.train.trainer import NeRFTrainer
+    from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
+    from nerf_tpu_torch.utils.cameras import focal_from_angle, generate_rays, spherical_pose
     from nerf_tpu_torch.utils.rendering import sample_pdf
 
     dev = torch.device("cuda")
@@ -201,15 +265,21 @@ def main():
     ptxas = {n: [ln.strip() for ln in _ext.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln or "Function properties" in ln]
              for n in _ext.SOURCES}
-    emit("build", seconds=secs, sources=list(_ext.SOURCES), ptxas=ptxas)
+    backward_lib = _ext.load("mlp_backward")
+    backward_lib.mlp_backward_smem_bytes.restype = ctypes.c_longlong
+    emit("build", seconds=secs, sources=list(_ext.SOURCES), ptxas=ptxas,
+         mlp_backward_dynamic_smem_bytes=backward_lib.mlp_backward_smem_bytes())
 
     def reset_counts():
         for k in render_kernel.launches:
             render_kernel.launches[k] = 0
-        composite_kernel.launches = 0
+        composite_kernel.launches = composite_kernel.planar_launches = 0
+        mlp_kernel.launches = train_kernel.launches = 0
 
     def read_counts():
-        return {**render_kernel.launches, "composite": composite_kernel.launches}
+        return {**render_kernel.launches, "composite": composite_kernel.launches,
+                "composite_planar": composite_kernel.planar_launches,
+                "mlp_forward": mlp_kernel.launches, "mlp_backward": train_kernel.launches}
 
     white = lambda c: dataclasses.replace(
         c, render=dataclasses.replace(c.render, white_background=True))
@@ -332,6 +402,128 @@ def main():
 
     k1_err, k3_err, b9_err, k2_err = check_kernels()
 
+    def sample_batch(n_rays, S, seed):
+        """Samples as a pass of the trainer makes them: camera rays of the
+        trained scene at S sorted random depths in [near, far]. Returns flat
+        positions and directions [n_rays * S, 3]."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        ro, rd = camera_rays(poses[seed % len(poses)], focal, dev, n_rays, seed)
+        z = torch.sort(2.0 + 4.0 * torch.rand(n_rays, S, device=dev, generator=g), -1).values
+        pos = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(-1, 3).contiguous()
+        return pos, rd[:, None, :].expand(n_rays, S, 3).reshape(-1, 3).contiguous()
+
+    def check_new_kernels():
+        """K4, K5 and K6 against their plain versions (K5 also against
+        autograd); returns each kernel's largest absolute error."""
+        mcfg = cfg_ref.model
+        cfg_bm = bmild_config()
+        seeded = init_nerf_params(torch.Generator().manual_seed(0), mcfg, dev)
+        seeded_bm = init_nerf_params(torch.Generator().manual_seed(1), cfg_bm.model, dev)
+
+        # -- K4: both variants, at a ragged sample count and at every shape a
+        #    driven path gives it: a train step's coarse and fine pass, and a
+        #    chunk of the uniform hierarchical frame's two passes
+        k4_err = 0.0
+        k4_shapes = ((1001, S3), (TRAIN_RAYS, SPP), (TRAIN_RAYS, S3), (CHUNK, SPP),
+                     (CHUNK, N_FINE))
+        for name, mc, params in (("reference", mcfg, fine), ("bmild", cfg_bm.model, seeded_bm)):
+            pk = pack_params(params, mc, torch.bfloat16)
+            for n_rays, S4 in k4_shapes:
+                pos, dirs = sample_batch(n_rays, S4, seed=n_rays + S4)
+                out_k = mlp_kernel._launch(pk, pos, dirs, mc)
+                out_p = mlp_kernel.fused_nerf_apply_plain(pk, pos, dirs, mc)
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(out_k).all()), f"K4 {name}: non-finite output")
+                rgb_err, sig_err, sig_scale = rgb_sigma_err(out_k.reshape(n_rays, -1),
+                                                            out_p.reshape(n_rays, -1))
+                k4_err = max(k4_err, rgb_err)
+                emit("k4_check", variant=name, samples=n_rays * S4, rgb_max_abs_err=rgb_err,
+                     sigma_max_rel_err=sig_err, max_abs_sigma=sig_scale, tol=K1_TOL)
+                require(rgb_err <= K1_TOL and sig_err <= K1_TOL,
+                        f"K4 {name}: rgb err {rgb_err}, sigma rel err {sig_err} > {K1_TOL}")
+                del out_k, out_p
+
+        # -- K5: trained and seeded weights, N = 1,500 and a train step's coarse
+        #    and fine pass
+        def autograd_grads(params, pos, dirs, dsig, drgb, dtype):
+            paths, leaves = zip(*tree_leaves(params))
+            leaves = [leaf.detach().clone().requires_grad_() for leaf in leaves]
+            out = apply_nerf(tree_from_leaves(paths, leaves), pos, dirs, mcfg,
+                             compute_dtype=dtype)
+            return dict(zip(paths, torch.autograd.grad(out, leaves, (dsig, drgb))))
+
+        k5_err = 0.0
+        for name, params in (("trained", fine), ("seeded", seeded)):
+            pk = pack_params(params, mcfg, torch.bfloat16)
+            pos_all, dirs_all = sample_batch(TRAIN_RAYS, S3, seed=7)
+            for n in (1500, N_COARSE_TRAIN, N_FINE_TRAIN):
+                g = torch.Generator(device=dev).manual_seed(n)
+                pos, dirs = pos_all[:n].contiguous(), dirs_all[:n].contiguous()
+                dsig = torch.randn(n, device=dev, generator=g) / n
+                drgb = torch.randn(n, 3, device=dev, generator=g) / n
+                g_k = train_kernel._launch(pk, pos, dirs, dsig, drgb, mcfg)
+                g_k2 = train_kernel._launch(pk, pos, dirs, dsig, drgb, mcfg)
+                g_p = train_kernel.packed_grads_plain(pk, pos, dirs, dsig, drgb, mcfg)
+                torch.cuda.synchronize()
+                require(all(bool(torch.isfinite(v).all()) for v in g_k.values()),
+                        f"K5 {name} N={n}: non-finite gradient")
+                bit_equal = all(torch.equal(g_k[k], g_k2[k]) for k in g_k)
+                vs_plain, per_leaf = worst_rel(g_k, g_p)
+                k5_err = max(k5_err, max((g_k[k] - g_p[k]).abs().max().item() for k in g_k))
+                g_f32 = autograd_grads(params, pos, dirs, dsig, drgb, torch.float32)
+                g_bf16 = autograd_grads(params, pos, dirs, dsig, drgb, torch.bfloat16)
+                kernel_noise, _ = worst_rel(dict(tree_leaves(train_kernel.unpack_grads(g_k, mcfg))),
+                                            g_f32)
+                bf16_noise, _ = worst_rel(g_bf16, g_f32)
+                limit = max(2.0 * bf16_noise, K5_MIN_TOL)
+                emit("k5_check", weights=name, samples=n, two_runs_bit_equal=bit_equal,
+                     rel_err_vs_plain_by_leaf=per_leaf, worst_leaf_vs_plain=vs_plain,
+                     plain_tol=K5_PLAIN_TOL, worst_leaf_vs_f32_autograd=kernel_noise,
+                     bf16_autograd_worst_leaf_vs_f32=bf16_noise, limit=limit)
+                require(bit_equal, f"K5 {name} N={n}: two runs differ")
+                require(vs_plain <= K5_PLAIN_TOL,
+                        f"K5 {name} N={n}: worst leaf {vs_plain} from the plain version")
+                require(kernel_noise < limit,
+                        f"K5 {name} N={n}: worst leaf {kernel_noise} vs float32 autograd, "
+                        f"bf16 autograd's {bf16_noise}")
+                del g_k, g_k2, g_p, g_f32, g_bf16
+                torch.cuda.empty_cache()
+
+        # -- K6: both sample counts of the uniform render, three input forms ------
+        g = torch.Generator(device=dev).manual_seed(6)
+        k6_err = 0.0
+        for S6 in (SPP, N_FINE):
+            sigma = torch.rand(CHUNK, S6, device=dev, generator=g) * 50.0
+            sigma[:, ::7] = 0.0
+            sigma[::5, S6 // 2] = 1e6                                   # opaque samples
+            rgb = torch.rand(CHUNK, S6, 3, device=dev, generator=g)
+            z6 = torch.sort(2.0 + 4.0 * torch.rand(CHUNK, S6, device=dev, generator=g), -1).values
+            d6 = torch.randn(CHUNK, 3, device=dev, generator=g)
+            out4 = torch.cat([sigma[..., None], rgb], -1).reshape(CHUNK * S6, 4).contiguous()
+            forms = {
+                "[N,S,3]": (sigma, rgb.unbind(-1)),
+                "three planes": (sigma, [rgb[..., c].contiguous() for c in range(3)]),
+                "views of the MLP kernel's [N*S,4]": (
+                    out4[:, 0].reshape(CHUNK, S6), out4[:, 1:4].reshape(CHUNK, S6, 3).unbind(-1)),
+            }
+            out_p, w_p = composite_kernel.fused_volume_render_plain(
+                sigma, rgb.unbind(-1), z6, d6, rcfg.dist_sentinel, rcfg.transmittance_eps)
+            for form, (sg, planes) in forms.items():
+                out_k, w_k = composite_kernel._launch_planar(sg, planes, z6, d6, rcfg.dist_sentinel,
+                                                             rcfg.transmittance_eps)
+                torch.cuda.synchronize()
+                e_rgb_acc, e_depth, e_w = composited_err(out_k, w_k, out_p, w_p)
+                k6_err = max(k6_err, e_rgb_acc, e_w)
+                emit("k6_check", rays=CHUNK, samples=S6, rgb_form=form,
+                     rgb_acc_max_abs_err=e_rgb_acc, depth_max_rel_err=e_depth,
+                     w_max_abs_err=e_w, tol=K2_TOL)
+                require(e_rgb_acc <= K2_TOL and e_depth <= K2_TOL and e_w <= K2_TOL,
+                        f"K6: errors {e_rgb_acc}, {e_depth}, {e_w} > {K2_TOL}")
+        return k4_err, k5_err, k6_err
+
+    k4_err, k5_err, k6_err = check_new_kernels()
+    torch.cuda.empty_cache()
+
     def time_kernels():
         """Each kernel and its plain version at a chunk of the main paths:
         times, bound, and the kernel's output held against its reference
@@ -437,6 +629,77 @@ def main():
     # each phase's tensors are freed before the frames, so a frame's peak
     # device memory is the weights and the frame's own
     t_call, t_plain, bounds, chunk_abs = time_kernels()
+    torch.cuda.empty_cache()
+
+    def time_new_kernels():
+        """K4 and K5 at a train step's two shapes and K6 at a chunk of the
+        uniform fine pass: stream time per call, the plain version's, the
+        bound, and for K5 the backward of bf16 autograd through apply_nerf
+        (a chain of library products) on the same samples."""
+        mcfg = cfg_ref.model
+        pk = pack_params(fine, mcfg, torch.bfloat16)
+        weights_bytes = nbytes(*pk)
+        grad_bytes = 4 * sum(math.prod(shape) for shape in train_kernel.GRAD_SHAPES.values())
+        fwd, dgrad = mlp_macs(mcfg), mlp_macs(mcfg, with_dgrad_only=True)
+        res = {"mlp_forward": {}, "mlp_backward": {}}
+        for n in (N_COARSE_TRAIN, N_FINE_TRAIN):
+            pos, dirs = sample_batch(TRAIN_RAYS, S3, seed=9)
+            pos, dirs = pos[:n].contiguous(), dirs[:n].contiguous()
+            g = torch.Generator(device=dev).manual_seed(n)
+            dsig = torch.randn(n, device=dev, generator=g) / n
+            drgb = torch.randn(n, 3, device=dev, generator=g) / n
+            paths, leaves = zip(*tree_leaves(fine))
+            leaves = [leaf.detach().clone().requires_grad_() for leaf in leaves]
+            tree = tree_from_leaves(paths, leaves)
+            out = apply_nerf(tree, pos, dirs, mcfg, compute_dtype=torch.bfloat16)
+
+            def autograd_fwd_bwd():
+                o = apply_nerf(tree, pos, dirs, mcfg, compute_dtype=torch.bfloat16)
+                torch.autograd.grad(o, leaves, (dsig, drgb))
+
+            res["mlp_forward"][n] = dict(
+                device_ms=profiled_ms(lambda: mlp_kernel._launch(pk, pos, dirs, mcfg),
+                                      "mlp_kernel", 5),
+                call_ms=call_ms(lambda: mlp_kernel._launch(pk, pos, dirs, mcfg), 10),
+                plain_ms=call_ms(lambda: mlp_kernel.fused_nerf_apply_plain(pk, pos, dirs, mcfg), 3),
+                bound=bound_ms(2 * fwd * n, 0, nbytes(pos, dirs) + weights_bytes + n * 16))
+            res["mlp_backward"][n] = dict(
+                device_ms=profiled_ms(lambda: train_kernel._launch(pk, pos, dirs, dsig, drgb, mcfg),
+                                      "mlp_backward_kernel", 5),
+                call_ms=call_ms(lambda: train_kernel._launch(pk, pos, dirs, dsig, drgb, mcfg), 5),
+                plain_ms=call_ms(lambda: train_kernel.packed_grads_plain(pk, pos, dirs, dsig, drgb,
+                                                                         mcfg), 2),
+                library_ms=call_ms(lambda: torch.autograd.grad(out, leaves, (dsig, drgb),
+                                                               retain_graph=True), 3),
+                library_fwd_bwd_ms=call_ms(autograd_fwd_bwd, 3),
+                bound=bound_ms(2 * (2 * fwd + dgrad) * n, 0,
+                               nbytes(pos, dirs, dsig, drgb) + weights_bytes + grad_bytes))
+            del out, tree, leaves
+            torch.cuda.empty_cache()
+        g = torch.Generator(device=dev).manual_seed(8)
+        sigma = torch.rand(CHUNK, N_FINE, device=dev, generator=g) * 50.0
+        rgb = torch.rand(CHUNK, N_FINE, 3, device=dev, generator=g)
+        z6 = torch.sort(2.0 + 4.0 * torch.rand(CHUNK, N_FINE, device=dev, generator=g), -1).values
+        d6 = torch.randn(CHUNK, 3, device=dev, generator=g)
+        sent, eps = rcfg.dist_sentinel, rcfg.transmittance_eps
+        res["composite_planar"] = {CHUNK * N_FINE: dict(
+            device_ms=profiled_ms(lambda: composite_kernel._launch_planar(
+                sigma, rgb.unbind(-1), z6, d6, sent, eps), "composite_planar_kernel", 20),
+            call_ms=call_ms(lambda: composite_kernel._launch_planar(sigma, rgb.unbind(-1), z6, d6,
+                                                                    sent, eps), 30),
+            plain_ms=call_ms(lambda: composite_kernel.fused_volume_render_plain(
+                sigma, rgb.unbind(-1), z6, d6, sent, eps), 10),
+            bound=bound_ms(0, 20 * CHUNK * N_FINE,
+                           nbytes(sigma, rgb, z6, d6) + CHUNK * 8 * 4 + CHUNK * N_FINE * 4))}
+        emit("kernel_times_train", nvidia_smi=smi, samples_or_rays_x_samples={
+            k: {str(n): {**{kk: vv for kk, vv in v.items() if kk != "bound"},
+                         "bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
+                for n, v in by_n.items()} for k, by_n in res.items()},
+            library="mlp_backward: the backward (and forward + backward) of bf16 autograd "
+                    "through apply_nerf, a chain of library products")
+        return res
+
+    new_times = time_new_kernels()
     torch.cuda.empty_cache()
 
     per_frame = math.ceil(W * H / CHUNK)
@@ -554,6 +817,183 @@ def main():
     device_ms["render_samples_composited"] = per_launch.get("ray_composite_kernel")
     device_ms["render_zvals_composited"] = per_launch.get("ray_z_composite_kernel")
 
+    # -- path 4: the uniform hierarchical frame (render_rays on K4 + K6) -------
+    uniform = lambda c: dataclasses.replace(
+        c, render=dataclasses.replace(c.render, use_importance=False))
+    engine_u = CudaEngine(SharedModel(uniform(cfg_ref), dev).load(PARAMS), chunk_rays=CHUNK)
+    res_u = drive(engine_u, "hierarchical", "uniform_hierarchical",
+                  {"mlp_forward": 2, "composite_planar": 2})
+    per_launch, prof = frame_profile(engine_u, "hierarchical",
+                                     {"mlp_kernel": 2, "composite_planar_kernel": 2})
+    ref_u = TorchEngine(SharedModel(uniform(f32(cfg_ref)), dev).load(PARAMS),
+                        chunk_rays=CHUNK).render_image(
+        poses[1], (qw, qh), SPP, focal=qfocal, mode="hierarchical", monitor=False).rgb
+    res_u["psnr_db"], res_u["max_abs_err"] = against_torch(engine_u, "hierarchical", ref_u)
+    emit("uniform_hier_frame", mode="hierarchical", use_importance=False,
+         samples=[SPP, N_FINE], min_db=PSNR_MIN, psnr_resolution=[qw, qh], **res_u, profile=prof)
+    require(res_u["psnr_db"] >= PSNR_MIN,
+            f"uniform hierarchical PSNR {res_u['psnr_db']} dB against the float32 torch engine")
+    del engine_u, engine, fused, ref_engine
+    torch.cuda.empty_cache()
+
+    # -- path 5: training (NeRFTrainer: K4 + K5 twice a step) ------------------
+    train_hw = (200, 200)
+    ds = make_procedural_dataset(n_views=8, img_wh=train_hw)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    # TrainConfig's defaults but the seed: the density head is ReLU'd, and from
+    # the default seed the fine network starts with a density of 0 on every
+    # sample, where no gradient reaches it (the train_default_seed phase
+    # records that run); from TRAIN_SEED both networks start alive
+    tcfg = white(default_config())
+    tcfg = dataclasses.replace(tcfg, checkpoint_dir=ckpt_dir,
+                               train=dataclasses.replace(tcfg.train, seed=TRAIN_SEED))
+    require(tcfg.train.n_rays == TRAIN_RAYS and tcfg.train.compute_dtype == "bfloat16"
+            and tcfg.render.perturb and (tcfg.render.n_coarse, tcfg.render.n_fine) == (SPP, N_FINE),
+            "the training phase assumes the default TrainConfig")
+
+    def run_steps(trainer, n_steps):
+        """``n_steps`` single steps, one image each in turn, timed between
+        synchronize fences: (losses, seconds per step, (coarse loss, fine
+        loss) per step)."""
+        images, poses_d = trainer._device_dataset(ds)
+        losses, secs, by_net = [], [], []
+        for k in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = trainer.step_fn(trainer.state, images[k % len(ds)], poses_d[k % len(ds)],
+                                float(ds.focal), trainer.generator)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            by_net.append((float(m["loss_coarse"]), float(m["loss_fine"])))
+        return losses, secs, by_net
+
+    trainer = NeRFTrainer(tcfg, train_hw)
+    require(trainer.device.type == "cuda", "the trainer is not on the card")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, secs, _ = run_steps(trainer, TRAIN_STEPS - len(ds))
+    epoch_loss = trainer.train_epoch(ds)             # the loop a user calls: 8 more steps
+    counts = read_counts()
+    paths["train"] = counts
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    for k, n in counts.items():
+        want = 2 * TRAIN_STEPS if k in ("mlp_forward", "mlp_backward") else 0
+        require(n == want, f"train: {k} launched {n} times in {TRAIN_STEPS} steps, expected {want}")
+    require(trainer.state.step == TRAIN_STEPS and all(np.isfinite(losses)),
+            f"train: step count {trainer.state.step} or a non-finite loss")
+    first10, last10 = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    step_ms = float(np.median(secs[5:])) * 1e3
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_t:
+        _, prof_secs, _ = run_steps(trainer, 1)
+    us, n_by = {}, {}
+    for name, t in device_events(prof_t):
+        us[name] = us.get(name, 0.0) + t
+        n_by[name] = n_by.get(name, 0) + 1
+    busy_ms = sum(us.values()) / 1e3
+    top = sorted(us.items(), key=lambda kv: -kv[1])
+    train_profile = dict(
+        step_ms=prof_secs[0] * 1e3, device_busy_ms=busy_ms,
+        device_idle_share=1.0 - busy_ms / (prof_secs[0] * 1e3),
+        device_ms_by_kernel={k: v / 1e3 for k, v in top[:12]},
+        device_ms_other=sum(v for _, v in top[12:]) / 1e3,
+        launches_by_kernel={k: n_by[k] for k, _ in top[:12]}, device_kernels=sum(n_by.values()))
+
+    plain_trainer = NeRFTrainer(tcfg, train_hw, apply_fn=apply_nerf)   # bf16 autograd, same seed
+    reset_counts()
+    plain_losses, plain_secs, _ = run_steps(plain_trainer, 24)
+    require(sum(read_counts().values()) == 0, "the apply_nerf trainer launched a kernel")
+    first_rel = abs(losses[0] - plain_losses[0]) / abs(plain_losses[0])
+
+    def trained_loss(apply_fn):
+        """The deterministic render of 2,048 fixed rays of a training view
+        from the trained params, as a loss against mid-gray."""
+        rays_o, rays_d = camera_rays(ds.poses[0], focal, dev, TRAIN_RAYS, seed=5)
+        p = trainer.state.params
+        with torch.no_grad():
+            res = render_rays(p["coarse"], p["fine"], rays_o, rays_d, tcfg.model, tcfg.render,
+                              compute_dtype=torch.bfloat16, apply_fn=apply_fn)
+            return float(((res.coarse.rgb - 0.5) ** 2).mean() + ((res.fine.rgb - 0.5) ** 2).mean())
+
+    loss_k, loss_p = trained_loss(trainer.apply_fn), trained_loss(apply_nerf)
+    trained_rel = abs(loss_k - loss_p) / abs(loss_p)
+    emit("train_steps", dataset="make_procedural_dataset(n_views=8, img_wh=(200, 200))",
+         steps=TRAIN_STEPS, rays_per_step=TRAIN_RAYS, samples=[SPP, N_FINE], compute="bfloat16",
+         launches=counts, expected={"mlp_forward": 2 * TRAIN_STEPS, "mlp_backward": 2 * TRAIN_STEPS},
+         ms_per_step=step_ms, rays_per_s=TRAIN_RAYS / (step_ms / 1e3), peak_device_mb=peak_mb,
+         first_loss=losses[0], last_loss=losses[-1], last_epoch_mean_loss=epoch_loss,
+         mean_loss_first10=first10, mean_loss_last10=last10, required_ratio=LOSS_DROP,
+         apply_nerf_bf16_ms_per_step=float(np.median(plain_secs[5:])) * 1e3,
+         apply_nerf_first_loss=plain_losses[0], first_loss_rel_diff=first_rel,
+         trained_params_loss=loss_k, trained_params_loss_apply_nerf=loss_p,
+         trained_params_loss_rel_diff=trained_rel, loss_tol=LOSS_TOL, seed=TRAIN_SEED,
+         profile=train_profile, nvidia_smi=smi)
+    require(last10 <= LOSS_DROP * first10,
+            f"train: mean loss of the last 10 steps {last10} vs the first 10 {first10}")
+    require(first_rel <= LOSS_TOL,
+            f"train: first-step loss {losses[0]} vs {plain_losses[0]} through apply_nerf")
+    require(trained_rel <= LOSS_TOL,
+            f"train: trained params' loss {loss_k} vs {loss_p} through apply_nerf")
+    del plain_trainer
+
+    # -- train_resume: checkpoint -> fresh trainer -> one more step in both ----
+    path = trainer.save_checkpoint("checkpoint_epoch_1.npz")
+    resumed = NeRFTrainer(tcfg, train_hw)
+    require(resumed.try_resume() == path, "train_resume: the checkpoint was not found")
+    resumed.generator.set_state(trainer.generator.get_state())
+    run_steps(trainer, 1)
+    run_steps(resumed, 1)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_leaves(trainer.state.params),
+                                                           tree_leaves(resumed.state.params)))
+    same_opt = all(torch.equal(a, b) for a, b in zip(
+        trainer.state.optimizer.mu + trainer.state.optimizer.nu,
+        resumed.state.optimizer.mu + resumed.state.optimizer.nu))
+    emit("train_resume", checkpoint_bytes=os.path.getsize(path), step=resumed.state.step,
+         params_bit_equal=same, adam_moments_bit_equal=same_opt)
+    require(same and same_opt and resumed.state.step == trainer.state.step == TRAIN_STEPS + 2,
+            "train_resume: the resumed trainer's step differs from the original's")
+    os.remove(path)
+    os.rmdir(ckpt_dir)
+    del resumed
+
+    # -- train_default_seed: the same steps from TrainConfig's own seed --------
+    def density_alive(t):
+        """Share of 2,048 rays x 64 uniform depths of training view 0 on
+        which each network's ReLU'd density is positive (bf16 apply_nerf)."""
+        rays_o, rays_d = generate_rays(ds.poses[0], train_hw[1],
+                                       train_hw[0], float(ds.focal), dev)
+        idx = torch.randperm(train_hw[0] * train_hw[1],
+                             generator=torch.Generator().manual_seed(11))[:TRAIN_RAYS].to(dev)
+        rays_o, rays_d = rays_o.reshape(-1, 3)[idx], rays_d.reshape(-1, 3)[idx]
+        z = torch.linspace(tcfg.render.near, tcfg.render.far, SPP, device=dev)
+        pos = rays_o[:, None, :] + rays_d[:, None, :] * z[None, :, None]
+        with torch.no_grad():
+            return {net: float((apply_nerf(t.state.params[net], pos,
+                                           rays_d[:, None, :].expand_as(pos), tcfg.model,
+                                           compute_dtype=torch.bfloat16)[0] > 0).float().mean())
+                    for net in ("coarse", "fine")}
+
+    alive_smoke_seed = density_alive(trainer)
+    dcfg = dataclasses.replace(tcfg, train=default_config().train)
+    default_trainer = NeRFTrainer(dcfg, train_hw)
+    alive_before = density_alive(default_trainer)
+    d_losses, _, d_by_net = run_steps(default_trainer, TRAIN_STEPS)
+    d_by_net = np.asarray(d_by_net)
+    emit("train_default_seed", seed=dcfg.train.seed, steps=TRAIN_STEPS,
+         density_positive_share_before=alive_before,
+         density_positive_share_after=density_alive(default_trainer),
+         loss_coarse_first10=float(d_by_net[:10, 0].mean()),
+         loss_coarse_last10=float(d_by_net[-10:, 0].mean()),
+         loss_fine_first10=float(d_by_net[:10, 1].mean()),
+         loss_fine_last10=float(d_by_net[-10:, 1].mean()),
+         mean_loss_first10=float(np.mean(d_losses[:10])),
+         mean_loss_last10=float(np.mean(d_losses[-10:])),
+         smoke_seed=TRAIN_SEED, smoke_seed_density_positive_share_after=alive_smoke_seed,
+         note="a record, not a check: nothing is required of this run's loss")
+    require(all(np.isfinite(d_losses)), "train_default_seed: a non-finite loss")
+    del default_trainer
+
     # -- summary -------------------------------------------------------------
     no_library = "no single PyTorch call computes this function"
     mlp = "sample generation + encoding + the 10-layer MLP"
@@ -596,6 +1036,41 @@ def main():
     kernels[1]["at_192"] = {"call_ms": t_call["composite_192"],
                             "plain_ms": t_plain["composite_192"],
                             "bound_ms": bounds["composite_192"][0]}
+    # the kernels of the training slice, at the train step's fine pass
+    # (393,216 samples) and at a 16,384 x 128 chunk of the uniform fine pass
+    new_summary = (
+        ("mlp_forward", "nerf_tpu_torch/csrc/mlp_forward.cu", "nerf_tpu/ops/mlp_kernel.py:410",
+         "train", k4_err, N_FINE_TRAIN, f"{N_FINE_TRAIN} samples, bf16",
+         f"{no_library} (encoding + the 10-layer MLP per sample)"),
+        ("mlp_backward", "nerf_tpu_torch/csrc/mlp_backward.cu", "nerf_tpu/ops/train_kernel.py:53",
+         "train", k5_err, N_FINE_TRAIN, f"{N_FINE_TRAIN} samples, bf16, reference variant",
+         "library_ms is the backward of bf16 autograd through apply_nerf on the same "
+         "samples: a chain of library products, not one call, and without the forward "
+         "recompute the kernel includes"),
+        ("composite_planar", "nerf_tpu_torch/csrc/composite.cu",
+         "nerf_tpu/ops/composite_kernel.py:45", "uniform_hierarchical", k6_err, CHUNK * N_FINE,
+         f"{CHUNK} rays x {N_FINE} samples, f32, rgb [N,S,3]",
+         f"{no_library} (the log-space transmittance scan and its sums)"),
+    )
+    for name, source, replaces, path, err, n, shape, note in new_summary:
+        t = new_times[name][n]
+        ms = t["device_ms"]
+        row = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "status": "ported", "launches": paths[path][name], "launches_path": path,
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "max_abs_err": err, "ms": ms if ms is not None else t["call_ms"],
+            "ms_from": "profiler" if ms is not None else "events", "call_ms": t["call_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t.get("library_ms"), "library_note": note, "shape": shape}
+        if name != "composite_planar":
+            c = new_times[name][N_COARSE_TRAIN]
+            row["at_coarse_pass"] = {"samples": N_COARSE_TRAIN, "ms": c["device_ms"],
+                                     "call_ms": c["call_ms"],
+                                     "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+                                     **({"library_ms": c["library_ms"]} if "library_ms" in c
+                                        else {})}
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

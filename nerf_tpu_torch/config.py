@@ -1,17 +1,19 @@
 """Configuration of the PyTorch/CUDA port.
 
-The port's own copy of what the benchmark and hierarchical renders need
-from ``nerf_tpu/config.py``: the model architecture (all fields, same names
-and defaults, so one ``ModelConfig`` dict describes the same network to both
-packages), the sampling schedule, the compositing constants and the compute
-dtype. Training, occupancy-grid and mesh settings arrive with the slices
-that read them.
+The port's own copy of what rendering and training need from
+``nerf_tpu/config.py``: the model architecture, the sampling schedule and
+compositing constants, the optimization schedule and the run's directories,
+all with the same names and defaults, so one config dict (a checkpoint's
+``meta["config"]``) describes the same run to both packages. Occupancy-grid
+and mesh settings arrive with the slices that read them; ``from_dict``
+ignores them in a dict written by the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Any, Mapping, Tuple
 
 
 @dataclass(frozen=True)
@@ -59,6 +61,20 @@ class RenderConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
+    """Optimization schedule."""
+
+    learning_rate: float = 3e-4
+    lr_decay: float = 0.1             # total decay factor ...
+    lr_decay_steps: int = 250_000     # ... reached after this many steps
+    weight_decay: float = 1e-6
+    grad_clip_norm: float = 1.0
+    n_rays: int = 2048                # rays per train step
+    chunk_size: int = 8192            # samples per render chunk
+    n_epochs: int = 100
+    checkpoint_frequency: int = 25    # epochs between checkpoints
+    val_frequency: int = 10           # epochs between validations
+    max_val_images: int = 5
+    seed: int = 0
     compute_dtype: str = "bfloat16"   # matmul input dtype; params stay float32
 
 
@@ -67,6 +83,28 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    checkpoint_dir: str = "checkpoints"
+    output_dir: str = "outputs"
+    img_wh: Tuple[int, int] = (800, 800)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_dict(d: Mapping[str, Any]) -> "Config":
+        """Build a config from ``to_dict``'s output (either package's):
+        unknown sections and fields are ignored, missing ones default."""
+
+        def build(cls, sub):
+            names = {f.name for f in dataclasses.fields(cls)}
+            return cls(**{k: v for k, v in (sub or {}).items() if k in names})
+
+        top = {k: d[k] for k in ("checkpoint_dir", "output_dir") if k in d}
+        if "img_wh" in d:
+            top["img_wh"] = tuple(d["img_wh"])
+        return Config(model=build(ModelConfig, d.get("model")),
+                      render=build(RenderConfig, d.get("render")),
+                      train=build(TrainConfig, d.get("train")), **top)
 
 
 def default_config() -> Config:

@@ -9,7 +9,8 @@
 //   modes (`_composite_flat` + `_segmented_cumsum_excl`), which write per ray
 //   (r, g, b, depth, acc, 0, 0, 0) and optionally the weights [R, S].
 // Plain PyTorch twins and wrappers: nerf_tpu_torch/ops/render_kernel.py;
-// weight layout: ops/mlp_kernel.py.
+// weight layout: ops/mlp_kernel.py. The MLP on a tile (products, epilogues,
+// heads) is mlp_body.cuh, shared with the per-sample kernels.
 //
 // What bounds it: tensor-core operations. Per sample the MLP is ~0.52 M
 // multiply-adds (8 x 256 trunk, skip, heads) against 24 bytes of ray input
@@ -43,174 +44,27 @@
 // ray's carried log-transmittance and five sums, kept in shared memory in
 // exact fp32 between tiles. sigma and rgb never leave shared memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "mlp_body.cuh"
 
 namespace {
 
-constexpr int M = 128;          // samples per block
-constexpr int THREADS = 512;    // 16 warps: 4 row groups x 4 column groups
-constexpr int WARPS = THREADS / 32;
-constexpr int HID = 256;
-constexpr int CH = 128;         // color layer width
-constexpr int KPOS = 64;        // padded position-encoding width
-constexpr int KDIR = 32;        // padded direction-encoding width
-constexpr int KC = 32;          // weight rows per pipeline step
-constexpr int STAGES = 2;       // weight chunks in flight (cp.async ring)
-constexpr int LDA = HID + 8;    // activation row stride (elements)
-constexpr int LDE = KPOS + 8;   // encoding row stride
-constexpr int LDW = HID + 8;    // staged-weight row stride
-
-constexpr size_t ACT_BYTES = size_t(M) * LDA * sizeof(bf16);
-constexpr size_t ENC_BYTES = size_t(M) * LDE * sizeof(bf16);
-constexpr size_t WBUF_BYTES = size_t(STAGES) * KC * LDW * sizeof(bf16);
-constexpr size_t STAGE_BYTES = size_t(WARPS) * 256 * sizeof(float);
 constexpr size_t FIXED_BYTES = ACT_BYTES + ENC_BYTES + WBUF_BYTES + STAGE_BYTES +
                                M * sizeof(float) + M * sizeof(int) + M * 3 * sizeof(float) +
                                M * sizeof(float);
 constexpr int STATE = 6;        // per ray: log-transmittance carry, r, g, b, depth, acc
-constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
+  Net net;
   const float* rays_o;
   const float* rays_d;
   const float* z;        // per-ray depths (ray_z kernels), row stride z_stride
   long long z_stride;
-  const bf16* w0;
-  const float* b0;
-  const bf16* wt;
-  const float* bt;
-  const bf16* wskip;
-  const bf16* wsig;
-  const float* bsig;
-  const bf16* wbn;
-  const float* bbn;
-  const bf16* wc0;
-  const float* bc0;
-  const bf16* wdir;
-  const bf16* wc1;
-  const float* bc1;
   float* out;            // raw [R * S, 4], or composited [R, 8]
   float* w;              // composited weights [R, S], or null
   long long total;       // n_rays * S
-  int n_rays, S, Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs, nr_max, rb;
-  float near, span, band_scale, dz, sentinel, eps;
+  int n_rays, S, nr_max, rb;
+  float near, span, dz, sentinel, eps;
 };
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Column k of the positional encoding of x (3 coordinates), in the
-// reference layout [x, sin(f0 x), cos(f0 x), sin(f1 x), ...], f_i = 2^i * scale.
-// Columns past the encoding are zero padding.
-__device__ __forceinline__ float encode_col(const float x[3], int k, int L, float scale) {
-  if (k < 3) return x[k];
-  int j = k - 3;
-  if (j >= 6 * L) return 0.f;
-  int band = j / 6, w = j % 6;
-  float phase = __fmul_rn(x[w % 3], ldexpf(scale, band));
-  return w < 3 ? sinf(phase) : cosf(phase);
-}
-
-// acc[i][j] += A[rows of this warp, 0:K] @ W[0:K, cols of this warp].
-// A: bf16 in shared memory (row stride lda); W: bf16 row-major [K, N] in
-// global memory, staged KC rows at a time through a ring of STAGES buffers
-// (one commit group per chunk, empty groups past the end keep the count).
-// Ends with __syncthreads(), so the caller may overwrite A afterwards.
-template <int N>
-__device__ void gemm_acc(Acc (&acc)[2][4], const bf16* A, int lda, int K,
-                         const bf16* __restrict__ W, bf16* wbuf) {
-  constexpr int NJ = N / 64;        // 16-wide fragments per warp column group
-  constexpr int VPR = N / 8;        // 16-byte vectors per weight row
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wr = warp >> 2, wc = warp & 3;
-  const int steps = K / KC;
-
-  auto issue = [&](int step) {
-    if (step < steps) {
-      bf16* dst = wbuf + (step % STAGES) * KC * LDW;
-      const bf16* src = W + size_t(step) * KC * N;
-      for (int v = tid; v < KC * VPR; v += THREADS) {
-        int r = v / VPR, c = (v % VPR) * 8;
-        cp_async16(dst + r * LDW + c, src + size_t(r) * N + c);
-      }
-    }
-    cp_async_commit();
-  };
-
-  for (int s = 0; s < STAGES - 1; ++s) issue(s);
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<STAGES - 2>();    // chunk `step` has landed (this thread's part)
-    __syncthreads();                // ... everyone's, and step - 1 is consumed
-    issue(step + STAGES - 1);       // refills the buffer step - 1 used
-    const bf16* wb = wbuf + (step % STAGES) * KC * LDW;
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], A + (wr * 32 + i * 16) * lda + step * KC + kk, lda);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, wb + kk * LDW + wc * (N / 4) + j * 16, LDW);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();  // A and the ring are free for the caller / next product
-}
-
-template <int N>
-__device__ __forceinline__ void zero(Acc (&acc)[2][4]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < N / 64; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-}
-
-// out[rows, cols of this warp] = bf16(act(acc + bias (+ cdir[ray of row])))
-template <int N>
-__device__ void epilogue(Acc (&acc)[2][4], bf16* out, const float* __restrict__ bias,
-                         const float* cdir, const int* slot, bool relu, float* stage) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp >> 2, wc = warp & 3;
-  float* st = stage + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < N / 64; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int r0 = wr * 32 + i * 16, c0 = wc * (N / 4) + j * 16;
-      for (int e = lane; e < 256; e += 32) {
-        const int row = r0 + (e >> 4), col = c0 + (e & 15);
-        float v = st[e] + bias[col];
-        if (cdir) v += cdir[slot[row] * CH + col];
-        if (relu) v = fmaxf(v, 0.f);
-        out[row * LDA + col] = __float2bfloat16_rn(v);
-      }
-      __syncwarp();
-    }
-  }
-}
 
 // Views of the dynamic shared memory.
 struct Tile {
@@ -250,6 +104,7 @@ __device__ __forceinline__ Tile carve(unsigned char* smem, const Params& p) {
 template <bool ZIN>
 __device__ void eval_tile(const Params& p, const Tile& t, long long n0, long long n_end) {
   const int tid = threadIdx.x;
+  const Net& net = p.net;
   const long long r_lo = n0 / p.S;
   const long long n_last = min(n0 + M, n_end) - 1;
   const int nr = int(n_last / p.S - r_lo) + 1;       // rays touched by this tile
@@ -278,25 +133,15 @@ __device__ void eval_tile(const Params& p, const Tile& t, long long n0, long lon
     t.slot[tid] = valid ? int(r - r_lo) : 0;
   }
   __syncthreads();
-  for (int e = tid; e < M * KPOS; e += THREADS) {
-    const int row = e / KPOS, k = e % KPOS;
-    const float v = n0 + row < n_end ? encode_col(t.pos + row * 3, k, p.Lp, p.band_scale) : 0.f;
-    t.enc[row * LDE + k] = __float2bfloat16_rn(v);
-  }
+  encode_pos_tile(t.enc, t.pos, n_end - n0, net.Lp, net.band_scale);
 
   // 2. direction branch once per ray of the tile: cdir = bf16(denc) @ wdir
   for (int e = tid; e < nr * KDIR; e += THREADS) {
     const int sl = e / KDIR, k = e % KDIR;
     const long long r = r_lo + sl;
     float d[3] = {p.rays_d[r * 3], p.rays_d[r * 3 + 1], p.rays_d[r * 3 + 2]};
-    if (p.normalize_dirs) {
-      const float ss = __fadd_rn(__fadd_rn(__fmul_rn(d[0], d[0]), __fmul_rn(d[1], d[1])),
-                                 __fmul_rn(d[2], d[2]));
-      const float inv = rsqrtf(__fadd_rn(ss, 1e-12f));
-#pragma unroll
-      for (int c = 0; c < 3; ++c) d[c] = __fmul_rn(d[c], inv);
-    }
-    t.denc[e] = __bfloat162float(__float2bfloat16_rn(encode_col(d, k, p.Ld, p.band_scale)));
+    if (net.normalize_dirs) normalize_dir(d);
+    t.denc[e] = __bfloat162float(__float2bfloat16_rn(encode_col(d, k, net.Ld, net.band_scale)));
   }
   __syncthreads();
   for (int e = tid; e < nr * CH; e += THREADS) {
@@ -304,64 +149,14 @@ __device__ void eval_tile(const Params& p, const Tile& t, long long n0, long lon
     float acc = 0.f;
 #pragma unroll 8
     for (int k = 0; k < KDIR; ++k)
-      acc = fmaf(t.denc[sl * KDIR + k], __bfloat162float(p.wdir[k * CH + col]), acc);
+      acc = fmaf(t.denc[sl * KDIR + k], __bfloat162float(net.wdir[k * CH + col]), acc);
     t.cdir[e] = acc;
   }
   __syncthreads();
 
-  // 3. trunk: layer 0 from the encoding, layers 1..7 in place, skip adds
-  //    the encoding rows into the same accumulators
-  Acc acc[2][4];
-  zero<HID>(acc);
-  gemm_acc<HID>(acc, t.enc, LDE, KPOS, p.w0, t.wbuf);
-  epilogue<HID>(acc, t.act, p.b0, nullptr, t.slot, true, t.stage);
-  __syncthreads();
-  for (int i = 1; i < 8; ++i) {
-    zero<HID>(acc);
-    gemm_acc<HID>(acc, t.act, LDA, HID, p.wt + size_t(i - 1) * HID * HID, t.wbuf);
-    if (i == p.skip_pos) gemm_acc<HID>(acc, t.enc, LDE, KPOS, p.wskip, t.wbuf);
-    epilogue<HID>(acc, t.act, p.bt + (i - 1) * HID, nullptr, t.slot, true, t.stage);
-    __syncthreads();
-  }
-
-  // 4. density: 4 threads per row, 64 hidden units each
-  {
-    const int row = tid >> 2, q = tid & 3;
-    float part = 0.f;
-    for (int k = q * 64; k < q * 64 + 64; ++k)
-      part = fmaf(__bfloat162float(t.act[row * LDA + k]), __bfloat162float(p.wsig[k]), part);
-    part += __shfl_xor_sync(FULL, part, 1);
-    part += __shfl_xor_sync(FULL, part, 2);
-    if (q == 0) {
-      float s = part + p.bsig[0];
-      t.sig[row] = p.relu_sigma ? fmaxf(s, 0.f) : s;
-    }
-  }
-  __syncthreads();
-
-  // 5. bmild bottleneck (no activation), then the color layer with the
-  //    per-ray direction term, both in place
-  if (p.bmild) {
-    zero<HID>(acc);
-    gemm_acc<HID>(acc, t.act, LDA, HID, p.wbn, t.wbuf);
-    epilogue<HID>(acc, t.act, p.bbn, nullptr, t.slot, false, t.stage);
-    __syncthreads();
-  }
-  zero<CH>(acc);
-  gemm_acc<CH>(acc, t.act, LDA, HID, p.wc0, t.wbuf);
-  epilogue<CH>(acc, t.act, p.bc0, t.cdir, t.slot, true, t.stage);
-  __syncthreads();
-
-  // 6. rgb = sigmoid(c @ wc1 + bc1) into stage[row * 4 + 1 .. 3]
-  for (int e = tid; e < M * 3; e += THREADS) {
-    const int row = e / 3, ch = e % 3;
-    float v = 0.f;
-    for (int k = 0; k < CH; ++k)
-      v = fmaf(__bfloat162float(t.act[row * LDA + k]), __bfloat162float(p.wc1[k * 3 + ch]), v);
-    v += p.bc1[ch];
-    t.stage[row * 4 + 1 + ch] = 1.f / (1.f + expf(-v));
-  }
-  __syncthreads();
+  // 3. the MLP: trunk, density, color layer with the per-ray direction term, rgb
+  mlp_tile<false, false>(net, t.act, t.enc, t.wbuf, t.stage, t.sig, t.cdir, t.slot, nullptr,
+                         nullptr);
 }
 
 // Raw modes: one 128-row tile per block, out row = (sigma, r, g, b).
@@ -511,52 +306,29 @@ extern "C" {
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 int ray_render(const float* rays_o, const float* rays_d, const float* z, long long z_stride,
-               int n_rays, int n_samples, float near, float span, const void* w0,
-               const float* b0, const void* wt, const float* bt, const void* wskip,
-               const void* wsig, const float* bsig, const void* wbn, const float* bbn,
-               const void* wc0, const float* bc0, const void* wdir, const void* wc1,
-               const float* bc1, int Lp, int Ld, int skip_pos, int bmild, int relu_sigma,
-               int normalize_dirs, float band_scale, int composited, float dz, float sentinel,
-               float eps, float* out, float* w, void* stream) {
+               int n_rays, int n_samples, float near, float span, const void* const* weights,
+               int Lp, int Ld, int skip_pos, int bmild, int relu_sigma, int normalize_dirs,
+               float band_scale, int composited, float dz, float sentinel, float eps, float* out,
+               float* w, void* stream) {
   Params p;
+  p.net = make_net(weights, Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs, band_scale);
   p.rays_o = rays_o;
   p.rays_d = rays_d;
   p.z = z;
   p.z_stride = z_stride;
-  p.w0 = static_cast<const bf16*>(w0);
-  p.b0 = b0;
-  p.wt = static_cast<const bf16*>(wt);
-  p.bt = bt;
-  p.wskip = static_cast<const bf16*>(wskip);
-  p.wsig = static_cast<const bf16*>(wsig);
-  p.bsig = bsig;
-  p.wbn = static_cast<const bf16*>(wbn);
-  p.bbn = bbn;
-  p.wc0 = static_cast<const bf16*>(wc0);
-  p.bc0 = bc0;
-  p.wdir = static_cast<const bf16*>(wdir);
-  p.wc1 = static_cast<const bf16*>(wc1);
-  p.bc1 = bc1;
   p.out = out;
   p.w = w;
   p.total = (long long)n_rays * n_samples;
   p.n_rays = n_rays;
   p.S = n_samples;
-  p.Lp = Lp;
-  p.Ld = Ld;
-  p.skip_pos = skip_pos;
-  p.bmild = bmild;
-  p.relu_sigma = relu_sigma;
-  p.normalize_dirs = normalize_dirs;
   p.nr_max = (M - 1) / n_samples + 2;
   p.rb = composited ? M / gcd(n_samples, M) : 0;
   p.near = near;
   p.span = span;
-  p.band_scale = band_scale;
   p.dz = dz;
   p.sentinel = sentinel;
   p.eps = eps;
-  if (n_samples < (z ? 1 : 2) || 3 + 6 * Lp > KPOS || 3 + 6 * Ld > KDIR)
+  if (n_samples < (z ? 1 : 2) || !net_fits(p.net))
     return int(cudaErrorInvalidValue);
   void (*kernel)(const Params) = z ? (composited ? ray_z_composite_kernel : ray_z_kernel)
                                    : (composited ? ray_composite_kernel : ray_kernel);

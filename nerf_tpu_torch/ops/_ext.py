@@ -4,14 +4,17 @@ Each ``nerf_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface and loaded
 with ``ctypes``. No PyTorch headers are included, so a source builds in
 seconds. The libraries go to ``build/nerf_tpu_torch/`` beside the package,
-named by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused. ``build`` starts one ``nvcc`` per missing
-library, all at once, and waits for every one of them.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
+``build`` starts one ``nvcc`` per missing library, all at once, and waits
+for every one of them.
 
 Calling convention of every C entry point: pointers and the CUDA stream are
 ``void*`` (``ctypes.c_void_p``; a bare Python int would be cut to 32 bits),
 the kernel launches on the given stream, allocates nothing, never
 synchronises, and the function returns ``cudaGetLastError()`` as an int.
+A group of pointers (the packed weights, the gradient arrays) is passed as
+one array of ``void*`` (``pointer_array``).
 """
 
 from __future__ import annotations
@@ -23,13 +26,13 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_tpu_torch"
-SOURCES = ("render_samples", "composite")
+SOURCES = ("render_samples", "composite", "mlp_forward", "mlp_backward")
 # no --use_fast_math: the positional encoding takes sinf/cosf of phases up
 # to 2^9 * pi * |x| (thousands of radians), which the fast intrinsics'
 # range reduction cannot hold
@@ -49,8 +52,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -109,6 +114,13 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def pointer_array(tensors: Iterable[Optional[torch.Tensor]]):
+    """A C array of ``void*`` to the tensors' data (NULL for None). The
+    caller keeps the tensors alive until the launch has been enqueued."""
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:

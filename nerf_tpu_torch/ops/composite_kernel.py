@@ -1,37 +1,47 @@
-"""Alpha compositing over the ray kernel's interleaved output.
+"""Alpha compositing kernels: over the ray kernel's interleaved output (K2)
+and over planar per-sample fields (K6).
 
-Counterpart of ``fused_volume_render_interleaved`` in
-``nerf_tpu/ops/composite_kernel.py`` (the Pallas kernel
-``_composite_kernel_interleaved``): from ``raw [N, 4S]`` (per sample
-``(sigma, r, g, b)``), depths ``z [N, S]`` and ``rays_d [N, 3]`` it computes
-``dists`` (adjacent differences, sentinel last, times ``||d||``),
+Counterparts of ``nerf_tpu/ops/composite_kernel.py``:
+
+- ``fused_volume_render_interleaved`` (the Pallas kernel
+  ``_composite_kernel_interleaved``) takes ``raw [N, 4S]``, per sample
+  ``(sigma, r, g, b)``;
+- ``fused_volume_render`` (``_composite_kernel``, ``_pallas_composite``) is
+  the drop-in for ``volume_render``: ``sigma [N, S]`` and ``rgb`` as
+  ``[N, S, 3]`` or a tuple of three ``[N, S]`` planes. Its gradient, as in
+  the JAX package, is a recompute through ``volume_render`` under autograd.
+
+Both take depths ``z [N, S]`` and ``rays_d [N, 3]`` and compute ``dists``
+(adjacent differences, sentinel last, times ``||d||``),
 ``alpha = 1 - exp(-relu(sigma) * dist)``, the exclusive transmittance
 ``exp(cumsum(log(max(1 - alpha, eps))))`` and the weights, then rgb, depth
-and accumulated opacity. The white background is added here, in the wrapper.
+and accumulated opacity. The white background is added here, in the wrappers.
 
-The transmittance follows the TPU kernel, ``log(max(1 - alpha, eps))``,
+The transmittance follows the TPU kernels, ``log(max(1 - alpha, eps))``,
 not ``volume_render``'s ``cumprod(1 - alpha + eps)``: the two differ by at
 most ``eps`` per factor (1e-10), far below float32 resolution at any
 transmittance that contributes.
 
-On a CUDA tensor the wrapper launches ``csrc/composite.cu`` and counts the
-launch in ``launches``; on a CPU tensor it runs
-``fused_volume_render_interleaved_plain``.
+On CUDA tensors the wrappers launch ``csrc/composite.cu`` and count the
+launch (``launches`` for K2, ``planar_launches`` for K6); on CPU tensors
+both run ``fused_volume_render_interleaved_plain`` (the planar wrapper
+stacks its input for it).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from nerf_tpu_torch.config import RenderConfig
 from nerf_tpu_torch.ops import _ext
-from nerf_tpu_torch.utils.rendering import RenderOutputs
+from nerf_tpu_torch.utils.rendering import RenderOutputs, volume_render
 
-# Launches of the CUDA kernel (not of the plain version).
-launches = 0
+# Launches of the CUDA kernels (not of the plain version).
+launches = 0          # K2, interleaved
+planar_launches = 0   # K6, planar
 
 
 def fused_volume_render_interleaved_plain(
@@ -94,6 +104,15 @@ def _launch(raw, z_vals, rays_d, sentinel, eps):
     return out, w
 
 
+def _outputs(out: torch.Tensor, w: torch.Tensor, cfg: RenderConfig) -> RenderOutputs:
+    """``[N, 8]`` + weights -> ``RenderOutputs`` with the white background."""
+    rgb = out[:, 0:3]
+    acc = out[:, 4]
+    if cfg.white_background:
+        rgb = rgb + (1.0 - acc[:, None])
+    return RenderOutputs(rgb, out[:, 3], acc, w)
+
+
 def fused_volume_render_interleaved(
     raw: torch.Tensor,        # [N, 4S] interleaved (sigma, r, g, b)
     z_vals: torch.Tensor,     # [N, S]
@@ -108,8 +127,96 @@ def fused_volume_render_interleaved(
     else:
         out, w = _launch(raw, z_vals, rays_d, cfg.dist_sentinel,
                          cfg.transmittance_eps)
-    rgb = out[:, 0:3]
-    acc = out[:, 4]
-    if cfg.white_background:
-        rgb = rgb + (1.0 - acc[:, None])
-    return RenderOutputs(rgb, out[:, 3], acc, w)
+    return _outputs(out, w, cfg)
+
+
+def fused_volume_render_plain(sigma, planes, z_vals, rays_d, sentinel=1e10, eps=1e-10):
+    """Plain-PyTorch version of the planar kernel: the interleaved plain
+    version on the stacked input. ``planes``: three ``[N, S]`` tensors."""
+    raw = torch.stack([sigma, *planes], dim=-1).reshape(sigma.shape[0], -1)
+    return fused_volume_render_interleaved_plain(raw, z_vals, rays_d, sentinel, eps)
+
+
+_PLANAR_ARGTYPES = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int] * 2   # sigma, planes, strides
+    + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]         # z, z row stride, rays_d
+    + [ctypes.c_int] * 2 + [ctypes.c_float] * 2                     # N, S, sentinel, eps
+    + [ctypes.c_void_p] * 3                                         # out, w, stream
+)
+
+
+def _launch_planar(sigma, planes, z_vals, rays_d, sentinel, eps):
+    """Launch ``composite_planar_kernel``. sigma and the three color planes
+    are ``[N, S]`` views of any strides (a slice of the MLP kernel's
+    ``[N * S, 4]`` output needs no copy); the planes must share theirs."""
+    global planar_launches
+    n, s = sigma.shape
+    dev = sigma.device
+    for name, t in (("sigma", sigma), ("z_vals", z_vals), ("rays_d", rays_d),
+                    *((f"rgb plane {i}", p) for i, p in enumerate(planes))):
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"{name} must be float32 on {dev}")
+    if (any(p.shape != (n, s) for p in planes) or z_vals.shape != (n, s)
+            or z_vals.stride(1) != 1 or rays_d.shape != (n, 3)):
+        raise ValueError("sigma and the rgb planes must be [N, S], z_vals [N, S] with "
+                         "unit sample stride and rays_d [N, 3]")
+    if any(p.stride() != planes[0].stride() for p in planes):
+        planes = [p.contiguous() for p in planes]
+    rays_d = rays_d.contiguous()
+    out = torch.empty(n, 8, dtype=torch.float32, device=dev)
+    w = torch.empty(n, s, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out, w
+    lib = _ext.load("composite")
+    fn = lib.composite_planar
+    fn.argtypes = _PLANAR_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(_ext.ptr(sigma), *(_ext.ptr(p) for p in planes),
+             sigma.stride(0), sigma.stride(1), planes[0].stride(0), planes[0].stride(1),
+             _ext.ptr(z_vals), z_vals.stride(0), _ext.ptr(rays_d), n, s,
+             float(sentinel), float(eps), _ext.ptr(out), _ext.ptr(w), _ext.stream_ptr(dev))
+    _ext.check(lib, err, "composite_planar launch")
+    planar_launches += 1
+    return out, w
+
+
+class _FusedVolumeRender(torch.autograd.Function):
+    """Forward: the planar kernel (the plain version on the CPU). Backward:
+    recompute through ``volume_render`` under autograd."""
+
+    @staticmethod
+    def forward(ctx, cfg, sigma, z_vals, rays_d, *planes):
+        ctx.cfg = cfg
+        ctx.save_for_backward(sigma, z_vals, rays_d, *planes)
+        launch = fused_volume_render_plain if sigma.device.type == "cpu" else _launch_planar
+        out, w = launch(sigma, planes, z_vals, rays_d, cfg.dist_sentinel,
+                        cfg.transmittance_eps)
+        return tuple(_outputs(out, w, cfg))
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(saved, ctx.needs_input_grad[1:])]
+            sigma, z_vals, rays_d, *planes = inputs
+            res = volume_render(sigma, torch.stack(planes, dim=-1), z_vals, rays_d, ctx.cfg)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(tuple(res), wanted, cotangents,
+                                             allow_unused=True))
+        return (None, *(next(grads) if t.requires_grad else None for t in inputs))
+
+
+def fused_volume_render(
+    sigma: torch.Tensor,                                     # [N, S]
+    rgb: Union[torch.Tensor, Sequence[torch.Tensor]],        # [N, S, 3] or three [N, S]
+    z_vals: torch.Tensor,                                    # [N, S]
+    rays_d: torch.Tensor,                                    # [N, 3]
+    cfg: RenderConfig = RenderConfig(),
+) -> RenderOutputs:
+    """Fused replacement for ``volume_render`` (the deterministic path;
+    density noise is a training-only feature of ``volume_render``)."""
+    planes = rgb.unbind(-1) if torch.is_tensor(rgb) else tuple(rgb)
+    if len(planes) != 3 or sigma.dim() != 2:
+        raise ValueError("sigma must be [N, S] and rgb [N, S, 3] or three [N, S] planes")
+    return RenderOutputs(*_FusedVolumeRender.apply(cfg, sigma, z_vals, rays_d, *planes))

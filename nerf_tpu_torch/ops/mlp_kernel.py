@@ -1,34 +1,56 @@
-"""Weight packing for the fused ray kernel (``ops/render_kernel.py``).
+"""The per-sample fused NeRF MLP (K4) and the kernels' weight layout.
 
-Counterpart of ``pack_params`` in ``nerf_tpu/ops/mlp_kernel.py``, in a layout
-chosen for the CUDA kernel rather than the TPU's:
+Counterpart of ``nerf_tpu/ops/mlp_kernel.py``:
 
-- encodings keep the reference column order (``[x, sin f0x, cos f0x, ...]``)
-  and are padded with zero weight rows to a multiple of the 16-wide tensor
-  core step: 63 -> 64 position rows, 27 -> 32 direction rows. No permutation
-  and no half-angle ladder: the kernel evaluates ``sinf``/``cosf`` of each
-  phase directly.
-- the skip layer is split into its hidden rows (``wt``) and encoding rows
-  (``wskip``), accumulated into one product, for either variant's concat
-  order.
-- the density column is its own vector (``wsig``); the color branch is
-  ``wc0`` (rows for the trunk output, or for the bmild bottleneck) plus
-  ``wdir`` (rows for the direction encoding, evaluated once per ray).
-- matrices are stored in the compute dtype (bf16 for the kernel), biases in
-  float32: the kernel's epilogue adds a float32 bias to the float32
-  accumulator before rounding to bf16 (as ``apply_nerf`` does).
+- ``fused_nerf_apply`` (the Pallas kernel ``_nerf_kernel``) is a drop-in for
+  ``apply_nerf``: positions and directions ``[..., 3]`` in, ``(sigma [...],
+  rgb [..., 3])`` out, both variants. On a CUDA tensor it launches
+  ``csrc/mlp_forward.cu`` and counts the launch in ``launches``; on a CPU
+  tensor it runs ``fused_nerf_apply_plain``, the same arithmetic in plain
+  PyTorch. Nothing falls back: a CUDA launch either runs or raises. Its
+  gradient, as in the JAX package, is a recompute through ``apply_nerf``
+  under autograd; gradients reach the params only.
+- ``pack_params`` lays the weights out for every kernel that evaluates the
+  network (this one, the ray kernels of ``ops/render_kernel.py`` and the
+  backward kernel of ``ops/train_kernel.py``), in a layout chosen for the
+  CUDA kernels rather than the TPU's:
 
-The kernel specialises the full model (8 x 256 trunk, 128-wide color layer),
-as the TPU kernel does.
+  - encodings keep the reference column order (``[x, sin f0x, cos f0x, ...]``)
+    and are padded with zero weight rows to a multiple of the 16-wide tensor
+    core step: 63 -> 64 position rows, 27 -> 32 direction rows. No
+    permutation and no half-angle ladder: the kernels evaluate
+    ``sinf``/``cosf`` of each phase directly.
+  - the skip layer is split into its hidden rows (``wt``) and encoding rows
+    (``wskip``), accumulated into one product, for either variant's concat
+    order.
+  - the density column is its own vector (``wsig``); the color branch is
+    ``wc0`` (rows for the trunk output, or for the bmild bottleneck) plus
+    ``wdir`` (rows for the direction encoding).
+  - matrices are stored in the compute dtype (bf16 for the kernels), biases
+    in float32: the kernels' epilogue adds a float32 bias to the float32
+    accumulator before rounding to bf16 (as ``apply_nerf`` does).
+
+The kernels specialise the full model (8 x 256 trunk, 128-wide color layer),
+as the TPU kernels do.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import ctypes
+from typing import NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from nerf_tpu_torch.config import ModelConfig
+from nerf_tpu_torch.models.encoding import positional_encoding
+from nerf_tpu_torch.models.nerf import apply_nerf
+from nerf_tpu_torch.ops import _ext
+from nerf_tpu_torch.utils.device import disable_tf32
+from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
+
+# Launches of the CUDA kernel (not of the plain version).
+launches = 0
 
 HID = 256
 POS_ROWS = 64   # padded position-encoding width (3 + 6 * 10 = 63)
@@ -109,3 +131,193 @@ def pack_params(params, cfg: ModelConfig, dtype=torch.bfloat16) -> PackedWeights
         wc1=mat(params["color1"]["w"]),
         bc1=vec(params["color1"]["b"]),
     )
+
+
+def check_packed(packed: PackedWeights, cfg: ModelConfig, dev: torch.device) -> None:
+    """Raise unless ``packed`` is what the CUDA kernels take: ``pack_params``'
+    layout for ``cfg``'s variant, bfloat16 matrices and float32 biases,
+    contiguous, on ``dev``."""
+    if (cfg.variant == "bmild") != (packed.wbn is not None):
+        raise ValueError(f"packed weights do not match variant {cfg.variant}")
+    if packed.wt.shape != (7, HID, HID) or packed.wc1.shape != (HID // 2, 3):
+        raise ValueError("packed weights are not in pack_params' layout")
+    for name, w in packed._asdict().items():   # wbn/bbn are None unless bmild
+        want = torch.float32 if name.startswith("b") else torch.bfloat16
+        if w is not None and (w.dtype != want or w.device != dev
+                              or not w.is_contiguous()):
+            raise ValueError(f"packed weight {name} must be contiguous {want} on "
+                             f"{dev} (the CUDA kernels compute in bfloat16)")
+
+
+def net_args(cfg: ModelConfig) -> tuple:
+    """The architecture arguments every C entry point takes after the
+    weights: Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs, band scale."""
+    return (cfg.pos_freqs, cfg.dir_freqs, skip_position(cfg),
+            int(cfg.variant == "bmild"), int(cfg.variant == "reference"),
+            int(cfg.normalize_dirs),
+            float(np.float32(np.pi)) if cfg.posenc_pi else 1.0)
+
+
+def _pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def fused_nerf_apply_plain(packed: PackedWeights, positions: torch.Tensor,
+                           directions: torch.Tensor, cfg: ModelConfig,
+                           keep: Optional[dict] = None) -> torch.Tensor:
+    """Plain-PyTorch version of the kernel: positions, directions ``[N, 3]``
+    -> ``[N, 4]`` per sample ``(sigma, r, g, b)``. The compute dtype is that
+    of the packed matrices: each product takes inputs rounded to it and
+    accumulates in float32; the float32 bias is added before the next
+    rounding; direction normalization is ``d * rsqrt(|d|^2 + 1e-12)``.
+    ``keep`` (a dict) receives the intermediates the backward needs."""
+    disable_tf32()
+    dt = packed.w0.dtype
+
+    def mm(a, w):
+        return a.to(dt).float() @ w.float()
+
+    enc = _pad_cols(positional_encoding(positions.float(), cfg.pos_freqs, cfg.posenc_pi),
+                    POS_ROWS).to(dt)
+    hs = [torch.relu(mm(enc, packed.w0) + packed.b0).to(dt)]
+    skip_pos = skip_position(cfg)
+    for i in range(1, 8):
+        y = mm(hs[-1], packed.wt[i - 1])
+        if i == skip_pos:
+            y = y + mm(enc, packed.wskip)
+        hs.append(torch.relu(y + packed.bt[i - 1]).to(dt))
+    h = hs[-1]
+
+    sigma_raw = mm(h, packed.wsig[:, None])[:, 0] + packed.bsig
+    sigma = torch.relu(sigma_raw) if cfg.variant == "reference" else sigma_raw
+
+    d = directions.float()
+    if cfg.normalize_dirs:
+        d = d * torch.rsqrt((d * d).sum(-1, keepdim=True) + 1e-12)
+    denc = _pad_cols(positional_encoding(d, cfg.dir_freqs, cfg.posenc_pi), DIR_ROWS).to(dt)
+
+    feat = h
+    if cfg.variant == "bmild":
+        feat = mm(h, packed.wbn) + packed.bbn                        # no activation
+    c_pre = mm(feat, packed.wc0) + mm(denc, packed.wdir) + packed.bc0
+    c = torch.relu(c_pre).to(dt)
+    rgb = torch.sigmoid(mm(c, packed.wc1) + packed.bc1)
+    if keep is not None:
+        keep.update(enc=enc, denc=denc, hs=hs, sigma_raw=sigma_raw, c_pre=c_pre, c=c, rgb=rgb)
+    return torch.cat([sigma[:, None], rgb], dim=-1)
+
+
+_ARGTYPES = (
+    [ctypes.c_void_p] * 2                 # positions, directions
+    + [ctypes.c_longlong]                 # N
+    + [ctypes.c_void_p]                   # weights (PackedWeights order)
+    + [ctypes.c_int] * 6 + [ctypes.c_float]   # net_args
+    + [ctypes.c_void_p] * 2               # out, stream
+)
+
+
+def _launch(packed: PackedWeights, positions: torch.Tensor, directions: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """Launch ``csrc/mlp_forward.cu`` on float32 ``[N, 3]`` CUDA tensors:
+    ``[N, 4]``."""
+    global launches
+    dev = positions.device
+    n = positions.shape[0]
+    for name, t in (("positions", positions), ("directions", directions)):
+        if t.dtype != torch.float32 or t.shape != (n, 3) or t.device != dev:
+            raise ValueError(f"{name} must be float32 [N, 3] on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    check_packed(packed, cfg, dev)
+    positions, directions = positions.contiguous(), directions.contiguous()
+    out = torch.empty(n, 4, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    lib = _ext.load("mlp_forward")
+    fn = lib.mlp_forward
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(_ext.ptr(positions), _ext.ptr(directions), n, _ext.pointer_array(packed),
+             *net_args(cfg), _ext.ptr(out), _ext.stream_ptr(dev))
+    _ext.check(lib, err, "mlp_forward launch")
+    launches += 1
+    return out
+
+
+def mlp_forward(packed: PackedWeights, positions: torch.Tensor, directions: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """``[N, 4]`` from flat float32 ``[N, 3]`` inputs: the kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if positions.device.type == "cpu":
+        return fused_nerf_apply_plain(packed, positions, directions, cfg)
+    return _launch(packed, positions, directions, cfg)
+
+
+def flat_inputs(positions: torch.Tensor, directions: Optional[torch.Tensor]):
+    """``([N, 3] positions, [N, 3] directions)`` in float32 from ``[..., 3]``
+    positions and broadcastable (or no) directions."""
+    pos = positions.reshape(-1, 3).float()
+    if directions is None:
+        return pos, torch.zeros_like(pos)
+    return pos, directions.expand(positions.shape).reshape(-1, 3).float()
+
+
+def apply_forward(ctx, pos, dirs, spec, *leaves):
+    """Forward of the differentiable wrappers (this module's and
+    ``ops/train_kernel``'s): pack the leaves, run K4, keep what either
+    backward needs. ``spec = (cfg, dtype, paths)``; the parameter leaves come
+    flat, in ``tree_leaves``' order."""
+    cfg, dtype, paths = spec
+    ctx.spec = spec
+    ctx.save_for_backward(pos, dirs, *leaves)
+    packed = pack_params(tree_from_leaves(paths, leaves), cfg, dtype)
+    out = mlp_forward(packed, pos, dirs, cfg)
+    return out[:, 0], out[:, 1:4]
+
+
+class _FusedApply(torch.autograd.Function):
+    """Forward: the kernel. Backward: recompute through ``apply_nerf`` under
+    autograd (gradients to the params only)."""
+
+    forward = staticmethod(apply_forward)
+
+    @staticmethod
+    def backward(ctx, d_sigma, d_rgb):
+        cfg, dtype, paths = ctx.spec
+        pos, dirs, *leaves = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [leaf.detach().requires_grad_() for leaf in leaves]
+            out = apply_nerf(tree_from_leaves(paths, leaves), pos, dirs, cfg,
+                             compute_dtype=dtype)
+            grads = torch.autograd.grad(out, leaves, (d_sigma, d_rgb), allow_unused=True)
+        return (None, None, None, *grads)
+
+
+def fused_nerf_apply(
+    params: Union[dict, PackedWeights],
+    positions: torch.Tensor,                 # [..., 3]
+    directions: Optional[torch.Tensor],      # broadcastable to positions, or None
+    cfg: ModelConfig,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused replacement for ``apply_nerf``: ``(sigma [...], rgb [..., 3])``,
+    views of one ``[N, 4]`` buffer. ``params`` is a params dict (packed
+    here, in ``dtype``; differentiable) or ``PackedWeights`` (inference)."""
+    lead = positions.shape[:-1]
+    pos, dirs = flat_inputs(positions, directions)
+    if isinstance(params, PackedWeights):
+        out = mlp_forward(params, pos, dirs, cfg)
+        sigma, rgb = out[:, 0], out[:, 1:4]
+    else:
+        paths, leaves = zip(*tree_leaves(params))
+        sigma, rgb = _FusedApply.apply(pos, dirs, (cfg, dtype, paths), *leaves)
+    return sigma.reshape(lead), rgb.reshape(*lead, 3)
+
+
+def make_cuda_apply_fn(dtype: torch.dtype = torch.bfloat16):
+    """Adapter matching ``render_rays``' ``apply_fn`` signature; the compute
+    dtype is the kernel's, not the caller's."""
+
+    def apply_fn(params, positions, directions, cfg, compute_dtype=None):
+        return fused_nerf_apply(params, positions, directions, cfg, dtype)
+
+    return apply_fn

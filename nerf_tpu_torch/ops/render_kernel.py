@@ -44,22 +44,18 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple, Union
 
-import numpy as np
 import torch
 
 from nerf_tpu_torch.config import ModelConfig, RenderConfig
-from nerf_tpu_torch.models.encoding import positional_encoding
 from nerf_tpu_torch.ops import _ext
 from nerf_tpu_torch.ops.composite_kernel import fused_volume_render_interleaved_plain
 from nerf_tpu_torch.ops.mlp_kernel import (
-    DIR_ROWS,
-    HID,
-    POS_ROWS,
     PackedWeights,
+    check_packed,
+    fused_nerf_apply_plain,
+    net_args,
     pack_params,
-    skip_position,
 )
-from nerf_tpu_torch.utils.device import disable_tf32
 from nerf_tpu_torch.utils.rendering import RenderOutputs
 
 # Launches of each CUDA kernel (not of the plain versions).
@@ -67,49 +63,16 @@ launches = {"render_samples": 0, "render_zvals": 0,
             "render_samples_composited": 0, "render_zvals_composited": 0}
 
 
-def _pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
-    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
-
-
 def _mlp_plain(packed: PackedWeights, pos: torch.Tensor, d: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     """The kernels' network on positions ``pos [R, S, 3]`` of rays with
-    directions ``d [R, 3]``: ``raw [R, 4S]``, per sample ``(sigma, r, g, b)``.
-    The compute dtype is that of the packed matrices."""
-    disable_tf32()
-    dt = packed.w0.dtype
+    directions ``d [R, 3]``: ``raw [R, 4S]``, per sample ``(sigma, r, g, b)``
+    (``fused_nerf_apply_plain`` with each ray's direction repeated per
+    sample). The compute dtype is that of the packed matrices."""
     R, S = pos.shape[:2]
-
-    def mm(a, w):
-        return a.to(dt).float() @ w.float()
-
-    enc = _pad_cols(positional_encoding(pos.reshape(-1, 3), cfg.pos_freqs,
-                                        cfg.posenc_pi), POS_ROWS).to(dt)
-
-    h = torch.relu(mm(enc, packed.w0) + packed.b0)
-    skip_pos = skip_position(cfg)
-    for i in range(1, 8):
-        y = mm(h, packed.wt[i - 1])
-        if i == skip_pos:
-            y = y + mm(enc, packed.wskip)
-        h = torch.relu(y + packed.bt[i - 1])
-
-    sigma = mm(h, packed.wsig[:, None])[:, 0] + packed.bsig
-    if cfg.variant == "reference":
-        sigma = torch.relu(sigma)
-
-    if cfg.normalize_dirs:
-        d = d * torch.rsqrt((d * d).sum(-1, keepdim=True) + 1e-12)
-    denc = _pad_cols(positional_encoding(d, cfg.dir_freqs, cfg.posenc_pi),
-                     DIR_ROWS)
-    cdir = mm(denc, packed.wdir).repeat_interleave(S, dim=0)         # [R*S, 128]
-
-    feat = h
-    if cfg.variant == "bmild":
-        feat = mm(h, packed.wbn) + packed.bbn                        # no activation
-    c = torch.relu(mm(feat, packed.wc0) + packed.bc0 + cdir)
-    rgb = torch.sigmoid(mm(c, packed.wc1) + packed.bc1)
-    return torch.cat([sigma[:, None], rgb], dim=-1).reshape(R, 4 * S)
+    out = fused_nerf_apply_plain(packed, pos.reshape(-1, 3),
+                                 d.repeat_interleave(S, dim=0), cfg)
+    return out.reshape(R, 4 * S)
 
 
 def _uniform_z(near: float, far: float, n_samples: int, device) -> torch.Tensor:
@@ -160,9 +123,8 @@ _ARGTYPES = (
     + [ctypes.c_longlong]                 # z row stride
     + [ctypes.c_int] * 2                  # n_rays, n_samples
     + [ctypes.c_float] * 2                # near, far - near
-    + [ctypes.c_void_p] * 14              # weights (PackedWeights order)
-    + [ctypes.c_int] * 6                  # Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs
-    + [ctypes.c_float]                    # band scale (pi or 1)
+    + [ctypes.c_void_p]                   # weights (PackedWeights order)
+    + [ctypes.c_int] * 6 + [ctypes.c_float]   # net_args
     + [ctypes.c_int]                      # composited
     + [ctypes.c_float] * 3                # uniform step dz, sentinel, eps
     + [ctypes.c_void_p] * 3               # out, w (NULL: none), stream
@@ -182,17 +144,7 @@ def _launch(packed: PackedWeights, rays_o, rays_d, near, far, S,
         if t.dtype != torch.float32 or t.shape != (R, 3) or t.device != dev:
             raise ValueError(f"{name} must be float32 [R, 3] on {dev}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    bmild = cfg.variant == "bmild"
-    if bmild != (packed.wbn is not None):
-        raise ValueError(f"packed weights do not match variant {cfg.variant}")
-    if packed.wt.shape != (7, HID, HID) or packed.wc1.shape != (HID // 2, 3):
-        raise ValueError("packed weights are not in pack_params' layout")
-    for name, w in packed._asdict().items():   # wbn/bbn are None unless bmild
-        want = torch.float32 if name.startswith("b") else torch.bfloat16
-        if w is not None and (w.dtype != want or w.device != dev
-                              or not w.is_contiguous()):
-            raise ValueError(f"packed weight {name} must be contiguous {want} on "
-                             f"{dev} (the CUDA ray kernel computes in bfloat16)")
+    check_packed(packed, cfg, dev)
     z_stride = 0
     if z_vals is not None:
         if (z_vals.dtype != torch.float32 or z_vals.device != dev
@@ -222,11 +174,7 @@ def _launch(packed: PackedWeights, rays_o, rays_d, near, far, S,
     err = fn(_ext.ptr(rays_o), _ext.ptr(rays_d),
              None if z_vals is None else _ext.ptr(z_vals), z_stride, R, S,
              float(near), float(far - near),
-             *[None if w_ is None else _ext.ptr(w_) for w_ in packed],
-             cfg.pos_freqs, cfg.dir_freqs, skip_position(cfg),
-             int(cfg.variant == "bmild"), int(cfg.variant == "reference"),
-             int(cfg.normalize_dirs),
-             float(np.float32(np.pi)) if cfg.posenc_pi else 1.0,
+             _ext.pointer_array(packed), *net_args(cfg),
              int(composited), float(dz), float(sentinel), float(eps),
              _ext.ptr(out), None if w is None else _ext.ptr(w), _ext.stream_ptr(dev))
     name = ("render_samples" if z_vals is None else "render_zvals") + (

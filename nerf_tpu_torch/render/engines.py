@@ -15,8 +15,11 @@ at the merged, sorted ``n_coarse + n_fine`` depths):
   compositor kernel (``ops/composite_kernel.py``, K2) reduces it per ray;
   with ``fuse_composite=True`` the ray kernels composite in the same pass.
   ``sample_pdf``, the merge and the sort between the passes are plain
-  PyTorch. On the CPU (tests) the kernels run their plain versions; on the
-  card they launch the CUDA kernels.
+  PyTorch. The hierarchical mode with ``use_importance=False`` (a uniform
+  fine pass) goes through ``render_rays`` with the per-sample MLP kernel
+  (``ops/mlp_kernel.fused_nerf_apply``, K4) and the planar compositor
+  (``fused_volume_render``, K6). On the CPU (tests) the kernels run their
+  plain versions; on the card they launch the CUDA kernels.
 
 A frame is cut into chunks of ``chunk_rays`` rays; the last chunk is padded
 with rays of zero origin and unit direction so every chunk has one shape.
@@ -42,8 +45,11 @@ from nerf_tpu_torch.models.nerf import (
     params_from_numpy,
     params_from_torch_state_dict,
 )
-from nerf_tpu_torch.ops.composite_kernel import fused_volume_render_interleaved
-from nerf_tpu_torch.ops.mlp_kernel import pack_params
+from nerf_tpu_torch.ops.composite_kernel import (
+    fused_volume_render,
+    fused_volume_render_interleaved,
+)
+from nerf_tpu_torch.ops.mlp_kernel import make_cuda_apply_fn, pack_params
 from nerf_tpu_torch.ops.render_kernel import (
     composited_to_outputs,
     fused_render_samples,
@@ -52,9 +58,13 @@ from nerf_tpu_torch.ops.render_kernel import (
     fused_render_zvals_raw,
 )
 from nerf_tpu_torch.render.pipeline import render_rays
-from nerf_tpu_torch.train.checkpoint import has_checkpoint_meta, restore_bare_params
+from nerf_tpu_torch.train.checkpoint import (
+    has_checkpoint_meta,
+    restore_bare_params,
+    restore_checkpoint,
+)
 from nerf_tpu_torch.utils.cameras import BENCHMARK_FOCAL, generate_rays
-from nerf_tpu_torch.utils.device import resolve_device
+from nerf_tpu_torch.utils.device import resolve_device, torch_dtype
 from nerf_tpu_torch.utils.monitor import PerformanceMonitor, PerfStats
 from nerf_tpu_torch.utils.rendering import sample_pdf, sample_points_on_rays, volume_render
 
@@ -69,9 +79,11 @@ class SharedModel:
         self.params: Optional[Dict[str, NeRFParams]] = None
 
     def load(self, checkpoint_path: Optional[str] = None, seed: int = 0) -> "SharedModel":
-        """Load a reference-format torch ``.pth``, bmild ``.npy`` weights or
-        a keystr params ``.npz``; for a missing path, random weights from
-        ``seed`` (with a warning, as the JAX package does)."""
+        """Load a reference-format torch ``.pth``, bmild ``.npy`` weights, a
+        keystr params ``.npz`` or a trainer checkpoint ``.npz`` of either
+        package (its params; the optimizer state is not read); for a missing
+        path, random weights from ``seed`` (with a warning, as the JAX
+        package does)."""
         cfg, dev = self.cfg, self.device
         if checkpoint_path and checkpoint_path.endswith((".pth", ".pt")):
             ckpt = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
@@ -88,10 +100,10 @@ class SharedModel:
             self.params = {"coarse": coarse, "fine": fine}
         elif checkpoint_path and os.path.exists(checkpoint_path):
             if has_checkpoint_meta(checkpoint_path):
-                raise NotImplementedError(
-                    "trainer checkpoints (with __meta__) are read by the training "
-                    "slice (ROADMAP A5); pass a params-only .npz")
-            params = params_from_numpy(restore_bare_params(checkpoint_path), dev)
+                tree = restore_checkpoint(checkpoint_path)[0]["params"]
+            else:
+                tree = restore_bare_params(checkpoint_path)
+            params = params_from_numpy(tree, dev)
             self.params = {"coarse": params["coarse"], "fine": params["fine"]}
         else:
             if checkpoint_path:
@@ -110,10 +122,6 @@ class RenderResult:
     stats: PerfStats
 
 
-def _dtype(name: str) -> torch.dtype:
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
-
-
 class Engine:
     """One execution method; subclasses implement ``render_chunk``."""
 
@@ -126,7 +134,7 @@ class Engine:
         self.cfg = shared.cfg
         self.device = shared.device
         self.chunk_rays = chunk_rays
-        self.compute_dtype = _dtype(self.cfg.train.compute_dtype)
+        self.compute_dtype = torch_dtype(self.cfg.train.compute_dtype)
         self._warmed: set = set()
 
     def engine_params(self):
@@ -208,7 +216,9 @@ class CudaEngine(Engine):
     """The kernels' engine. Benchmark mode: K1 -> K2, or K1 composited with
     ``fuse_composite``. Hierarchical mode: K1 (coarse) -> K2 (weights) ->
     ``sample_pdf`` -> sort -> K3 (fine) -> K2, or with ``fuse_composite``
-    K1 composited with weights -> ``sample_pdf`` -> sort -> K3 composited."""
+    K1 composited with weights -> ``sample_pdf`` -> sort -> K3 composited.
+    Hierarchical mode with ``use_importance=False``: ``render_rays`` on
+    uniform coarse and fine depths with K4 and K6."""
 
     name = "cuda"
 
@@ -217,6 +227,7 @@ class CudaEngine(Engine):
         super().__init__(shared, chunk_rays)
         self.fuse_composite = fuse_composite
         self._packed = None
+        self._apply = make_cuda_apply_fn(self.compute_dtype)   # K4, on packed weights
 
     def engine_params(self):
         """Both networks packed once for the ray kernels (once if they are
@@ -247,10 +258,9 @@ class CudaEngine(Engine):
             out, _ = self._uniform(packed["fine"], ro, rd, spp, rcfg, False)
             return out.rgb, out.depth
         if not rcfg.use_importance:
-            raise NotImplementedError(
-                "CudaEngine's hierarchical mode with use_importance=False runs the "
-                "per-sample kernels K4 + K6, which arrive with ROADMAP A5/B4/B6; "
-                "TorchEngine renders it")
+            res = render_rays(packed["coarse"], packed["fine"], ro, rd, self.cfg.model, rcfg,
+                              apply_fn=self._apply, composite_fn=fused_volume_render)
+            return res.fine.rgb, res.fine.depth
         out_c, z_c = self._uniform(packed["coarse"], ro, rd, rcfg.n_coarse, rcfg, True)
         z_new = sample_pdf(z_c, out_c.weights, rcfg.n_fine, deterministic=True)
         z_f = torch.sort(torch.cat([z_c, z_new], dim=-1), dim=-1).values

@@ -11,8 +11,11 @@ Counterpart of ``nerf_tpu/render/pipeline.py``:
 
 ``apply_fn`` and ``composite_fn`` are injectable, so an engine swaps the
 evaluator or the compositor without repeating the pipeline. Stochastic
-draws (jitter, importance samples) come from one ``torch.Generator``, used
-in that order.
+draws come from one ``torch.Generator``, in this order: the jitter of the
+coarse depths, the importance draws, the coarse pass's density noise, the
+fine pass's density noise (the last two only with ``raw_noise_std > 0``).
+The JAX package splits one key four ways instead, so the two packages'
+stochastic renders agree in distribution, not draw for draw.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from nerf_tpu_torch.config import ModelConfig, RenderConfig
 from nerf_tpu_torch.models.nerf import NeRFParams, apply_nerf
 from nerf_tpu_torch.utils.rendering import (
     RenderOutputs,
+    draw_uniforms,
     importance_sample,
     sample_points_on_rays,
     volume_render,
@@ -37,12 +41,12 @@ class RayRenderResult(NamedTuple):
 
 
 def _eval_and_composite(params, points, z_vals, rays_d, mcfg, rcfg, compute_dtype,
-                        apply_fn, composite_fn) -> RenderOutputs:
+                        noise_generator, apply_fn, composite_fn) -> RenderOutputs:
     dirs = rays_d[..., None, :].expand(points.shape)
     sigma, rgb = apply_fn(params, points, dirs, mcfg, compute_dtype=compute_dtype)
-    if composite_fn is not None:
+    if composite_fn is not None and noise_generator is None:
         return composite_fn(sigma, rgb, z_vals, rays_d, rcfg)
-    return volume_render(sigma, rgb, z_vals, rays_d, rcfg)
+    return volume_render(sigma, rgb, z_vals, rays_d, rcfg, noise_generator=noise_generator)
 
 
 def render_rays(
@@ -65,28 +69,27 @@ def render_rays(
     draws; without a generator they are the deterministic midpoint draws.
     ``composite_fn`` (``fn(sigma, rgb, z, rays_d, rcfg) -> RenderOutputs``)
     replaces ``volume_render`` on unperturbed passes; perturbed passes use
-    ``volume_render``, as the JAX pipeline does."""
+    ``volume_render`` (with density noise where ``rcfg.raw_noise_std > 0``),
+    as the JAX pipeline does."""
     if perturb and generator is None:
         raise ValueError("perturb=True requires a torch.Generator")
-    if perturb and rcfg.raw_noise_std > 0.0:
-        raise NotImplementedError(
-            "density noise (raw_noise_std > 0) arrives with training (ROADMAP A5)")
-    if perturb:
-        composite_fn = None
+    noise_generator = generator if perturb else None
 
     pts_c, z_c = sample_points_on_rays(rays_o, rays_d, rcfg.near, rcfg.far,
                                        rcfg.n_coarse, perturb=perturb,
                                        generator=generator)
+    u = None
+    if rcfg.use_importance and generator is not None:
+        u = draw_uniforms(z_c, rcfg.n_fine, generator)   # before any density noise
     coarse = _eval_and_composite(params_coarse, pts_c, z_c, rays_d, mcfg, rcfg,
-                                 compute_dtype, apply_fn, composite_fn)
+                                 compute_dtype, noise_generator, apply_fn, composite_fn)
 
     if rcfg.use_importance:
         pts_f, z_f = importance_sample(rays_o, rays_d, z_c, coarse.weights,
-                                       rcfg.n_fine, generator=generator,
-                                       deterministic=generator is None)
+                                       rcfg.n_fine, deterministic=generator is None, u=u)
     else:
         pts_f, z_f = sample_points_on_rays(rays_o, rays_d, rcfg.near, rcfg.far,
                                            rcfg.n_fine)
     fine = _eval_and_composite(params_fine, pts_f, z_f, rays_d, mcfg, rcfg,
-                               compute_dtype, apply_fn, composite_fn)
+                               compute_dtype, noise_generator, apply_fn, composite_fn)
     return RayRenderResult(coarse=coarse, fine=fine)

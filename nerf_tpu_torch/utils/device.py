@@ -27,3 +27,8 @@ def disable_tf32() -> None:
     cuDNN on). Set explicitly, not relied on."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A config's ``compute_dtype`` name as a torch dtype."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]

@@ -5,7 +5,8 @@ jittered) depths ``z = near*(1-t) + far*t``; hierarchical inverse-CDF
 sampling from coarse weights (``sample_pdf``, ``importance_sample``); and
 the compositor with a 1e10 sentinel last distance scaled by ``||d||``,
 ``alpha = 1 - exp(-relu(sigma) * dist)`` and exclusive cumulative-product
-transmittance with a ``+1e-10`` epsilon.
+transmittance with a ``+1e-10`` epsilon, with optional density noise during
+training.
 """
 
 from __future__ import annotations
@@ -53,15 +54,25 @@ def sample_points_on_rays(
     return points, z_vals
 
 
+def draw_uniforms(z_vals: torch.Tensor, n_importance: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """``sample_pdf``'s random draws ``[N, n_importance]`` in [0, 1)."""
+    return torch.rand((z_vals.shape[0], n_importance), dtype=z_vals.dtype,
+                      device=z_vals.device, generator=generator)
+
+
 def sample_pdf(
     z_vals: torch.Tensor,
     weights: torch.Tensor,
     n_importance: int,
     generator: Optional[torch.Generator] = None,
     deterministic: bool = False,
+    u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Inverse-CDF sampling of ``n_importance`` new depths from the coarse
     weights: ``z_vals [N, S]``, ``weights [N, S]`` -> ``[N, n_importance]``.
+    ``u [N, n_importance]`` gives the draws themselves (``draw_uniforms``),
+    for a caller that fixes their place in the generator's sequence.
 
     A piecewise-constant pdf over the coarse depths (weights + 1e-5), a CDF
     with a leading zero, draws ``u`` (evenly spaced midpoints
@@ -77,15 +88,17 @@ def sample_pdf(
     cdf = torch.cumsum(pdf, dim=-1)
     cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)      # [N, S+1]
 
-    if deterministic:
+    if u is not None:
+        if u.shape != (n_rays, n_importance):
+            raise ValueError(f"u must be {(n_rays, n_importance)}, got {tuple(u.shape)}")
+    elif deterministic:
         u = (torch.arange(n_importance, dtype=z_vals.dtype, device=z_vals.device)
              + 0.5) / n_importance
         u = u.expand(n_rays, n_importance).contiguous()
     else:
         if generator is None:
             raise ValueError("stochastic sample_pdf requires a torch.Generator")
-        u = torch.rand((n_rays, n_importance), dtype=z_vals.dtype,
-                       device=z_vals.device, generator=generator)
+        u = draw_uniforms(z_vals, n_importance, generator)
 
     below = torch.searchsorted(cdf[:, :n_bins].contiguous(), u, right=True) - 1
     below = below.clamp(0, n_bins - 1)
@@ -109,13 +122,14 @@ def importance_sample(
     n_importance: int,
     generator: Optional[torch.Generator] = None,
     deterministic: bool = False,
+    u: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hierarchical fine sampling: ``(points [N, S', 3], z [N, S'])`` with
     ``S' = S + n_importance``, the coarse and new depths merged and sorted
     (so adjacent differences stay valid distances). No gradient flows into
     the weights."""
     z_new = sample_pdf(z_vals, weights.detach(), n_importance,
-                       generator=generator, deterministic=deterministic)
+                       generator=generator, deterministic=deterministic, u=u)
     z_all = torch.sort(torch.cat([z_vals, z_new], dim=-1), dim=-1).values
     points = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., :, None]
     return points, z_all
@@ -127,8 +141,14 @@ def volume_render(
     z_vals: torch.Tensor,
     rays_d: torch.Tensor,
     cfg: RenderConfig = RenderConfig(),
+    noise_generator: Optional[torch.Generator] = None,
 ) -> RenderOutputs:
-    """Alpha-composite ``(sigma [N, S], rgb [N, S, 3])`` into per-ray maps."""
+    """Alpha-composite ``(sigma [N, S], rgb [N, S, 3])`` into per-ray maps.
+    With a ``noise_generator`` and ``cfg.raw_noise_std > 0`` Gaussian noise
+    of that deviation is added to the density first (training only)."""
+    if noise_generator is not None and cfg.raw_noise_std > 0.0:
+        sigma = sigma + cfg.raw_noise_std * torch.randn(
+            sigma.shape, dtype=sigma.dtype, device=sigma.device, generator=noise_generator)
     dists = z_vals[..., 1:] - z_vals[..., :-1]
     dists = torch.cat([dists, torch.full_like(dists[..., :1], cfg.dist_sentinel)],
                       dim=-1)

@@ -18,6 +18,7 @@ from nerf_tpu.utils.cameras import focal_from_angle, spherical_pose
 from nerf_tpu_torch.config import bmild_config, default_config
 from nerf_tpu_torch.models.nerf import params_to_numpy
 from nerf_tpu_torch.ops import mlp_kernel
+from nerf_tpu_torch.ops.composite_kernel import fused_volume_render
 from nerf_tpu_torch.render.engines import CudaEngine, SharedModel, TorchEngine
 from nerf_tpu_torch.utils.cameras import generate_rays
 from nerf_tpu_torch.utils.monitor import PerformanceMonitor
@@ -138,10 +139,11 @@ def test_fused_cuda_engine_matches_fused_pallas_engine(mode):
     assert np.max(np.abs(res.rgb - ref.rgb)) < 5e-3
 
 
-def test_hierarchical_without_importance():
-    # use_importance=False: TorchEngine renders it (a uniform 128-sample fine
-    # pass) as XLAEngine does, to the float32 tolerances above; CudaEngine
-    # would need kernels K4 + K6 and raises
+def test_hierarchical_without_importance(monkeypatch):
+    # use_importance=False (a uniform 128-sample fine pass): TorchEngine
+    # renders it as XLAEngine does, to the float32 tolerances above, and so
+    # does CudaEngine, through render_rays on the per-sample MLP kernel (K4)
+    # and the planar compositor (K6), as PallasEngine does
     def uniform_fine(cfg):
         return dataclasses.replace(cfg, render=dataclasses.replace(cfg.render,
                                                                    use_importance=False))
@@ -153,8 +155,23 @@ def test_hierarchical_without_importance():
     res = TorchEngine(shared).render_image(POSE, (HW, HH), S, focal=HFOCAL,
                                            mode="hierarchical", monitor=False)
     np.testing.assert_allclose(res.rgb, ref.rgb, atol=1e-4, rtol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CudaEngine(shared).render_image(POSE, (HW, HH), S, mode="hierarchical")
+    seen = []
+    monkeypatch.setattr("nerf_tpu_torch.render.engines.fused_volume_render",
+                        lambda *a: seen.append(a[0].shape[1]) or fused_volume_render(*a))
+    cuda = CudaEngine(shared).render_image(POSE, (HW, HH), S, focal=HFOCAL,
+                                           mode="hierarchical", monitor=False)
+    assert seen == [64, 128]                 # K6's wrapper composited both passes
+    np.testing.assert_allclose(cuda.rgb, ref.rgb, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(cuda.depth, ref.depth, atol=1e-3, rtol=0)
+    # in bf16 against the Pallas engine on the same path (K4 + K6 there too):
+    # each rounds at its own points, >= 40 dB
+    pallas = PallasEngine(_trained(JSharedModel(uniform_fine(_white(jdefault())))),
+                          interpret=True).render_image(
+        POSE, (HW, HH), S, focal=HFOCAL, mode="hierarchical", monitor=False)
+    bf16 = CudaEngine(_trained(SharedModel(uniform_fine(_white(default_config())), "cpu"))
+                      ).render_image(POSE, (HW, HH), S, focal=HFOCAL, mode="hierarchical",
+                                     monitor=False)
+    assert _psnr(bf16.rgb, pallas.rgb) >= 40.0
     with pytest.raises(ValueError, match="mode"):
         TorchEngine(shared).render_image(POSE, (HW, HH), S, mode="planar")
 
@@ -218,10 +235,20 @@ def test_shared_model_loaders(tmp_path):
     assert bm.params["fine"]["bottleneck"]["w"].shape == (256, 256)
     assert bm.params["coarse"] is bm.params["fine"]
 
-    # trainer checkpoints wait for the training slice
-    np.savez(tmp_path / "ckpt.npz", __meta__=np.zeros(1, np.uint8))
-    with pytest.raises(NotImplementedError):
-        SharedModel(cfg, "cpu").load(str(tmp_path / "ckpt.npz"))
+    # a trainer checkpoint (the JAX trainer's format): its params are read,
+    # its optimizer state is not
+    from nerf_tpu.train import checkpoint as jckpt
+    from nerf_tpu.train.trainer import init_train_state as jinit_train_state
+
+    jstate = jinit_train_state(jax.random.PRNGKey(3), jdefault())
+    jckpt.save_checkpoint(str(tmp_path / "ckpt.npz"), jstate, {"step": 0})
+    ck = SharedModel(cfg, "cpu").load(str(tmp_path / "ckpt.npz"))
+    jax.tree.map(np.testing.assert_array_equal, params_to_numpy(ck.params["coarse"]),
+                 jax.tree.map(np.asarray, jax.device_get(jstate.params["coarse"])))
+    # a file with the header but no params is refused
+    np.savez(tmp_path / "empty.npz", __meta__=np.frombuffer(b"{}", np.uint8))
+    with pytest.raises(KeyError, match="a:params"):
+        SharedModel(cfg, "cpu").load(str(tmp_path / "empty.npz"))
 
 
 def test_default_device_raises_without_cuda():

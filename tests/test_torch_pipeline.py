@@ -129,10 +129,48 @@ def test_stochastic_render_rays_by_its_properties(scene):
 
 
 def test_perturb_needs_a_generator_and_noise_waits_for_training(scene):
+    # (the name dates from before the training slice: the density noise no
+    # longer waits.) With raw_noise_std > 0 a perturbed pass adds Gaussian
+    # noise to the density, drawn from the same generator after the jitter
+    # and the importance draws; an unperturbed pass adds none
     _, tc, _, tp, ro, rd = scene
-    ro, rd = torch.tensor(ro[:4]), torch.tensor(rd[:4])
+    ro, rd = torch.tensor(ro[:24]), torch.tensor(rd[:24])
     with pytest.raises(ValueError, match="Generator"):
         render_rays(tp["coarse"], tp["fine"], ro, rd, tc, RenderConfig(), perturb=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        render_rays(tp["coarse"], tp["fine"], ro, rd, tc, RenderConfig(raw_noise_std=1.0),
-                    generator=torch.Generator(), perturb=True)
+    noisy = RenderConfig(raw_noise_std=1.0)
+
+    def run(rcfg, seed, perturb=True):
+        return render_rays(tp["coarse"], tp["fine"], ro, rd, tc, rcfg,
+                           generator=torch.Generator().manual_seed(seed), perturb=perturb)
+
+    a, b, c = run(noisy, 0), run(noisy, 0), run(RenderConfig(), 0)
+    torch.testing.assert_close(a.fine.rgb, b.fine.rgb, rtol=0, atol=0)
+    assert torch.isfinite(a.fine.rgb).all() and torch.isfinite(a.coarse.weights).all()
+    # the noise changes the coarse render; the jitter before it is the same
+    # draw with and without noise
+    assert not torch.equal(a.coarse.weights, c.coarse.weights)
+    quiet = run(noisy, 0, perturb=False)
+    ref = run(RenderConfig(), 0, perturb=False)
+    torch.testing.assert_close(quiet.fine.rgb, ref.fine.rgb, rtol=0, atol=0)
+
+
+def test_density_noise_has_the_configured_deviation():
+    # volume_render's noise: sigma + std * N(0, 1) from the given generator
+    from nerf_tpu_torch.utils.rendering import volume_render
+
+    n, s = 64, 512
+    z = torch.linspace(2.0, 6.0, s).expand(n, s)
+    rgb = torch.full((n, s, 3), 0.5)
+    rd = torch.tensor([[0.0, 0.0, -1.0]]).expand(n, 3)
+    sigma = torch.zeros(n, s)
+    g = torch.Generator().manual_seed(3)
+    out = volume_render(sigma, rgb, z, rd, RenderConfig(raw_noise_std=2.0), noise_generator=g)
+    expect = torch.randn(n, s, generator=torch.Generator().manual_seed(3)) * 2.0
+    ref = volume_render(expect, rgb, z, rd, RenderConfig())
+    torch.testing.assert_close(out.weights, ref.weights, rtol=0, atol=0)
+    assert 1.9 < float(expect.std()) < 2.1
+    # no generator, or a zero deviation: no noise
+    for kwargs, rcfg in (({}, RenderConfig(raw_noise_std=2.0)),
+                         ({"noise_generator": g}, RenderConfig())):
+        clean = volume_render(sigma, rgb, z, rd, rcfg, **kwargs)
+        assert float(clean.acc.abs().max()) == 0.0

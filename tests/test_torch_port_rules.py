@@ -35,6 +35,7 @@ def test_kernels_build_for_hopper_without_fast_math():
     flags = " ".join(_ext.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
+    assert set(_ext.SOURCES) == {p.stem for p in _ext.CSRC.glob("*.cu")}
     for name in _ext.SOURCES:
         assert (_ext.CSRC / f"{name}.cu").exists()
         assert _ext.library_path(name).parent == ROOT / "build" / "nerf_tpu_torch"
@@ -58,3 +59,75 @@ def test_chip_smoke_fails_alone(tmp_path):
     res = _run_smoke(tmp_path)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    # a library is named by a hash of its source, the shared headers and the
+    # flags, so an edit of the MLP body rebuilds every kernel that includes it
+    for path in _ext.CSRC.iterdir():
+        shutil.copy(path, tmp_path / path.name)
+    monkeypatch.setattr(_ext, "CSRC", tmp_path)
+    before = {n: _ext.library_path(n).name for n in _ext.SOURCES}
+    with open(tmp_path / "mlp_body.cuh", "a") as f:
+        f.write("// edited\n")
+    assert all(_ext.library_path(n).name != before[n] for n in _ext.SOURCES)
+
+
+def test_default_train_apply_fn_follows_device_and_config_only():
+    # the kernels for a CUDA device and the standard architecture, apply_nerf
+    # otherwise; the choice never tries the device, so nothing can fall back
+    import dataclasses
+
+    from nerf_tpu_torch.config import ModelConfig, bmild_config, default_config
+    from nerf_tpu_torch.models.nerf import apply_nerf
+    from nerf_tpu_torch.train.trainer import NeRFTrainer, default_train_apply_fn
+
+    cfg = default_config()
+    assert default_train_apply_fn(cfg, "cpu") is apply_nerf
+    fn = default_train_apply_fn(cfg, "cuda")          # no device needed to choose
+    assert fn is not apply_nerf and fn.__qualname__.startswith("make_train_apply_fn")
+    narrow = dataclasses.replace(cfg, model=ModelConfig(hidden_dim=64))
+    assert default_train_apply_fn(narrow, "cuda") is apply_nerf
+    assert default_train_apply_fn(bmild_config(), "cuda") is apply_nerf
+    assert NeRFTrainer(narrow, (8, 8), device="cpu").apply_fn is apply_nerf
+
+
+def test_trainer_raises_without_a_cuda_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from nerf_tpu_torch.config import default_config
+    from nerf_tpu_torch.train.trainer import NeRFTrainer, init_train_state, make_eval_render
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NeRFTrainer(default_config(), (8, 8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(torch.Generator().manual_seed(0), default_config())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_eval_render(default_config(), 64)
+
+
+def test_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch):
+    # the choice between a kernel and its plain version is made by the
+    # tensor's device alone: anything but a CPU tensor goes to the launcher
+    # (which launches or raises), never to the plain version
+    from nerf_tpu_torch.config import RenderConfig
+    from nerf_tpu_torch.ops import composite_kernel, mlp_kernel, train_kernel
+
+    calls = []
+    meta = torch.empty(4, 3, device="meta")
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on a tensor that is not on the CPU")
+
+    monkeypatch.setattr(mlp_kernel, "fused_nerf_apply_plain", plain)
+    monkeypatch.setattr(train_kernel, "packed_grads_plain", plain)
+    monkeypatch.setattr(composite_kernel, "fused_volume_render_plain", plain)
+    monkeypatch.setattr(mlp_kernel, "_launch", lambda *a: calls.append("mlp_forward"))
+    monkeypatch.setattr(train_kernel, "_launch", lambda *a: calls.append("mlp_backward"))
+    monkeypatch.setattr(
+        composite_kernel, "_launch_planar",
+        lambda *a: calls.append("composite_planar") or (torch.empty(4, 8, device="meta"), meta))
+    mlp_kernel.mlp_forward(None, meta, meta, None)
+    train_kernel.packed_grads(None, meta, meta, meta[:, 0], meta, None)
+    composite_kernel.fused_volume_render(meta, (meta,) * 3, meta, meta, RenderConfig())
+    assert calls == ["mlp_forward", "mlp_backward", "composite_planar"]
