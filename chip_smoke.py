@@ -8,7 +8,10 @@ holds each kernel against its plain PyTorch version at the main paths'
 shapes: K1 uniform ray kernel, K2 compositor, K3 per-ray-depth ray kernel,
 the composited modes of K1 and K3, K4 per-sample MLP forward, K5 MLP
 backward (also against float32 and bf16 autograd, and run twice for bit
-equality) and K6 planar compositor. Then it drives each path of the port,
+equality), K6 planar compositor, K7 per-sample MLP on int8 and int16
+weights, the ray kernels on quantized weights, the int8-compute route (K8)
+in K7, K1 and K3, and the bf16 and planar raw outputs of K1 and K3 (B10).
+Then it drives each path of the port,
 with every launch count set to 0 just before and read just after, and fails
 unless every kernel of the path ran its expected number of times:
 
@@ -19,6 +22,12 @@ unless every kernel of the path ran its expected number of times:
   composited K3, no K2);
 - ``uniform_hier_frame``: the hierarchical render with
   ``use_importance=False`` (``render_rays`` on K4 + K6);
+- ``compressed_frames`` / ``int8_frames``: ``CompressedEngine`` and
+  ``Int8ComputeEngine`` in both modes (the ray kernels on int8 weights,
+  dequantized in the kernel or multiplied as s8 x s8 -> s32), in the uniform
+  hierarchical mode (K7 + K6), and ``CompressedEngine(bits=16)``;
+- ``mode_frames``: ``CudaEngine(raw_dtype="bfloat16")`` and
+  ``CudaEngine(planar=True)`` in the hierarchical mode;
 - ``train_steps``: ``NeRFTrainer`` on the procedural sphere scene at the
   default ``TrainConfig`` (2,048 rays, 64 + 128, bf16, jitter), full-width
   model from seed ``TRAIN_SEED``: 2 launches of K4 and 2 of K5 per step and
@@ -29,11 +38,13 @@ unless every kernel of the path ran its expected number of times:
 - ``train_default_seed``: the same steps from ``TrainConfig``'s default seed,
   as a record (nothing is required of its loss): the share of samples on
   which each network's ReLU'd density is positive before and after, and each
-  network's loss.
+  network's loss. About half of all seeds start a network with a density of
+  0 everywhere, in this package and in the JAX package alike (the density
+  head's initial weights against 256 non-negative inputs).
 
 The frames use trained weights from ``results/convergence/final_params.npz``
 at 800x600 and are compared with the float32 plain PyTorch engine
-(>= 40 dB). Each phase prints one JSON line. The last three lines are the
+(>= 40 dB; the int8-compute engine >= 30 dB). Each phase prints one JSON line. The last three lines are the
 per-kernel summary, the card's name and power limit as ``nvidia-smi``
 reports them, and ``{"ok": true, "device": ...}``. Any failed check exits
 non-zero before that last line. Needs a CUDA device and ``nvcc`` (sm_90a);
@@ -58,12 +69,28 @@ PARAMS = os.path.join(ROOT, "results", "convergence", "final_params.npz")
 W, H, SPP, CHUNK = 800, 600, 64, 16384
 CAMERA_ANGLE_X = 0.6911112070083618
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
+PEAK_INT8_OPS = 1979e12       # H100 SXM dense int8 tensor-core rate
 PEAK_F32_FLOPS = 67e12        # H100 SXM float32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 rate
 K1_TOL = 2e-2                 # rgb abs; sigma relative to max|sigma|
 K2_TOL = 1e-5                 # rgb/acc abs; depth relative to max|depth|
 B9_TOL = 1e-5                 # composited vs plain on the kernel's own raw: rgb/acc/w abs
 PSNR_MIN = 40.0
+PSNR_MIN_INT8 = 30.0          # the int8-compute engine against the float32 engine (the JAX
+                              # package's own bar for it: 20 dB)
+QUANT_TOL = 3e-2              # the quantized routes vs their plain versions: rgb abs, sigma
+                              # relative to max|sigma|. K1_TOL's reason (bf16 roundings summed
+                              # in another order, growing with the sample count), on pruned and
+                              # quantized weights, where one flipped rounding weighs more
+K8_TOL = 6e-2                 # the int8-compute route vs its plain version. Its integer sums
+                              # are exact, but the activations quantize per row against the
+                              # row's absmax: where one bf16 activation rounds the other way
+                              # (the encoding's ulps, the heads' summation order) a row's scale
+                              # moves and all its 256 roundings are drawn again, so the two
+                              # differ there by the route's own quantization noise (the frames'
+                              # ~39 dB against float32), not by bf16's. The mean error stays
+                              # small: most rows agree exactly
+POS_BOUND = 12.0              # the engines' default bound on |sample position| for int8 compute
 N_FINE = 128                  # the hierarchical fine pass: 64 coarse + 128 drawn depths
 S3 = SPP + N_FINE             # depths per ray of the fine pass
 TRAIN_RAYS = 2048             # TrainConfig.n_rays
@@ -138,10 +165,18 @@ def k1_flops(cfg, n_rays, S):
     return 2 * (per_sample * n_rays * S + cfg.dir_dim * ch * n_rays)
 
 
-def bound_ms(bf16_flops, f32_flops, nbytes_):
+def trunk_flops(cfg, n_samples):
+    """Operations of the products the int8-compute route runs as s8 x s8:
+    layer 0, the trunk layers and the skip rows."""
+    return 2 * n_samples * (2 * cfg.pos_dim * 256 + 7 * 256 * 256)
+
+
+def bound_ms(bf16_flops, f32_flops, nbytes_, int8_ops=0):
     """(ms, what binds): max(bytes / HBM rate, bf16 MMA operations /
-    tensor-core rate + float32 operations / float32 rate)."""
-    t_ops = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    tensor-core rate + int8 MMA operations / int8 tensor-core rate + float32
+    operations / float32 rate)."""
+    t_ops = (bf16_flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS
+             + f32_flops / PEAK_F32_FLOPS)
     t_bytes = nbytes_ / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -212,7 +247,11 @@ def profiled_ms(fn, kernel, reps):
 
     fn()
     _, us, n = profile_frame(run)
-    return us[kernel] / reps / 1e3 if n.get(kernel) == reps else None
+    if n.get(kernel) != reps:
+        emit("profiler_note", kernel=kernel, expected_launches=reps, traced=n.get(kernel, 0),
+             note="the trace does not hold one event per launch; timed by CUDA events instead")
+        return None
+    return us[kernel] / reps / 1e3
 
 
 def psnr(a, b):
@@ -245,9 +284,12 @@ def main():
     from nerf_tpu_torch.config import default_config, bmild_config
     from nerf_tpu_torch.data.synthetic import make_procedural_dataset
     from nerf_tpu_torch.models.nerf import apply_nerf, init_nerf_params, params_from_numpy
-    from nerf_tpu_torch.ops import _ext, composite_kernel, mlp_kernel, render_kernel, train_kernel
+    from nerf_tpu_torch.ops import (_ext, composite_kernel, mlp_kernel, quant, render_kernel,
+                                    train_kernel)
     from nerf_tpu_torch.ops.mlp_kernel import pack_params
-    from nerf_tpu_torch.render.engines import CudaEngine, SharedModel, TorchEngine
+    from nerf_tpu_torch.ops.quant import prune_params, quantize_model
+    from nerf_tpu_torch.render.engines import (CompressedEngine, CudaEngine, Int8ComputeEngine,
+                                               SharedModel, TorchEngine)
     from nerf_tpu_torch.render.pipeline import render_rays
     from nerf_tpu_torch.train.checkpoint import restore_bare_params
     from nerf_tpu_torch.train.trainer import NeRFTrainer
@@ -264,20 +306,26 @@ def main():
     secs = _ext.build()
     ptxas = {n: [ln.strip() for ln in _ext.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln or "Function properties" in ln]
-             for n in _ext.SOURCES}
+             for n in _ext.LIBRARIES}
     backward_lib = _ext.load("mlp_backward")
     backward_lib.mlp_backward_smem_bytes.restype = ctypes.c_longlong
-    emit("build", seconds=secs, sources=list(_ext.SOURCES), ptxas=ptxas,
+    emit("build", seconds=secs, sources=list(_ext.SOURCES),
+         variants={k: list(v) for k, v in _ext.VARIANTS.items()}, ptxas=ptxas,
          mlp_backward_dynamic_smem_bytes=backward_lib.mlp_backward_smem_bytes())
 
     def reset_counts():
         for k in render_kernel.launches:
             render_kernel.launches[k] = 0
+        for k in quant.launches:
+            quant.launches[k] = 0
         composite_kernel.launches = composite_kernel.planar_launches = 0
+        composite_kernel.bf16_launches = 0
         mlp_kernel.launches = train_kernel.launches = 0
 
     def read_counts():
-        return {**render_kernel.launches, "composite": composite_kernel.launches,
+        return {**render_kernel.launches, **quant.launches,
+                "composite": composite_kernel.launches,
+                "composite_bf16": composite_kernel.bf16_launches,
                 "composite_planar": composite_kernel.planar_launches,
                 "mlp_forward": mlp_kernel.launches, "mlp_backward": train_kernel.launches}
 
@@ -702,6 +750,279 @@ def main():
     new_times = time_new_kernels()
     torch.cuda.empty_cache()
 
+    def quantized(params, mcfg, bits, act_bits):
+        """One network pruned and quantized as the engines do it."""
+        return quantize_model({"fine": params}, mcfg, bits=bits, prune_fraction=0.1,
+                              act_bits=act_bits, pos_bound=POS_BOUND)[0]["fine"]
+
+    ROUTES = (("int8", 8, None), ("int16", 16, None), ("int8_compute", 8, 8))
+
+    def check_quant_kernels():
+        """K7, the ray kernels on quantized weights and the int8-compute
+        route against their plain versions, and the bf16 and planar raw
+        outputs against the fp32 raw output; returns the largest errors by
+        summary row."""
+        cfg_bm = bmild_config()
+        seeded_bm = init_nerf_params(torch.Generator().manual_seed(1), cfg_bm.model, dev)
+        variants = (("reference", cfg_ref.model, fine), ("bmild", cfg_bm.model, seeded_bm))
+        n_check = 1001
+        ro_s, rd_s = with_padding(*camera_rays(poses[0], focal, dev, n_check - 3, seed=0), 3)
+        ro_c, rd_c = camera_rays(poses[1], focal, dev, CHUNK, seed=1)
+        sent, eps = rcfg.dist_sentinel, rcfg.transmittance_eps
+        worst = {"mlp_quant": 0.0, "ray_dequant": 0.0, "int8": 0.0, "planar": 0.0,
+                 "raw_bf16": 0.0}
+
+        def held(phase, what, got, want, tol, **kw):
+            require(bool(torch.isfinite(got).all()), f"{phase} {what}: non-finite output")
+            rgb_err, sig_err, sig_scale = rgb_sigma_err(got, want)
+            diff = (got.reshape(-1, 4)[:, 1:] - want.reshape(-1, 4)[:, 1:]).abs()
+            emit(phase, what=what, rgb_max_abs_err=rgb_err, sigma_max_rel_err=sig_err,
+                 max_abs_sigma=sig_scale, tol=tol, rgb_mean_abs_err=diff.mean().item(),
+                 share_of_values_equal=(diff == 0).float().mean().item(), **kw)
+            require(rgb_err <= tol and sig_err <= tol,
+                    f"{phase} {what}: rgb err {rgb_err}, sigma rel err {sig_err} > {tol}")
+            return rgb_err
+
+        for vname, mcfg, params in variants:
+            packed_c = pack_params(coarse if vname == "reference" else params, mcfg,
+                                   torch.bfloat16)
+            for route, bits, act_bits in ROUTES:
+                q = quantized(params, mcfg, bits, act_bits)
+                k8 = act_bits is not None
+                tol = K8_TOL if k8 else QUANT_TOL
+                # -- K7 (k7_check; on the int8-compute route: k8_check) at a ragged
+                #    count and at the uniform hierarchical frame's two chunks
+                shapes = ((n_check, S3), (CHUNK, SPP), (CHUNK, N_FINE))
+                for n_rays, S in shapes if vname == "reference" else shapes[:1]:
+                    pos, dirs = sample_batch(n_rays, S, seed=n_rays + S)
+                    e = held("k8_check" if k8 else "k7_check",
+                             f"mlp_quant {route} {vname} {n_rays * S} samples",
+                             quant._launch(q, pos, dirs, mcfg).reshape(n_rays, -1),
+                             quant.quantized_nerf_apply_plain(q, pos, dirs, mcfg).reshape(n_rays, -1),
+                             tol)
+                    worst["int8" if k8 else "mlp_quant"] = max(worst["int8" if k8 else "mlp_quant"], e)
+                    del pos, dirs
+                # -- K1 and K3 raw and composited (quant_ray_check / k8_check) at
+                #    1,001 rays and, for the trained network, at the chunk
+                for ro, rd in ((ro_s, rd_s), (ro_c, rd_c)) if vname == "reference" else (
+                        (ro_s, rd_s),):
+                    R = ro.shape[0]
+                    phase = "k8_check" if k8 else "quant_ray_check"
+                    raw1, z1 = render_kernel.fused_render_samples(q, ro, rd, 2.0, 6.0, SPP, mcfg,
+                                                                  raw=True)
+                    e1 = held(phase, f"render_samples {route} {vname} {R} rays", raw1,
+                              render_kernel.fused_render_samples_plain(q, ro, rd, 2.0, 6.0, SPP,
+                                                                       mcfg), tol)
+                    z_f = hier_depths(render_kernel, composite_kernel, sample_pdf, packed_c, ro,
+                                      rd, mcfg, rcfg)
+                    raw3 = render_kernel.fused_render_zvals_raw(q, ro, rd, z_f, mcfg)
+                    e3 = held(phase, f"render_zvals {route} {vname} {R} rays", raw3,
+                              render_kernel.fused_render_zvals_plain(q, ro, rd, z_f, mcfg), tol)
+                    out1, w1, _ = render_kernel.fused_render_samples_composited(
+                        q, ro, rd, 2.0, 6.0, SPP, mcfg, with_weights=True, sentinel=sent, eps=eps)
+                    ref1 = composite_kernel.fused_volume_render_interleaved_plain(
+                        raw1, z1, rd, sent, eps, dz=(6.0 - 2.0) / (SPP - 1))
+                    out3, w3 = render_kernel.fused_render_zvals_composited(
+                        q, ro, rd, z_f, mcfg, with_weights=True, sentinel=sent, eps=eps)
+                    ref3 = composite_kernel.fused_volume_render_interleaved_plain(raw3, z_f, rd,
+                                                                                  sent, eps)
+                    torch.cuda.synchronize()
+                    ec = [composited_err(out1, w1, *ref1), composited_err(out3, w3, *ref3)]
+                    emit(phase, what=f"composited {route} {vname} {R} rays",
+                         errors={"render_samples_composited": ec[0],
+                                 "render_zvals_composited": ec[1]}, tol=B9_TOL,
+                         reference="plain compositing of the raw kernel's output")
+                    require(max(max(ec[0]), max(ec[1])) <= B9_TOL,
+                            f"{phase} composited {route} {vname}: errors {ec} > {B9_TOL}")
+                    key = "int8" if k8 else "ray_dequant"
+                    worst[key] = max(worst[key], e1, e3)
+                    del raw1, raw3, out1, out3, w1, w3, ref1, ref3, z_f
+                    torch.cuda.empty_cache()
+
+        # -- K8's corner cases: a layer whose activations are 0 on every row (its
+        #    bias pushed far below 0: ax = 0, the row quantizes to zeros) and
+        #    positions beyond pos_bound (the int8 clip saturates)
+        mcfg = cfg_ref.model
+        dead = {**fine, "trunk": [dict(layer) for layer in fine["trunk"]]}
+        dead["trunk"][2]["b"] = torch.full_like(fine["trunk"][2]["b"], -1e3)
+        q_dead = quantized(dead, mcfg, 8, 8)
+        pos, dirs = sample_batch(n_check, SPP, seed=3)
+        k_dead = quant._launch(q_dead, pos, dirs, mcfg)
+        p_dead = quant.quantized_nerf_apply_plain(q_dead, pos, dirs, mcfg)
+        e_dead = held("k8_check", "mlp_quant int8_compute, trunk layer 2 dead on every row",
+                      k_dead.reshape(n_check, -1), p_dead.reshape(n_check, -1), K8_TOL)
+        q_small = quantize_model({"fine": fine}, mcfg, bits=8, prune_fraction=0.1, act_bits=8,
+                                 pos_bound=1.0)[0]["fine"]
+        far = pos * 5.0 / pos.abs().amax(dim=-1, keepdim=True)       # |x|_inf = 5, 5 x the bound
+        e_far = held("k8_check", "mlp_quant int8_compute, positions 5 x beyond pos_bound = 1",
+                     quant._launch(q_small, far, dirs, mcfg).reshape(n_check, -1),
+                     quant.quantized_nerf_apply_plain(q_small, far, dirs, mcfg).reshape(n_check, -1),
+                     K8_TOL)
+        raw_far, _ = render_kernel.fused_render_samples(q_small, ro_s, rd_s, 2.0, 6.0, SPP, mcfg,
+                                                        raw=True)
+        e_far1 = held("k8_check", "render_samples int8_compute, pos_bound = 1 (rays reach 6)",
+                      raw_far, render_kernel.fused_render_samples_plain(q_small, ro_s, rd_s, 2.0,
+                                                                        6.0, SPP, mcfg), K8_TOL)
+        worst["int8"] = max(worst["int8"], e_dead, e_far, e_far1)
+
+        # -- modes_check: bf16 raw and planar against the fp32 raw output, K2 on the
+        #    bf16 raw and K6 on the planes
+        packed = pack_params(fine, mcfg, torch.bfloat16)
+        packed_c = pack_params(coarse, mcfg, torch.bfloat16)
+        for ro, rd in ((ro_s, rd_s), (ro_c, rd_c)):
+            R = ro.shape[0]
+            z_f = hier_depths(render_kernel, composite_kernel, sample_pdf, packed_c, ro, rd, mcfg,
+                              rcfg)
+            raw1, z1 = render_kernel.fused_render_samples(packed, ro, rd, 2.0, 6.0, SPP, mcfg,
+                                                          raw=True)
+            raw3 = render_kernel.fused_render_zvals_raw(packed, ro, rd, z_f, mcfg)
+            b1, _ = render_kernel.fused_render_samples(packed, ro, rd, 2.0, 6.0, SPP, mcfg,
+                                                       raw=True, raw_dtype=torch.bfloat16)
+            b3 = render_kernel.fused_render_zvals_raw(packed, ro, rd, z_f, mcfg,
+                                                      raw_dtype=torch.bfloat16)
+            sg1, pl1, _ = render_kernel.fused_render_samples(packed, ro, rd, 2.0, 6.0, SPP, mcfg,
+                                                             planar=True)
+            sg3, pl3 = render_kernel.fused_render_zvals_planar(packed, ro, rd, z_f, mcfg)
+            torch.cuda.synchronize()
+            for kname, raw, b, sg, pl, zz in (("render_samples", raw1, b1, sg1, pl1, z1),
+                                              ("render_zvals", raw3, b3, sg3, pl3, z_f)):
+                require(b.dtype == torch.bfloat16 and b.shape == raw.shape,
+                        f"modes_check {kname}: bf16 raw has {b.dtype} {tuple(b.shape)}")
+                rel = ((b.float() - raw).abs() / raw.abs().clamp_min(1e-30)).max().item()
+                bf16_exact = torch.equal(b, raw.bfloat16())
+                want_sg, want_pl = render_kernel.planes_of(raw)
+                planes_equal = torch.equal(sg, want_sg) and all(
+                    torch.equal(a, c) for a, c in zip(pl, want_pl))
+                out_b, w_b = composite_kernel._launch(b, zz, rd, sent, eps)
+                ref_b = composite_kernel.fused_volume_render_interleaved_plain(b, zz, rd, sent, eps)
+                out_p, w_p = composite_kernel._launch_planar(sg, pl, zz, rd, sent, eps)
+                ref_p = composite_kernel.fused_volume_render_interleaved_plain(raw, zz, rd, sent,
+                                                                               eps)
+                torch.cuda.synchronize()
+                e_b, e_p = composited_err(out_b, w_b, *ref_b), composited_err(out_p, w_p, *ref_p)
+                emit("modes_check", kernel=kname, rays=R, samples=zz.shape[1],
+                     bf16_raw_max_rel_err_vs_f32_raw=rel, bf16_rounding=2.0 ** -8,
+                     bf16_raw_equals_rounded_f32_raw=bf16_exact,
+                     planes_bit_equal_to_deinterleaved_raw=planes_equal,
+                     composite_on_bf16_raw_errors=e_b, composite_planar_on_planes_errors=e_p,
+                     tol=K2_TOL)
+                require(rel <= 2.0 ** -8, f"modes_check {kname}: bf16 raw {rel} from the f32 raw")
+                require(planes_equal, f"modes_check {kname}: planes differ from the raw output")
+                require(max(e_b) <= K2_TOL and max(e_p) <= K2_TOL,
+                        f"modes_check {kname}: compositor errors {e_b}, {e_p} > {K2_TOL}")
+                worst["raw_bf16"] = max(worst["raw_bf16"], rgb_sigma_err(b.float(), raw)[0],
+                                        e_b[0])
+                worst["planar"] = max(worst["planar"], (sg - want_sg).abs().max().item(), e_p[0])
+            del raw1, raw3, b1, b3, sg1, pl1, sg3, pl3, z_f
+            torch.cuda.empty_cache()
+        return worst
+
+    quant_err = check_quant_kernels()
+    torch.cuda.empty_cache()
+
+    def time_quant_kernels():
+        """Device ms per launch (torch.profiler) of every new kernel and route
+        at the 16,384-ray chunk, beside the bf16 kernels on the same weights
+        (pruned as the compressed engine prunes them); the plain versions'
+        stream time; the bounds."""
+        mcfg = cfg_ref.model
+        pruned = prune_params(fine, 0.1)
+        packed = pack_params(pruned, mcfg, torch.bfloat16)
+        packed_c = pack_params(coarse, mcfg, torch.bfloat16)
+        ro, rd = camera_rays(poses[1], focal, dev, CHUNK, seed=1)
+        z3 = hier_depths(render_kernel, composite_kernel, sample_pdf, packed_c, ro, rd, mcfg, rcfg)
+        sent, eps = rcfg.dist_sentinel, rcfg.transmittance_eps
+        weights = {"bf16": packed, **{r: quantized(fine, mcfg, b, a) for r, b, a in ROUTES}}
+        wbytes = {r: nbytes(*[t for t in w if t is not None]) for r, w in weights.items()}
+        res = {}
+
+        def flops(n_rays, S, per_sample_dirs):
+            total = (2 * mlp_macs(mcfg) * n_rays * S if per_sample_dirs
+                     else k1_flops(mcfg, n_rays, S))
+            return total, trunk_flops(mcfg, n_rays * S)
+
+        def ray_bound(route, S, in_bytes, out_bytes, per_sample_dirs=False):
+            total, trunk = flops(CHUNK, S, per_sample_dirs)
+            if route == "int8_compute":
+                return bound_ms(total - trunk, 0, in_bytes + wbytes[route] + out_bytes, trunk)
+            return bound_ms(total, 0, in_bytes + wbytes[route] + out_bytes)
+
+        def timed(kern, name, reps, plain, bound, **more):
+            """Device ms per launch by the profiler, stream ms per call by
+            CUDA events (the fallback where the trace drops an event), the
+            plain version's stream ms."""
+            return dict(device_ms=profiled_ms(kern, name, reps), call_ms=call_ms(kern, reps),
+                        plain_ms=call_ms(plain, 2) if callable(plain) else plain, bound=bound,
+                        **more)
+
+        for route, w in weights.items():
+            res[f"render_samples {route}"] = timed(
+                lambda: render_kernel._launch(w, ro, rd, 2.0, 6.0, SPP, mcfg), "ray_kernel", 5,
+                lambda: render_kernel.fused_render_samples_plain(w, ro, rd, 2.0, 6.0, SPP, mcfg),
+                ray_bound(route, SPP, nbytes(ro, rd), CHUNK * SPP * 16))
+            res[f"render_zvals {route}"] = timed(
+                lambda: render_kernel._launch(w, ro, rd, 0.0, 0.0, S3, mcfg, z_vals=z3),
+                "ray_z_kernel", 3,
+                lambda: render_kernel.fused_render_zvals_plain(w, ro, rd, z3, mcfg),
+                ray_bound(route, S3, nbytes(ro, rd, z3), CHUNK * S3 * 16))
+            torch.cuda.empty_cache()
+        for S in (SPP, N_FINE):
+            pos, dirs = sample_batch(CHUNK, S, seed=S)
+            n = CHUNK * S
+            res[f"mlp_forward bf16 x{S}"] = timed(
+                lambda: mlp_kernel._launch(packed, pos, dirs, mcfg), "mlp_kernel", 3,
+                lambda: mlp_kernel.fused_nerf_apply_plain(packed, pos, dirs, mcfg),
+                ray_bound("bf16", S, nbytes(pos, dirs), n * 16, per_sample_dirs=True))
+            for route, _, _ in ROUTES:
+                w = weights[route]
+                res[f"mlp_quant {route} x{S}"] = timed(
+                    lambda: quant._launch(w, pos, dirs, mcfg), "mlp_quant_kernel", 3,
+                    lambda: quant.quantized_nerf_apply_plain(w, pos, dirs, mcfg),
+                    ray_bound(route, S, nbytes(pos, dirs), n * 16, per_sample_dirs=True))
+            del pos, dirs
+            torch.cuda.empty_cache()
+        # the raw output forms of K1/K3 on bf16 weights, and K2 on a bf16 raw
+        raw_b, z = render_kernel.fused_render_samples(packed, ro, rd, 2.0, 6.0, SPP, mcfg, raw=True,
+                                                      raw_dtype=torch.bfloat16)
+        raw3_b = render_kernel.fused_render_zvals_raw(packed, ro, rd, z3, mcfg,
+                                                      raw_dtype=torch.bfloat16)
+        out8 = torch.empty(CHUNK, 8, device=dev)
+        for form, kw, out_bytes in (("raw_bf16", dict(raw_dtype=torch.bfloat16), 8),
+                                    ("planar", dict(planar=True), 16)):
+            res[f"render_samples {form}"] = timed(
+                lambda: render_kernel._launch(packed, ro, rd, 2.0, 6.0, SPP, mcfg, **kw),
+                "ray_kernel", 5, res["render_samples bf16"]["plain_ms"],
+                ray_bound("bf16", SPP, nbytes(ro, rd), CHUNK * SPP * out_bytes))
+            res[f"render_zvals {form}"] = timed(
+                lambda: render_kernel._launch(packed, ro, rd, 0.0, 0.0, S3, mcfg, z_vals=z3, **kw),
+                "ray_z_kernel", 3, res["render_zvals bf16"]["plain_ms"],
+                ray_bound("bf16", S3, nbytes(ro, rd, z3), CHUNK * S3 * out_bytes))
+        for name, raw, zz, S in (("composite raw_bf16 x64", raw_b, z, SPP),
+                                 ("composite raw_bf16 x192", raw3_b, z3, S3)):
+            w_out = torch.empty(CHUNK, S, device=dev)
+            raw_f = raw.float()
+            res[name] = timed(
+                lambda: composite_kernel._launch(raw, zz, rd, sent, eps), "composite_kernel", 20,
+                lambda: composite_kernel.fused_volume_render_interleaved_plain(raw, zz, rd, sent,
+                                                                               eps),
+                bound_ms(0, 20 * CHUNK * S, nbytes(raw, zz, rd, out8, w_out)),
+                f32_raw_device_ms=profiled_ms(lambda: composite_kernel._launch(
+                    raw_f, zz, rd, sent, eps), "composite_kernel", 20),
+                f32_raw_call_ms=call_ms(lambda: composite_kernel._launch(raw_f, zz, rd, sent, eps),
+                                        20))
+        emit("kernel_times_quant", rays=CHUNK, samples={"render_samples": SPP, "render_zvals": S3,
+                                                        "mlp x64": SPP, "mlp x128": N_FINE},
+             weights="final_params.npz fine, pruned 10% (the bf16 rows too)",
+             times={k: {**{kk: vv for kk, vv in v.items() if kk != "bound"},
+                        "bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
+                    for k, v in res.items()},
+             int8_peak="1,979 TOP/s for the trunk products of the int8_compute rows, "
+                       "989 TFLOP/s bf16 for the rest", nvidia_smi=smi)
+        return res
+
+    quant_times = time_quant_kernels()
+    torch.cuda.empty_cache()
+
     per_frame = math.ceil(W * H / CHUNK)
     shared = SharedModel(cfg_ref, dev).load(PARAMS)
     ref_engine = TorchEngine(SharedModel(f32(cfg_ref), dev).load(PARAMS), chunk_rays=CHUNK)
@@ -709,14 +1030,14 @@ def main():
     qfocal = focal_from_angle(qw, CAMERA_ANGLE_X)
     paths = {}            # path -> launches by kernel over its timed frames
 
-    def drive(engine, mode, name, expect):
-        """One warm frame, then the path: counts set to 0, three views, counts
-        read. Requires ``expect[kernel]`` launches per chunk of every kernel
-        (0 for the kernels the path must not run)."""
+    def drive(engine, mode, name, expect, views=3):
+        """One warm frame, then the path: counts set to 0, ``views`` views,
+        counts read. Requires ``expect[kernel]`` launches per chunk of every
+        kernel (0 for the kernels the path must not run)."""
         engine.render_image(poses[0], (W, H), SPP, focal=focal, mode=mode, monitor=True)
         reset_counts()
         frames = [engine.render_image(p, (W, H), SPP, focal=focal, mode=mode, monitor=True)
-                  for p in poses[1:]]
+                  for p in poses[1:1 + views]]
         counts = read_counts()
         paths[name] = counts
         for k, n in counts.items():
@@ -833,17 +1154,105 @@ def main():
          samples=[SPP, N_FINE], min_db=PSNR_MIN, psnr_resolution=[qw, qh], **res_u, profile=prof)
     require(res_u["psnr_db"] >= PSNR_MIN,
             f"uniform hierarchical PSNR {res_u['psnr_db']} dB against the float32 torch engine")
-    del engine_u, engine, fused, ref_engine
+
+    # -- path 5: the compressed and int8-compute engines -----------------------
+    # both modes on int8 weights (K1/K3 dequantizing in the kernel, or on the
+    # int8-compute route), the uniform hierarchical mode (K7 + K6), and the
+    # benchmark mode on int16 weights. PSNR against the float32 TorchEngine
+    # (limits: PSNR_MIN for the dequantize routes, PSNR_MIN_INT8 for int8
+    # compute) and against CudaEngine on the unquantized weights
+    cuda_small = {"benchmark": engine.render_image(poses[1], (qw, qh), SPP, focal=qfocal,
+                                                   monitor=False).rgb,
+                  "hierarchical": engine.render_image(poses[1], (qw, qh), SPP, focal=qfocal,
+                                                      mode="hierarchical", monitor=False).rgb,
+                  "uniform_hierarchical": engine_u.render_image(
+                      poses[1], (qw, qh), SPP, focal=qfocal, mode="hierarchical",
+                      monitor=False).rgb}
+    torch_small = {"benchmark": ref_bench, "hierarchical": ref_hier,
+                   "uniform_hierarchical": ref_u}
+    shared_u = SharedModel(uniform(cfg_ref), dev).load(PARAMS)
+
+    def quant_frames(phase, cls, route_key, min_db, **kw):
+        """Drive one quantized engine class through its modes."""
+        res = {}
+        k7_int8 = {"mlp_quant_int8": 2} if route_key == "int8" else {}
+        for path, eng, mode, expect, views in (
+                ("benchmark", cls(shared, chunk_rays=CHUNK, **kw), "benchmark",
+                 {"render_samples": 1, "composite": 1, route_key: 1}, 3),
+                ("hierarchical", cls(shared, chunk_rays=CHUNK, **kw), "hierarchical",
+                 {"render_samples": 1, "render_zvals": 1, "composite": 2, route_key: 2}, 3),
+                ("uniform_hierarchical", cls(shared_u, chunk_rays=CHUNK, **kw), "hierarchical",
+                 {"mlp_quant": 2, "composite_planar": 2, **k7_int8}, 2)):
+            r = drive(eng, mode, f"{phase}_{path}", expect, views)
+            small = eng.render_image(poses[1], (qw, qh), SPP, focal=qfocal, mode=mode,
+                                     monitor=False).rgb
+            r["psnr_db_vs_torch_f32"] = psnr(small, torch_small[path])
+            r["max_abs_err_vs_torch_f32"] = float(np.abs(small - torch_small[path]).max())
+            r["psnr_db_vs_cuda_engine"] = psnr(small, cuda_small[path])
+            r["max_abs_err_vs_cuda_engine"] = float(np.abs(small - cuda_small[path]).max())
+            require(r["psnr_db_vs_torch_f32"] >= min_db and r["psnr_db_vs_cuda_engine"] >= min_db,
+                    f"{phase} {path}: PSNR {r['psnr_db_vs_torch_f32']} dB against the float32 "
+                    f"torch engine, {r['psnr_db_vs_cuda_engine']} dB against CudaEngine "
+                    f"(limit {min_db})")
+            if path == "hierarchical":
+                per_launch, r["profile"] = frame_profile(
+                    eng, mode, {"ray_kernel": 1, "ray_z_kernel": 1, "composite_kernel": 2})
+                for k, v in per_launch.items():
+                    device_ms[f"{phase} {k}"] = v
+            res[path] = r
+            stats = eng.compression_stats()
+        emit(phase, min_db=min_db, psnr_resolution=[qw, qh], compression_stats=stats,
+             weights_in_global_memory=str(eng.engine_params()["fine"].wt_q.dtype), **res)
+        return res
+
+    quant_frames("compressed_frames", CompressedEngine, "dequant", PSNR_MIN)
+    quant_frames("int8_frames", Int8ComputeEngine, "int8", PSNR_MIN_INT8)
+    eng16 = CompressedEngine(shared, chunk_rays=CHUNK, bits=16)
+    res16 = drive(eng16, "benchmark", "compressed16_benchmark",
+                  {"render_samples": 1, "composite": 1, "dequant": 1}, 2)
+    res16["psnr_db_vs_torch_f32"], res16["max_abs_err_vs_torch_f32"] = against_torch(
+        eng16, "benchmark", ref_bench)
+    emit("compressed16_frame", min_db=PSNR_MIN, psnr_resolution=[qw, qh],
+         compression_stats=eng16.compression_stats(), **res16)
+    require(res16["psnr_db_vs_torch_f32"] >= PSNR_MIN,
+            f"compressed16 PSNR {res16['psnr_db_vs_torch_f32']} dB against the float32 engine")
+
+    # -- path 6: the raw output forms of K1/K3 in the hierarchical mode ---------
+    mode_res = {}
+    for key, eng, expect in (
+            ("raw_bf16", CudaEngine(shared, chunk_rays=CHUNK, raw_dtype="bfloat16"),
+             {"render_samples": 1, "render_zvals": 1, "composite": 2, "raw_bf16": 2,
+              "composite_bf16": 2}),
+            ("planar", CudaEngine(shared, chunk_rays=CHUNK, planar=True),
+             {"render_samples": 1, "render_zvals": 1, "planar": 2, "composite_planar": 2})):
+        r = drive(eng, "hierarchical", f"{key}_hierarchical", expect, 2)
+        r["psnr_db"], r["max_abs_err"] = against_torch(eng, "hierarchical", ref_hier)
+        small = eng.render_image(poses[1], (qw, qh), SPP, focal=qfocal, mode="hierarchical",
+                                 monitor=False).rgb
+        r["max_abs_err_vs_cuda_engine"] = float(np.abs(small - cuda_small["hierarchical"]).max())
+        require(r["psnr_db"] >= PSNR_MIN,
+                f"{key} hierarchical PSNR {r['psnr_db']} dB against the float32 torch engine")
+        mode_res[key] = r
+    # the planes carry the raw output's values, so the planar frame is the
+    # interleaved one up to K6's against K2's summation (1e-7 on the coarse
+    # weights, which sample_pdf can turn into 1e-4 of a drawn depth)
+    require(mode_res["planar"]["max_abs_err_vs_cuda_engine"] <= 1e-3,
+            f"planar frame differs from the interleaved one by "
+            f"{mode_res['planar']['max_abs_err_vs_cuda_engine']}")
+    emit("mode_frames", min_db=PSNR_MIN, psnr_resolution=[qw, qh], **mode_res)
+    del engine_u, engine, fused, ref_engine, eng16, shared_u
     torch.cuda.empty_cache()
 
-    # -- path 5: training (NeRFTrainer: K4 + K5 twice a step) ------------------
+    # -- path 7: training (NeRFTrainer: K4 + K5 twice a step) ------------------
     train_hw = (200, 200)
     ds = make_procedural_dataset(n_views=8, img_wh=train_hw)
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     # TrainConfig's defaults but the seed: the density head is ReLU'd, and from
     # the default seed the fine network starts with a density of 0 on every
     # sample, where no gradient reaches it (the train_default_seed phase
-    # records that run); from TRAIN_SEED both networks start alive
+    # records that run). About half of all seeds start a network so, in the
+    # JAX package too (its own default seed starts with a dead coarse
+    # network; tests/test_torch_train.py); from TRAIN_SEED both start alive
     tcfg = white(default_config())
     tcfg = dataclasses.replace(tcfg, checkpoint_dir=ckpt_dir,
                                train=dataclasses.replace(tcfg.train, seed=TRAIN_SEED))
@@ -957,7 +1366,8 @@ def main():
     os.rmdir(ckpt_dir)
     del resumed
 
-    # -- train_default_seed: the same steps from TrainConfig's own seed --------
+    # -- train_default_seed: the same steps from TrainConfig's own seed, a record
+    #    of the reference's own behaviour at a dead start (not a fault of the port)
     def density_alive(t):
         """Share of 2,048 rays x 64 uniform depths of training view 0 on
         which each network's ReLU'd density is positive (bf16 apply_nerf)."""
@@ -1071,6 +1481,54 @@ def main():
                                      **({"library_ms": c["library_ms"]} if "library_ms" in c
                                         else {})}
         kernels.append(row)
+    # the kernels and routes of the compressed slice, at the 16,384-ray chunk
+    # (times: kernel_times_quant; launches: the path named)
+    rs = "nerf_tpu_torch/csrc/render_samples.cu"
+    quant_summary = (
+        ("mlp_quant", "nerf_tpu_torch/csrc/mlp_quant.cu", "nerf_tpu/ops/quant.py:420",
+         "compressed_frames_uniform_hierarchical", "mlp_quant", quant_err["mlp_quant"],
+         f"mlp_quant int8 x{N_FINE}", f"{CHUNK} x {N_FINE} samples, int8 weights dequantized "
+         "in the kernel, bf16 compute"),
+        ("int8_mm", "nerf_tpu_torch/csrc/mlp_body.cuh", "nerf_tpu/ops/quant.py:339",
+         "int8_frames_hierarchical", "int8", quant_err["int8"], "render_samples int8_compute",
+         f"the s8 x s8 -> s32 trunk inside K1 at {CHUNK} rays x {SPP} samples (also in K3, K7)"),
+        ("render_samples_int8_weights", rs, "nerf_tpu/ops/render_kernel.py:50",
+         "compressed_frames_hierarchical", "render_samples", quant_err["ray_dequant"],
+         "render_samples int8", f"{CHUNK} rays x {SPP} samples, int8 weights dequantized in "
+         "the kernel"),
+        ("render_zvals_int8_weights", rs, "nerf_tpu/ops/render_kernel.py:50",
+         "compressed_frames_hierarchical", "render_zvals", quant_err["ray_dequant"],
+         "render_zvals int8", f"{CHUNK} rays x {S3} per-ray depths, int8 weights dequantized "
+         "in the kernel"),
+        ("render_samples_int16_weights", rs, "nerf_tpu/ops/render_kernel.py:50",
+         "compressed16_benchmark", "dequant", quant_err["ray_dequant"], "render_samples int16",
+         f"{CHUNK} rays x {SPP} samples, int16 weights dequantized in the kernel"),
+        ("render_planar", rs, "nerf_tpu/ops/render_kernel.py:74", "planar_hierarchical",
+         "planar", quant_err["planar"], "render_zvals planar",
+         f"{CHUNK} rays x {S3} per-ray depths, four [R, S] planes out (K1 too)"),
+        ("render_raw_bf16", rs, "nerf_tpu/ops/render_kernel.py:402", "raw_bf16_hierarchical",
+         "raw_bf16", quant_err["raw_bf16"], "render_zvals raw_bf16",
+         f"{CHUNK} rays x {S3} per-ray depths, bf16 raw out (K1 too)"),
+        ("composite_raw_bf16", "nerf_tpu_torch/csrc/composite.cu",
+         "nerf_tpu/ops/composite_kernel.py:108", "raw_bf16_hierarchical", "composite_bf16",
+         quant_err["raw_bf16"], "composite raw_bf16 x192",
+         f"{CHUNK} rays x {S3} samples, bf16 raw in, f32 compute"),
+    )
+    for name, source, replaces, path, counter, err, key, shape in quant_summary:
+        t = quant_times[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "status": "ported", "launches": paths[path][counter], "launches_path": path,
+            "launches_by_path": {p: c[counter] for p, c in paths.items()},
+            "max_abs_err": err,
+            "ms": t["device_ms"] if t["device_ms"] is not None else t["call_ms"],
+            "ms_from": "profiler" if t["device_ms"] is not None else "events",
+            "call_ms": t["call_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": None, "library_note": f"{no_library} ({mlp})"
+            if "composite" not in name else f"{no_library} (the transmittance scan)",
+            "shape": shape, "times_key": key})
+    for row in kernels:
+        require(row["launches"] > 0, f"{row['name']} was launched no time on {row['launches_path']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

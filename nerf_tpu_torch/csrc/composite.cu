@@ -4,7 +4,8 @@
 // Replaces the Pallas TPU kernels of nerf_tpu/ops/composite_kernel.py:
 // - composite_kernel: `_composite_kernel_interleaved` (reached through
 //   `fused_volume_render_interleaved`), raw [N, 4S] = (sigma, r, g, b) per
-//   sample;
+//   sample, in fp32 or (the ray kernels' bf16 raw output) bf16, widened to
+//   fp32 as it is read: every operation is fp32;
 // - composite_planar_kernel: `_composite_kernel` (`_pallas_composite`,
 //   reached through `fused_volume_render`), sigma [N, S] and rgb as
 //   [N, S, 3] or as three [N, S] planes.
@@ -20,14 +21,15 @@
 //
 // Design: one warp per ray, one device function for both layouts. Lanes walk
 // the samples 32 at a time. Interleaved: each lane reads its sample's
-// (sigma, r, g, b) as one 16-byte load, so a warp reads 512 contiguous
-// bytes. Planar: four 4-byte loads a lane from strided [N, S] views
+// (sigma, r, g, b) as one 16-byte load (8 bytes for bf16), so a warp reads
+// 512 (256) contiguous bytes. Planar: four 4-byte loads a lane from strided [N, S] views
 // (contiguous across the warp for separate planes). The prefix sum runs across
 // the warp with __shfl_up_sync and a carried offset between chunks (the TPU
 // kernels used a triangular matmul); the five sums are warp-shuffle
 // reductions. z may be a broadcast view: its row stride is an argument (0
 // for one shared row of depths).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,15 +95,27 @@ __device__ __forceinline__ void composite_ray(Load load, const float* __restrict
   }
 }
 
+// RAW: float (16 bytes a sample) or __nv_bfloat16 (8 bytes).
+template <typename RAW>
 __global__ void __launch_bounds__(THREADS) composite_kernel(
-    const float* __restrict__ raw, const float* __restrict__ z, long long z_stride,
+    const RAW* __restrict__ raw, const float* __restrict__ z, long long z_stride,
     const float* __restrict__ rays_d, int n_rays, int S, float sentinel, float eps,
     float* __restrict__ out, float* __restrict__ w) {
   const long long r = ((long long)blockIdx.x * THREADS + threadIdx.x) >> 5;
   if (r >= n_rays) return;  // uniform across the warp
-  const float4* row = reinterpret_cast<const float4*>(raw + r * 4 * S);
-  composite_ray([row](int s) { return row[s]; }, z + r * z_stride, rays_d + r * 3, S, sentinel,
-                eps, out + r * 8, w + r * S);
+  const RAW* row = raw + r * 4 * S;
+  composite_ray(
+      [row](int s) {
+        if constexpr (sizeof(RAW) == 4) {
+          return reinterpret_cast<const float4*>(row)[s];
+        } else {
+          const uint2 u = reinterpret_cast<const uint2*>(row)[s];
+          const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
+          return make_float4(__bfloat162float(h[0]), __bfloat162float(h[1]),
+                             __bfloat162float(h[2]), __bfloat162float(h[3]));
+        }
+      },
+      z + r * z_stride, rays_d + r * 3, S, sentinel, eps, out + r * 8, w + r * S);
 }
 
 // sigma and the color planes cr, cg, cb are [N, S] views given by a row
@@ -134,13 +148,21 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-int composite(const float* raw, const float* z, long long z_stride, const float* rays_d,
-              int n_rays, int n_samples, float sentinel, float eps, float* out, float* w,
-              void* stream) {
+// raw_bf16: raw holds bf16 values, else fp32
+int composite(const void* raw, int raw_bf16, const float* z, long long z_stride,
+              const float* rays_d, int n_rays, int n_samples, float sentinel, float eps,
+              float* out, float* w, void* stream) {
   if (n_samples < 1) return int(cudaErrorInvalidValue);
   const long long blocks = ((long long)n_rays * 32 + THREADS - 1) / THREADS;
-  composite_kernel<<<unsigned(blocks), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      raw, z, z_stride, rays_d, n_rays, n_samples, sentinel, eps, out, w);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (raw_bf16)
+    composite_kernel<<<unsigned(blocks), THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(raw), z, z_stride, rays_d, n_rays, n_samples,
+        sentinel, eps, out, w);
+  else
+    composite_kernel<<<unsigned(blocks), THREADS, 0, s>>>(
+        static_cast<const float*>(raw), z, z_stride, rays_d, n_rays, n_samples, sentinel, eps,
+        out, w);
   return int(cudaGetLastError());
 }
 

@@ -235,6 +235,8 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_backward_kernel(const Params p
 
   const int tid = threadIdx.x;
   const Net& net = p.net;
+  const bf16* wt = static_cast<const bf16*>(net.wt);    // this kernel takes bf16 weights only
+  const bf16* wc1 = static_cast<const bf16*>(net.wc1);
   const size_t blk = blockIdx.x;
   bf16* hs = p.hs + blk * HS_ELEMS;
   Grads g;
@@ -316,7 +318,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_backward_kernel(const Params p
       if (__bfloat162float(act[row * LDA + k]) > 0.f) {
 #pragma unroll
         for (int ch = 0; ch < 3; ++ch)
-          v = fmaf(dz1[row * 4 + ch], __bfloat162float(net.wc1[k * 3 + ch]), v);
+          v = fmaf(dz1[row * 4 + ch], __bfloat162float(wc1[k * 3 + ch]), v);
       }
       act[row * LDA + k] = __float2bfloat16_rn(v);
     }
@@ -339,8 +341,8 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_backward_kernel(const Params p
     }
     Acc acc[2][4];
     zero<HID>(acc);
-    gemm_acc_t(acc, act, LDA, CH, net.wc0, CH, wbuf);
-    epilogue_mask(acc, act, h7, dsp, net.wsig, stage);
+    gemm_acc_t(acc, act, LDA, CH, static_cast<const bf16*>(net.wc0), CH, wbuf);
+    epilogue_mask(acc, act, h7, dsp, static_cast<const bf16*>(net.wsig), stage);
     __syncthreads();
 
     // -- trunk layers 7..1, then layer 0 -------------------------------------
@@ -350,7 +352,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_backward_kernel(const Params p
       bias_grad(g.bt + (i - 1) * HID, act, HID);
       if (i == net.skip_pos) wgrad<1, 4>(g.wskip, enc, LDE, KPOS, act, LDA, HID);
       zero<HID>(acc);
-      gemm_acc_t(acc, act, LDA, HID, net.wt + size_t(i - 1) * HID * HID, HID, wbuf);
+      gemm_acc_t(acc, act, LDA, HID, wt + size_t(i - 1) * HID * HID, HID, wbuf);
       epilogue_mask(acc, act, h_in, nullptr, nullptr, stage);
       __syncthreads();
     }
@@ -379,7 +381,8 @@ int mlp_backward(const float* pos, const float* dirs, const float* dsig, const f
                  int bmild, int relu_sigma, int normalize_dirs, float band_scale, void* hs,
                  float* const* grads, int blocks, void* stream) {
   Params p;
-  p.net = make_net(weights, Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs, band_scale);
+  p.net = make_net(weights, nullptr, Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs,
+                   band_scale);
   p.pos = pos;
   p.dirs = dirs;
   p.dsig = dsig;

@@ -43,14 +43,34 @@
 // segmented roll scan and one-hot reduction matmul), continuing from the
 // ray's carried log-transmittance and five sums, kept in shared memory in
 // exact fp32 between tiles. sigma and rgb never leave shared memory.
+//
+// Raw output forms (the TPU kernels' `raw_dtype` and `_write_planar`): the
+// interleaved (sigma, r, g, b) per sample in fp32 or rounded to bf16, or
+// four fp32 planes [R, S]. A row's flat index n = ray * S + s is also its
+// index in a plane, so the planar form is four coalesced stores a thread of
+// the same values: the TPU kernel's one-hot scatter product has no
+// counterpart.
+//
+// Weight routes: this source is built once per route of the shared body
+// (-DNERF_WQ=0..3, see mlp_body.cuh): bf16 weights; int8 or int16 weights
+// dequantized as they are staged (the TPU kernels' `_weights_for` ->
+// `quant_w_dict`); int8 compute (`int8_w_dict` + `_int8_mm`). The per-ray
+// direction term is computed from the dequantized wdir.
 
 #include "mlp_body.cuh"
 
+#ifndef NERF_WQ
+#define NERF_WQ 0
+#endif
+
 namespace {
 
+constexpr int WQ = NERF_WQ;
+constexpr int HQ = head_route(WQ);
 constexpr size_t FIXED_BYTES = ACT_BYTES + ENC_BYTES + WBUF_BYTES + STAGE_BYTES +
-                               M * sizeof(float) + M * sizeof(int) + M * 3 * sizeof(float) +
-                               M * sizeof(float);
+                               qtile_bytes(WQ) + M * sizeof(float) + M * sizeof(int) +
+                               M * 3 * sizeof(float) + M * sizeof(float);
+constexpr int OUT_F32 = 0, OUT_BF16 = 1, OUT_PLANAR = 2;   // raw output forms
 constexpr int STATE = 6;        // per ray: log-transmittance carry, r, g, b, depth, acc
 
 struct Params {
@@ -59,10 +79,10 @@ struct Params {
   const float* rays_d;
   const float* z;        // per-ray depths (ray_z kernels), row stride z_stride
   long long z_stride;
-  float* out;            // raw [R * S, 4], or composited [R, 8]
+  void* out;             // raw [R * S, 4] (fp32 or bf16) or [4, R * S], or composited [R, 8]
   float* w;              // composited weights [R, S], or null
   long long total;       // n_rays * S
-  int n_rays, S, nr_max, rb;
+  int n_rays, S, nr_max, rb, out_mode;
   float near, span, dz, sentinel, eps;
 };
 
@@ -79,6 +99,7 @@ struct Tile {
   float* cdir;   // [nr_max, CH] direction term per ray of the tile
   float* denc;   // [nr_max, KDIR]
   float* state;  // [rb, STATE] composited modes: per-ray running state
+  QTile q;       // the int8-compute route's s8 tiles
 };
 
 __device__ __forceinline__ Tile carve(unsigned char* smem, const Params& p) {
@@ -86,8 +107,11 @@ __device__ __forceinline__ Tile carve(unsigned char* smem, const Params& p) {
   t.act = reinterpret_cast<bf16*>(smem);
   t.enc = reinterpret_cast<bf16*>(smem + ACT_BYTES);
   t.wbuf = reinterpret_cast<bf16*>(smem + ACT_BYTES + ENC_BYTES);
-  t.stage = reinterpret_cast<float*>(smem + ACT_BYTES + ENC_BYTES + WBUF_BYTES);
-  t.sig = t.stage + WARPS * 256;
+  unsigned char* rest = smem + ACT_BYTES + ENC_BYTES + WBUF_BYTES;
+  t.stage = reinterpret_cast<float*>(rest);
+  t.q = QTile();
+  if (WQ == WQ_INT8_COMPUTE) t.q = carve_qtile(rest + STAGE_BYTES);
+  t.sig = reinterpret_cast<float*>(rest + STAGE_BYTES + qtile_bytes(WQ));
   t.slot = reinterpret_cast<int*>(t.sig + M);
   t.pos = reinterpret_cast<float*>(t.slot + M);
   t.zrow = t.pos + M * 3;
@@ -149,17 +173,18 @@ __device__ void eval_tile(const Params& p, const Tile& t, long long n0, long lon
     float acc = 0.f;
 #pragma unroll 8
     for (int k = 0; k < KDIR; ++k)
-      acc = fmaf(t.denc[sl * KDIR + k], __bfloat162float(net.wdir[k * CH + col]), acc);
+      acc = fmaf(t.denc[sl * KDIR + k], weight_at<HQ>(net.wdir, net.wdir_s, k * CH + col, col), acc);
     t.cdir[e] = acc;
   }
   __syncthreads();
 
   // 3. the MLP: trunk, density, color layer with the per-ray direction term, rgb
-  mlp_tile<false, false>(net, t.act, t.enc, t.wbuf, t.stage, t.sig, t.cdir, t.slot, nullptr,
-                         nullptr);
+  mlp_tile<false, false, WQ>(net, t.act, t.enc, t.wbuf, t.stage, t.sig, t.cdir, t.slot, nullptr,
+                             nullptr, t.q);
 }
 
-// Raw modes: one 128-row tile per block, out row = (sigma, r, g, b).
+// Raw modes: one 128-row tile per block, out row = (sigma, r, g, b) in fp32
+// or bf16, or one element of each of the four planes.
 template <bool ZIN>
 __device__ void raw_body(const Params& p, unsigned char* smem) {
   const Tile t = carve(smem, p);
@@ -167,8 +192,20 @@ __device__ void raw_body(const Params& p, unsigned char* smem) {
   const long long n0 = (long long)blockIdx.x * M;
   eval_tile<ZIN>(p, t, n0, p.total);
   if (tid < M && n0 + tid < p.total) {
+    const long long n = n0 + tid;
     const float* res = t.stage + tid * 4;
-    reinterpret_cast<float4*>(p.out)[n0 + tid] = make_float4(t.sig[tid], res[1], res[2], res[3]);
+    const float v[4] = {t.sig[tid], res[1], res[2], res[3]};
+    if (p.out_mode == OUT_F32) {
+      static_cast<float4*>(p.out)[n] = make_float4(v[0], v[1], v[2], v[3]);
+    } else if (p.out_mode == OUT_BF16) {
+      __align__(8) bf16 h[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) h[c] = __float2bfloat16_rn(v[c]);
+      static_cast<uint2*>(p.out)[n] = *reinterpret_cast<const uint2*>(h);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) static_cast<float*>(p.out)[c * p.total + n] = v[c];
+    }
   }
 }
 
@@ -266,7 +303,7 @@ __device__ void composite_body(const Params& p, unsigned char* smem) {
   }
   for (int e = tid; e < nrb * 8; e += THREADS) {
     const int rl = e >> 3, k = e & 7;
-    p.out[(r_first + rl) * 8 + k] = k < 5 ? t.state[rl * STATE + 1 + k] : 0.f;
+    static_cast<float*>(p.out)[(r_first + rl) * 8 + k] = k < 5 ? t.state[rl * STATE + 1 + k] : 0.f;
   }
 }
 
@@ -307,11 +344,13 @@ const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaEr
 
 int ray_render(const float* rays_o, const float* rays_d, const float* z, long long z_stride,
                int n_rays, int n_samples, float near, float span, const void* const* weights,
-               int Lp, int Ld, int skip_pos, int bmild, int relu_sigma, int normalize_dirs,
-               float band_scale, int composited, float dz, float sentinel, float eps, float* out,
-               float* w, void* stream) {
+               const void* const* scales, int Lp, int Ld, int skip_pos, int bmild,
+               int relu_sigma, int normalize_dirs, float band_scale, int composited,
+               int out_mode, float dz, float sentinel, float eps, void* out, float* w,
+               void* stream) {
   Params p;
-  p.net = make_net(weights, Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs, band_scale);
+  p.net = make_net(weights, scales, Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs,
+                   band_scale);
   p.rays_o = rays_o;
   p.rays_d = rays_d;
   p.z = z;
@@ -323,12 +362,14 @@ int ray_render(const float* rays_o, const float* rays_d, const float* z, long lo
   p.S = n_samples;
   p.nr_max = (M - 1) / n_samples + 2;
   p.rb = composited ? M / gcd(n_samples, M) : 0;
+  p.out_mode = out_mode;
   p.near = near;
   p.span = span;
   p.dz = dz;
   p.sentinel = sentinel;
   p.eps = eps;
-  if (n_samples < (z ? 1 : 2) || !net_fits(p.net))
+  if (n_samples < (z ? 1 : 2) || !net_fits(p.net) || !net_has_scales(p.net, WQ) ||
+      out_mode < OUT_F32 || out_mode > OUT_PLANAR || (composited && out_mode != OUT_F32))
     return int(cudaErrorInvalidValue);
   void (*kernel)(const Params) = z ? (composited ? ray_z_composite_kernel : ray_z_kernel)
                                    : (composited ? ray_composite_kernel : ray_kernel);

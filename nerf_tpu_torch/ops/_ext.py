@@ -3,11 +3,13 @@
 Each ``nerf_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface and loaded
 with ``ctypes``. No PyTorch headers are included, so a source builds in
-seconds. The libraries go to ``build/nerf_tpu_torch/`` beside the package,
-named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
-``build`` starts one ``nvcc`` per missing library, all at once, and waits
-for every one of them.
+seconds. ``VARIANTS`` are further libraries built from one of the sources
+with a preprocessor definition: the ray kernels once per weight route of
+the shared MLP body. The libraries go to ``build/nerf_tpu_torch/`` beside
+the package, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused. ``build`` starts one ``nvcc`` per missing library,
+all at once, and waits for every one of them.
 
 Calling convention of every C entry point: pointers and the CUDA stream are
 ``void*`` (``ctypes.c_void_p``; a bare Python int would be cut to 32 bits),
@@ -32,7 +34,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_tpu_torch"
-SOURCES = ("render_samples", "composite", "mlp_forward", "mlp_backward")
+SOURCES = ("render_samples", "composite", "mlp_forward", "mlp_backward", "mlp_quant")
+# library -> (source, definition): the ray kernels on int8 and int16 weights
+# dequantized in the kernel, and on the int8-compute route
+VARIANTS = {
+    "render_samples_q8": ("render_samples", "-DNERF_WQ=1"),
+    "render_samples_q16": ("render_samples", "-DNERF_WQ=2"),
+    "render_samples_i8": ("render_samples", "-DNERF_WQ=3"),
+}
+LIBRARIES = SOURCES + tuple(VARIANTS)
 # no --use_fast_math: the positional encoding takes sinf/cosf of phases up
 # to 2^9 * pi * |x| (thousands of radians), which the fast intrinsics'
 # range reduction cannot hold
@@ -51,16 +61,22 @@ def _nvcc() -> str:
     return path
 
 
+def _source_and_flags(name: str):
+    source, define = VARIANTS.get(name, (name, None))
+    return CSRC / f"{source}.cu", NVCC_FLAGS + ((define,) if define else ())
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    source, flags = _source_and_flags(name)
+    digest = hashlib.sha256(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> float:
-    """Compile every named source whose library is missing, in parallel.
+def build(names: Iterable[str] = LIBRARIES) -> float:
+    """Compile every named library whose file is missing, in parallel.
     Returns the seconds spent. The compiler's report (``-Xptxas -v``:
     registers, shared memory, spills per kernel) is kept in
     ``build/nerf_tpu_torch/<name>.log``."""
@@ -74,7 +90,8 @@ def build(names: Iterable[str] = SOURCES) -> float:
     for name in todo:
         so = library_path(name)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        source, flags = _source_and_flags(name)
+        cmd = [nvcc, *flags, "-o", str(tmp), str(source)]
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
@@ -82,7 +99,7 @@ def build(names: Iterable[str] = SOURCES) -> float:
         log, _ = proc.communicate()
         (BUILD_DIR / f"{name}.log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"{name}.cu:\n{log}")
+            failed.append(f"{name}:\n{log}")
         else:
             os.replace(tmp, so)
     if failed:
@@ -96,7 +113,7 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The bound library for ``csrc/<name>.cu``, built at first use."""
+    """The bound library ``name`` (a source or a variant), built at first use."""
     if name not in _libs:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))

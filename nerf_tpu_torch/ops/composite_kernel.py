@@ -5,7 +5,8 @@ Counterparts of ``nerf_tpu/ops/composite_kernel.py``:
 
 - ``fused_volume_render_interleaved`` (the Pallas kernel
   ``_composite_kernel_interleaved``) takes ``raw [N, 4S]``, per sample
-  ``(sigma, r, g, b)``;
+  ``(sigma, r, g, b)``, in float32 or bfloat16 (the ray kernels'
+  ``raw_dtype``), and computes in float32 either way;
 - ``fused_volume_render`` (``_composite_kernel``, ``_pallas_composite``) is
   the drop-in for ``volume_render``: ``sigma [N, S]`` and ``rgb`` as
   ``[N, S, 3]`` or a tuple of three ``[N, S]`` planes. Its gradient, as in
@@ -23,7 +24,8 @@ most ``eps`` per factor (1e-10), far below float32 resolution at any
 transmittance that contributes.
 
 On CUDA tensors the wrappers launch ``csrc/composite.cu`` and count the
-launch (``launches`` for K2, ``planar_launches`` for K6); on CPU tensors
+launch (``launches`` for K2, of which ``bf16_launches`` read a bfloat16
+``raw``; ``planar_launches`` for K6); on CPU tensors
 both run ``fused_volume_render_interleaved_plain`` (the planar wrapper
 stacks its input for it).
 """
@@ -41,6 +43,7 @@ from nerf_tpu_torch.utils.rendering import RenderOutputs, volume_render
 
 # Launches of the CUDA kernels (not of the plain version).
 launches = 0          # K2, interleaved
+bf16_launches = 0     # those of K2's launches that read a bfloat16 raw
 planar_launches = 0   # K6, planar
 
 
@@ -70,17 +73,19 @@ def fused_volume_render_interleaved_plain(
     return out, w
 
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _launch(raw, z_vals, rays_d, sentinel, eps):
-    global launches
+    global launches, bf16_launches
     n, s4 = raw.shape
     s = s4 // 4
     dev = raw.device
-    for name, t in (("raw", raw), ("z_vals", z_vals), ("rays_d", rays_d)):
+    if raw.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"raw must be float32 or bfloat16, got {raw.dtype}")
+    for name, t in (("z_vals", z_vals), ("rays_d", rays_d)):
         if t.dtype != torch.float32 or t.device != dev:
             raise ValueError(f"{name} must be float32 on {dev}")
     if (not raw.is_contiguous() or z_vals.shape != (n, s) or z_vals.stride(1) != 1
@@ -96,11 +101,13 @@ def _launch(raw, z_vals, rays_d, sentinel, eps):
     fn = lib.composite
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(_ext.ptr(raw), _ext.ptr(z_vals), z_vals.stride(0), _ext.ptr(rays_d),
+    raw_bf16 = raw.dtype == torch.bfloat16
+    err = fn(_ext.ptr(raw), int(raw_bf16), _ext.ptr(z_vals), z_vals.stride(0), _ext.ptr(rays_d),
              n, s, float(sentinel), float(eps), _ext.ptr(out), _ext.ptr(w),
              _ext.stream_ptr(dev))
     _ext.check(lib, err, "composite launch")
     launches += 1
+    bf16_launches += int(raw_bf16)
     return out, w
 
 
@@ -114,7 +121,7 @@ def _outputs(out: torch.Tensor, w: torch.Tensor, cfg: RenderConfig) -> RenderOut
 
 
 def fused_volume_render_interleaved(
-    raw: torch.Tensor,        # [N, 4S] interleaved (sigma, r, g, b)
+    raw: torch.Tensor,        # [N, 4S] interleaved (sigma, r, g, b), float32 or bfloat16
     z_vals: torch.Tensor,     # [N, S]
     rays_d: torch.Tensor,     # [N, 3]
     cfg: RenderConfig = RenderConfig(),

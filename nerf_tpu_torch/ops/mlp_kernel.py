@@ -37,7 +37,7 @@ as the TPU kernels do.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -164,27 +164,36 @@ def _pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
 
 def fused_nerf_apply_plain(packed: PackedWeights, positions: torch.Tensor,
                            directions: torch.Tensor, cfg: ModelConfig,
-                           keep: Optional[dict] = None) -> torch.Tensor:
+                           keep: Optional[dict] = None,
+                           trunk_mm: Optional[Callable] = None) -> torch.Tensor:
     """Plain-PyTorch version of the kernel: positions, directions ``[N, 3]``
     -> ``[N, 4]`` per sample ``(sigma, r, g, b)``. The compute dtype is that
     of the packed matrices: each product takes inputs rounded to it and
     accumulates in float32; the float32 bias is added before the next
     rounding; direction normalization is ``d * rsqrt(|d|^2 + 1e-12)``.
-    ``keep`` (a dict) receives the intermediates the backward needs."""
+    ``keep`` (a dict) receives the intermediates the backward needs.
+    ``trunk_mm(a, name, i)`` replaces the trunk's products (``name`` one of
+    ``w0``, ``wt`` with layer ``i``, ``wskip``): the int8-compute route of
+    ``ops/quant.py``."""
     disable_tf32()
     dt = packed.w0.dtype
 
     def mm(a, w):
         return a.to(dt).float() @ w.float()
 
+    if trunk_mm is None:
+        def trunk_mm(a, name, i=None):
+            w = getattr(packed, name)
+            return mm(a, w if i is None else w[i])
+
     enc = _pad_cols(positional_encoding(positions.float(), cfg.pos_freqs, cfg.posenc_pi),
                     POS_ROWS).to(dt)
-    hs = [torch.relu(mm(enc, packed.w0) + packed.b0).to(dt)]
+    hs = [torch.relu(trunk_mm(enc, "w0") + packed.b0).to(dt)]
     skip_pos = skip_position(cfg)
     for i in range(1, 8):
-        y = mm(hs[-1], packed.wt[i - 1])
+        y = trunk_mm(hs[-1], "wt", i - 1)
         if i == skip_pos:
-            y = y + mm(enc, packed.wskip)
+            y = y + trunk_mm(enc, "wskip")
         hs.append(torch.relu(y + packed.bt[i - 1]).to(dt))
     h = hs[-1]
 

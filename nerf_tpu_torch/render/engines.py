@@ -18,12 +18,22 @@ at the merged, sorted ``n_coarse + n_fine`` depths):
   PyTorch. The hierarchical mode with ``use_importance=False`` (a uniform
   fine pass) goes through ``render_rays`` with the per-sample MLP kernel
   (``ops/mlp_kernel.fused_nerf_apply``, K4) and the planar compositor
-  (``fused_volume_render``, K6). On the CPU (tests) the kernels run their
-  plain versions; on the card they launch the CUDA kernels.
+  (``fused_volume_render``, K6). ``raw_dtype="bfloat16"`` stores the
+  interleaved intermediate in bfloat16; ``planar=True`` has the ray kernels
+  write four ``[R, S]`` planes for the planar compositor instead. On the CPU
+  (tests) the kernels run their plain versions; on the card they launch the
+  CUDA kernels;
+- ``compressed`` (``CompressedEngine``): the cuda engine's paths on pruned,
+  int8- or int16-quantized weights (``ops/quant.quantize_model``), which the
+  ray kernels dequantize on chip; its per-sample ``apply_fn`` is the
+  dequantize-in-kernel MLP (``quantized_nerf_apply``, K7);
+- ``int8`` (``Int8ComputeEngine``): the compressed engine with ``act_bits=8``:
+  the trunk's products run as s8 x s8 -> s32 on the tensor cores (K8).
 
+``ENGINE_CLASSES`` and ``available_engines`` are the registry of these four.
 A frame is cut into chunks of ``chunk_rays`` rays; the last chunk is padded
 with rays of zero origin and unit direction so every chunk has one shape.
-The compressed, int8 and accel engines arrive with later slices.
+The accel engine (sample placement from an occupancy grid) is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ from __future__ import annotations
 import os
 import warnings
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,11 +60,13 @@ from nerf_tpu_torch.ops.composite_kernel import (
     fused_volume_render_interleaved,
 )
 from nerf_tpu_torch.ops.mlp_kernel import make_cuda_apply_fn, pack_params
+from nerf_tpu_torch.ops.quant import make_quantized_apply_fn, quantize_model
 from nerf_tpu_torch.ops.render_kernel import (
     composited_to_outputs,
     fused_render_samples,
     fused_render_samples_composited,
     fused_render_zvals_composited,
+    fused_render_zvals_planar,
     fused_render_zvals_raw,
 )
 from nerf_tpu_torch.render.pipeline import render_rays
@@ -217,15 +229,21 @@ class CudaEngine(Engine):
     ``fuse_composite``. Hierarchical mode: K1 (coarse) -> K2 (weights) ->
     ``sample_pdf`` -> sort -> K3 (fine) -> K2, or with ``fuse_composite``
     K1 composited with weights -> ``sample_pdf`` -> sort -> K3 composited.
-    Hierarchical mode with ``use_importance=False``: ``render_rays`` on
-    uniform coarse and fine depths with K4 and K6."""
+    ``raw_dtype="bfloat16"``: K1 and K3 store the interleaved intermediate in
+    bfloat16 and K2 reads it. ``planar=True`` (which switches
+    ``fuse_composite`` off, as in the JAX package): K1 and K3 write planes,
+    composited by K6. Hierarchical mode with ``use_importance=False``:
+    ``render_rays`` on uniform coarse and fine depths with K4 and K6."""
 
     name = "cuda"
 
     def __init__(self, shared: Optional[SharedModel] = None, chunk_rays: int = 16384,
-                 fuse_composite: bool = False):
+                 fuse_composite: bool = False, planar: bool = False,
+                 raw_dtype: str = "float32"):
         super().__init__(shared, chunk_rays)
-        self.fuse_composite = fuse_composite
+        self.planar = planar
+        self.fuse_composite = fuse_composite and not planar
+        self.raw_dtype = torch_dtype(raw_dtype)
         self._packed = None
         self._apply = make_cuda_apply_fn(self.compute_dtype)   # K4, on packed weights
 
@@ -242,15 +260,20 @@ class CudaEngine(Engine):
 
     def _uniform(self, packed, ro, rd, spp, rcfg, with_weights):
         """One network at uniform depths: ``(RenderOutputs, z)``."""
-        mcfg = self.cfg.model
+        mcfg, dt = self.cfg.model, self.compute_dtype
         if self.fuse_composite:
             res = fused_render_samples_composited(
-                packed, ro, rd, rcfg.near, rcfg.far, spp, mcfg, with_weights=with_weights,
-                sentinel=rcfg.dist_sentinel, eps=rcfg.transmittance_eps)
+                packed, ro, rd, rcfg.near, rcfg.far, spp, mcfg, dtype=dt,
+                with_weights=with_weights, sentinel=rcfg.dist_sentinel,
+                eps=rcfg.transmittance_eps)
             out8, w, z = res if with_weights else (res[0], None, res[1])
             return composited_to_outputs(out8, w, rcfg), z
+        if self.planar:
+            sigma, planes, z = fused_render_samples(packed, ro, rd, rcfg.near, rcfg.far, spp,
+                                                    mcfg, dtype=dt, planar=True)
+            return fused_volume_render(sigma, planes, z, rd, rcfg), z
         raw, z = fused_render_samples(packed, ro, rd, rcfg.near, rcfg.far, spp, mcfg,
-                                      raw=True)
+                                      raw=True, dtype=dt, raw_dtype=self.raw_dtype)
         return fused_volume_render_interleaved(raw, z, rd, rcfg), z
 
     def render_chunk(self, packed, ro, rd, spp, rcfg, mode):
@@ -264,13 +287,86 @@ class CudaEngine(Engine):
         out_c, z_c = self._uniform(packed["coarse"], ro, rd, rcfg.n_coarse, rcfg, True)
         z_new = sample_pdf(z_c, out_c.weights, rcfg.n_fine, deterministic=True)
         z_f = torch.sort(torch.cat([z_c, z_new], dim=-1), dim=-1).values
-        mcfg = self.cfg.model
+        mcfg, dt = self.cfg.model, self.compute_dtype
         if self.fuse_composite:
             out8 = fused_render_zvals_composited(
-                packed["fine"], ro, rd, z_f, mcfg, sentinel=rcfg.dist_sentinel,
+                packed["fine"], ro, rd, z_f, mcfg, dtype=dt, sentinel=rcfg.dist_sentinel,
                 eps=rcfg.transmittance_eps)
             out = composited_to_outputs(out8, None, rcfg)
+        elif self.planar:
+            sigma, planes = fused_render_zvals_planar(packed["fine"], ro, rd, z_f, mcfg, dtype=dt)
+            out = fused_volume_render(sigma, planes, z_f, rd, rcfg)
         else:
-            raw = fused_render_zvals_raw(packed["fine"], ro, rd, z_f, mcfg)
+            raw = fused_render_zvals_raw(packed["fine"], ro, rd, z_f, mcfg, dtype=dt,
+                                         raw_dtype=self.raw_dtype)
             out = fused_volume_render_interleaved(raw, z_f, rd, rcfg)
         return out.rgb, out.depth
+
+
+class CompressedEngine(CudaEngine):
+    """The cuda engine on pruned, intN-quantized weights. The ray kernels
+    take the quantized weights as they are and dequantize them on chip
+    (int8 weights are a quarter, int16 half of float32's bytes); the
+    per-sample path (``use_importance=False``) runs ``quantized_nerf_apply``
+    (K7)."""
+
+    name = "compressed"
+
+    def __init__(self, shared: Optional[SharedModel] = None, chunk_rays: int = 16384,
+                 bits: int = 8, prune_fraction: float = 0.1,
+                 act_bits: Optional[int] = None, pos_bound: float = 12.0, **kw):
+        super().__init__(shared, chunk_rays, **kw)
+        self.bits = bits
+        self.prune_fraction = prune_fraction
+        self.act_bits = act_bits
+        self.pos_bound = pos_bound
+        self._qparams = None
+        self._stats: Optional[Dict[str, Any]] = None
+        self._apply = make_quantized_apply_fn(self.compute_dtype)   # K7
+
+    def engine_params(self):
+        """Both networks quantized once, lazily, from the float32 params
+        (pruned, packed in float32, then quantized)."""
+        if self._qparams is None:
+            self._qparams, self._stats = quantize_model(
+                Engine.engine_params(self), self.cfg.model, bits=self.bits,
+                prune_fraction=self.prune_fraction, act_bits=self.act_bits,
+                pos_bound=self.pos_bound)
+        return self._qparams
+
+    def compression_stats(self) -> Dict[str, Any]:
+        self.engine_params()
+        return self._stats
+
+
+class Int8ComputeEngine(CompressedEngine):
+    """int8 compute: the trunk's products run as s8 x s8 -> s32 tensor-core
+    products with quantized activations; the heads stay in bf16."""
+
+    name = "int8"
+
+    def __init__(self, shared: Optional[SharedModel] = None, chunk_rays: int = 16384, **kw):
+        kw.setdefault("act_bits", 8)
+        super().__init__(shared, chunk_rays, **kw)
+
+
+ENGINE_CLASSES = {
+    "torch": TorchEngine,
+    "cuda": CudaEngine,
+    "compressed": CompressedEngine,
+    "int8": Int8ComputeEngine,
+}
+
+
+def available_engines(shared: SharedModel, names=None) -> Dict[str, Engine]:
+    """The probed registry: an engine whose constructor fails is skipped,
+    with a message, rather than ending the run."""
+    engines = {}
+    for name, cls in ENGINE_CLASSES.items():
+        if names is not None and name not in names:
+            continue
+        try:
+            engines[name] = cls(shared)
+        except Exception as e:
+            print(f"engine {name} unavailable: {e}")
+    return engines

@@ -1,6 +1,8 @@
 """The whole slice: port engines vs the JAX engines on the same trained
-weights and camera, in the benchmark and hierarchical modes and with
-``fuse_composite``, plus weight loading and device selection."""
+weights and camera, in the benchmark and hierarchical modes, with
+``fuse_composite``, the bf16 and planar intermediates, and on quantized
+weights (the compressed and int8-compute engines), plus the registry, weight
+loading and device selection."""
 
 import dataclasses
 import warnings
@@ -13,13 +15,23 @@ import torch
 
 from nerf_tpu.config import default_config as jdefault
 from nerf_tpu.models.nerf import init_nerf_params as jinit, params_to_torch_state_dict
+from nerf_tpu.render import engines as jengines
 from nerf_tpu.render.engines import PallasEngine, SharedModel as JSharedModel, XLAEngine
 from nerf_tpu.utils.cameras import focal_from_angle, spherical_pose
 from nerf_tpu_torch.config import bmild_config, default_config
 from nerf_tpu_torch.models.nerf import params_to_numpy
 from nerf_tpu_torch.ops import mlp_kernel
 from nerf_tpu_torch.ops.composite_kernel import fused_volume_render
-from nerf_tpu_torch.render.engines import CudaEngine, SharedModel, TorchEngine
+from nerf_tpu_torch.ops import quant
+from nerf_tpu_torch.render import engines
+from nerf_tpu_torch.render.engines import (
+    CompressedEngine,
+    CudaEngine,
+    Int8ComputeEngine,
+    SharedModel,
+    TorchEngine,
+    available_engines,
+)
 from nerf_tpu_torch.utils.cameras import generate_rays
 from nerf_tpu_torch.utils.monitor import PerformanceMonitor
 
@@ -268,3 +280,128 @@ def test_monitor_on_cpu():
     mon = PerformanceMonitor("cpu").start()
     stats = mon.stop()
     assert stats.peak_device_mb is None and stats.peak_host_rss_mb > 0
+
+
+# Both packages compute in bf16 on the same quantized weights (bit-equal,
+# tests/test_torch_quant.py), each rounding activations at its own points.
+# Measured on these 16 x 12 frames: compressed 70.3 dB (benchmark) and 79.1
+# dB (hierarchical), int8 60.7 and 71.8 dB between the packages. int8 sits
+# lower: where a bf16 activation rounds the other way the row's int8 scale
+# moves and its 256 roundings are drawn again, so the engines differ there
+# by the route's own quantization noise (~39 dB against float32). Held to
+# >= 55 dB and >= 48 dB. Against the float32 engine: the JAX package's own
+# bars for these engines, 0.15 a pixel (tests/test_engines.py, compressed)
+# and 20 dB.
+QUANT_ENGINE_DB = {"compressed": 55.0, "int8": 48.0}
+
+
+@pytest.mark.parametrize("mode", ["benchmark", "hierarchical"])
+@pytest.mark.parametrize("name", ["compressed", "int8"])
+def test_quantized_engines_match_jax_engines(xla_hier_frame, name, mode):
+    jshared = _trained(JSharedModel(_white(jdefault())))
+    ref = jengines.ENGINE_CLASSES[name](jshared, interpret=True).render_image(
+        POSE, (HW, HH), S, focal=HFOCAL, mode=mode, monitor=False)
+    shared = _trained(SharedModel(_white(default_config()), "cpu"))
+    eng = engines.ENGINE_CLASSES[name](shared)
+    res = eng.render_image(POSE, (HW, HH), S, focal=HFOCAL, mode=mode, monitor=False)
+    assert res.rgb.shape == (HH, HW, 3) and np.isfinite(res.depth).all()
+    db = _psnr(res.rgb, ref.rgb)
+    print(f"{name} {mode}: {db:.1f} dB against the JAX engine")
+    assert db >= QUANT_ENGINE_DB[name]
+    f32 = (xla_hier_frame if mode == "hierarchical" else XLAEngine(
+        _trained(JSharedModel(_white(jdefault(), "float32")))).render_image(
+            POSE, (HW, HH), S, focal=HFOCAL, monitor=False))
+    for frame in (res.rgb, ref.rgb):
+        assert _psnr(frame, f32.rgb) > 20.0
+        if name == "compressed":
+            np.testing.assert_allclose(frame, f32.rgb, atol=0.15)
+    # the stats report: the sizes and the sparsity the JAX engine reports
+    # (its compressed size counts its own wider layout, tests/test_torch_quant.py)
+    stats, jstats = eng.compression_stats(), jengines.ENGINE_CLASSES[name](
+        jshared, interpret=True).compression_stats()
+    assert stats["act_bits"] == jstats["act_bits"] == (8 if name == "int8" else None)
+    for net in ("coarse", "fine"):
+        assert stats["networks"][net]["original_mb"] == jstats["networks"][net]["original_mb"]
+        assert stats["networks"][net]["sparsity"] == pytest.approx(
+            jstats["networks"][net]["sparsity"], abs=1e-12)
+        assert 3.0 < stats["networks"][net]["compression_ratio"] < 4.5
+
+
+def test_compressed_engine_quantizes_once_and_uses_k7_without_importance(monkeypatch):
+    shared = SharedModel(_white(default_config()), "cpu").load(None)
+    eng = CompressedEngine(shared, chunk_rays=64)
+    assert (eng.bits, eng.prune_fraction, eng.act_bits, eng.pos_bound) == (8, 0.1, None, 12.0)
+    q = eng.engine_params()
+    assert eng.engine_params() is q and set(q) == {"coarse", "fine"}
+    assert isinstance(q["fine"], quant.QuantizedPackedWeights) and q["fine"].wt_q.dtype == torch.int8
+    assert CompressedEngine(shared, bits=16).engine_params()["fine"].wt_q.dtype == torch.int16
+    i8 = Int8ComputeEngine(shared)
+    assert i8.act_bits == 8 and isinstance(i8.engine_params()["fine"], quant.Int8PackedWeights)
+    # quantized from the float32 params, not from bf16-rounded ones
+    want = quant.quantize_model(shared.params, shared.cfg.model)[0]["fine"]
+    assert torch.equal(q["fine"].wt_q, want.wt_q) and torch.equal(q["fine"].wt_s, want.wt_s)
+    with pytest.raises(ValueError, match="int8 compute"):
+        CompressedEngine(shared, bits=16, act_bits=8).engine_params()
+    # use_importance=False: render_rays on the dequantize-in-kernel MLP (K7's
+    # wrapper) and the planar compositor
+    cfg = _white(default_config())
+    cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, use_importance=False, n_coarse=8, n_fine=8))
+    uni = SharedModel(cfg, "cpu")
+    uni.params = shared.params
+    seen = []
+    monkeypatch.setattr("nerf_tpu_torch.ops.quant.quantized_nerf_apply_plain",
+                        lambda q, *a: seen.append(type(q).__name__)
+                        or quant.fused_nerf_apply_plain(quant.dequantize(q, a[3]), *a[:3]))
+    res = CompressedEngine(uni).render_image(POSE, (8, 6), S, focal=10.0, mode="hierarchical",
+                                             monitor=False)
+    assert seen == ["QuantizedPackedWeights"] * 2 and np.isfinite(res.rgb).all()
+
+
+def test_engine_registry():
+    assert list(engines.ENGINE_CLASSES) == ["torch", "cuda", "compressed", "int8"]
+    assert engines.ENGINE_CLASSES["int8"] is Int8ComputeEngine
+    assert engines.ENGINE_CLASSES["compressed"] is CompressedEngine
+    # the JAX registry's names, with the port's for its first two (accel is
+    # not ported yet)
+    assert list(jengines.ENGINE_CLASSES) == ["xla", "pallas", "compressed", "int8", "accel"]
+    shared = SharedModel(_white(default_config()), "cpu").load(None)
+    got = available_engines(shared, names=["torch", "int8"])
+    assert list(got) == ["torch", "int8"] and all(e.shared is shared for e in got.values())
+    assert {n: type(e) for n, e in available_engines(shared).items()} == engines.ENGINE_CLASSES
+
+    class Broken(TorchEngine):
+        def __init__(self, shared):
+            raise RuntimeError("no such device")
+
+    engines.ENGINE_CLASSES["broken"] = Broken
+    try:
+        assert "broken" not in available_engines(shared)     # skipped, not raised
+    finally:
+        del engines.ENGINE_CLASSES["broken"]
+
+
+@pytest.mark.parametrize("mode", ["benchmark", "hierarchical"])
+@pytest.mark.parametrize("form", ["raw_bf16", "planar"])
+def test_cuda_engine_output_forms_match_pallas_engine(form, mode):
+    # CudaEngine(raw_dtype="bfloat16") and CudaEngine(planar=True) route as
+    # PallasEngine does; bf16 on both sides, >= 40 dB. On the CPU the planar
+    # frame is the interleaved one exactly (the plain compositor stacks the
+    # planes); the bf16 intermediate costs at most bf16's rounding of rgb
+    kw = {"raw_dtype": "bfloat16"} if form == "raw_bf16" else {"planar": True}
+    jshared = _trained(JSharedModel(_white(jdefault())))
+    ref = PallasEngine(jshared, interpret=True, **kw).render_image(
+        POSE, (HW, HH), S, focal=HFOCAL, mode=mode, monitor=False)
+    shared = _trained(SharedModel(_white(default_config()), "cpu"))
+    eng = CudaEngine(shared, fuse_composite=True, **kw)
+    assert eng.fuse_composite == (form != "planar")          # planar switches it off
+    eng = CudaEngine(shared, **kw)
+    res = eng.render_image(POSE, (HW, HH), S, focal=HFOCAL, mode=mode, monitor=False)
+    assert _psnr(res.rgb, ref.rgb) >= 40.0
+    plain = CudaEngine(shared).render_image(POSE, (HW, HH), S, focal=HFOCAL, mode=mode,
+                                            monitor=False)
+    if form == "planar":
+        np.testing.assert_array_equal(res.rgb, plain.rgb)
+    else:
+        assert np.abs(res.rgb - plain.rgb).max() < 2e-2
+        assert _psnr(res.rgb, plain.rgb) >= 45.0

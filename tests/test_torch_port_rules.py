@@ -39,6 +39,13 @@ def test_kernels_build_for_hopper_without_fast_math():
     for name in _ext.SOURCES:
         assert (_ext.CSRC / f"{name}.cu").exists()
         assert _ext.library_path(name).parent == ROOT / "build" / "nerf_tpu_torch"
+    # the variants: one more library per weight route of the ray kernels, from
+    # the same source with a definition, each under its own name
+    assert _ext.LIBRARIES == _ext.SOURCES + tuple(_ext.VARIANTS)
+    assert sorted(d for _, d in _ext.VARIANTS.values()) == [f"-DNERF_WQ={i}" for i in (1, 2, 3)]
+    assert {s for s, _ in _ext.VARIANTS.values()} == {"render_samples"}
+    paths = {_ext.library_path(n) for n in _ext.LIBRARIES}
+    assert len(paths) == len(_ext.LIBRARIES) == 8
 
 
 def _run_smoke(cwd):
@@ -71,6 +78,12 @@ def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
     with open(tmp_path / "mlp_body.cuh", "a") as f:
         f.write("// edited\n")
     assert all(_ext.library_path(n).name != before[n] for n in _ext.SOURCES)
+    # and a variant follows its source
+    before = {n: _ext.library_path(n).name for n in _ext.LIBRARIES}
+    with open(tmp_path / "render_samples.cu", "a") as f:
+        f.write("// edited\n")
+    changed = {n for n in _ext.LIBRARIES if _ext.library_path(n).name != before[n]}
+    assert changed == {"render_samples", *_ext.VARIANTS}
 
 
 def test_default_train_apply_fn_follows_device_and_config_only():
@@ -111,7 +124,7 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch):
     # tensor's device alone: anything but a CPU tensor goes to the launcher
     # (which launches or raises), never to the plain version
     from nerf_tpu_torch.config import RenderConfig
-    from nerf_tpu_torch.ops import composite_kernel, mlp_kernel, train_kernel
+    from nerf_tpu_torch.ops import composite_kernel, mlp_kernel, quant, render_kernel, train_kernel
 
     calls = []
     meta = torch.empty(4, 3, device="meta")
@@ -131,3 +144,24 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch):
     train_kernel.packed_grads(None, meta, meta, meta[:, 0], meta, None)
     composite_kernel.fused_volume_render(meta, (meta,) * 3, meta, meta, RenderConfig())
     assert calls == ["mlp_forward", "mlp_backward", "composite_planar"]
+    # the quantized MLP and the ray kernels on quantized weights, in every
+    # output form
+    q = quant.QuantizedPackedWeights(*[None] * len(quant.QuantizedPackedWeights._fields))
+    monkeypatch.setattr(quant, "quantized_nerf_apply_plain", plain)
+    monkeypatch.setattr(render_kernel, "fused_render_samples_plain", plain)
+    monkeypatch.setattr(render_kernel, "fused_render_zvals_plain", plain)
+    monkeypatch.setattr(quant, "_launch",
+                        lambda *a: calls.append("mlp_quant") or torch.empty(4, 4, device="meta"))
+    monkeypatch.setattr(
+        render_kernel, "_launch",
+        lambda *a, **k: calls.append("planar" if k.get("planar") else str(k.get("raw_dtype")))
+        or torch.empty(4, 4, 8, device="meta"))
+    del calls[:]
+    quant.quantized_nerf_apply(q, meta, meta, None)
+    render_kernel.fused_render_samples(q, meta, meta, 2.0, 6.0, 8, None, raw=True,
+                                       raw_dtype=torch.bfloat16)
+    render_kernel.fused_render_samples(q, meta, meta, 2.0, 6.0, 8, None, planar=True)
+    render_kernel.fused_render_zvals_raw(q, meta, meta, torch.empty(4, 8, device="meta"), None,
+                                         raw_dtype=torch.bfloat16)
+    render_kernel.fused_render_zvals_planar(q, meta, meta, torch.empty(4, 8, device="meta"), None)
+    assert calls == ["mlp_quant", "torch.bfloat16", "planar", "torch.bfloat16", "planar"]

@@ -261,3 +261,100 @@ def test_composited_to_outputs_keeps_weights_or_none():
     ro, rd = (torch.tensor(a) for a in _rays(4, 14))
     out, z = fused_render_samples_composited(p, ro, rd, 2.0, 6.0, 16, tc)
     assert out.shape == (4, 8) and z.shape == (4, 16)
+
+
+@pytest.mark.parametrize("variant", ["reference", "bmild"])
+def test_raw_bf16_and_planar_match_pallas_interpret(variant):
+    # the last two output forms of K1 and K3 (float32 compute in both):
+    # - raw_dtype=bfloat16: the float32 raw output rounded once, exactly; and
+    #   within bf16 rounding (2^-8 relative) plus the raw test's 1e-4 of the
+    #   Pallas kernel's bf16 raw output;
+    # - planar: four [R, S] planes bit-identical to the de-interleaved raw
+    #   output (as tests/test_render_kernel.py demands of the TPU kernel), and
+    #   within 1e-4 of the Pallas kernel's planes
+    jc, tc = _cfgs(variant)
+    p = jax.device_get(jinit(jax.random.PRNGKey(21), jc))
+    pt = params_from_numpy(p, "cpu")
+    S = 16
+    ro, rd = _rays(19, 6)
+    z = _sorted_depths(19, S, 7)
+    jro, jrd, jz = jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(z)
+    tro, trd, tz = torch.tensor(ro), torch.tensor(rd), torch.tensor(z)
+    kw = dict(dtype=jnp.float32, interpret=True)
+    f32 = dict(dtype=torch.float32)
+
+    raw1, z1 = fused_render_samples(pt, tro, trd, 2.0, 6.0, S, tc, raw=True, **f32)
+    raw3 = fused_render_zvals_raw(pt, tro, trd, tz, tc, **f32)
+    b1, _ = fused_render_samples(pt, tro, trd, 2.0, 6.0, S, tc, raw=True,
+                                 raw_dtype=torch.bfloat16, **f32)
+    b3 = fused_render_zvals_raw(pt, tro, trd, tz, tc, raw_dtype=torch.bfloat16, **f32)
+    jb1, _ = jfrs(p, jro, jrd, 2.0, 6.0, S, jc, raw=True, raw_dtype=jnp.bfloat16, **kw)
+    jb3 = jrk.fused_render_zvals_raw(p, jro, jrd, jz, jc, raw_dtype=jnp.bfloat16, **kw)
+    for raw, b, jb in ((raw1, b1, jb1), (raw3, b3, jb3)):
+        assert b.dtype == torch.bfloat16 and b.shape == raw.shape and jb.dtype == jnp.bfloat16
+        assert torch.equal(b, raw.bfloat16())
+        np.testing.assert_allclose(b.float().numpy(), np.asarray(jb, np.float32),
+                                   rtol=2.0 ** -8, atol=1e-4)
+
+    sg1, pl1, zp = fused_render_samples(pt, tro, trd, 2.0, 6.0, S, tc, planar=True, **f32)
+    sg3, pl3 = render_kernel.fused_render_zvals_planar(pt, tro, trd, tz, tc, **f32)
+    jsg1, jpl1, _ = jfrs(p, jro, jrd, 2.0, 6.0, S, jc, planar=True, **kw)
+    jsg3, jpl3 = jrk.fused_render_zvals_planar(p, jro, jrd, jz, jc, **kw)
+    assert torch.equal(zp, z1)
+    for raw, sg, pl, jsg, jpl in ((raw1, sg1, pl1, jsg1, jpl1), (raw3, sg3, pl3, jsg3, jpl3)):
+        r4 = raw.reshape(19, S, 4)
+        assert sg.shape == (19, S) and len(pl) == 3 and sg.is_contiguous()
+        assert torch.equal(sg, r4[..., 0])
+        for c in range(3):
+            assert torch.equal(pl[c], r4[..., 1 + c])
+            np.testing.assert_allclose(pl[c].numpy(), np.asarray(jpl[c]), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(sg.numpy(), np.asarray(jsg), rtol=1e-4, atol=1e-4)
+
+
+def test_compositors_take_the_new_output_forms():
+    # K2's wrapper reads a bf16 raw and computes in float32, as the Pallas
+    # compositor does (rgb/acc 5e-5 as the composited tests; the inputs are
+    # the same bf16 values); K6's wrapper on the planes gives what K2's gives
+    # on the interleaved raw, exactly (the plain version stacks the planes)
+    from nerf_tpu.ops.composite_kernel import fused_volume_render_interleaved as jfvri
+    from nerf_tpu_torch.ops.composite_kernel import (
+        fused_volume_render,
+        fused_volume_render_interleaved,
+    )
+
+    jc, tc = _cfgs("reference")
+    p = jax.device_get(jinit(jax.random.PRNGKey(22), jc))
+    pt = params_from_numpy(p, "cpu")
+    ro, rd = _rays(11, 8)
+    tro, trd = torch.tensor(ro), torch.tensor(rd)
+    rcfg, jrcfg = RenderConfig(white_background=True), JRenderConfig(white_background=True)
+    b, z = fused_render_samples(pt, tro, trd, 2.0, 6.0, 24, tc, raw=True,
+                                raw_dtype=torch.bfloat16, dtype=torch.float32)
+    got = fused_volume_render_interleaved(b, z, trd, rcfg)
+    ref = jfvri(jnp.asarray(b.float().numpy()).astype(jnp.bfloat16), jnp.asarray(z.numpy()),
+                jnp.asarray(rd), jrcfg, interpret=True)
+    assert got.rgb.dtype == torch.float32
+    np.testing.assert_allclose(got.rgb.numpy(), np.asarray(ref.rgb), atol=5e-5, rtol=0)
+    np.testing.assert_allclose(got.weights.numpy(), np.asarray(ref.weights), atol=5e-5, rtol=0)
+    raw, _ = fused_render_samples(pt, tro, trd, 2.0, 6.0, 24, tc, raw=True, dtype=torch.float32)
+    sg, pl, _ = fused_render_samples(pt, tro, trd, 2.0, 6.0, 24, tc, planar=True,
+                                     dtype=torch.float32)
+    a = fused_volume_render(sg, pl, z, trd, rcfg)
+    c = fused_volume_render_interleaved(raw, z, trd, rcfg)
+    for x, y in zip(a, c):
+        assert torch.equal(x, y)
+
+
+def test_output_forms_are_validated_before_a_launch():
+    _, tc = _cfgs("reference")
+    p = params_from_numpy(jax.device_get(jinit(jax.random.PRNGKey(9), JModelConfig())), "cpu")
+    ro, rd = (torch.tensor(a) for a in _rays(3, 4))
+    packed = pack_params(p, tc)
+    with pytest.raises(ValueError, match="raw_dtype"):
+        render_kernel._launch(packed, ro, rd, 2.0, 6.0, 8, tc, raw_dtype=torch.float16)
+    with pytest.raises(ValueError, match="raw_dtype"):
+        render_kernel._launch(packed, ro, rd, 2.0, 6.0, 8, tc, raw_dtype=torch.bfloat16,
+                              planar=True)
+    with pytest.raises(ValueError, match="planar"):
+        render_kernel._launch(packed, ro, rd, 2.0, 6.0, 8, tc, composited=True, planar=True)
+    assert set(render_kernel.launches) >= {"planar", "raw_bf16", "dequant", "int8"}

@@ -259,3 +259,57 @@ def test_procedural_dataset_matches_jax_package(ds):
     np.testing.assert_array_equal(ds.images, ref.images)
     np.testing.assert_array_equal(ds.poses, ref.poses)
     assert ds.focal == ref.focal and len(ds) == 4 and ds[1]["image"].shape == (48, 48, 3)
+
+
+def test_about_half_of_all_seeds_start_a_network_dead_in_both_packages():
+    # The density head is ReLU'd and both packages draw it from the same law
+    # (uniform +-1/sqrt(fan_in) against 256 non-negative inputs), so about half
+    # of all full-width networks start with a density of 0 on every sample,
+    # where no gradient reaches them. Share of 400 rays x 64 uniform depths
+    # (spherical_pose(30, -30, 4), near 2, far 6) with a positive initial
+    # density, coarse / fine, for the networks the two trainers draw from
+    # TrainConfig.seed (JAX: PRNGKey(seed) split as NeRFTrainer and
+    # init_train_state split it; the port: one torch.Generator, coarse
+    # first). Asserted: what is stable. The JAX package's own default seed 0
+    # starts with a dead coarse network, the port's with a dead fine one,
+    # seed 5 is alive in both, and each package has between a quarter and
+    # three quarters of its sixteen networks dead
+    from nerf_tpu.config import ModelConfig as JModelConfig
+    from nerf_tpu.models import apply_nerf as japply
+    from nerf_tpu.train.trainer import init_train_state as jinit_train_state
+    from nerf_tpu_torch.models.nerf import apply_nerf
+    from nerf_tpu_torch.utils.cameras import focal_from_angle, generate_rays, spherical_pose
+
+    cfg, jcfg = Config(), JConfig()
+    assert cfg.train.seed == jcfg.train.seed == 0
+    assert dataclasses.asdict(cfg.model) == dataclasses.asdict(JModelConfig())
+    n = 20
+    ro, rd = generate_rays(spherical_pose(30.0, -30.0, 4.0), n, n,
+                           focal_from_angle(n, 0.6911112070083618), "cpu")
+    z = torch.linspace(2.0, 6.0, 64)
+    pos = ro.reshape(-1, 1, 3) + rd.reshape(-1, 1, 3) * z[None, :, None]
+    dirs = rd.reshape(-1, 1, 3).expand(pos.shape)
+    jpos, jdirs = jnp.asarray(pos.numpy()), jnp.asarray(dirs.numpy())
+    torch.set_num_threads(4)
+
+    def port_shares(seed):
+        state = init_train_state(torch.Generator().manual_seed(seed), cfg, "cpu")
+        with torch.no_grad():
+            return tuple(float((apply_nerf(state.params[net], pos, dirs, cfg.model)[0] > 0)
+                               .float().mean()) for net in ("coarse", "fine"))
+
+    def jax_shares(seed):
+        _, init_key = jax.random.split(jax.random.PRNGKey(seed))
+        state = jinit_train_state(init_key, jcfg)
+        return tuple(float((japply(state.params[net], jpos, jdirs, jcfg.model)[0] > 0).mean())
+                     for net in ("coarse", "fine"))
+
+    table = {seed: (jax_shares(seed), port_shares(seed)) for seed in range(8)}
+    print("seed: JAX coarse/fine, port coarse/fine", table)
+    (j0c, j0f), (p0c, p0f) = table[0]
+    assert j0c < 0.01 and j0f > 0.99          # JAX seed 0: dead coarse network
+    assert p0c > 0.99 and p0f < 0.01          # the port's seed 0: dead fine network
+    assert min(*table[5][0], *table[5][1]) > 0.99
+    for package in (0, 1):
+        dead = sum(share < 0.5 for seed in table for share in table[seed][package])
+        assert 4 <= dead <= 12, (package, dead)
