@@ -1,0 +1,818 @@
+// The ray kernels K1 and K3 on the bf16 weight route, raw output, redesigned
+// for Hopper: warpgroup wgmma, a producer warp that streams the weights by
+// bulk copy into a ring of mbarrier-guarded stages, persistent blocks.
+//
+// Replaces the Pallas TPU kernels of nerf_tpu/ops/render_kernel.py:
+// - ray_wgmma_kernel: `_ray_kernel` (uniform depths, K1);
+// - ray_z_wgmma_kernel: `_ray_z_kernel` (per-ray depths z [R, S], K3);
+// both through `_nerf_math` (nerf_tpu/ops/mlp_kernel.py), in the raw output
+// forms (fp32 or bf16 interleaved (sigma, r, g, b) per sample, or four fp32
+// planes [R, S]). Their composited modes and the quantized weight routes
+// stay on the WMMA body of render_samples.cu. Wrappers and the dispatch
+// rule: nerf_tpu_torch/ops/render_kernel.py; the weight stream's layout and
+// chunk schedule: nerf_tpu_torch/ops/ray_wgmma.py.
+//
+// What bounds it: tensor-core operations (~0.52 M multiply-adds a sample
+// against 24 bytes in, 16 or 8 out). Next, the weight stream from L2: every
+// 128-row tile reads the network's matrices (1 MiB in bf16, 128 FLOP a
+// byte), so at the bf16 peak the SMs together would read ~7.7 TB/s from L2;
+// l2_stream_probe measures what the ring can draw. Then the per-tile
+// encoding (sinf/cosf at full range reduction) and the epilogues, which run
+// on the CUDA cores between products.
+//
+// Design, and what each part does about those bounds:
+// - one block per SM (grid = SMs), walking 128-row tiles (flat row n = ray *
+//   S + s) in a grid-stride loop; three warpgroups of 128 threads;
+// - warpgroup 0 is the producer: one thread streams the network, a fixed
+//   sequence of chunks per tile (w0; wt[0..6] with wskip after the layer at
+//   skip_pos; wbn for bmild; wc0), by cp.async.bulk into a ring of 32 KB
+//   stages (as many as fit beside the rest, 4 to 6) with full/empty
+//   mbarriers. It runs ahead across layer and tile boundaries, so the L2
+//   latency hides behind the products. The host repacks every 64-row slab
+//   of a matrix once (ops/ray_wgmma.py) into the exact shared-memory image
+//   that wgmma's B descriptor reads (K-major, 128-byte swizzle), so a chunk
+//   is one contiguous copy;
+// - warpgroups 1 and 2 are consumers, each owning 64 rows of the tile and the
+//   full output width: m64n256k16 for the trunk and bottleneck, m64n128k16
+//   for the color layer, bf16 inputs, fp32 accumulators in registers
+//   (setmaxnreg gives them 240 a thread, the producer 24). A layer's output
+//   stays in registers: the epilogue (fp32 bias, ReLU, round to bf16) packs
+//   the accumulators straight into the next product's A fragments (the RS
+//   form of wgmma), so no layer touches shared memory and no barrier is
+//   block-wide. The encoding (the A operand of layer 0 and the skip) is
+//   written once per tile into a swizzled shared tile (the SS form). Each
+//   phase whose sine and cosine a thread writes is reduced once (sincosf,
+//   the same values as sinf and cosf): at full range reduction the encoding
+//   is the largest cost beside the products;
+// - the two consumers share each weight chunk and release it by one arrival
+//   each; while one runs its epilogue or encoding the other keeps the
+//   tensor cores busy;
+// - the heads come from registers: density and rgb as per-thread partial
+//   dot products over the thread's columns, summed across the quad by
+//   shuffles; the quad then writes its two rows;
+// - biases, wsig and wc1 stay in shared memory for the kernel's lifetime
+//   (12 KB); the direction branch is computed once per ray of a consumer's
+//   64 rows (fp32, from the bf16 encoding, kept in shared memory).
+//
+// Arithmetic contract (the WMMA body's, ops/render_kernel.py): pos = o + d z
+// in fp32 without FMA, K1's z = near + span * (s / (S - 1)); sinf/cosf at
+// full range reduction; the direction term per ray in fp32 from a bf16
+// encoding; bf16 products with fp32 accumulation; the fp32 bias (and the
+// direction term) added before the bf16 rounding. The sums run in another
+// order than WMMA's, so the two agree to bf16's rounding, not bit for bit.
+
+#include "mlp_body.cuh"
+
+namespace {
+
+constexpr int RW_THREADS = 384;             // producer + two consumer warpgroups
+constexpr int RW_ROWS = 64;                 // rows per consumer warpgroup
+constexpr int RW_TILE = 2 * RW_ROWS;        // rows per tile
+constexpr int PROBE_STAGES = 4;             // the L2 probe's ring
+constexpr int CHUNK_K = 64;                 // weight rows per chunk
+constexpr int CHUNK_BIG = CHUNK_K * HID * 2;      // 32 KB: a slab of a 256-wide matrix
+constexpr int CHUNK_SMALL = CHUNK_K * CH * 2;     // 16 KB: a slab of wc0
+constexpr int ENC_TILE = RW_ROWS * KPOS * 2;      // 8 KB: one consumer's encoding
+constexpr int OUT_F32 = 0, OUT_BF16 = 1, OUT_PLANAR = 2;
+
+// resident parameters, in floats
+constexpr int P_B0 = 0, P_BT = P_B0 + HID, P_BBN = P_BT + 7 * HID, P_BC0 = P_BBN + HID,
+              P_WSIG = P_BC0 + CH, P_WC1 = P_WSIG + HID, P_BSIG = P_WC1 + CH * 3,
+              P_BC1 = P_BSIG + 1, P_FLOATS = (P_BC1 + 3 + 7) / 8 * 8;
+
+// shared-memory map (bytes from a 1024-aligned base): the encodings, the
+// resident parameters, the barriers, the direction branch of each consumer
+// (its size follows S), then the weight ring, as many 32 KB stages as fit
+constexpr int STAGES_MAX = 6;
+constexpr int SMEM_MAX = 232448;            // a block's shared memory on the H100
+constexpr int OFF_ENC = 0;
+constexpr int OFF_PAR = OFF_ENC + 2 * ENC_TILE;
+constexpr int OFF_BAR = OFF_PAR + P_FLOATS * 4;
+constexpr int OFF_DIR = OFF_BAR + 2 * STAGES_MAX * 8;
+static_assert(OFF_PAR % 1024 == 0 && OFF_BAR % 8 == 0 && OFF_DIR % 16 == 0, "alignment");
+
+struct RwParams {
+  Net net;
+  const bf16* wstream;   // the repacked matrices, in chunk order
+  const float* rays_o;
+  const float* rays_d;
+  const float* z;
+  long long z_stride;
+  void* out;
+  long long total;       // n_rays * S
+  long long tiles;
+  int S, nr_max, n_chunks, out_mode;
+  int ring_off, stages;  // the weight ring: byte offset in shared memory, 32 KB stages
+  float near, span;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// Waits for the phase of `bar` with the given parity to complete. A wait of
+// more than 2^35 cycles (~17 s) traps, so a schedule that could never
+// complete fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long t0 = clock64();
+  do {
+    if (clock64() - t0 > (1ll << 35)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// bytes from global to shared memory, completion counted on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving register reads or writes across the
+// asynchronous products
+__device__ __forceinline__ void fence_regs(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[16][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile with the 128-byte
+// swizzle: rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart; the
+// tile starts 1024-aligned. Adding 2 advances K by 16 (32 bytes).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return uint64_t((saddr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+// ---- the products (m64nNk16, bf16 in, fp32 accumulate; B K-major, no transpose) ----
+
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[128], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// The consumers' view of the weight ring: acquire() waits for the next
+// chunk and returns its shared address; release() hands the oldest chunk in
+// use back to the producer (one arrival per warpgroup, by its first thread,
+// after the products that read it have completed).
+struct Ring {
+  uint32_t base, bars;   // full barriers at bars + 8 s, empty at bars + 8 (STAGES_MAX + s)
+  int stages, stage;
+  uint32_t phase;
+  int rel;
+  __device__ __forceinline__ uint32_t acquire() {
+    mbar_wait(bars + 8 * stage, phase);
+    const uint32_t addr = base + stage * CHUNK_BIG;
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+    return addr;
+  }
+  __device__ __forceinline__ void release(bool leader) {
+    if (leader) mbar_arrive(bars + 8 * (STAGES_MAX + rel));
+    if (++rel == stages) rel = 0;
+  }
+};
+
+// encode_col (mlp_body.cuh) on a point held as three scalars: the same
+// operations, with the coordinate chosen by selects, not by an index into a
+// local array
+__device__ __forceinline__ float encode_xyz(float x0, float x1, float x2, int k, int L,
+                                            float scale) {
+  if (k < 3) return k == 0 ? x0 : (k == 1 ? x1 : x2);
+  const int j = k - 3;
+  if (j >= 6 * L) return 0.f;
+  const int band = j / 6, w = j % 6, c = w % 3;
+  const float phase = __fmul_rn(c == 0 ? x0 : (c == 1 ? x1 : x2), ldexpf(scale, band));
+  return w < 3 ? sinf(phase) : cosf(phase);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Columns 32 H .. 32 H + 31 of a row's position encoding, as bf16 pairs:
+// encode_xyz's values, but the phase of each (band, coordinate) whose sine
+// and cosine both fall in this half is reduced once (sincosf). L < 0: a
+// padding row, all zeros. Every index is known when compiled.
+template <int H>
+__device__ __forceinline__ void encode_half(float x0, float x1, float x2, int L, float scale,
+                                            uint32_t (&out)[16]) {
+  constexpr int BANDS = (KPOS - 3) / 6;       // the widest encoding KPOS holds
+  float sv[BANDS][3], cv[BANDS][3];
+#pragma unroll
+  for (int b = 0; b < BANDS; ++b) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int cs = 3 + 6 * b + c, cc = cs + 3;      // columns of sin and cos
+      const bool ns = cs >= 32 * H && cs < 32 * H + 32;
+      const bool nc = cc >= 32 * H && cc < 32 * H + 32;
+      sv[b][c] = 0.f;
+      cv[b][c] = 0.f;
+      if ((ns || nc) && b < L) {
+        const float ph = __fmul_rn(c == 0 ? x0 : (c == 1 ? x1 : x2), ldexpf(scale, b));
+        if (ns && nc)
+          sincosf(ph, &sv[b][c], &cv[b][c]);
+        else if (ns)
+          sv[b][c] = sinf(ph);
+        else
+          cv[b][c] = cosf(ph);
+      }
+    }
+  }
+  float col[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const int kk = 32 * H + k;
+    if (kk < 3) {
+      col[k] = L < 0 ? 0.f : (kk == 0 ? x0 : (kk == 1 ? x1 : x2));
+    } else {
+      const int j = kk - 3, b = j / 6, w = j % 6;
+      col[k] = b >= BANDS ? 0.f : (w < 3 ? sv[b][w] : cv[b][w - 3]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) out[k] = pack_bf16(col[2 * k], col[2 * k + 1]);
+}
+__device__ __forceinline__ float bf_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+// Accumulator layout of m64nNk16 (per thread of warp w, g = lane / 4, q =
+// lane % 4): acc[4j + e] is row 16w + g (e = 0, 1) or 16w + g + 8 (e = 2, 3),
+// column 8j + 2q + (e & 1). The A fragment of k-step kk is a[kk] = {row g,
+// cols 16kk + 2q..; row g + 8, same; row g, cols 16kk + 8 + 2q..; row g + 8,
+// same}: block j of the accumulators is half j & 1 of k-step j / 2. So
+// a[j / 2][2 (j & 1) + i] = bf16 pair of acc[4j + 2i], acc[4j + 2i + 1].
+__device__ __forceinline__ void epilogue_to_a(const float (&acc)[128], uint32_t (&a)[16][4],
+                                              const float* bias, int q, bool relu) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * q);
+    float v0 = acc[4 * j] + b.x, v1 = acc[4 * j + 1] + b.y;
+    float v2 = acc[4 * j + 2] + b.x, v3 = acc[4 * j + 3] + b.y;
+    if (relu) {
+      v0 = fmaxf(v0, 0.f);
+      v1 = fmaxf(v1, 0.f);
+      v2 = fmaxf(v2, 0.f);
+      v3 = fmaxf(v3, 0.f);
+    }
+    a[j >> 1][(j & 1) * 2] = pack_bf16(v0, v1);
+    a[j >> 1][(j & 1) * 2 + 1] = pack_bf16(v2, v3);
+  }
+}
+
+// acc = A @ W for a 256-wide layer: A in registers (the previous layer), W
+// in four 64-row chunks from the ring; with `skip`, + enc @ wskip from one
+// more chunk. One commit group per chunk, waited for before the chunk is
+// released (a second group in flight made ptxas serialize the products and
+// spill, and was slower on the H100).
+__device__ __forceinline__ void hidden_layer(float (&acc)[128], uint32_t (&a)[16][4], Ring& ring,
+                                             bool leader, bool skip, uint64_t enc_desc) {
+  fence_regs(acc);
+  fence_regs(a);
+  wgmma_fence();
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    const uint64_t b = sw128_desc(ring.acquire());
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n256(acc, a[ch * 4 + kk], b + 2 * kk, (ch | kk) != 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    ring.release(leader);
+  }
+  if (skip) {
+    const uint64_t b = sw128_desc(ring.acquire());
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss_n256(acc, enc_desc + 2 * kk, b + 2 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    ring.release(leader);
+  }
+  fence_regs(acc);
+}
+
+// One consumer warpgroup (c = 0, 1): rows n0 .. n0 + 63 of every tile of
+// this block.
+template <bool ZIN>
+__device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, int c) {
+  const int t = threadIdx.x - 128 * (c + 1);
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const bool leader = t == 0;
+  const int bar_id = 1 + c;
+  const Net& net = p.net;
+  const float* par = reinterpret_cast<const float*>(sm + OFF_PAR);
+  unsigned char* enc = sm + OFF_ENC + c * ENC_TILE;
+  const uint64_t enc_desc = sw128_desc(smem_u32(enc));
+  float* denc = reinterpret_cast<float*>(sm + OFF_DIR) + c * p.nr_max * (KDIR + CH);
+  float* cdir = denc + p.nr_max * KDIR;
+  const bf16* wdir = static_cast<const bf16*>(net.wdir);
+  Ring ring{smem_u32(sm + p.ring_off), smem_u32(sm + OFF_BAR), p.stages, 0, 0u, 0};
+  float acc[128];
+  uint32_t a[16][4];
+
+  for (int tile = blockIdx.x; tile < int(p.tiles); tile += gridDim.x) {
+    const long long n0 = (long long)tile * RW_TILE + c * RW_ROWS;
+    const bool any = n0 < p.total;
+    const long long r_lo = any ? n0 / p.S : 0;
+    const int nr = any ? int((min(n0 + RW_ROWS, p.total) - 1) / p.S - r_lo) + 1 : 0;
+
+    // 1. the direction branch once per ray of these rows: cdir = bf16(denc) @ wdir
+    named_sync(bar_id);   // the previous tile's color epilogue is done with cdir
+    for (int e = t; e < nr * KDIR; e += 128) {
+      const int sl = e / KDIR, k = e % KDIR;
+      const long long r = r_lo + sl;
+      float d[3] = {p.rays_d[r * 3], p.rays_d[r * 3 + 1], p.rays_d[r * 3 + 2]};
+      if (net.normalize_dirs) normalize_dir(d);
+      denc[e] = __bfloat162float(
+          __float2bfloat16_rn(encode_xyz(d[0], d[1], d[2], k, net.Ld, net.band_scale)));
+    }
+    named_sync(bar_id);
+    for (int e = t; e < nr * CH; e += 128) {
+      const int sl = e / CH, col = e % CH;
+      float sum = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < KDIR; ++k)
+        sum = fmaf(denc[sl * KDIR + k], __bfloat162float(wdir[k * CH + col]), sum);
+      cdir[e] = sum;
+    }
+
+    // 2. depth, position (pos = o + d z in fp32, no fma) and its encoding:
+    //    thread t takes row t % 64 and half t / 64 of its columns (whole
+    //    warps per half, so the column pattern is known when compiled)
+    {
+      const int row = t & (RW_ROWS - 1);
+      const long long n = n0 + row;
+      const bool valid = n < p.total;
+      float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+      if (valid) {
+        const long long r = n / p.S;
+        const int s = int(n - r * p.S);
+        float zz;
+        if (ZIN) {
+          zz = p.z[r * p.z_stride + s];
+        } else {
+          const float u = __fdiv_rn(float(s), float(p.S - 1));
+          zz = __fadd_rn(p.near, __fmul_rn(p.span, u));
+        }
+        x0 = __fadd_rn(p.rays_o[r * 3], __fmul_rn(p.rays_d[r * 3], zz));
+        x1 = __fadd_rn(p.rays_o[r * 3 + 1], __fmul_rn(p.rays_d[r * 3 + 1], zz));
+        x2 = __fadd_rn(p.rays_o[r * 3 + 2], __fmul_rn(p.rays_d[r * 3 + 2], zz));
+      }
+      uint32_t v[16];
+      if (t < RW_ROWS)
+        encode_half<0>(x0, x1, x2, valid ? net.Lp : -1, net.band_scale, v);
+      else
+        encode_half<1>(x0, x1, x2, valid ? net.Lp : -1, net.band_scale, v);
+      const int half = t / RW_ROWS;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ck = half * 4 + j;   // 16-byte column chunk: columns 8 ck .. 8 ck + 7
+        *reinterpret_cast<uint4*>(enc + (row >> 3) * 1024 + (row & 7) * 128 + ((ck ^ (row & 7)) << 4)) =
+            make_uint4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+      }
+    }
+    fence_async_smem();   // the encoding is read by the tensor cores' proxy
+    named_sync(bar_id);
+
+    // 3. layer 0 from the encoding, one chunk
+    fence_regs(acc);
+    wgmma_fence();
+    {
+      const uint64_t b = sw128_desc(ring.acquire());
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_n256(acc, enc_desc + 2 * kk, b + 2 * kk, kk != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      ring.release(leader);
+    }
+    fence_regs(acc);
+    epilogue_to_a(acc, a, par + P_B0, q, true);
+
+    // 4. trunk layers 1..7, the skip product accumulated at skip_pos
+    for (int i = 1; i < 8; ++i) {
+      hidden_layer(acc, a, ring, leader, i == net.skip_pos, enc_desc);
+      epilogue_to_a(acc, a, par + P_BT + (i - 1) * HID, q, true);
+    }
+
+    // 5. density from h7: partial dot products over the thread's 64
+    //    columns, summed across the quad
+    float sg0 = 0.f, sg1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float2 w = *reinterpret_cast<const float2*>(par + P_WSIG + 8 * j + 2 * q);
+      const uint32_t u0 = a[j >> 1][(j & 1) * 2], u1 = a[j >> 1][(j & 1) * 2 + 1];
+      sg0 = fmaf(bf_hi(u0), w.y, fmaf(bf_lo(u0), w.x, sg0));
+      sg1 = fmaf(bf_hi(u1), w.y, fmaf(bf_lo(u1), w.x, sg1));
+    }
+    sg0 += __shfl_xor_sync(FULL, sg0, 1);
+    sg1 += __shfl_xor_sync(FULL, sg1, 1);
+    sg0 += __shfl_xor_sync(FULL, sg0, 2);
+    sg1 += __shfl_xor_sync(FULL, sg1, 2);
+    sg0 += par[P_BSIG];
+    sg1 += par[P_BSIG];
+    if (net.relu_sigma) {
+      sg0 = fmaxf(sg0, 0.f);
+      sg1 = fmaxf(sg1, 0.f);
+    }
+
+    // 6. bmild bottleneck (no activation)
+    if (net.bmild) {
+      hidden_layer(acc, a, ring, leader, false, enc_desc);
+      epilogue_to_a(acc, a, par + P_BBN, q, false);
+    }
+
+    // 7. color layer (128 wide) with the per-ray direction term
+    fence_regs(acc);
+    fence_regs(a);
+    wgmma_fence();
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+      const uint64_t b = sw128_desc(ring.acquire());
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(acc, a[ch * 4 + kk], b + 2 * kk, (ch | kk) != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      ring.release(leader);
+    }
+    fence_regs(acc);
+
+    // 8. c = bf16(relu(acc + bc0 + cdir)), rgb = sigmoid(c @ wc1 + bc1),
+    //    from registers, summed across the quad
+    const long long nrow0 = n0 + 16 * warp + g, nrow1 = nrow0 + 8;
+    const int sl0 = nrow0 < p.total ? int(nrow0 / p.S - r_lo) : 0;
+    const int sl1 = nrow1 < p.total ? int(nrow1 / p.S - r_lo) : 0;
+    const float* cd0 = cdir + sl0 * CH;
+    const float* cd1 = cdir + sl1 * CH;
+    float c0[3] = {0.f, 0.f, 0.f}, c1[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * q;
+      const float2 b = *reinterpret_cast<const float2*>(par + P_BC0 + col);
+      const float2 d0 = *reinterpret_cast<const float2*>(cd0 + col);
+      const float2 d1 = *reinterpret_cast<const float2*>(cd1 + col);
+      const float v00 = __bfloat162float(__float2bfloat16_rn(fmaxf((acc[4 * j] + b.x) + d0.x, 0.f)));
+      const float v01 = __bfloat162float(__float2bfloat16_rn(fmaxf((acc[4 * j + 1] + b.y) + d0.y, 0.f)));
+      const float v10 = __bfloat162float(__float2bfloat16_rn(fmaxf((acc[4 * j + 2] + b.x) + d1.x, 0.f)));
+      const float v11 = __bfloat162float(__float2bfloat16_rn(fmaxf((acc[4 * j + 3] + b.y) + d1.y, 0.f)));
+      const float* w = par + P_WC1 + col * 3;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        c0[k] = fmaf(v01, w[3 + k], fmaf(v00, w[k], c0[k]));
+        c1[k] = fmaf(v11, w[3 + k], fmaf(v10, w[k], c1[k]));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      c0[k] += __shfl_xor_sync(FULL, c0[k], 1);
+      c1[k] += __shfl_xor_sync(FULL, c1[k], 1);
+      c0[k] += __shfl_xor_sync(FULL, c0[k], 2);
+      c1[k] += __shfl_xor_sync(FULL, c1[k], 2);
+      c0[k] = 1.f / (1.f + expf(-(c0[k] + par[P_BC1 + k])));
+      c1[k] = 1.f / (1.f + expf(-(c1[k] + par[P_BC1 + k])));
+    }
+
+    // 9. lane q = 0 of the quad writes row g, q = 1 row g + 8
+    if (q < 2) {
+      const long long n = q ? nrow1 : nrow0;
+      if (n < p.total) {
+        const float v[4] = {q ? sg1 : sg0, q ? c1[0] : c0[0], q ? c1[1] : c0[1], q ? c1[2] : c0[2]};
+        if (p.out_mode == OUT_F32) {
+          static_cast<float4*>(p.out)[n] = make_float4(v[0], v[1], v[2], v[3]);
+        } else if (p.out_mode == OUT_BF16) {
+          __align__(8) bf16 h[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) h[k] = __float2bfloat16_rn(v[k]);
+          static_cast<uint2*>(p.out)[n] = *reinterpret_cast<const uint2*>(h);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) static_cast<float*>(p.out)[k * p.total + n] = v[k];
+        }
+      }
+    }
+  }
+}
+
+// The producer: one thread streams the network once per tile of this block,
+// chunk after chunk, into the ring. Every chunk is 32 KB but the last four
+// (wc0's slabs, 16 KB).
+__device__ __forceinline__ void producer(const RwParams& p, unsigned char* sm) {
+  const uint32_t ring = smem_u32(sm + p.ring_off), bars = smem_u32(sm + OFF_BAR);
+  const int n_big = p.n_chunks - 4, tiles = int(p.tiles);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(p.wstream);
+    for (int j = 0; j < p.n_chunks; ++j) {
+      const uint32_t bytes = j < n_big ? CHUNK_BIG : CHUNK_SMALL;
+      mbar_wait(bars + 8 * (STAGES_MAX + stage), phase ^ 1);
+      mbar_expect_tx(bars + 8 * stage, bytes);
+      bulk_load(ring + stage * CHUNK_BIG, src, bytes, bars + 8 * stage);
+      src += bytes;
+      if (++stage == p.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+template <bool ZIN>
+__device__ __forceinline__ void ray_wgmma_body(const RwParams& p, unsigned char* smem_raw) {
+  unsigned char* sm = aligned_smem(smem_raw);
+  const Net& net = p.net;
+  float* par = reinterpret_cast<float*>(sm + OFF_PAR);
+  for (int i = threadIdx.x; i < P_FLOATS; i += RW_THREADS) {
+    float v = 0.f;
+    if (i < P_BT) v = net.b0[i - P_B0];
+    else if (i < P_BBN) v = net.bt[i - P_BT];
+    else if (i < P_BC0) v = net.bmild ? net.bbn[i - P_BBN] : 0.f;
+    else if (i < P_WSIG) v = net.bc0[i - P_BC0];
+    else if (i < P_WC1) v = __bfloat162float(static_cast<const bf16*>(net.wsig)[i - P_WSIG]);
+    else if (i < P_BSIG) v = __bfloat162float(static_cast<const bf16*>(net.wc1)[i - P_WC1]);
+    else if (i == P_BSIG) v = net.bsig[0];
+    else if (i < P_BC1 + 3) v = net.bc1[i - P_BC1];
+    par[i] = v;
+  }
+  if (threadIdx.x == 0) {
+    const uint32_t bars = smem_u32(sm + OFF_BAR);
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(bars + 8 * s, 1);                  // the producer's expect_tx
+      mbar_init(bars + 8 * (STAGES_MAX + s), 2);   // one arrival per consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) producer(p, sm);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    consumer<ZIN>(p, sm, threadIdx.x / 128 - 1);
+  }
+}
+
+__global__ void __launch_bounds__(RW_THREADS, 1) ray_wgmma_kernel(const __grid_constant__ RwParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  ray_wgmma_body<false>(p, smem_raw);
+}
+
+__global__ void __launch_bounds__(RW_THREADS, 1) ray_z_wgmma_kernel(const __grid_constant__ RwParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  ray_wgmma_body<true>(p, smem_raw);
+}
+
+// The L2 probe: every block streams a buffer of 32 KB chunks `reps` times
+// through the same ring, the producer's way (bulk copies, full/empty
+// barriers), and a consumer that only hands each stage back: the rate at
+// which L2 feeds the SMs' weight rings.
+__global__ void __launch_bounds__(64, 1) l2_probe_kernel(const unsigned char* buf, int chunks, int reps) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = aligned_smem(smem_raw);
+  const uint32_t ring = smem_u32(sm), bars = smem_u32(sm + PROBE_STAGES * CHUNK_BIG);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PROBE_STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (PROBE_STAGES + s), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int stage = 0;
+  uint32_t phase = 0;
+  const int total = chunks * reps;
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < total; ++j) {
+      mbar_wait(bars + 8 * (PROBE_STAGES + stage), phase ^ 1);
+      mbar_expect_tx(bars + 8 * stage, CHUNK_BIG);
+      bulk_load(ring + stage * CHUNK_BIG, buf + size_t(j % chunks) * CHUNK_BIG, CHUNK_BIG,
+                bars + 8 * stage);
+      if (++stage == PROBE_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else if (threadIdx.x == 32) {
+    for (int j = 0; j < total; ++j) {
+      mbar_wait(bars + 8 * stage, phase);
+      mbar_arrive(bars + 8 * (PROBE_STAGES + stage));
+      if (++stage == PROBE_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// Offset of the weight ring after the direction branch of nr_max rays per
+// consumer, and the stages that fit beside it.
+int ring_offset(int nr_max) {
+  const int end = OFF_DIR + 2 * nr_max * (KDIR + CH) * int(sizeof(float));
+  return (end + 1023) / 1024 * 1024;
+}
+int ring_stages(int nr_max) {
+  const int n = (SMEM_MAX - 1024 - ring_offset(nr_max)) / CHUNK_BIG;
+  return n < STAGES_MAX ? n : STAGES_MAX;
+}
+size_t rw_smem_bytes(int nr_max) {
+  return 1024 + ring_offset(nr_max) + size_t(ring_stages(nr_max)) * CHUNK_BIG;
+}
+
+// Chunks of the weight stream: w0, 7 x 4 trunk slabs, wskip, 4 bottleneck
+// slabs (bmild), 4 color slabs (ops/ray_wgmma.chunk_schedule).
+int stream_chunks(int bmild) { return 1 + 28 + 1 + (bmild ? 4 : 0) + 4; }
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+
+// Dynamic shared memory of a launch at n_samples depths per ray, and the
+// stages of its weight ring.
+long long ray_wgmma_smem_bytes(int n_samples) {
+  return (long long)rw_smem_bytes((RW_ROWS - 1) / n_samples + 2);
+}
+int ray_wgmma_stages(int n_samples) { return ring_stages((RW_ROWS - 1) / n_samples + 2); }
+
+int ray_wgmma_render(const float* rays_o, const float* rays_d, const float* z, long long z_stride,
+                     int n_rays, int n_samples, float near, float span, const void* wstream,
+                     const void* const* weights, int Lp, int Ld, int skip_pos, int bmild,
+                     int relu_sigma, int normalize_dirs, float band_scale, int out_mode, void* out,
+                     void* stream) {
+  RwParams p;
+  p.net = make_net(weights, nullptr, Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs,
+                   band_scale);
+  p.wstream = static_cast<const bf16*>(wstream);
+  p.rays_o = rays_o;
+  p.rays_d = rays_d;
+  p.z = z;
+  p.z_stride = z_stride;
+  p.out = out;
+  p.total = (long long)n_rays * n_samples;
+  p.tiles = (p.total + RW_TILE - 1) / RW_TILE;
+  p.S = n_samples;
+  p.nr_max = (RW_ROWS - 1) / n_samples + 2;
+  p.n_chunks = stream_chunks(bmild);
+  p.out_mode = out_mode;
+  p.near = near;
+  p.span = span;
+  p.ring_off = ring_offset(p.nr_max);
+  p.stages = ring_stages(p.nr_max);
+  if (p.stages < 2 || n_samples < (z ? 1 : 2) || !net_fits(p.net) || out_mode < OUT_F32 || out_mode > OUT_PLANAR ||
+      !wstream || (bmild && (!p.net.wbn || !p.net.bbn)) || skip_pos < 1 || skip_pos > 7)
+    return int(cudaErrorInvalidValue);
+  if (p.total == 0) return int(cudaSuccess);
+  if (p.tiles > 0x7fffffff) return int(cudaErrorInvalidValue);
+  void (*kernel)(const RwParams) = z ? ray_z_wgmma_kernel : ray_wgmma_kernel;
+  const size_t smem = rw_smem_bytes(p.nr_max);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const long long grid = p.tiles < sm_count() ? p.tiles : sm_count();
+  kernel<<<unsigned(grid), RW_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return int(cudaGetLastError());
+}
+
+// `blocks` blocks each stream `bytes` (a multiple of 32 KB) `reps` times.
+int l2_stream_probe(const void* buf, long long bytes, int reps, int blocks, void* stream) {
+  if (bytes <= 0 || bytes % CHUNK_BIG || reps < 1 || blocks < 1)
+    return int(cudaErrorInvalidValue);
+  const size_t smem = 1024 + size_t(PROBE_STAGES) * CHUNK_BIG + 2 * PROBE_STAGES * 8;
+  cudaError_t err = cudaFuncSetAttribute(l2_probe_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  l2_probe_kernel<<<blocks, 64, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(buf), int(bytes / CHUNK_BIG), reps);
+  return int(cudaGetLastError());
+}
+
+}  // extern "C"

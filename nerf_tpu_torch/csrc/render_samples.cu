@@ -1,5 +1,10 @@
 // Fused ray kernels: samples along each ray + the whole NeRF MLP, and
-// optionally the volume rendering of those samples.
+// optionally the volume rendering of those samples, on the WMMA body of
+// mlp_body.cuh. This source serves the composited modes (every weight route)
+// and the raw modes on quantized weights. The raw modes on bf16 weights run
+// on the Hopper kernels of ray_wgmma.cu (warpgroup wgmma, weights streamed by
+// a producer warp, persistent blocks); their raw entry here is kept built
+// and is timed beside them, but no wrapper sends a launch to it.
 //
 // Replaces the Pallas TPU kernels of nerf_tpu/ops/render_kernel.py:
 // - ray_kernel: `_ray_kernel` (uniform depths, `fused_render_samples`);
@@ -16,7 +21,8 @@
 // multiply-adds (8 x 256 trunk, skip, heads) against 24 bytes of ray input
 // and 16 bytes of output, about 25,000 operations per byte moved.
 //
-// Design (simple first; wgmma/TMA/warp specialisation are later work):
+// Design (simple first; ray_wgmma.cu has the Hopper design these modes
+// are to move to):
 // - one block of 512 threads (16 warps) owns M = 128 consecutive samples
 //   (flat index n = ray * S + s, so a tile holds whole or partial rays);
 // - positions (one per row, kept in shared memory), phases and sin/cos in

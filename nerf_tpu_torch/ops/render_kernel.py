@@ -31,10 +31,15 @@ kernel as it stages each weight chunk, ``Int8PackedWeights`` run the trunk
 as s8 x s8 -> s32 tensor-core products. Each route is its own build of
 ``csrc/render_samples.cu``.
 
-On a CUDA tensor each wrapper launches its CUDA kernel
-(``csrc/render_samples.cu``) and counts the launch in ``launches[name]``; on
-a CPU tensor it runs its ``*_plain`` twin, the same arithmetic in plain
-PyTorch. Nothing falls back: a CUDA launch either runs or raises.
+On a CUDA tensor each wrapper launches its CUDA kernel and counts the launch
+in ``launches[name]``; on a CPU tensor it runs its ``*_plain`` twin, the same
+arithmetic in plain PyTorch. Nothing falls back: a CUDA launch either runs
+or raises. Which kernel (``kernel_library``): the raw forms on bf16 weights
+go to the Hopper kernels of ``csrc/ray_wgmma.cu`` (warpgroup ``wgmma``,
+weights streamed by a producer warp, persistent blocks; the weight stream is
+laid out once per ``PackedWeights`` by ``ops/ray_wgmma.py``); the
+composited modes and the quantized routes to the WMMA kernels of
+``csrc/render_samples.cu``, built for the weights' route.
 
 Arithmetic shared by both versions, and the tolerances it sets:
 
@@ -61,7 +66,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from nerf_tpu_torch.config import ModelConfig, RenderConfig
-from nerf_tpu_torch.ops import _ext, quant
+from nerf_tpu_torch.ops import _ext, quant, ray_wgmma
 from nerf_tpu_torch.ops.composite_kernel import fused_volume_render_interleaved_plain
 from nerf_tpu_torch.ops.mlp_kernel import (
     PackedWeights,
@@ -73,18 +78,27 @@ from nerf_tpu_torch.ops.mlp_kernel import (
 from nerf_tpu_torch.utils.rendering import RenderOutputs
 
 # Launches of each CUDA kernel (not of the plain versions), and of the
-# routes through them: a launch adds one to its kernel's count and to each
-# route it takes (planar or bfloat16 raw output; intN weights dequantized in
-# the kernel; int8 compute).
+# routes through them: a launch adds one to its function's count (K1 or K3,
+# raw or composited), to each route it takes (planar or bfloat16 raw output;
+# intN weights dequantized in the kernel; int8 compute) and, on the Hopper
+# kernels of csrc/ray_wgmma.cu, to wgmma_samples (K1) or wgmma_zvals (K3).
 launches = {"render_samples": 0, "render_zvals": 0,
             "render_samples_composited": 0, "render_zvals_composited": 0,
-            "planar": 0, "raw_bf16": 0, "dequant": 0, "int8": 0}
+            "planar": 0, "raw_bf16": 0, "dequant": 0, "int8": 0,
+            "wgmma_samples": 0, "wgmma_zvals": 0}
 
 # the build of csrc/render_samples.cu for each weight route (0: bf16 weights)
 _LIBRARY = {0: "render_samples", quant.ROUTE_INT8: "render_samples_q8",
             quant.ROUTE_INT16: "render_samples_q16",
             quant.ROUTE_INT8_COMPUTE: "render_samples_i8"}
 _OUT_F32, _OUT_BF16, _OUT_PLANAR = 0, 1, 2
+
+
+def kernel_library(route: int, composited: bool) -> str:
+    """The library a CUDA launch goes to: ``csrc/ray_wgmma.cu`` for the raw
+    forms (float32, bfloat16, planar) on bf16 weights (route 0), else the
+    build of ``csrc/render_samples.cu`` for the route."""
+    return ray_wgmma.LIBRARY if route == 0 and not composited else _LIBRARY[route]
 
 
 def _mlp_plain(packed, pos: torch.Tensor, d: torch.Tensor, cfg: ModelConfig,
@@ -176,12 +190,13 @@ def _launch(packed, rays_o, rays_d, near, far, S,
             composited: bool = False, with_weights: bool = False,
             sentinel: float = 1e10, eps: float = 1e-10,
             raw_dtype: torch.dtype = torch.float32, planar: bool = False,
-            dtype: torch.dtype = torch.bfloat16):
-    """Launch one of the four kernels of ``csrc/render_samples.cu``, in the
-    build for the weights' route: depths uniform (``z_vals`` None, K1) or
-    per ray (K3), output raw ``[R, 4S]`` (float32 or bfloat16), planar
-    ``(sigma [R, S], (r, g, b))`` or composited ``(out [R, 8], w [R, S] or
-    None)``."""
+            dtype: torch.dtype = torch.bfloat16, library: Optional[str] = None):
+    """Launch a ray kernel, in the library ``kernel_library`` picks: depths
+    uniform (``z_vals`` None, K1) or per ray (K3), output raw ``[R, 4S]``
+    (float32 or bfloat16), planar ``(sigma [R, S], (r, g, b))`` or
+    composited ``(out [R, 8], w [R, S] or None)``. ``library`` names
+    another library of the same function; only ``chip_smoke.py`` passes it,
+    to time the WMMA build of a raw form beside the Hopper kernel."""
     dev = rays_o.device
     R = rays_o.shape[0]
     for name, t in (("rays_o", rays_o), ("rays_d", rays_d)):
@@ -212,6 +227,9 @@ def _launch(packed, rays_o, rays_d, near, far, S,
         z_stride = z_vals.stride(0)
     elif S < 2:
         raise ValueError("need at least 2 samples for uniform depths")
+    library = library or kernel_library(route, composited)
+    if library == ray_wgmma.LIBRARY and (route or composited):
+        raise ValueError("the Hopper ray kernels take bf16 weights and write raw output")
     rays_o = rays_o.contiguous()
     rays_d = rays_d.contiguous()
     if composited:
@@ -230,21 +248,30 @@ def _launch(packed, rays_o, rays_d, near, far, S,
         return result
     out_mode = (_OUT_PLANAR if planar else
                 _OUT_BF16 if raw_dtype == torch.bfloat16 else _OUT_F32)
-    lib = _ext.load(_LIBRARY[route])
-    fn = lib.ray_render
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    dz = (far - near) / (S - 1) if z_vals is None else 0.0
-    err = fn(_ext.ptr(rays_o), _ext.ptr(rays_d),
-             None if z_vals is None else _ext.ptr(z_vals), z_stride, R, S,
-             float(near), float(far - near),
-             weights, scales, *net_args(cfg),
-             int(composited), out_mode, float(dz), float(sentinel), float(eps),
-             _ext.ptr(out), None if w is None else _ext.ptr(w), _ext.stream_ptr(dev))
+    z_arg = None if z_vals is None else _ext.ptr(z_vals)
+    if library == ray_wgmma.LIBRARY:
+        stream = ray_wgmma.stream_for(packed, cfg)
+        lib = ray_wgmma.load()
+        err = lib.ray_wgmma_render(_ext.ptr(rays_o), _ext.ptr(rays_d), z_arg, z_stride, R, S,
+                                   float(near), float(far - near), _ext.ptr(stream), weights,
+                                   *net_args(cfg), out_mode, _ext.ptr(out), _ext.stream_ptr(dev))
+    else:
+        lib = _ext.load(library)
+        fn = lib.ray_render
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        dz = (far - near) / (S - 1) if z_vals is None else 0.0
+        err = fn(_ext.ptr(rays_o), _ext.ptr(rays_d), z_arg, z_stride, R, S,
+                 float(near), float(far - near),
+                 weights, scales, *net_args(cfg),
+                 int(composited), out_mode, float(dz), float(sentinel), float(eps),
+                 _ext.ptr(out), None if w is None else _ext.ptr(w), _ext.stream_ptr(dev))
     name = ("render_samples" if z_vals is None else "render_zvals") + (
         "_composited" if composited else "")
-    _ext.check(lib, err, f"{name} launch")
+    _ext.check(lib, err, f"{name} launch ({library})")
     launches[name] += 1
+    if library == ray_wgmma.LIBRARY:
+        launches["wgmma_samples" if z_vals is None else "wgmma_zvals"] += 1
     if planar:
         launches["planar"] += 1
     if out_mode == _OUT_BF16:

@@ -45,7 +45,7 @@ def test_kernels_build_for_hopper_without_fast_math():
     assert sorted(d for _, d in _ext.VARIANTS.values()) == [f"-DNERF_WQ={i}" for i in (1, 2, 3)]
     assert {s for s, _ in _ext.VARIANTS.values()} == {"render_samples"}
     paths = {_ext.library_path(n) for n in _ext.LIBRARIES}
-    assert len(paths) == len(_ext.LIBRARIES) == 8
+    assert len(paths) == len(_ext.LIBRARIES) == 9
 
 
 def _run_smoke(cwd):
