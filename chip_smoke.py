@@ -6,12 +6,13 @@
 Builds the CUDA kernels from ``nerf_tpu_torch/csrc`` (into ``build/``) and
 holds each kernel against its plain PyTorch version at the main paths'
 shapes: K1 uniform ray kernel, K2 compositor, K3 per-ray-depth ray kernel
-(K1 and K3 on bf16 weights with raw output: the Hopper kernels of
-``csrc/ray_wgmma.cu``, also timed against their WMMA build),
-the composited modes of K1 and K3, K4 per-sample MLP forward, K5 MLP
-backward (also against float32 and bf16 autograd, and run twice for bit
-equality), K6 planar compositor, K7 per-sample MLP on int8 and int16
-weights, the ray kernels on quantized weights, the int8-compute route (K8)
+(K1 and K3 with raw output, on every weight route: the Hopper kernels of
+``csrc/ray_wgmma.cu``, one build per route, each also timed against the
+WMMA build of ``csrc/render_samples.cu`` it replaced), the composited modes
+of K1 and K3, K4 per-sample MLP forward, K5 MLP backward (also against
+float32 and bf16 autograd, and run twice for bit equality), K6 planar
+compositor, K7 per-sample MLP on int8 and int16 weights, the ray kernels on
+quantized weights (dequantized in the kernel), the int8-compute route (K8)
 in K7, K1 and K3, and the bf16 and planar raw outputs of K1 and K3 (B10).
 Then it drives each path of the port,
 with every launch count set to 0 just before and read just after, and fails
@@ -81,7 +82,6 @@ PSNR_MIN = 40.0
 PSNR_FLOOR = {"benchmark": 57.4, "hierarchical": 61.3}   # the bf16 CudaEngine against the
                               # float32 engine: 0.5 dB under the WMMA kernels' 57.9 / 61.8 dB
 WGMMA = {"render_samples": "ray_wgmma_kernel", "render_zvals": "ray_z_wgmma_kernel"}
-WMMA = {"render_samples": "ray_kernel", "render_zvals": "ray_z_kernel"}
 PSNR_MIN_INT8 = 30.0          # the int8-compute engine against the float32 engine (the JAX
                               # package's own bar for it: 20 dB)
 QUANT_TOL = 3e-2              # the quantized routes vs their plain versions: rgb abs, sigma
@@ -324,34 +324,43 @@ def main():
              for n in _ext.LIBRARIES}
     backward_lib = _ext.load("mlp_backward")
     backward_lib.mlp_backward_smem_bytes.restype = ctypes.c_longlong
-    # the Hopper ray kernels: registers, stack and spills per kernel, and
-    # ptxas's notes on the wgmma pipeline (C7511: products serialized; C7519:
-    # a warpgroup.arrive it inserted)
-    wgmma_log = _ext.build_log("ray_wgmma").splitlines()
-    wgmma_kernels, entry = {}, None
-    for ln in wgmma_log:
-        if "Function properties for" in ln:
-            entry = next((k for k in ("ray_z_wgmma_kernel", "ray_wgmma_kernel", "l2_probe_kernel")
-                          if k in ln), None)
-        elif entry and "spill" in ln:
-            nums = [int(t) for t in ln.replace(",", " ").split() if t.isdigit()]
-            wgmma_kernels[entry] = dict(stack_bytes=nums[0], spill_store_bytes=nums[1],
-                                        spill_load_bytes=nums[2])
-        elif entry and "Used" in ln and "registers" in ln:
-            wgmma_kernels[entry]["registers_at_launch"] = int(ln.split("Used")[1].split()[0])
-            entry = None
-    wgmma_lib = ray_wgmma.load()
+    # the Hopper ray kernels, each build (weight route) of ray_wgmma.cu:
+    # registers, stack and spills per kernel, ptxas's notes on the wgmma
+    # pipeline (C7511/C7512: products serialized; C7519: a warpgroup.arrive
+    # it inserted), shared memory, ring stages and landing slots
+    wgmma_builds = {}
+    for route, name in ray_wgmma.LIBRARIES.items():
+        log = _ext.build_log(name).splitlines()
+        kernels, entry = {}, None
+        for ln in log:
+            if "Function properties for" in ln:
+                entry = next((k for k in ("ray_z_wgmma_kernel", "ray_wgmma_kernel",
+                                          "l2_probe_kernel") if k in ln), None)
+            elif entry and "spill" in ln:
+                nums = [int(t) for t in ln.replace(",", " ").split() if t.isdigit()]
+                kernels[entry] = dict(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                                      spill_load_bytes=nums[2])
+            elif entry and "Used" in ln and "registers" in ln:
+                kernels[entry]["registers_at_launch"] = int(ln.split("Used")[1].split()[0])
+                entry = None
+        lib = ray_wgmma.load(name)
+        require(lib.ray_wgmma_route() == route, f"{name} is built for route "
+                f"{lib.ray_wgmma_route()}, not {route}")
+        wgmma_builds[name] = dict(
+            route=route, ptxas=kernels,
+            notes={"C7511_C7512_serialized": sum("C7511" in ln or "C7512" in ln for ln in log),
+                   "C7519_arrive_inserted": sum("C7519" in ln for ln in log)},
+            dynamic_smem_bytes={S: lib.ray_wgmma_smem_bytes(S) for S in (SPP, S3)},
+            ring_stages={S: lib.ray_wgmma_stages(S) for S in (SPP, S3)},
+            landing_slots=lib.ray_wgmma_landing_slots(),
+            registers_after_setmaxnreg={"consumers": lib.ray_wgmma_registers(1),
+                                        "producer_warpgroup": lib.ray_wgmma_registers(0)})
     emit("build", seconds=secs, sources=list(_ext.SOURCES),
          variants={k: list(v) for k, v in _ext.VARIANTS.items()}, ptxas=ptxas,
          mlp_backward_dynamic_smem_bytes=backward_lib.mlp_backward_smem_bytes(),
-         ray_wgmma_ptxas=wgmma_kernels,
-         ray_wgmma_notes={"C7511_serialized": sum("C7511" in ln for ln in wgmma_log),
-                          "C7519_arrive_inserted": sum("C7519" in ln for ln in wgmma_log)},
-         ray_wgmma_dynamic_smem_bytes={S: wgmma_lib.ray_wgmma_smem_bytes(S) for S in (SPP, S3)},
-         ray_wgmma_ring_stages={S: wgmma_lib.ray_wgmma_stages(S) for S in (SPP, S3)},
-         ray_wgmma_registers_per_thread="consumers 240, producer 24 (setmaxnreg)")
-    for k in WGMMA.values():
-        r = wgmma_kernels.get(k, {})
+         ray_wgmma=wgmma_builds)
+    for k in WGMMA.values():         # the bf16 route: no spill (the quantized builds: reported)
+        r = wgmma_builds[ray_wgmma.LIBRARY]["ptxas"].get(k, {})
         require(r.get("spill_store_bytes") == 0 and r.get("spill_load_bytes") == 0,
                 f"ptxas: {k} spills ({r})")
 
@@ -909,16 +918,26 @@ def main():
                         (ro_s, rd_s),):
                     R = ro.shape[0]
                     phase = "k8_check" if k8 else "quant_ray_check"
+                    hopper = render_kernel.launches["wgmma_samples"]
                     raw1, z1 = render_kernel.fused_render_samples(q, ro, rd, 2.0, 6.0, SPP, mcfg,
                                                                   raw=True)
+                    require(render_kernel.launches["wgmma_samples"] == hopper + 1,
+                            f"K1 on {route} weights did not reach csrc/ray_wgmma.cu")
                     e1 = held(phase, f"render_samples {route} {vname} {R} rays", raw1,
                               render_kernel.fused_render_samples_plain(q, ro, rd, 2.0, 6.0, SPP,
-                                                                       mcfg), tol)
+                                                                       mcfg), tol,
+                              kernel=WGMMA["render_samples"],
+                              library=render_kernel.kernel_library(quant.route_of(q), False))
                     z_f = hier_depths(render_kernel, composite_kernel, sample_pdf, packed_c, ro,
                                       rd, mcfg, rcfg)
+                    hopper = render_kernel.launches["wgmma_zvals"]
                     raw3 = render_kernel.fused_render_zvals_raw(q, ro, rd, z_f, mcfg)
+                    require(render_kernel.launches["wgmma_zvals"] == hopper + 1,
+                            f"K3 on {route} weights did not reach csrc/ray_wgmma.cu")
                     e3 = held(phase, f"render_zvals {route} {vname} {R} rays", raw3,
-                              render_kernel.fused_render_zvals_plain(q, ro, rd, z_f, mcfg), tol)
+                              render_kernel.fused_render_zvals_plain(q, ro, rd, z_f, mcfg), tol,
+                              kernel=WGMMA["render_zvals"],
+                              library=render_kernel.kernel_library(quant.route_of(q), False))
                     out1, w1, _ = render_kernel.fused_render_samples_composited(
                         q, ro, rd, 2.0, 6.0, SPP, mcfg, with_weights=True, sentinel=sent, eps=eps)
                     ref1 = composite_kernel.fused_volume_render_interleaved_plain(
@@ -1071,17 +1090,28 @@ def main():
                         **more)
 
         for route, w in weights.items():
-            names = WGMMA if route == "bf16" else WMMA     # bf16 weights: the Hopper kernels
-            res[f"render_samples {route}"] = timed(
-                lambda: render_kernel._launch(w, ro, rd, 2.0, 6.0, SPP, mcfg),
-                names["render_samples"], 5,
-                lambda: render_kernel.fused_render_samples_plain(w, ro, rd, 2.0, 6.0, SPP, mcfg),
-                ray_bound(route, SPP, nbytes(ro, rd), CHUNK * SPP * 16))
-            res[f"render_zvals {route}"] = timed(
-                lambda: render_kernel._launch(w, ro, rd, 0.0, 0.0, S3, mcfg, z_vals=z3),
-                names["render_zvals"], 3,
-                lambda: render_kernel.fused_render_zvals_plain(w, ro, rd, z3, mcfg),
-                ray_bound(route, S3, nbytes(ro, rd, z3), CHUNK * S3 * 16))
+            # the Hopper kernels on every route; beside them, in turns (old,
+            # new, new, old), the WMMA build of the same raw entry on the
+            # same weights (csrc/render_samples.cu), which they replaced
+            wr = 0 if route == "bf16" else quant.route_of(w)
+            for name, S, kw, reps in (("render_samples", SPP, dict(near=2.0, far=6.0), 5),
+                                      ("render_zvals", S3, dict(near=0.0, far=0.0, z_vals=z3), 3)):
+                turns = {"wmma": [], "wgmma": []}
+                for lib in (render_kernel._LIBRARY[wr], None, None, render_kernel._LIBRARY[wr]):
+                    turns["wmma" if lib else "wgmma"].append(call_ms(
+                        lambda: render_kernel._launch(w, ro, rd, S=S, cfg=mcfg, library=lib, **kw),
+                        reps))
+                plain = (lambda: render_kernel.fused_render_samples_plain(
+                    w, ro, rd, 2.0, 6.0, SPP, mcfg)) if name == "render_samples" else (
+                    lambda: render_kernel.fused_render_zvals_plain(w, ro, rd, z3, mcfg))
+                res[f"{name} {route}"] = timed(
+                    lambda: render_kernel._launch(w, ro, rd, S=S, cfg=mcfg, **kw), WGMMA[name],
+                    reps, plain,
+                    ray_bound(route, S, nbytes(ro, rd, kw.get("z_vals")), CHUNK * S * 16),
+                    library=render_kernel.kernel_library(wr, False),
+                    wmma_library=render_kernel._LIBRARY[wr],
+                    wmma_call_ms=turns["wmma"], wgmma_call_ms=turns["wgmma"],
+                    order="wmma, wgmma, wgmma, wmma")
             torch.cuda.empty_cache()
         for S in (SPP, N_FINE):
             pos, dirs = sample_batch(CHUNK, S, seed=S)
@@ -1298,11 +1328,13 @@ def main():
         """Drive one quantized engine class through its modes."""
         res = {}
         k7_int8 = {"mlp_quant_int8": 2} if route_key == "int8" else {}
+        # every raw K1/K3 launch on the Hopper kernels (wgmma_samples, wgmma_zvals)
         for path, eng, mode, expect, views in (
                 ("benchmark", cls(shared, chunk_rays=CHUNK, **kw), "benchmark",
-                 {"render_samples": 1, "composite": 1, route_key: 1}, 3),
+                 {"render_samples": 1, "composite": 1, route_key: 1, "wgmma_samples": 1}, 3),
                 ("hierarchical", cls(shared, chunk_rays=CHUNK, **kw), "hierarchical",
-                 {"render_samples": 1, "render_zvals": 1, "composite": 2, route_key: 2}, 3),
+                 {"render_samples": 1, "render_zvals": 1, "composite": 2, route_key: 2,
+                  "wgmma_samples": 1, "wgmma_zvals": 1}, 3),
                 ("uniform_hierarchical", cls(shared_u, chunk_rays=CHUNK, **kw), "hierarchical",
                  {"mlp_quant": 2, "composite_planar": 2, **k7_int8}, 2)):
             r = drive(eng, mode, f"{phase}_{path}", expect, views)
@@ -1318,7 +1350,8 @@ def main():
                     f"(limit {min_db})")
             if path == "hierarchical":
                 per_launch, r["profile"] = frame_profile(
-                    eng, mode, {"ray_kernel": 1, "ray_z_kernel": 1, "composite_kernel": 2})
+                    eng, mode, {WGMMA["render_samples"]: 1, WGMMA["render_zvals"]: 1,
+                                "composite_kernel": 2})
                 for k, v in per_launch.items():
                     device_ms[f"{phase} {k}"] = v
             res[path] = r
@@ -1331,7 +1364,7 @@ def main():
     quant_frames("int8_frames", Int8ComputeEngine, "int8", PSNR_MIN_INT8)
     eng16 = CompressedEngine(shared, chunk_rays=CHUNK, bits=16)
     res16 = drive(eng16, "benchmark", "compressed16_benchmark",
-                  {"render_samples": 1, "composite": 1, "dequant": 1}, 2)
+                  {"render_samples": 1, "composite": 1, "dequant": 1, "wgmma_samples": 1}, 2)
     res16["psnr_db_vs_torch_f32"], res16["max_abs_err_vs_torch_f32"] = against_torch(
         eng16, "benchmark", ref_bench)
     emit("compressed16_frame", min_db=PSNR_MIN, psnr_resolution=[qw, qh],
@@ -1614,24 +1647,24 @@ def main():
         kernels.append(row)
     # the kernels and routes of the compressed slice, at the 16,384-ray chunk
     # (times: kernel_times_quant; launches: the path named)
-    rs = "nerf_tpu_torch/csrc/render_samples.cu"
     quant_summary = (
         ("mlp_quant", "nerf_tpu_torch/csrc/mlp_quant.cu", "nerf_tpu/ops/quant.py:420",
          "compressed_frames_uniform_hierarchical", "mlp_quant", quant_err["mlp_quant"],
          f"mlp_quant int8 x{N_FINE}", f"{CHUNK} x {N_FINE} samples, int8 weights dequantized "
          "in the kernel, bf16 compute"),
-        ("int8_mm", "nerf_tpu_torch/csrc/mlp_body.cuh", "nerf_tpu/ops/quant.py:339",
+        ("int8_mm", rw, "nerf_tpu/ops/quant.py:339",
          "int8_frames_hierarchical", "int8", quant_err["int8"], "render_samples int8_compute",
-         f"the s8 x s8 -> s32 trunk inside K1 at {CHUNK} rays x {SPP} samples (also in K3, K7)"),
-        ("render_samples_int8_weights", rs, "nerf_tpu/ops/render_kernel.py:50",
+         f"the s8 x s8 -> s32 trunk inside K1 at {CHUNK} rays x {SPP} samples (also in K3; "
+         "in K7 on csrc/mlp_body.cuh)"),
+        ("render_samples_int8_weights", rw, "nerf_tpu/ops/render_kernel.py:50",
          "compressed_frames_hierarchical", "render_samples", quant_err["ray_dequant"],
          "render_samples int8", f"{CHUNK} rays x {SPP} samples, int8 weights dequantized in "
          "the kernel"),
-        ("render_zvals_int8_weights", rs, "nerf_tpu/ops/render_kernel.py:50",
+        ("render_zvals_int8_weights", rw, "nerf_tpu/ops/render_kernel.py:50",
          "compressed_frames_hierarchical", "render_zvals", quant_err["ray_dequant"],
          "render_zvals int8", f"{CHUNK} rays x {S3} per-ray depths, int8 weights dequantized "
          "in the kernel"),
-        ("render_samples_int16_weights", rs, "nerf_tpu/ops/render_kernel.py:50",
+        ("render_samples_int16_weights", rw, "nerf_tpu/ops/render_kernel.py:50",
          "compressed16_benchmark", "dequant", quant_err["ray_dequant"], "render_samples int16",
          f"{CHUNK} rays x {SPP} samples, int16 weights dequantized in the kernel"),
         ("render_planar", rw, "nerf_tpu/ops/render_kernel.py:74", "planar_hierarchical",
@@ -1658,6 +1691,11 @@ def main():
             "library_ms": None, "library_note": f"{no_library} ({mlp})"
             if "composite" not in name else f"{no_library} (the transmittance scan)",
             "shape": shape, "times_key": key})
+        if "wmma_call_ms" in t:
+            kernels[-1].update(cuda_kernel=WGMMA[key.split()[0]], library=t["library"],
+                               wmma_ms=float(np.mean(t["wmma_call_ms"])),
+                               wmma_note=f"call ms of the WMMA build {t['wmma_library']} of the "
+                                         "same raw entry, timed in turns with this kernel")
     for row in kernels:
         require(row["launches"] > 0, f"{row['name']} was launched no time on {row['launches_path']}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,16 +1,23 @@
-// The ray kernels K1 and K3 on the bf16 weight route, raw output, redesigned
-// for Hopper: warpgroup wgmma, a producer warp that streams the weights by
-// bulk copy into a ring of mbarrier-guarded stages, persistent blocks.
+// The ray kernels K1 and K3 in their raw output forms, on every weight
+// route, redesigned for Hopper: warpgroup wgmma, a producer warpgroup that
+// streams the weights by bulk copy into a ring of mbarrier-guarded stages,
+// persistent blocks.
 //
 // Replaces the Pallas TPU kernels of nerf_tpu/ops/render_kernel.py:
 // - ray_wgmma_kernel: `_ray_kernel` (uniform depths, K1);
 // - ray_z_wgmma_kernel: `_ray_z_kernel` (per-ray depths z [R, S], K3);
 // both through `_nerf_math` (nerf_tpu/ops/mlp_kernel.py), in the raw output
 // forms (fp32 or bf16 interleaved (sigma, r, g, b) per sample, or four fp32
-// planes [R, S]). Their composited modes and the quantized weight routes
-// stay on the WMMA body of render_samples.cu. Wrappers and the dispatch
-// rule: nerf_tpu_torch/ops/render_kernel.py; the weight stream's layout and
-// chunk schedule: nerf_tpu_torch/ops/ray_wgmma.py.
+// planes [R, S]), on the weights `_weights_for` hands them. This source is
+// built once per weight route (-DNERF_WQ, the routes of mlp_body.cuh):
+// - 0, bf16 weights;
+// - 1 and 2, int8 and int16 weights dequantized in the kernel (`quant_w_dict`,
+//   nerf_tpu/ops/quant.py): bf16(f32(q) * s[col]), bf16 products;
+// - 3, int8 compute (`int8_w_dict` + `_int8_mm`): layer 0, the trunk and the
+//   skip product as s8 x s8 -> s32, the rest on route 1.
+// The composited modes stay on the WMMA body of render_samples.cu. Wrappers
+// and the dispatch rule: nerf_tpu_torch/ops/render_kernel.py; the weight
+// streams' layout and chunk schedule: nerf_tpu_torch/ops/ray_wgmma.py.
 //
 // What bounds it: tensor-core operations (~0.52 M multiply-adds a sample
 // against 24 bytes in, 16 or 8 out). Next, the weight stream from L2: every
@@ -35,7 +42,8 @@
 // - warpgroups 1 and 2 are consumers, each owning 64 rows of the tile and the
 //   full output width: m64n256k16 for the trunk and bottleneck, m64n128k16
 //   for the color layer, bf16 inputs, fp32 accumulators in registers
-//   (setmaxnreg gives them 240 a thread, the producer 24). A layer's output
+//   (setmaxnreg gives them 240 a thread, the producer 24; 224 and 56 on the
+//   dequantize routes, whose producer converts every chunk). A layer's output
 //   stays in registers: the epilogue (fp32 bias, ReLU, round to bf16) packs
 //   the accumulators straight into the next product's A fragments (the RS
 //   form of wgmma), so no layer touches shared memory and no barrier is
@@ -54,17 +62,62 @@
 //   (12 KB); the direction branch is computed once per ray of a consumer's
 //   64 rows (fp32, from the bf16 encoding, kept in shared memory).
 //
+// The quantized routes keep that design; what they change:
+// - the stream is intN (ops/ray_wgmma.py). A dequantize chunk is the bf16
+//   chunk's image element for element in int8 or int16, then the matrix's
+//   256 (or 128) fp32 scales: one scale per 128-byte image row, since an
+//   image row is one output column. The producer's first thread copies it
+//   into a landing slot (LANDS of them, requested that many chunks ahead);
+//   the whole producer warpgroup then writes bf16(f32(q) * s[col]) into the
+//   ring stage (an exact integer-to-float construction, no I2F), fences the
+//   writes for the tensor cores' proxy, and marks the stage full. The
+//   dequantized matrix exists only in shared memory, one chunk at a time;
+//   the consumers run the bf16 route's code unchanged. The resident heads
+//   and wdir are dequantized with the same rounding where they are read;
+// - int8 compute: the s8 chunks of w0, wt and wskip are 128-row slabs (a
+//   128-byte image row holds 128 K-values), copied into their stage as
+//   they are; wbn and wc0 are dequantize chunks. The consumers run the
+//   trunk as s8 products in column parts, m64n128k32 halves (the skip
+//   layer's two products carry different scales, so it keeps two s32
+//   accumulator sets, in m64n64k32 quarters): layer 0 and the skip product
+//   from the encoding,
+//   quantized at the fixed scale into a swizzled s8 tile (the SS form);
+//   layers 1..7 from registers (the RS form). Each layer's epilogue scales
+//   the s32 sums to fp32, (acc * ax[row]) * (s[col] / 127), adds the bias,
+//   applies ReLU and rounds to bf16; the row's absmax is a quad's shuffle
+//   reduction (a row lives in one quad); the row is then quantized straight
+//   into the next product's s8 A fragments. The host permutes the rows of
+//   each wt matrix within every 16 (ops/ray_wgmma.K_PERM) so that a
+//   thread's accumulator columns are, in order, the K positions of its A
+//   fragment: integer sums are exact, so the product is unchanged. The s32
+//   sums stay below 2^22 (256 * 127 * 127), which the exact int-to-float
+//   construction needs.
+//
 // Arithmetic contract (the WMMA body's, ops/render_kernel.py): pos = o + d z
 // in fp32 without FMA, K1's z = near + span * (s / (S - 1)); sinf/cosf at
 // full range reduction; the direction term per ray in fp32 from a bf16
 // encoding; bf16 products with fp32 accumulation; the fp32 bias (and the
-// direction term) added before the bf16 rounding. The sums run in another
-// order than WMMA's, so the two agree to bf16's rounding, not bit for bit.
+// direction term) added before the bf16 rounding; a quantized matrix
+// rounded once, bf16(f32(q) * s[col]); the int8-compute route's scales and
+// roundings in _int8_mm's order. The sums run in another order than WMMA's,
+// so the two agree to bf16's rounding, not bit for bit (the int8-compute
+// route: to its own quantization noise, where a flipped bf16 rounding moves
+// a row's absmax).
+
+#include <type_traits>
 
 #include "mlp_body.cuh"
 
+#ifndef NERF_WQ
+#define NERF_WQ 0
+#endif
+
 namespace {
 
+constexpr int WQ = NERF_WQ;                 // this build's weight route
+constexpr int HQ = head_route(WQ);          // the route of the heads, wbn, wc0 and wdir
+constexpr bool CONVERTS = WQ != WQ_BF16;    // the producer converts dequantize chunks
+constexpr int ES = WQ == WQ_INT16 ? 2 : 1;  // bytes of a quantized weight
 constexpr int RW_THREADS = 384;             // producer + two consumer warpgroups
 constexpr int RW_ROWS = 64;                 // rows per consumer warpgroup
 constexpr int RW_TILE = 2 * RW_ROWS;        // rows per tile
@@ -72,8 +125,26 @@ constexpr int PROBE_STAGES = 4;             // the L2 probe's ring
 constexpr int CHUNK_K = 64;                 // weight rows per chunk
 constexpr int CHUNK_BIG = CHUNK_K * HID * 2;      // 32 KB: a slab of a 256-wide matrix
 constexpr int CHUNK_SMALL = CHUNK_K * CH * 2;     // 16 KB: a slab of wc0
-constexpr int ENC_TILE = RW_ROWS * KPOS * 2;      // 8 KB: one consumer's encoding
+constexpr int ENC_TILE = RW_ROWS * KPOS * 2;      // 8 KB: one consumer's encoding (bf16, or
+                                                  // s8 with K padded to 128)
 constexpr int OUT_F32 = 0, OUT_BF16 = 1, OUT_PLANAR = 2;
+// a dequantize chunk in the stream: the intN image of a 64-row slab of N
+// columns, then its N scales; a landing slot holds the largest (N = 256)
+__host__ __device__ constexpr int conv_bytes(int n) { return n * (CHUNK_K * ES + 4); }
+constexpr int LAND_BYTES = CONVERTS ? conv_bytes(HID) : 0;
+constexpr int LANDS_MAX = 3;
+constexpr int LANDS = !CONVERTS ? 0 : (WQ == WQ_INT8 ? 3 : 2);   // landing slots
+constexpr int N_DIRECT_S8 = 1 + 7 * 2 + 1;        // int8 compute: w0, 2 slabs a trunk layer, wskip
+constexpr int PRODUCER_BAR = 3;                   // named barrier of the producer warpgroup
+// registers a thread after setmaxnreg, the producer warpgroup's and the
+// consumers' (128 P + 256 C = the 168 x 384 the block launches with): the
+// dequantize routes' producer converts every chunk, several steps at a time
+constexpr int PRODUCER_REGS = WQ == WQ_INT8 || WQ == WQ_INT16 ? 56 : 24;
+constexpr int CONSUMER_REGS = (168 * RW_THREADS - 128 * PRODUCER_REGS) / 256;
+constexpr int CONVERT_BATCH = PRODUCER_REGS >= 56 ? 8 : 1;   // converter steps in flight
+static_assert(CONSUMER_REGS % 8 == 0, "setmaxnreg counts");
+constexpr float INV127 = float(1.0 / 127.0);
+static_assert(LANDS <= LANDS_MAX && LAND_BYTES % 1024 == 0, "landing slots");
 
 // resident parameters, in floats
 constexpr int P_B0 = 0, P_BT = P_B0 + HID, P_BBN = P_BT + 7 * HID, P_BC0 = P_BBN + HID,
@@ -81,19 +152,22 @@ constexpr int P_B0 = 0, P_BT = P_B0 + HID, P_BBN = P_BT + 7 * HID, P_BC0 = P_BBN
               P_BC1 = P_BSIG + 1, P_FLOATS = (P_BC1 + 3 + 7) / 8 * 8;
 
 // shared-memory map (bytes from a 1024-aligned base): the encodings, the
-// resident parameters, the barriers, the direction branch of each consumer
-// (its size follows S), then the weight ring, as many 32 KB stages as fit
+// resident parameters, the barriers (full and empty per stage, full per
+// landing slot), the direction branch of each consumer (its size follows
+// S), then the weight ring, as many 32 KB stages as fit beside the landing
+// slots, then the landing slots
 constexpr int STAGES_MAX = 6;
 constexpr int SMEM_MAX = 232448;            // a block's shared memory on the H100
 constexpr int OFF_ENC = 0;
 constexpr int OFF_PAR = OFF_ENC + 2 * ENC_TILE;
 constexpr int OFF_BAR = OFF_PAR + P_FLOATS * 4;
-constexpr int OFF_DIR = OFF_BAR + 2 * STAGES_MAX * 8;
+constexpr int OFF_LBAR = OFF_BAR + 2 * STAGES_MAX * 8;
+constexpr int OFF_DIR = (OFF_LBAR + LANDS_MAX * 8 + 15) / 16 * 16;
 static_assert(OFF_PAR % 1024 == 0 && OFF_BAR % 8 == 0 && OFF_DIR % 16 == 0, "alignment");
 
 struct RwParams {
   Net net;
-  const bf16* wstream;   // the repacked matrices, in chunk order
+  const unsigned char* wstream;   // the repacked matrices, in chunk order
   const float* rays_o;
   const float* rays_d;
   const float* z;
@@ -103,6 +177,7 @@ struct RwParams {
   long long tiles;
   int S, nr_max, n_chunks, out_mode;
   int ring_off, stages;  // the weight ring: byte offset in shared memory, 32 KB stages
+  int land_off;          // the landing slots (quantized routes)
   float near, span;
 };
 
@@ -147,6 +222,11 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
+// the producer warpgroup's barrier, for threads that may reach it out of
+// step within a warp
+__device__ __forceinline__ void producer_sync(int id) {
+  asm volatile("barrier.sync %0, 128;\n" ::"r"(id) : "memory");
+}
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -166,11 +246,17 @@ __device__ __forceinline__ void fence_regs(float (&d)[128]) {
 #pragma unroll
   for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[16][4]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Shared-memory matrix descriptor of a K-major tile with the 128-byte
@@ -264,6 +350,73 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[128], const uint32_t (&
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---- the int8-compute products (m64n128k32 and m64n64k32, s8 in, s32
+// accumulate); an overload per width, chosen by the accumulator set ----
+
+#define RW_S32_OUTS                                                                                 \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),   \
+  "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),          \
+  "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),        \
+  "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]),        \
+  "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),        \
+  "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]),        \
+  "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),        \
+  "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),        \
+  "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+#define RW_S32_REGS                                                                                 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                          \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+__device__ __forceinline__ void wgmma_ss_s8(uint32_t (&d)[64], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" RW_S32_REGS "}, %64, %65, p;\n}\n"
+      : RW_S32_OUTS
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_s8(uint32_t (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" RW_S32_REGS
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : RW_S32_OUTS
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+#define RW_S32_OUTS_32                                                                              \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),   \
+  "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),          \
+  "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),        \
+  "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]),        \
+  "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+#define RW_S32_REGS_32                                                                              \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                          \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+
+__device__ __forceinline__ void wgmma_ss_s8(uint32_t (&d)[32], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" RW_S32_REGS_32 "}, %32, %33, p;\n}\n"
+      : RW_S32_OUTS_32
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_s8(uint32_t (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" RW_S32_REGS_32
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : RW_S32_OUTS_32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
@@ -409,6 +562,191 @@ __device__ __forceinline__ void hidden_layer(float (&acc)[128], uint32_t (&a)[16
   fence_regs(acc);
 }
 
+// ---- the int8-compute trunk ------------------------------------------------
+
+// f32 of an s32 sum |v| < 2^22, exactly: the bits of 1.5 * 2^23 + v, less
+// 1.5 * 2^23 (no I2F)
+__device__ __forceinline__ float s32_to_f32(uint32_t v) {
+  return __fsub_rn(__uint_as_float(v + 0x4B400000u), 12582912.f);
+}
+// rint(x) for |x| <= 2^21: its low byte is the low byte of the bits of
+// 1.5 * 2^23 + x (round to nearest even, as rintf)
+__device__ __forceinline__ uint32_t rint_bits(float x) {
+  return __float_as_uint(__fadd_rn(x, 12582912.f));
+}
+// the low bytes of four words into one register, the first lowest
+__device__ __forceinline__ uint32_t pack_s8(uint32_t b0, uint32_t b1, uint32_t b2, uint32_t b3) {
+  return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040), 0x5410);
+}
+
+// A layer's input as s8 A fragments, from its bf16 A fragments: per row
+// ax = max|a| over the row's 256 values (a quad holds the row: the thread's
+// 64, then two shuffles), a -> rint(a * (127 / max(ax, 1e-20))). Fragment
+// aq[kk] covers K positions 32 kk .. 32 kk + 31; register r holds row g
+// (r = 0, 2) or g + 8 (1, 3), K positions 16 (r >> 1) + 4 q .. + 3. Those
+// hold the thread's accumulator columns 32 kk + 16 (r >> 1) + 8 m + 2 q + e
+// (m, e = 0, 1: accumulator blocks j = 4 kk + 2 (r >> 1) + m), which is the
+// order ops/ray_wgmma.K_PERM gives the rows of wt.
+__device__ __forceinline__ void quantize_rows(const uint32_t (&a)[16][4], uint32_t (&aq)[8][4],
+                                              float& ax0, float& ax1) {
+  float m0 = 0.f, m1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const uint32_t u0 = a[j >> 1][(j & 1) * 2], u1 = a[j >> 1][(j & 1) * 2 + 1];
+    m0 = fmaxf(m0, fmaxf(fabsf(bf_lo(u0)), fabsf(bf_hi(u0))));
+    m1 = fmaxf(m1, fmaxf(fabsf(bf_lo(u1)), fabsf(bf_hi(u1))));
+  }
+  m0 = fmaxf(m0, __shfl_xor_sync(FULL, m0, 1));
+  m1 = fmaxf(m1, __shfl_xor_sync(FULL, m1, 1));
+  m0 = fmaxf(m0, __shfl_xor_sync(FULL, m0, 2));
+  m1 = fmaxf(m1, __shfl_xor_sync(FULL, m1, 2));
+  ax0 = m0;
+  ax1 = m1;
+  const float i0 = __fdiv_rn(127.f, fmaxf(m0, 1e-20f)), i1 = __fdiv_rn(127.f, fmaxf(m1, 1e-20f));
+  auto q4 = [](uint32_t u, uint32_t w, float inv) {
+    return pack_s8(rint_bits(__fmul_rn(bf_lo(u), inv)), rint_bits(__fmul_rn(bf_hi(u), inv)),
+                   rint_bits(__fmul_rn(bf_lo(w), inv)), rint_bits(__fmul_rn(bf_hi(w), inv)));
+  };
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    aq[kk][0] = q4(a[2 * kk][0], a[2 * kk][2], i0);
+    aq[kk][1] = q4(a[2 * kk][1], a[2 * kk][3], i1);
+    aq[kk][2] = q4(a[2 * kk + 1][0], a[2 * kk + 1][2], i0);
+    aq[kk][3] = q4(a[2 * kk + 1][1], a[2 * kk + 1][3], i1);
+  }
+}
+
+// The epilogue of an int8 layer's columns 8 j0 .. 8 (j0 + NJ) - 1 (its
+// accumulator blocks j0 ..) into a's bf16 A fragments: y = (f32(acc)
+// (* ax[row])) * (s[col] * (1 / 127)), with `two` + f32(acc2) * (s2[col] *
+// (1 / 127)) (the skip product), then bf16(relu(y + bias)): _int8_mm's
+// operation order (ops/quant.int8_mm).
+template <int NJ>
+__device__ __forceinline__ void epilogue_s8(const uint32_t (&acc)[4 * NJ],
+                                            const uint32_t (&acc2)[4 * NJ], bool two, bool by_row,
+                                            float ax0, float ax1, const float* s, const float* s2,
+                                            const float* bias, int j0, int q, uint32_t (&a)[16][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int col = 8 * (j0 + j) + 2 * q;
+    const float2 sv = __ldg(reinterpret_cast<const float2*>(s + col));
+    const float s0 = __fmul_rn(sv.x, INV127), s1 = __fmul_rn(sv.y, INV127);
+    float v0 = s32_to_f32(acc[4 * j]), v1 = s32_to_f32(acc[4 * j + 1]);
+    float v2 = s32_to_f32(acc[4 * j + 2]), v3 = s32_to_f32(acc[4 * j + 3]);
+    if (by_row) {
+      v0 = __fmul_rn(v0, ax0);
+      v1 = __fmul_rn(v1, ax0);
+      v2 = __fmul_rn(v2, ax1);
+      v3 = __fmul_rn(v3, ax1);
+    }
+    v0 = __fmul_rn(v0, s0);
+    v1 = __fmul_rn(v1, s1);
+    v2 = __fmul_rn(v2, s0);
+    v3 = __fmul_rn(v3, s1);
+    if (two) {
+      const float2 tv = __ldg(reinterpret_cast<const float2*>(s2 + col));
+      const float t0 = __fmul_rn(tv.x, INV127), t1 = __fmul_rn(tv.y, INV127);
+      v0 = __fadd_rn(v0, __fmul_rn(s32_to_f32(acc2[4 * j]), t0));
+      v1 = __fadd_rn(v1, __fmul_rn(s32_to_f32(acc2[4 * j + 1]), t1));
+      v2 = __fadd_rn(v2, __fmul_rn(s32_to_f32(acc2[4 * j + 2]), t0));
+      v3 = __fadd_rn(v3, __fmul_rn(s32_to_f32(acc2[4 * j + 3]), t1));
+    }
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+    const int J = j0 + j;
+    a[J >> 1][(J & 1) * 2] = pack_bf16(fmaxf(__fadd_rn(v0, b.x), 0.f), fmaxf(__fadd_rn(v1, b.y), 0.f));
+    a[J >> 1][(J & 1) * 2 + 1] =
+        pack_bf16(fmaxf(__fadd_rn(v2, b.x), 0.f), fmaxf(__fadd_rn(v3, b.y), 0.f));
+  }
+}
+
+// One column part of a trunk layer 1..7 on the int8-compute route: blocks
+// j0 .. j0 + NJ - 1 (8 columns, 8 image rows = 64 descriptor units each) of
+// acc = aq @ wt (two chunks of 128 K positions, b0 and b1) and, with SKIP,
+// acc2 = encq @ wskip (bs); its epilogue into a.
+template <int NJ, bool SKIP>
+__device__ __forceinline__ void trunk_part_s8(uint64_t b0, uint64_t b1, uint64_t bs,
+                                              uint64_t enc_desc, int j0, uint32_t (&aq)[8][4],
+                                              float ax0, float ax1, const float* s,
+                                              const float* s2, const float* bias, int q,
+                                              uint32_t (&a)[16][4]) {
+  uint32_t acc[4 * NJ], acc2[4 * NJ];
+  const uint64_t off = uint64_t(j0) * 64;
+  fence_regs(acc);
+  fence_regs(aq);
+  if (SKIP) fence_regs(acc2);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_s8(acc, aq[kk], b0 + off + 2 * kk, kk != 0);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_s8(acc, aq[4 + kk], b1 + off + 2 * kk, 1);
+  if (SKIP) {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) wgmma_ss_s8(acc2, enc_desc + 2 * kk, bs + off + 2 * kk, kk != 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (SKIP) fence_regs(acc2);
+  epilogue_s8<NJ>(acc, acc2, SKIP, true, ax0, ax1, s, s2, bias, j0, q, a);
+}
+
+// One trunk layer 1..7 on the int8-compute route, in column parts: halves
+// of 128, or for the skip layer, whose two products need two accumulator
+// sets, quarters of 64 (so that they fit beside aq and a).
+template <bool SKIP>
+__device__ __forceinline__ void trunk_layer_s8(const Net& net, const float* s, const float* bias,
+                                               Ring& ring, bool leader, uint64_t enc_desc, int q,
+                                               uint32_t (&aq)[8][4], float ax0, float ax1,
+                                               uint32_t (&a)[16][4]) {
+  constexpr int NJ = SKIP ? 8 : 16;
+  const uint64_t b0 = sw128_desc(ring.acquire());
+  const uint64_t b1 = sw128_desc(ring.acquire());
+  const uint64_t bs = SKIP ? sw128_desc(ring.acquire()) : 0;
+#pragma unroll
+  for (int j0 = 0; j0 < 32; j0 += NJ)
+    trunk_part_s8<NJ, SKIP>(b0, b1, bs, enc_desc, j0, aq, ax0, ax1, s, net.wskip_s, bias, q, a);
+  ring.release(leader);
+  ring.release(leader);
+  if (SKIP) ring.release(leader);
+}
+
+// The trunk on the int8-compute route for one consumer warpgroup: layer 0
+// from the s8 encoding tile (enc_desc; K = 64 of its 128, the rest of the
+// w0 slab is zero), layers 1..7 from the s8 fragments of the layer before,
+// the skip product from the encoding again into its own accumulators. Each
+// layer runs in column parts (the B descriptor 16 atoms on for a half).
+// Leaves h7 in a, as the other routes do.
+__device__ __forceinline__ void trunk_s8(const Net& net, const float* par, Ring& ring, bool leader,
+                                         uint64_t enc_desc, int q, uint32_t (&a)[16][4]) {
+  uint32_t acc[64], aq[8][4];
+  float ax0 = 0.f, ax1 = 0.f;
+  {
+    const uint64_t b = sw128_desc(ring.acquire());
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        wgmma_ss_s8(acc, enc_desc + 2 * kk, b + h * 1024 + 2 * kk, kk != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      epilogue_s8<16>(acc, acc, false, false, ax0, ax1, net.w0_s, nullptr, par + P_B0, 16 * h, q, a);
+    }
+    ring.release(leader);
+  }
+  for (int i = 1; i < 8; ++i) {
+    quantize_rows(a, aq, ax0, ax1);
+    const float* s = net.wt_s + (i - 1) * HID;
+    const float* bias = par + P_BT + (i - 1) * HID;
+    if (i == net.skip_pos)
+      trunk_layer_s8<true>(net, s, bias, ring, leader, enc_desc, q, aq, ax0, ax1, a);
+    else
+      trunk_layer_s8<false>(net, s, bias, ring, leader, enc_desc, q, aq, ax0, ax1, a);
+  }
+}
+
 // One consumer warpgroup (c = 0, 1): rows n0 .. n0 + 63 of every tile of
 // this block.
 template <bool ZIN>
@@ -423,7 +761,6 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
   const uint64_t enc_desc = sw128_desc(smem_u32(enc));
   float* denc = reinterpret_cast<float*>(sm + OFF_DIR) + c * p.nr_max * (KDIR + CH);
   float* cdir = denc + p.nr_max * KDIR;
-  const bf16* wdir = static_cast<const bf16*>(net.wdir);
   Ring ring{smem_u32(sm + p.ring_off), smem_u32(sm + OFF_BAR), p.stages, 0, 0u, 0};
   float acc[128];
   uint32_t a[16][4];
@@ -450,7 +787,7 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
       float sum = 0.f;
 #pragma unroll 8
       for (int k = 0; k < KDIR; ++k)
-        sum = fmaf(denc[sl * KDIR + k], __bfloat162float(wdir[k * CH + col]), sum);
+        sum = fmaf(denc[sl * KDIR + k], weight_at<HQ>(net.wdir, net.wdir_s, k * CH + col, col), sum);
       cdir[e] = sum;
     }
 
@@ -482,34 +819,62 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
       else
         encode_half<1>(x0, x1, x2, valid ? net.Lp : -1, net.band_scale, v);
       const int half = t / RW_ROWS;
+      unsigned char* dst = enc + (row >> 3) * 1024 + (row & 7) * 128;
+      if constexpr (WQ == WQ_INT8_COMPUTE) {
+        // clip(rint(enc * (enc_scale * 127)), +-127) into K 32 half .. + 31
+        // of a 128-byte row (16-byte pieces 2 half, 2 half + 1)
+        uint32_t w[8];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ck = half * 4 + j;   // 16-byte column chunk: columns 8 ck .. 8 ck + 7
-        *reinterpret_cast<uint4*>(enc + (row >> 3) * 1024 + (row & 7) * 128 + ((ck ^ (row & 7)) << 4)) =
-            make_uint4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+        for (int j = 0; j < 8; ++j) {
+          uint32_t b[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k = 4 * j + e;
+            const float x = (k & 1) ? bf_hi(v[k >> 1]) : bf_lo(v[k >> 1]);
+            const float y = __fmul_rn(x, __fmul_rn(__ldg(net.enc_scale + 32 * half + k), 127.f));
+            b[e] = rint_bits(fminf(fmaxf(y, -127.f), 127.f));
+          }
+          w[j] = pack_s8(b[0], b[1], b[2], b[3]);
+        }
+#pragma unroll
+        for (int pp = 0; pp < 2; ++pp)
+          *reinterpret_cast<uint4*>(dst + (((2 * half + pp) ^ (row & 7)) << 4)) =
+              make_uint4(w[4 * pp], w[4 * pp + 1], w[4 * pp + 2], w[4 * pp + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int ck = half * 4 + j;   // 16-byte column chunk: columns 8 ck .. 8 ck + 7
+          *reinterpret_cast<uint4*>(dst + ((ck ^ (row & 7)) << 4)) =
+              make_uint4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+        }
       }
     }
     fence_async_smem();   // the encoding is read by the tensor cores' proxy
     named_sync(bar_id);
 
-    // 3. layer 0 from the encoding, one chunk
-    fence_regs(acc);
-    wgmma_fence();
-    {
-      const uint64_t b = sw128_desc(ring.acquire());
+    if constexpr (WQ == WQ_INT8_COMPUTE) {
+      // 3-4. the trunk as s8 x s8 products
+      trunk_s8(net, par, ring, leader, enc_desc, q, a);
+    } else {
+      // 3. layer 0 from the encoding, one chunk
+      fence_regs(acc);
+      wgmma_fence();
+      {
+        const uint64_t b = sw128_desc(ring.acquire());
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_ss_n256(acc, enc_desc + 2 * kk, b + 2 * kk, kk != 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      ring.release(leader);
-    }
-    fence_regs(acc);
-    epilogue_to_a(acc, a, par + P_B0, q, true);
+        for (int kk = 0; kk < 4; ++kk) wgmma_ss_n256(acc, enc_desc + 2 * kk, b + 2 * kk, kk != 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        ring.release(leader);
+      }
+      fence_regs(acc);
+      epilogue_to_a(acc, a, par + P_B0, q, true);
 
-    // 4. trunk layers 1..7, the skip product accumulated at skip_pos
-    for (int i = 1; i < 8; ++i) {
-      hidden_layer(acc, a, ring, leader, i == net.skip_pos, enc_desc);
-      epilogue_to_a(acc, a, par + P_BT + (i - 1) * HID, q, true);
+      // 4. trunk layers 1..7, the skip product accumulated at skip_pos
+      for (int i = 1; i < 8; ++i) {
+        hidden_layer(acc, a, ring, leader, i == net.skip_pos, enc_desc);
+        epilogue_to_a(acc, a, par + P_BT + (i - 1) * HID, q, true);
+      }
     }
 
     // 5. density from h7: partial dot products over the thread's 64
@@ -619,13 +984,140 @@ __device__ __forceinline__ void producer(const RwParams& p, unsigned char* sm) {
   int stage = 0;
   uint32_t phase = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const unsigned char* src = reinterpret_cast<const unsigned char*>(p.wstream);
+    const unsigned char* src = p.wstream;
     for (int j = 0; j < p.n_chunks; ++j) {
       const uint32_t bytes = j < n_big ? CHUNK_BIG : CHUNK_SMALL;
       mbar_wait(bars + 8 * (STAGES_MAX + stage), phase ^ 1);
       mbar_expect_tx(bars + 8 * stage, bytes);
       bulk_load(ring + stage * CHUNK_BIG, src, bytes, bars + 8 * stage);
       src += bytes;
+      if (++stage == p.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// ---- the quantized routes' producer ------------------------------------------
+
+// The stream's chunks on a quantized route (ops/ray_wgmma.chunk_schedule):
+// first n_direct() s8 slabs of 32 KB copied as they are (int8 compute), then
+// dequantize chunks, 64-row slabs of 256 columns but the last four (wc0,
+// 128 columns).
+__device__ __forceinline__ int n_direct() { return WQ == WQ_INT8_COMPUTE ? N_DIRECT_S8 : 0; }
+__device__ __forceinline__ int conv_cols(int j, int n) { return j >= n - 4 ? CH : HID; }
+__device__ __forceinline__ uint32_t chunk_offset(int j, int n) {
+  const int nd = n_direct();
+  if (j <= nd) return uint32_t(j) * CHUNK_BIG;
+  const int big = min(j, n - 4) - nd, small = max(j - (n - 4), 0);
+  return uint32_t(nd) * CHUNK_BIG + uint32_t(big) * conv_bytes(HID) + uint32_t(small) * conv_bytes(CH);
+}
+
+// bf16(f32(q) * s) of the intN values of a word, as bf16 pairs: f32(q) is
+// built exactly from the bits of 2^23 + (q + 2^(b-1)) (no I2F)
+__device__ __forceinline__ float q_at(uint32_t x, uint32_t sel, float bias) {
+  return __fsub_rn(__uint_as_float(__byte_perm(x, 0x4B000000u, sel)), bias);
+}
+__device__ __forceinline__ void dequant_word(uint32_t w, float s, uint32_t* out) {
+  if constexpr (ES == 1) {
+    const uint32_t x = w ^ 0x80808080u;   // s8 -> offset binary
+    out[0] = pack_bf16(__fmul_rn(q_at(x, 0x7440, 8388736.f), s), __fmul_rn(q_at(x, 0x7441, 8388736.f), s));
+    out[1] = pack_bf16(__fmul_rn(q_at(x, 0x7442, 8388736.f), s), __fmul_rn(q_at(x, 0x7443, 8388736.f), s));
+  } else {
+    const uint32_t x = w ^ 0x80008000u;   // s16 -> offset binary
+    out[0] = pack_bf16(__fmul_rn(q_at(x, 0x7410, 8421376.f), s), __fmul_rn(q_at(x, 0x7432, 8421376.f), s));
+  }
+}
+// the 8 values of one 16-byte output vector: 8 bytes of int8, 16 of int16
+__device__ __forceinline__ void dequant_vec(uint2 w, float s, uint32_t (&o)[4]) {
+  dequant_word(w.x, s, o);
+  dequant_word(w.y, s, o + 2);
+}
+__device__ __forceinline__ void dequant_vec(uint4 w, float s, uint32_t (&o)[4]) {
+  dequant_word(w.x, s, o);
+  dequant_word(w.y, s, o + 1);
+  dequant_word(w.z, s, o + 2);
+  dequant_word(w.w, s, o + 3);
+}
+
+// One landed dequantize chunk (`cols` image rows of 64 intN values, then
+// `cols` scales) into its bf16 stage, 16 bytes (8 values, one image row's
+// scale) a thread and step; CONVERT_BATCH steps load before any converts,
+// so their shared-memory latencies overlap.
+__device__ __forceinline__ void convert_chunk(const unsigned char* __restrict__ src,
+                                              unsigned char* __restrict__ dst, int cols, int t) {
+  typedef typename std::conditional<ES == 1, uint2, uint4>::type Word;
+  const float* scale = reinterpret_cast<const float*>(src + cols * CHUNK_K * ES);
+  for (int v0 = t; v0 < cols * 8; v0 += 128 * CONVERT_BATCH) {
+    Word w[CONVERT_BATCH];
+    float s[CONVERT_BATCH];
+#pragma unroll
+    for (int b = 0; b < CONVERT_BATCH; ++b) {
+      const int v = v0 + 128 * b;
+      w[b] = *reinterpret_cast<const Word*>(src + v * sizeof(Word));
+      s[b] = scale[v >> 3];
+    }
+#pragma unroll
+    for (int b = 0; b < CONVERT_BATCH; ++b) {
+      uint32_t o[4];
+      dequant_vec(w[b], s[b], o);
+      *reinterpret_cast<uint4*>(dst + (v0 + 128 * b) * 16) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  }
+}
+
+// The producer warpgroup on a quantized route. Its first thread copies each
+// s8 chunk straight into its stage (as on the bf16 route) and requests each
+// dequantize chunk into a landing slot, LANDS chunks ahead; all its threads
+// convert a landed chunk into its stage, fence the writes for the tensor
+// cores' proxy and meet; the first thread then marks the stage full and
+// requests the next chunk into the freed slot.
+__device__ __forceinline__ void producer_q(const RwParams& p, unsigned char* sm) {
+  const int t = threadIdx.x, n = p.n_chunks, nd = n_direct(), nconv = n - nd;
+  const int tiles = int(p.tiles);
+  const uint32_t bars = smem_u32(sm + OFF_BAR), lbars = smem_u32(sm + OFF_LBAR);
+  int req = 0;   // thread 0: dequantize chunks requested, over this block's tiles
+  auto request = [&](int slot) {
+    const int j = nd + req % nconv;
+    if (int(blockIdx.x) + (req / nconv) * int(gridDim.x) >= tiles) return;
+    ++req;
+    const uint32_t bytes = conv_bytes(conv_cols(j, n));
+    fence_async_smem();   // the slot's last reads were the generic proxy's
+    mbar_expect_tx(lbars + 8 * slot, bytes);
+    bulk_load(smem_u32(sm + p.land_off + slot * LAND_BYTES), p.wstream + chunk_offset(j, n), bytes,
+              lbars + 8 * slot);
+  };
+  if (t == 0)
+    for (int s = 0; s < LANDS; ++s) request(s);
+  int stage = 0, slot = 0;
+  uint32_t phase = 0, lphase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    for (int j = 0; j < n; ++j) {
+      const uint32_t full = bars + 8 * stage;
+      unsigned char* dst = sm + p.ring_off + stage * CHUNK_BIG;
+      // every thread waits for the stage, so none runs a phase of its
+      // barrier ahead (a parity wait cannot tell two phases apart)
+      mbar_wait(bars + 8 * (STAGES_MAX + stage), phase ^ 1);
+      if (j < nd) {
+        if (t == 0) {
+          mbar_expect_tx(full, CHUNK_BIG);
+          bulk_load(smem_u32(dst), p.wstream + uint32_t(j) * CHUNK_BIG, CHUNK_BIG, full);
+        }
+      } else {
+        mbar_wait(lbars + 8 * slot, lphase);
+        convert_chunk(sm + p.land_off + slot * LAND_BYTES, dst, conv_cols(j, n), t);
+        fence_async_smem();
+        producer_sync(PRODUCER_BAR);
+        if (t == 0) {
+          mbar_arrive(full);
+          request(slot);
+        }
+        if (++slot == LANDS) {
+          slot = 0;
+          lphase ^= 1;
+        }
+      }
       if (++stage == p.stages) {
         stage = 0;
         phase ^= 1;
@@ -649,8 +1141,8 @@ __device__ __forceinline__ void ray_wgmma_body(const RwParams& p, unsigned char*
     else if (i < P_BBN) v = net.bt[i - P_BT];
     else if (i < P_BC0) v = net.bmild ? net.bbn[i - P_BBN] : 0.f;
     else if (i < P_WSIG) v = net.bc0[i - P_BC0];
-    else if (i < P_WC1) v = __bfloat162float(static_cast<const bf16*>(net.wsig)[i - P_WSIG]);
-    else if (i < P_BSIG) v = __bfloat162float(static_cast<const bf16*>(net.wc1)[i - P_WC1]);
+    else if (i < P_WC1) v = weight_at<HQ>(net.wsig, net.wsig_s, i - P_WSIG, 0);
+    else if (i < P_BSIG) v = weight_at<HQ>(net.wc1, net.wc1_s, i - P_WC1, (i - P_WC1) % 3);
     else if (i == P_BSIG) v = net.bsig[0];
     else if (i < P_BC1 + 3) v = net.bc1[i - P_BC1];
     par[i] = v;
@@ -661,14 +1153,18 @@ __device__ __forceinline__ void ray_wgmma_body(const RwParams& p, unsigned char*
       mbar_init(bars + 8 * s, 1);                  // the producer's expect_tx
       mbar_init(bars + 8 * (STAGES_MAX + s), 2);   // one arrival per consumer
     }
+    for (int s = 0; s < LANDS; ++s) mbar_init(smem_u32(sm + OFF_LBAR) + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   if (threadIdx.x < 128) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 0) producer(p, sm);
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if constexpr (CONVERTS)
+      producer_q(p, sm);
+    else if (threadIdx.x == 0)
+      producer(p, sm);
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     consumer<ZIN>(p, sm, threadIdx.x / 128 - 1);
   }
 }
@@ -731,17 +1227,20 @@ int ring_offset(int nr_max) {
   const int end = OFF_DIR + 2 * nr_max * (KDIR + CH) * int(sizeof(float));
   return (end + 1023) / 1024 * 1024;
 }
+// the 32 KB stages that fit beside the landing slots
 int ring_stages(int nr_max) {
-  const int n = (SMEM_MAX - 1024 - ring_offset(nr_max)) / CHUNK_BIG;
+  const int n = (SMEM_MAX - 1024 - ring_offset(nr_max) - LANDS * LAND_BYTES) / CHUNK_BIG;
   return n < STAGES_MAX ? n : STAGES_MAX;
 }
-size_t rw_smem_bytes(int nr_max) {
-  return 1024 + ring_offset(nr_max) + size_t(ring_stages(nr_max)) * CHUNK_BIG;
-}
+int land_offset(int nr_max) { return ring_offset(nr_max) + ring_stages(nr_max) * CHUNK_BIG; }
+size_t rw_smem_bytes(int nr_max) { return 1024 + land_offset(nr_max) + size_t(LANDS) * LAND_BYTES; }
 
-// Chunks of the weight stream: w0, 7 x 4 trunk slabs, wskip, 4 bottleneck
-// slabs (bmild), 4 color slabs (ops/ray_wgmma.chunk_schedule).
-int stream_chunks(int bmild) { return 1 + 28 + 1 + (bmild ? 4 : 0) + 4; }
+// Chunks of the weight stream (ops/ray_wgmma.chunk_schedule): w0, 7 trunk
+// layers of 4 slabs (2 on the int8-compute route), wskip, 4 bottleneck
+// slabs (bmild), 4 color slabs.
+int stream_chunks(int bmild) {
+  return 1 + 7 * (WQ == WQ_INT8_COMPUTE ? 2 : 4) + 1 + (bmild ? 4 : 0) + 4;
+}
 
 int sm_count() {
   int dev = 0, n = 0;
@@ -756,22 +1255,29 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// Dynamic shared memory of a launch at n_samples depths per ray, and the
-// stages of its weight ring.
+// Dynamic shared memory of a launch at n_samples depths per ray, the
+// stages of its weight ring, its landing slots, this build's weight route.
 long long ray_wgmma_smem_bytes(int n_samples) {
   return (long long)rw_smem_bytes((RW_ROWS - 1) / n_samples + 2);
 }
 int ray_wgmma_stages(int n_samples) { return ring_stages((RW_ROWS - 1) / n_samples + 2); }
+int ray_wgmma_landing_slots() { return LANDS; }
+int ray_wgmma_route() { return WQ; }
+// registers a thread after setmaxnreg: a consumer's (1) or the producer's (0)
+int ray_wgmma_registers(int consumer) { return consumer ? CONSUMER_REGS : PRODUCER_REGS; }
 
+// `scales`: null on the bf16 route, else the eight matrices' scales and
+// enc_scale (mlp_body.cuh make_net); the matrices' own pointers serve the
+// resident heads and wdir, the stream the rest.
 int ray_wgmma_render(const float* rays_o, const float* rays_d, const float* z, long long z_stride,
                      int n_rays, int n_samples, float near, float span, const void* wstream,
-                     const void* const* weights, int Lp, int Ld, int skip_pos, int bmild,
-                     int relu_sigma, int normalize_dirs, float band_scale, int out_mode, void* out,
-                     void* stream) {
+                     const void* const* weights, const void* const* scales, int Lp, int Ld,
+                     int skip_pos, int bmild, int relu_sigma, int normalize_dirs, float band_scale,
+                     int out_mode, void* out, void* stream) {
   RwParams p;
-  p.net = make_net(weights, nullptr, Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs,
+  p.net = make_net(weights, scales, Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs,
                    band_scale);
-  p.wstream = static_cast<const bf16*>(wstream);
+  p.wstream = static_cast<const unsigned char*>(wstream);
   p.rays_o = rays_o;
   p.rays_d = rays_d;
   p.z = z;
@@ -787,7 +1293,9 @@ int ray_wgmma_render(const float* rays_o, const float* rays_d, const float* z, l
   p.span = span;
   p.ring_off = ring_offset(p.nr_max);
   p.stages = ring_stages(p.nr_max);
-  if (p.stages < 2 || n_samples < (z ? 1 : 2) || !net_fits(p.net) || out_mode < OUT_F32 || out_mode > OUT_PLANAR ||
+  p.land_off = land_offset(p.nr_max);
+  // the int8-compute skip layer holds three chunks at once
+  if (p.stages < (WQ == WQ_INT8_COMPUTE ? 3 : 2) || !net_has_scales(p.net, WQ) || n_samples < (z ? 1 : 2) || !net_fits(p.net) || out_mode < OUT_F32 || out_mode > OUT_PLANAR ||
       !wstream || (bmild && (!p.net.wbn || !p.net.bbn)) || skip_pos < 1 || skip_pos > 7)
     return int(cudaErrorInvalidValue);
   if (p.total == 0) return int(cudaSuccess);

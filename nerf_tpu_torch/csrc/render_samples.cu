@@ -1,10 +1,10 @@
 // Fused ray kernels: samples along each ray + the whole NeRF MLP, and
 // optionally the volume rendering of those samples, on the WMMA body of
-// mlp_body.cuh. This source serves the composited modes (every weight route)
-// and the raw modes on quantized weights. The raw modes on bf16 weights run
-// on the Hopper kernels of ray_wgmma.cu (warpgroup wgmma, weights streamed by
-// a producer warp, persistent blocks); their raw entry here is kept built
-// and is timed beside them, but no wrapper sends a launch to it.
+// mlp_body.cuh. This source serves the composited modes (every weight
+// route). The raw modes, on every weight route, run on the Hopper kernels
+// of ray_wgmma.cu (warpgroup wgmma, weights streamed by a producer
+// warpgroup, persistent blocks); the raw entries here are kept built and
+// are timed beside them, but no wrapper sends a launch to them.
 //
 // Replaces the Pallas TPU kernels of nerf_tpu/ops/render_kernel.py:
 // - ray_kernel: `_ray_kernel` (uniform depths, `fused_render_samples`);

@@ -38,9 +38,9 @@ SOURCES = ("render_samples", "composite", "mlp_forward", "mlp_backward", "mlp_qu
 # library -> (source, definition): the ray kernels on int8 and int16 weights
 # dequantized in the kernel, and on the int8-compute route
 VARIANTS = {
-    "render_samples_q8": ("render_samples", "-DNERF_WQ=1"),
-    "render_samples_q16": ("render_samples", "-DNERF_WQ=2"),
-    "render_samples_i8": ("render_samples", "-DNERF_WQ=3"),
+    f"{source}_{suffix}": (source, f"-DNERF_WQ={route}")
+    for source in ("render_samples", "ray_wgmma")
+    for route, suffix in ((1, "q8"), (2, "q16"), (3, "i8"))
 }
 LIBRARIES = SOURCES + tuple(VARIANTS)
 # no --use_fast_math: the positional encoding takes sinf/cosf of phases up

@@ -1,26 +1,40 @@
-"""The weight stream of the Hopper ray kernels (``csrc/ray_wgmma.cu``).
+"""The weight streams of the Hopper ray kernels (``csrc/ray_wgmma.cu``).
 
-K1 and K3 on the bf16 weight route, raw output, run on ``csrc/ray_wgmma.cu``:
-a producer warp copies the network into shared memory one chunk at a time
-(``cp.async.bulk``, one contiguous copy a chunk) and two consumer
-warpgroups multiply each chunk with ``wgmma``. This module lays the weights
-out for that stream, once per ``PackedWeights`` (cached beside them):
+K1 and K3 in their raw output forms run on ``csrc/ray_wgmma.cu``, built once
+per weight route (``LIBRARIES``): bf16 weights (``PackedWeights``), int8 or
+int16 weights dequantized in the kernel (``QuantizedPackedWeights``), and int8
+compute (``Int8PackedWeights``). A producer warpgroup copies the network into
+shared memory one chunk at a time (``cp.async.bulk``, one contiguous copy a
+chunk) and two consumer warpgroups multiply each chunk with ``wgmma``. This
+module lays the weights out for that stream, once per set of weights (cached
+beside them):
 
-- a chunk is a 64-row slab ``W[k0:k0 + 64, :]`` of one matrix (all its
-  ``N`` columns: 256, or 128 for ``wc0``);
-- in the stream it is the exact shared-memory image that ``wgmma``'s B
-  descriptor reads: the slab transposed to ``[N, 64]`` (K-major: each output
-  column's 64 weights contiguous, 128 bytes), in 1,024-byte atoms of 8
-  columns, the 16-byte pieces of row ``r`` of an atom at position
-  ``piece ^ r`` (the 128-byte swizzle);
-- the chunks follow the consumers' order, the same for every tile
-  (``chunk_schedule``): ``w0``; the four slabs of each trunk layer
-  ``wt[0..6]``, with ``wskip`` after the layer at ``skip_pos``; the four of
-  ``wbn`` (bmild); the four of ``wc0``. The producer walks it front to back.
+- a chunk is a slab of one matrix, all its ``N`` columns (256, or 128 for
+  ``wc0``), in the order the consumers multiply them (``chunk_schedule``):
+  ``w0``; the slabs of each trunk layer ``wt[0..6]``, with ``wskip`` after
+  the layer at ``skip_pos``; those of ``wbn`` (bmild); those of ``wc0``. The
+  producer walks it front to back;
+- bf16 route: a 64-row slab ``W[k0:k0 + 64, :]`` in the exact shared-memory
+  image that ``wgmma``'s B descriptor reads: the slab transposed to ``[N,
+  64]`` (K-major: each output column's 64 weights contiguous, 128 bytes), in
+  1,024-byte atoms of 8 columns, the 16-byte pieces of row ``r`` of an atom
+  at position ``piece ^ r`` (the 128-byte swizzle);
+- dequantize routes (int8, int16): the same chunks, each the bf16 chunk's
+  image element for element in intN, followed by the matrix's ``N`` float32
+  scales. An image row is one output column, so a scale covers one 128-byte
+  row of the bf16 image the producer writes, ``bf16(f32(q) * s[col])``;
+- int8 compute: ``w0``, ``wt`` and ``wskip`` are s8 operands. A 128-byte
+  image row holds 128 of their K values, so a chunk is a 128-row slab
+  (32 KB), copied as it is: a trunk layer is two chunks, and ``w0`` and
+  ``wskip`` (64 rows) are padded with zero rows. The rows of each ``wt``
+  matrix are permuted within every 16 (``K_PERM``): the s8 A fragment of a
+  thread then holds its own accumulator columns in order (integer sums are
+  exact, so the product is unchanged). ``wbn`` and ``wc0`` are dequantize
+  chunks (int8).
 
 ``unpack_stream`` undoes the layout in plain PyTorch; the tests hold it
-against ``pack_params`` bit for bit. Biases, ``wsig``, ``wc1`` and ``wdir``
-are read from ``PackedWeights`` as they are.
+against the weights bit for bit. Biases, ``wsig``, ``wc1``, ``wdir`` and the
+s8 matrices' scales are read from the weights as they are.
 """
 
 from __future__ import annotations
@@ -32,13 +46,34 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 from nerf_tpu_torch.config import ModelConfig
-from nerf_tpu_torch.ops import _ext
+from nerf_tpu_torch.ops import _ext, quant
 from nerf_tpu_torch.ops.mlp_kernel import HID, POS_ROWS, PackedWeights, skip_position
 
 LIBRARY = "ray_wgmma"
-CHUNK_K = 64          # weight rows per chunk
+# the build of csrc/ray_wgmma.cu for each weight route (0: bf16 weights)
+LIBRARIES = {0: LIBRARY, quant.ROUTE_INT8: "ray_wgmma_q8", quant.ROUTE_INT16: "ray_wgmma_q16",
+             quant.ROUTE_INT8_COMPUTE: "ray_wgmma_i8"}
+CHUNK_K = 64          # weight rows per bf16 or dequantize chunk
+S8_K = 128            # weight rows per s8 chunk
 CH = HID // 2         # color layer width
 _SWIZZLE = torch.arange(8)[:, None] ^ torch.arange(8)[None, :]   # [row, piece] -> piece ^ row
+_BYTES = {"bf16": 2, "int8": 1, "int16": 2, "s8": 1}
+_QDTYPE = {"int8": torch.int8, "int16": torch.int16}
+
+
+def _k_perm() -> torch.Tensor:
+    """Row ``C`` of a trunk matrix that K position ``P`` of the s8 stream
+    holds: within each 32, ``P = 16 h + 4 q + 2 m + e`` holds ``C = 16 h + 8 m
+    + 2 q + e`` (``csrc/ray_wgmma.cu`` quantize_rows: register ``r`` of a
+    thread's A fragment, byte ``2 m + e``, holds its accumulator column ``8 (4
+    kk + 2 h + m) + 2 q + e``)."""
+    p = torch.arange(HID)
+    kk, h, q, m, e = p // 32, p % 32 // 16, p % 16 // 4, p % 4 // 2, p % 2
+    return 32 * kk + 16 * h + 8 * m + 2 * q + e
+
+
+K_PERM = _k_perm()
+K_UNPERM = torch.argsort(K_PERM)
 
 
 class Chunk(NamedTuple):
@@ -46,88 +81,164 @@ class Chunk(NamedTuple):
     layer: Optional[int]  # index into wt, else None
     k0: int               # first row of the slab
     n: int                # columns (the product's N)
+    fmt: str = "bf16"     # "bf16", "int8" / "int16" (dequantized by the producer), "s8"
+    k: int = CHUNK_K      # rows of the slab
 
     @property
     def nbytes(self) -> int:
-        return CHUNK_K * self.n * 2
+        """Bytes in the stream: the image, and a dequantize chunk's scales."""
+        scales = 4 * self.n if self.fmt in _QDTYPE else 0
+        return self.k * self.n * _BYTES[self.fmt] + scales
 
 
-def chunk_schedule(cfg: ModelConfig) -> List[Chunk]:
-    """The chunks of one tile, in the order the consumers multiply them."""
-    slabs = lambda name, layer=None, n=HID: [Chunk(name, layer, k, n)
-                                             for k in range(0, HID, CHUNK_K)]
-    out = [Chunk("w0", None, 0, HID)]
+def route_of(weights) -> int:
+    """The weight route of ``PackedWeights`` (0) or quantized weights."""
+    return quant.route_of(weights) if quant.is_quantized(weights) else 0
+
+
+def chunk_schedule(cfg: ModelConfig, route: int = 0) -> List[Chunk]:
+    """The chunks of one tile on a weight route, in the order the consumers
+    multiply them."""
+    head = {0: "bf16", quant.ROUTE_INT8: "int8", quant.ROUTE_INT16: "int16",
+            quant.ROUTE_INT8_COMPUTE: "int8"}[route]
+    trunk, k = ("s8", S8_K) if route == quant.ROUTE_INT8_COMPUTE else (head, CHUNK_K)
+    slabs = lambda name, layer=None, n=HID, fmt=head, k=CHUNK_K: [
+        Chunk(name, layer, k0, n, fmt, k) for k0 in range(0, HID, k)]
+    out = [Chunk("w0", None, 0, HID, trunk, k)]
     skip_pos = skip_position(cfg)
     for i in range(1, 8):
-        out += slabs("wt", i - 1)
+        out += slabs("wt", i - 1, fmt=trunk, k=k)
         if i == skip_pos:
-            out.append(Chunk("wskip", None, 0, HID))
+            out.append(Chunk("wskip", None, 0, HID, trunk, k))
     if cfg.variant == "bmild":
         out += slabs("wbn")
     return out + slabs("wc0", n=CH)
 
 
-def _matrix(packed: PackedWeights, c: Chunk) -> torch.Tensor:
-    w = getattr(packed, c.name)
-    return w if c.layer is None else w[c.layer]
+def _matrix(weights, c: Chunk) -> torch.Tensor:
+    """The chunk's matrix as the stream carries it: bf16, intN, or the s8
+    operand (``wt`` rows in ``K_PERM`` order, ``w0``/``wskip`` padded to 128
+    rows)."""
+    w = getattr(weights, c.name if c.fmt == "bf16" else f"{c.name}_q")
+    w = w if c.layer is None else w[c.layer]
+    if c.fmt == "s8":
+        w = w[K_PERM.to(w.device)] if c.name == "wt" else torch.cat(
+            [w, w.new_zeros(S8_K - w.shape[0], w.shape[1])])
+    return w
+
+
+def _scales(weights, c: Chunk) -> torch.Tensor:
+    s = getattr(weights, f"{c.name}_s")
+    return (s if c.layer is None else s[c.layer]).reshape(-1)
 
 
 def _swizzled(slab: torch.Tensor) -> torch.Tensor:
-    """``[64, N]`` slab -> its shared-memory image, flat."""
-    t = slab.t().reshape(-1, 8, 8, 8)                       # [atom, row, piece, 8 values]
+    """``[K, N]`` slab (K * element size = 128 bytes) -> its shared-memory
+    image, flat: 16-byte pieces of K values, piece ``p`` of image row ``n``
+    at position ``p ^ (n % 8)``."""
+    per_piece = slab.shape[0] // 8
+    t = slab.t().reshape(-1, 8, 8, per_piece)               # [atom, row, piece, values]
     return t[:, torch.arange(8)[:, None], _SWIZZLE.to(t.device)].reshape(-1)
 
 
-def _unswizzled(flat: torch.Tensor, n: int) -> torch.Tensor:
-    """The inverse of ``_swizzled``: the flat image -> ``[64, N]``."""
-    t = flat.reshape(n // 8, 8, 8, 8)
-    return t[:, torch.arange(8)[:, None], _SWIZZLE.to(t.device)].reshape(n, CHUNK_K).t()
+def _unswizzled(flat: torch.Tensor, n: int, k: int = CHUNK_K) -> torch.Tensor:
+    """The inverse of ``_swizzled``: the flat image -> ``[k, N]``."""
+    t = flat.reshape(n // 8, 8, 8, k // 8)
+    return t[:, torch.arange(8)[:, None], _SWIZZLE.to(t.device)].reshape(n, k).t()
 
 
-def pack_stream(packed: PackedWeights, cfg: ModelConfig) -> torch.Tensor:
-    """The weight stream: every chunk of ``chunk_schedule`` in its
-    shared-memory image, concatenated (bf16, 1-D)."""
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.uint8)
+
+
+def pack_stream(weights, cfg: ModelConfig) -> torch.Tensor:
+    """The weight stream of ``PackedWeights`` (bf16, 1-D) or of quantized
+    weights (bytes, 1-D): every chunk of ``chunk_schedule`` in its
+    shared-memory image, a dequantize chunk followed by its scales,
+    concatenated."""
+    route = route_of(weights)
+    suffix = "_q" if route else ""
     for name in ("w0", "wskip"):
-        if getattr(packed, name).shape[0] != POS_ROWS:
+        if getattr(weights, name + suffix).shape[0] != POS_ROWS:
             raise ValueError(f"{name} must have {POS_ROWS} rows")
-    return torch.cat([_swizzled(_matrix(packed, c)[c.k0:c.k0 + CHUNK_K])
-                      for c in chunk_schedule(cfg)]).contiguous()
+    if route == 0:
+        return torch.cat([_swizzled(_matrix(weights, c)[c.k0:c.k0 + CHUNK_K])
+                          for c in chunk_schedule(cfg)]).contiguous()
+    parts = []
+    for c in chunk_schedule(cfg, route):
+        parts.append(_bytes(_swizzled(_matrix(weights, c)[c.k0:c.k0 + c.k])))
+        if c.fmt in _QDTYPE:
+            parts.append(_bytes(_scales(weights, c).float()))
+    return torch.cat(parts)
 
 
-def unpack_stream(stream: torch.Tensor, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """The matrices back from a stream: ``w0``, ``wt`` [7, 256, 256],
-    ``wskip``, ``wc0`` and, for bmild, ``wbn``."""
+def unpack_stream(stream: torch.Tensor, cfg: ModelConfig, route: int = 0
+                  ) -> Dict[str, torch.Tensor]:
+    """The matrices back from a stream. bf16 route: ``w0``, ``wt`` [7, 256,
+    256], ``wskip``, ``wc0`` and, for bmild, ``wbn``. Quantized routes: the
+    same as ``*_q`` (the s8 rows back in their order, the padding dropped)
+    and, for the dequantize chunks, ``*_s`` as the weights hold them (``[1,
+    N]``; ``wt_s`` ``[7, 1, 256]``), each chunk's scales equal to its
+    matrix's first chunk's."""
     slabs: Dict[tuple, List[torch.Tensor]] = {}
+    scales: Dict[tuple, torch.Tensor] = {}
     at = 0
-    for c in chunk_schedule(cfg):
-        size = CHUNK_K * c.n
-        slabs.setdefault((c.name, c.layer), []).append(_unswizzled(stream[at:at + size], c.n))
+    for c in chunk_schedule(cfg, route):
+        size = c.k * c.n * _BYTES[c.fmt] if route else c.k * c.n
+        img = stream[at:at + size]
+        if c.fmt in _QDTYPE:
+            img = img.view(_QDTYPE[c.fmt])
+        elif c.fmt == "s8":
+            img = img.view(torch.int8)
+        slabs.setdefault((c.name, c.layer), []).append(_unswizzled(img, c.n, c.k))
         at += size
+        if c.fmt in _QDTYPE:
+            s = stream[at:at + 4 * c.n].view(torch.float32)
+            if not torch.equal(scales.setdefault((c.name, c.layer), s), s):
+                raise ValueError(f"the slabs of {c.name} carry different scales")
+            at += 4 * c.n
     if at != stream.numel():
         raise ValueError(f"stream of {stream.numel()} values, the schedule covers {at}")
     mats = {key: torch.cat(parts) for key, parts in slabs.items()}
-    out = {name: m for (name, layer), m in mats.items() if layer is None}
-    out["wt"] = torch.stack([mats[("wt", i)] for i in range(7)])
+    if route == quant.ROUTE_INT8_COMPUTE:                  # undo K_PERM and the padding
+        for key in [k for k in mats if k[0] == "wt"]:
+            mats[key] = mats[key][K_UNPERM.to(stream.device)]
+        for key in (("w0", None), ("wskip", None)):
+            mats[key] = mats[key][:POS_ROWS]
+    suffix = "_q" if route else ""
+    out = {name + suffix: m for (name, layer), m in mats.items() if layer is None}
+    out["wt" + suffix] = torch.stack([mats[("wt", i)] for i in range(7)])
+    for (name, layer), s in scales.items():
+        if layer is None:
+            out[f"{name}_s"] = s[None]
+    if ("wt", 0) in scales:
+        out["wt_s"] = torch.stack([scales[("wt", i)][None] for i in range(7)])
     return out
 
 
-# id(PackedWeights.w0) -> (weak references to its matrices, variant, stream),
-# dropped when w0 is freed
+# id(first matrix) -> (weak references to the streamed tensors, variant,
+# stream), dropped when that matrix is freed
 _STREAMS: Dict[int, tuple] = {}
+_STREAMED = ("w0", "wt", "wskip", "wbn", "wc0")
 
 
-def stream_for(packed: PackedWeights, cfg: ModelConfig) -> torch.Tensor:
-    """``pack_stream`` of ``packed``, made once and cached beside it (keyed
-    by its matrices' identity)."""
-    mats = tuple(getattr(packed, n) for n in ("w0", "wt", "wskip", "wbn", "wc0"))
-    key = id(packed.w0)
+def stream_for(weights, cfg: ModelConfig) -> torch.Tensor:
+    """``pack_stream`` of ``weights``, made once and cached beside them
+    (keyed by the identity of the tensors it is made from)."""
+    if quant.is_quantized(weights):
+        names = [f"{n}_{x}" for n in _STREAMED for x in "qs"]
+    else:
+        names = list(_STREAMED)
+    mats = tuple(getattr(weights, n) for n in names)
+    key = id(mats[0])
     hit = _STREAMS.get(key)
-    if hit is not None and all(ref() is m for ref, m in zip(hit[0], mats)) and hit[1] == cfg.variant:
+    if (hit is not None and len(hit[0]) == len(mats)
+            and all(ref() is m for ref, m in zip(hit[0], mats)) and hit[1] == cfg.variant):
         return hit[2]
-    stream = pack_stream(packed, cfg)
+    stream = pack_stream(weights, cfg)
     refs = tuple((lambda: None) if m is None else weakref.ref(m) for m in mats)
     if hit is None:
-        weakref.finalize(packed.w0, _STREAMS.pop, key, None)
+        weakref.finalize(mats[0], _STREAMS.pop, key, None)
     _STREAMS[key] = (refs, cfg.variant, stream)
     return stream
 
@@ -137,16 +248,16 @@ ARGTYPES = (
     + [ctypes.c_longlong]                 # z row stride
     + [ctypes.c_int] * 2                  # n_rays, n_samples
     + [ctypes.c_float] * 2                # near, far - near
-    + [ctypes.c_void_p] * 2               # weight stream, weights (PackedWeights order)
+    + [ctypes.c_void_p] * 3               # weight stream, weights (PackedWeights order), scales
     + [ctypes.c_int] * 6 + [ctypes.c_float]   # net_args
     + [ctypes.c_int]                      # raw output form
     + [ctypes.c_void_p] * 2               # out, stream
 )
 
 
-def load() -> ctypes.CDLL:
-    """The bound library, its signatures set once."""
-    lib = _ext.load(LIBRARY)
+def load(library: str = LIBRARY) -> ctypes.CDLL:
+    """A bound build of ``csrc/ray_wgmma.cu``, its signatures set once."""
+    lib = _ext.load(library)
     if lib.ray_wgmma_render.argtypes is None:
         lib.ray_wgmma_render.argtypes = ARGTYPES
         lib.ray_wgmma_render.restype = ctypes.c_int
@@ -154,6 +265,10 @@ def load() -> ctypes.CDLL:
         lib.ray_wgmma_smem_bytes.restype = ctypes.c_longlong
         lib.ray_wgmma_stages.argtypes = [ctypes.c_int]
         lib.ray_wgmma_stages.restype = ctypes.c_int
+        lib.ray_wgmma_landing_slots.restype = ctypes.c_int
+        lib.ray_wgmma_route.restype = ctypes.c_int
+        lib.ray_wgmma_registers.argtypes = [ctypes.c_int]
+        lib.ray_wgmma_registers.restype = ctypes.c_int
         lib.l2_stream_probe.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                                         ctypes.c_int, ctypes.c_void_p]
         lib.l2_stream_probe.restype = ctypes.c_int

@@ -28,18 +28,18 @@ Every function takes the weights as a params dict, ``PackedWeights`` or the
 quantized representations of ``ops/quant.py`` (the TPU kernels'
 ``_weights_for``): ``QuantizedPackedWeights`` are dequantized inside the
 kernel as it stages each weight chunk, ``Int8PackedWeights`` run the trunk
-as s8 x s8 -> s32 tensor-core products. Each route is its own build of
-``csrc/render_samples.cu``.
+as s8 x s8 -> s32 tensor-core products. Each weight route is its own build
+of each CUDA source.
 
 On a CUDA tensor each wrapper launches its CUDA kernel and counts the launch
 in ``launches[name]``; on a CPU tensor it runs its ``*_plain`` twin, the same
 arithmetic in plain PyTorch. Nothing falls back: a CUDA launch either runs
-or raises. Which kernel (``kernel_library``): the raw forms on bf16 weights
-go to the Hopper kernels of ``csrc/ray_wgmma.cu`` (warpgroup ``wgmma``,
-weights streamed by a producer warp, persistent blocks; the weight stream is
-laid out once per ``PackedWeights`` by ``ops/ray_wgmma.py``); the
-composited modes and the quantized routes to the WMMA kernels of
-``csrc/render_samples.cu``, built for the weights' route.
+or raises. Which kernel (``kernel_library``): the raw forms, on every weight
+route, go to the Hopper kernels of ``csrc/ray_wgmma.cu`` (warpgroup
+``wgmma``, weights streamed by a producer warpgroup, persistent blocks; the
+weight stream is laid out once per set of weights by ``ops/ray_wgmma.py``);
+the composited modes to the WMMA kernels of ``csrc/render_samples.cu``,
+built for the weights' route.
 
 Arithmetic shared by both versions, and the tolerances it sets:
 
@@ -91,14 +91,16 @@ launches = {"render_samples": 0, "render_zvals": 0,
 _LIBRARY = {0: "render_samples", quant.ROUTE_INT8: "render_samples_q8",
             quant.ROUTE_INT16: "render_samples_q16",
             quant.ROUTE_INT8_COMPUTE: "render_samples_i8"}
+_WEIGHTS = {0: "bf16", quant.ROUTE_INT8: "int8", quant.ROUTE_INT16: "int16",
+            quant.ROUTE_INT8_COMPUTE: "int8-compute"}
 _OUT_F32, _OUT_BF16, _OUT_PLANAR = 0, 1, 2
 
 
 def kernel_library(route: int, composited: bool) -> str:
-    """The library a CUDA launch goes to: ``csrc/ray_wgmma.cu`` for the raw
-    forms (float32, bfloat16, planar) on bf16 weights (route 0), else the
-    build of ``csrc/render_samples.cu`` for the route."""
-    return ray_wgmma.LIBRARY if route == 0 and not composited else _LIBRARY[route]
+    """The library a CUDA launch on a weight route goes to: the route's
+    build of ``csrc/ray_wgmma.cu`` for the raw forms (float32, bfloat16,
+    planar), of ``csrc/render_samples.cu`` for the composited modes."""
+    return _LIBRARY[route] if composited else ray_wgmma.LIBRARIES[route]
 
 
 def _mlp_plain(packed, pos: torch.Tensor, d: torch.Tensor, cfg: ModelConfig,
@@ -195,8 +197,9 @@ def _launch(packed, rays_o, rays_d, near, far, S,
     uniform (``z_vals`` None, K1) or per ray (K3), output raw ``[R, 4S]``
     (float32 or bfloat16), planar ``(sigma [R, S], (r, g, b))`` or
     composited ``(out [R, 8], w [R, S] or None)``. ``library`` names
-    another library of the same function; only ``chip_smoke.py`` passes it,
-    to time the WMMA build of a raw form beside the Hopper kernel."""
+    another library of the same function on the same weight route; only
+    ``chip_smoke.py`` passes it, to time the WMMA build of a raw form beside
+    the Hopper kernel."""
     dev = rays_o.device
     R = rays_o.shape[0]
     for name, t in (("rays_o", rays_o), ("rays_d", rays_d)):
@@ -228,8 +231,14 @@ def _launch(packed, rays_o, rays_d, near, far, S,
     elif S < 2:
         raise ValueError("need at least 2 samples for uniform depths")
     library = library or kernel_library(route, composited)
-    if library == ray_wgmma.LIBRARY and (route or composited):
-        raise ValueError("the Hopper ray kernels take bf16 weights and write raw output")
+    hopper = library in ray_wgmma.LIBRARIES.values()
+    if hopper and composited:
+        raise ValueError("the Hopper ray kernels write raw output")
+    lib_route = next((r for r, n in (*ray_wgmma.LIBRARIES.items(), *_LIBRARY.items())
+                      if n == library), None)
+    if lib_route != route:
+        raise ValueError(f"{library} computes on {_WEIGHTS.get(lib_route, 'unknown')} weights, "
+                         f"not on {_WEIGHTS[route]} ones")
     rays_o = rays_o.contiguous()
     rays_d = rays_d.contiguous()
     if composited:
@@ -249,12 +258,13 @@ def _launch(packed, rays_o, rays_d, near, far, S,
     out_mode = (_OUT_PLANAR if planar else
                 _OUT_BF16 if raw_dtype == torch.bfloat16 else _OUT_F32)
     z_arg = None if z_vals is None else _ext.ptr(z_vals)
-    if library == ray_wgmma.LIBRARY:
+    if hopper:
         stream = ray_wgmma.stream_for(packed, cfg)
-        lib = ray_wgmma.load()
+        lib = ray_wgmma.load(library)
         err = lib.ray_wgmma_render(_ext.ptr(rays_o), _ext.ptr(rays_d), z_arg, z_stride, R, S,
                                    float(near), float(far - near), _ext.ptr(stream), weights,
-                                   *net_args(cfg), out_mode, _ext.ptr(out), _ext.stream_ptr(dev))
+                                   scales, *net_args(cfg), out_mode, _ext.ptr(out),
+                                   _ext.stream_ptr(dev))
     else:
         lib = _ext.load(library)
         fn = lib.ray_render
@@ -270,7 +280,7 @@ def _launch(packed, rays_o, rays_d, near, far, S,
         "_composited" if composited else "")
     _ext.check(lib, err, f"{name} launch ({library})")
     launches[name] += 1
-    if library == ray_wgmma.LIBRARY:
+    if hopper:
         launches["wgmma_samples" if z_vals is None else "wgmma_zvals"] += 1
     if planar:
         launches["planar"] += 1

@@ -248,15 +248,18 @@ class CudaEngine(Engine):
         self._apply = make_cuda_apply_fn(self.compute_dtype)   # K4, on packed weights
 
     def engine_params(self):
-        """Both networks packed once for the ray kernels (once if they are
-        the same weights)."""
-        if self._packed is None:
-            params = super().engine_params()
+        """Both networks packed for the ray kernels (once if they are the
+        same weights), again whenever ``shared.params`` holds other
+        networks than those last packed: the frame follows
+        ``SharedModel.load``, as ``PallasEngine``'s does."""
+        params = super().engine_params()
+        source = (params, params["coarse"], params["fine"])
+        if self._packed is None or any(a is not b for a, b in zip(self._packed[0], source)):
             fine = pack_params(params["fine"], self.cfg.model, self.compute_dtype)
             coarse = (fine if params["coarse"] is params["fine"] else
                       pack_params(params["coarse"], self.cfg.model, self.compute_dtype))
-            self._packed = {"coarse": coarse, "fine": fine}
-        return self._packed
+            self._packed = (source, {"coarse": coarse, "fine": fine})
+        return self._packed[1]
 
     def _uniform(self, packed, ro, rd, spp, rcfg, with_weights):
         """One network at uniform depths: ``(RenderOutputs, z)``."""

@@ -211,6 +211,46 @@ def test_cuda_engine_packs_both_networks_and_warms_each_mode(monkeypatch):
     assert eng._warmed == {("benchmark", S, 64), ("hierarchical", S, 64)}
 
 
+def test_cuda_engine_follows_reloaded_weights():
+    # SharedModel.load with other weights: the cuda engine's next frame is
+    # rendered from them, as PallasEngine's is (it reads shared.params every
+    # frame); against TorchEngine on the new weights at this file's float32
+    # tolerance
+    shared = SharedModel(_white(default_config(), "float32"), "cpu").load(seed=0)
+    eng = CudaEngine(shared)
+    first = eng.render_image(POSE, (W, H), S, focal=FOCAL, monitor=False)
+    shared.load(seed=1)
+    again = eng.render_image(POSE, (W, H), S, focal=FOCAL, monitor=False)
+    ref = TorchEngine(shared).render_image(POSE, (W, H), S, focal=FOCAL, monitor=False)
+    assert np.abs(again.rgb - first.rgb).max() > 1e-2
+    np.testing.assert_allclose(again.rgb, ref.rgb, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(again.depth, ref.depth, atol=1e-3, rtol=0)
+    packed = eng.engine_params()
+    assert eng.engine_params() is packed                   # packed once per load
+
+
+@pytest.mark.parametrize("name", ["compressed", "int8"])
+def test_quantized_engines_keep_their_first_quantization(name):
+    # the JAX package's CompressedEngine quantizes once, lazily, and keeps
+    # it across SharedModel.load; the port's quantized engines do the same
+    shared = SharedModel(_white(default_config()), "cpu").load(seed=0)
+    eng = engines.ENGINE_CLASSES[name](shared)
+    q = eng.engine_params()
+    first = eng.render_image(POSE, (8, 6), S, focal=10.0, monitor=False)
+    shared.load(seed=1)
+    assert eng.engine_params() is q
+    again = eng.render_image(POSE, (8, 6), S, focal=10.0, monitor=False)
+    np.testing.assert_array_equal(again.rgb, first.rgb)
+    jc = jdefault().model
+    jshared = JSharedModel(_white(jdefault()))
+    jshared.params = {k: jinit(jax.random.PRNGKey(i), jc) for i, k in enumerate(("coarse", "fine"))}
+    jeng = jengines.ENGINE_CLASSES[name](jshared, interpret=True)
+    jq = jeng.engine_params()
+    jshared.params = {k: jinit(jax.random.PRNGKey(i + 2), jc)
+                      for i, k in enumerate(("coarse", "fine"))}
+    assert jeng.engine_params() is jq
+
+
 def test_shared_model_loaders(tmp_path):
     cfg = default_config()
     with pytest.warns(UserWarning, match="not found"):

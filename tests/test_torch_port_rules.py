@@ -39,13 +39,16 @@ def test_kernels_build_for_hopper_without_fast_math():
     for name in _ext.SOURCES:
         assert (_ext.CSRC / f"{name}.cu").exists()
         assert _ext.library_path(name).parent == ROOT / "build" / "nerf_tpu_torch"
-    # the variants: one more library per weight route of the ray kernels, from
-    # the same source with a definition, each under its own name
+    # the variants: one more library per quantized weight route of each
+    # source of the ray kernels (the WMMA body's and the Hopper kernels'),
+    # from the same source with a definition, each under its own name
     assert _ext.LIBRARIES == _ext.SOURCES + tuple(_ext.VARIANTS)
-    assert sorted(d for _, d in _ext.VARIANTS.values()) == [f"-DNERF_WQ={i}" for i in (1, 2, 3)]
-    assert {s for s, _ in _ext.VARIANTS.values()} == {"render_samples"}
+    for source in ("render_samples", "ray_wgmma"):
+        assert sorted(d for s, d in _ext.VARIANTS.values() if s == source) == [
+            f"-DNERF_WQ={i}" for i in (1, 2, 3)]
+    assert {s for s, _ in _ext.VARIANTS.values()} == {"render_samples", "ray_wgmma"}
     paths = {_ext.library_path(n) for n in _ext.LIBRARIES}
-    assert len(paths) == len(_ext.LIBRARIES) == 9
+    assert len(paths) == len(_ext.LIBRARIES) == 12
 
 
 def _run_smoke(cwd):
@@ -83,7 +86,8 @@ def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
     with open(tmp_path / "render_samples.cu", "a") as f:
         f.write("// edited\n")
     changed = {n for n in _ext.LIBRARIES if _ext.library_path(n).name != before[n]}
-    assert changed == {"render_samples", *_ext.VARIANTS}
+    assert changed == {"render_samples", *(n for n, (s, _) in _ext.VARIANTS.items()
+                                           if s == "render_samples")}
 
 
 def test_default_train_apply_fn_follows_device_and_config_only():

@@ -1,9 +1,11 @@
 """The Hopper ray kernels' host side (``ops/ray_wgmma.py``, the dispatch of
-``render_kernel._launch``): the weight stream's layout against
-``pack_params`` bit for bit, the producer's chunk schedule, which library a
-launch reaches, and the streamed weights rendering like the JAX Pallas
-kernel (interpret mode). The CUDA kernel itself (``csrc/ray_wgmma.cu``) runs
-only on the card; ``chip_smoke.py`` holds it against the plain versions."""
+``render_kernel._launch``): the weight streams' layout against the weights
+bit for bit on every route, the producer's chunk schedule and its
+conversion of dequantize chunks, the int8-compute stream's row permutation
+against the s8 A fragments the consumers build, which library a launch
+reaches, and the streamed weights rendering like the JAX Pallas kernel
+(interpret mode). The CUDA kernel itself (``csrc/ray_wgmma.cu``) runs only on
+the card; ``chip_smoke.py`` holds it against the plain versions."""
 
 import ctypes
 import dataclasses
@@ -17,6 +19,7 @@ import torch
 from nerf_tpu.config import ModelConfig as JModelConfig
 from nerf_tpu.config import bmild_config as jbmild
 from nerf_tpu.models.nerf import init_nerf_params as jinit
+from nerf_tpu.ops import quant as jquant
 from nerf_tpu.ops.render_kernel import fused_render_samples as jfrs
 from nerf_tpu_torch.config import ModelConfig
 from nerf_tpu_torch.models.nerf import params_from_numpy
@@ -145,18 +148,21 @@ def test_stream_is_made_once_per_packed_weights():
 FORMS = ["raw_f32", "raw_bf16", "planar", "composited"]
 
 
+ROUTES = [0, quant.ROUTE_INT8, quant.ROUTE_INT16, quant.ROUTE_INT8_COMPUTE]
+
+
 @pytest.mark.parametrize("form", FORMS)
-@pytest.mark.parametrize("route", [0, quant.ROUTE_INT8, quant.ROUTE_INT16,
-                                   quant.ROUTE_INT8_COMPUTE])
+@pytest.mark.parametrize("route", ROUTES)
 def test_kernel_library_by_route_and_form(route, form):
-    # the Hopper kernel serves exactly the bf16 route's raw forms; every
-    # other launch keeps its build of render_samples.cu
+    # the raw forms on every weight route go to that route's build of
+    # ray_wgmma.cu; the composited modes keep their build of render_samples.cu
     lib = render_kernel.kernel_library(route, form == "composited")
-    if route == 0 and form != "composited":
-        assert lib == ray_wgmma.LIBRARY == "ray_wgmma"
+    if form != "composited":
+        assert lib == ray_wgmma.LIBRARIES[route] and lib.startswith("ray_wgmma")
     else:
         assert lib == render_kernel._LIBRARY[route] and lib.startswith("render_samples")
     assert lib in _ext.LIBRARIES
+    assert ray_wgmma.LIBRARIES[0] == ray_wgmma.LIBRARY == "ray_wgmma"
 
 
 class _Fn:
@@ -179,32 +185,46 @@ class _Lib:
         self.ray_wgmma_render.argtypes = ray_wgmma.ARGTYPES     # what ray_wgmma.load sets
 
 
+def _weights_of_route(route, variant="reference", seed=0):
+    """Seeded weights on a route: bf16 ``PackedWeights``, or float32 ones
+    quantized as the engines quantize them."""
+    if route == 0:
+        return _packed(variant, seed)
+    packed, tc = _packed(variant, seed, torch.float32)
+    if route == quant.ROUTE_INT8_COMPUTE:
+        return quant.quantize_packed_int8(packed, pos_bound=8.0), tc
+    return quant.quantize_packed(packed, 8 if route == quant.ROUTE_INT8 else 16), tc
+
+
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("depths", ["uniform", "per_ray"])
 @pytest.mark.parametrize("form", FORMS)
-def test_launch_reaches_the_library_of_the_rule(monkeypatch, form, depths):
-    # _launch on bf16 weights, with the libraries replaced by recorders: the
-    # raw forms call the Hopper entry (and count wgmma_*), the composited
-    # modes the WMMA build; nothing else is called
+def test_launch_reaches_the_library_of_the_rule(monkeypatch, form, depths, route):
+    # _launch on each weight route, with the libraries replaced by
+    # recorders: the raw forms call the route's Hopper entry (and count
+    # wgmma_*), the composited modes the route's WMMA build; nothing else is
+    # called
     calls = []
     monkeypatch.setattr(_ext, "load", lambda name: _Lib(name, calls))
-    monkeypatch.setattr(ray_wgmma, "load", lambda: _Lib(ray_wgmma.LIBRARY, calls))
+    monkeypatch.setattr(ray_wgmma, "load", lambda name=ray_wgmma.LIBRARY: _Lib(name, calls))
     monkeypatch.setattr(_ext, "stream_ptr", lambda dev: ctypes.c_void_p(0))
-    packed, tc = _packed("reference")
+    weights, tc = _weights_of_route(route)
     R, S = 3, 8
     ro, rd = torch.zeros(R, 3), torch.ones(R, 3)
     z = torch.linspace(2.0, 6.0, S).expand(R, S).contiguous() if depths == "per_ray" else None
     kw = {"raw_f32": {}, "raw_bf16": {"raw_dtype": torch.bfloat16}, "planar": {"planar": True},
           "composited": {"composited": True}}[form]
     before = dict(render_kernel.launches)
-    render_kernel._launch(packed, ro, rd, 2.0, 6.0, S, tc, z_vals=z, **kw)
+    render_kernel._launch(weights, ro, rd, 2.0, 6.0, S, tc, z_vals=z, **kw)
     fn = "render_samples" if z is None else "render_zvals"
     if form == "composited":
-        assert calls == ["render_samples.ray_render"]
+        assert calls == [f"{render_kernel._LIBRARY[route]}.ray_render"]
         counted = {f"{fn}_composited"}
     else:
-        assert calls == ["ray_wgmma.ray_wgmma_render"]
+        assert calls == [f"{ray_wgmma.LIBRARIES[route]}.ray_wgmma_render"]
         counted = {fn, "wgmma_samples" if z is None else "wgmma_zvals"}
         counted |= {"raw_bf16"} if form == "raw_bf16" else {"planar"} if form == "planar" else set()
+    counted |= {quant.ROUTE_INT8_COMPUTE: {"int8"}, 0: set()}.get(route, {"dequant"})
     moved = {k for k in before if render_kernel.launches[k] != before[k]}
     assert moved == counted and all(render_kernel.launches[k] == before[k] + 1 for k in moved)
 
@@ -255,3 +275,208 @@ def test_streamed_weights_render_like_the_pallas_kernel(variant):
     raw = fused_render_samples_plain(rounded, torch.tensor(ro), torch.tensor(rd), 2.0, 6.0, 16,
                                      tc)
     np.testing.assert_allclose(raw.numpy(), np.asarray(raw_j), rtol=1e-4, atol=1e-4)
+
+
+# -- the quantized routes' streams -------------------------------------------
+
+QROUTES = [quant.ROUTE_INT8, quant.ROUTE_INT16, quant.ROUTE_INT8_COMPUTE]
+
+
+@pytest.mark.parametrize("route", QROUTES)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_quantized_stream_unpacks_bit_for_bit(variant, route):
+    q, tc = _weights_of_route(route, variant, seed=2)
+    stream = ray_wgmma.pack_stream(q, tc)
+    assert stream.dtype == torch.uint8 and stream.dim() == 1
+    assert stream.numel() == sum(c.nbytes for c in ray_wgmma.chunk_schedule(tc, route))
+    back = ray_wgmma.unpack_stream(stream, tc, route)
+    mats = {f"{n}_q" for n in MATRICES if getattr(q, f"{n}_q") is not None}
+    # the dequantize chunks carry their matrix's scales; the s8 chunks none
+    dequant = {c.name for c in ray_wgmma.chunk_schedule(tc, route) if c.fmt != "s8"}
+    assert set(back) == mats | {f"{n}_s" for n in dequant}
+    for name in back:
+        want = getattr(q, name)
+        assert back[name].dtype == want.dtype and torch.equal(back[name], want), name
+
+
+def _int_bits_to_f32(bits):
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _convert_plain(chunk, fmt, n):
+    """The producer's conversion of one landed dequantize chunk
+    (csrc/ray_wgmma.cu convert_chunk): f32(q) built from the bits of 2^23 +
+    (q + 2^(b-1)), less 2^23 + 2^(b-1); times the image row's scale; rounded
+    to bf16. The element order is the bf16 image's."""
+    es = 1 if fmt == "int8" else 2
+    img, scales = chunk[:64 * n * es], chunk[64 * n * es:].view(torch.float32)
+    q = img.view(torch.int8 if es == 1 else torch.int16).to(torch.int32)
+    offset = (q & (0xFF if es == 1 else 0xFFFF)) ^ (0x80 if es == 1 else 0x8000)
+    f = _int_bits_to_f32(0x4B000000 | offset) - (8388736.0 if es == 1 else 8421376.0)
+    return (f * scales.repeat_interleave(64)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("route", QROUTES)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_producer_conversion_is_the_dequantized_image(variant, route):
+    # each dequantize chunk, converted as the producer converts it, is the
+    # bf16 route's chunk of dequantize(q) bit for bit: bf16(f32(q) * s[col])
+    q, tc = _weights_of_route(route, variant, seed=3)
+    stream = ray_wgmma.pack_stream(q, tc)
+    deq = quant.dequantize(q, torch.bfloat16)
+    at, seen = 0, 0
+    for c in ray_wgmma.chunk_schedule(tc, route):
+        if c.fmt != "s8":
+            w = getattr(deq, c.name)
+            w = w if c.layer is None else w[c.layer]
+            got = _convert_plain(stream[at:at + c.nbytes], c.fmt, c.n)
+            want = ray_wgmma._swizzled(w[c.k0:c.k0 + 64])
+            assert got.view(torch.int16).equal(want.view(torch.int16)), (c.name, c.layer, c.k0)
+            seen += 1
+        at += c.nbytes
+    assert seen == (4 * (variant == "bmild") + 4 if route == quant.ROUTE_INT8_COMPUTE
+                    else len(ray_wgmma.chunk_schedule(tc, route)))
+
+
+def _s8_fragments(h):
+    """quantize_rows of csrc/ray_wgmma.cu for one consumer's 64 rows ``h``
+    [64, 256] (bf16 values): each thread's accumulator columns (warp w, lane
+    = 4 g + q: rows 16 w + g and + 8, columns 8 J + 2 q + e) quantized per
+    row and packed as its s8 A fragments aq[kk][r] = bytes of (block 4 kk + 2
+    (r >> 1), block + 1) x (e = 0, 1), then placed where the PTX fragment
+    layout of m64nNk32 puts them: row g (r = 0, 2) or g + 8, K position 32 kk
+    + 16 (r >> 1) + 4 q + byte. Returns the A operand [64, 256] (int64) and
+    each row's absmax."""
+    ax = h.abs().amax(1)
+    inv = 127.0 / torch.clamp(ax, min=1e-20)
+    a = torch.zeros(64, 256, dtype=torch.int64)
+    for w in range(4):
+        for lane in range(32):
+            g, q = lane // 4, lane % 4
+            for kk in range(8):
+                for r in range(4):
+                    row = 16 * w + g + 8 * (r & 1)
+                    blocks = (4 * kk + 2 * (r >> 1), 4 * kk + 2 * (r >> 1) + 1)
+                    cols = [8 * j + 2 * q + e for j in blocks for e in (0, 1)]
+                    vals = torch.round(h[row, cols] * inv[row]).to(torch.int64)
+                    a[row, 32 * kk + 16 * (r >> 1) + 4 * q + torch.arange(4)] = vals
+    return a, ax
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_s8_stream_permutation_gives_int8_mm_products(variant):
+    # a trunk layer's two s8 chunks as the B operand (K positions in the
+    # stream's order) times the A fragments the consumers build from a
+    # layer's output: the integer sums of quant.int8_mm in the natural order,
+    # exactly, and its float result too
+    q, tc = _weights_of_route(quant.ROUTE_INT8_COMPUTE, variant, seed=4)
+    stream = ray_wgmma.pack_stream(q, tc)
+    rng = np.random.default_rng(5)
+    h = torch.relu(torch.tensor(rng.normal(size=(64, 256)), dtype=torch.float32))
+    h = h.bfloat16().float()
+    h[7] = 0.0                                           # a row the ReLU left empty
+    a, ax = _s8_fragments(h)
+    at, slabs = 0, {}
+    for c in ray_wgmma.chunk_schedule(tc, quant.ROUTE_INT8_COMPUTE):
+        if c.fmt == "s8":
+            img = stream[at:at + c.nbytes].view(torch.int8)
+            slabs.setdefault((c.name, c.layer), []).append(ray_wgmma._unswizzled(img, c.n, c.k))
+        at += c.nbytes
+    for layer in range(7):
+        b = torch.cat(slabs[("wt", layer)]).to(torch.int64)          # [256 K positions, 256]
+        acc = a @ b
+        aq = torch.round(h * (127.0 / torch.clamp(ax, min=1e-20))[:, None])
+        assert torch.equal(acc, (aq.to(torch.int64) @ q.wt_q[layer].to(torch.int64)))
+        got = (acc.float() * ax[:, None]) * (q.wt_s[layer] * (1.0 / 127.0))
+        assert torch.equal(got, quant.int8_mm(h, q.wt_q[layer], q.wt_s[layer]))
+    # w0 and wskip: the first 64 of their 128 rows, the rest zero
+    for name in ("w0", "wskip"):
+        (b,) = slabs[(name, None)]
+        assert torch.equal(b[:64], getattr(q, f"{name}_q")) and not b[64:].any()
+
+
+def test_k_perm_is_a_permutation_within_each_16():
+    assert sorted(ray_wgmma.K_PERM.tolist()) == list(range(256))
+    assert torch.equal(ray_wgmma.K_PERM // 16, torch.arange(256) // 16)
+    assert torch.equal(ray_wgmma.K_PERM[ray_wgmma.K_UNPERM], torch.arange(256))
+
+
+def _chunk_offset(j, n, route):
+    """chunk_offset / conv_cols of csrc/ray_wgmma.cu on a quantized route."""
+    es = 2 if route == quant.ROUTE_INT16 else 1
+    conv = lambda cols: cols * (64 * es + 4)
+    nd = 16 if route == quant.ROUTE_INT8_COMPUTE else 0
+    if j <= nd:
+        return j * 32768
+    return nd * 32768 + (min(j, n - 4) - nd) * conv(256) + max(j - (n - 4), 0) * conv(128)
+
+
+@pytest.mark.parametrize("route", QROUTES)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_producer_offsets_match_the_schedule(variant, route):
+    # the producer's arithmetic for each chunk (offset, whether it is copied
+    # as it is, its columns) against the stream's layout; a landing slot
+    # (LAND_BYTES) holds the largest dequantize chunk
+    _, tc = _cfgs(variant)
+    sched = ray_wgmma.chunk_schedule(tc, route)
+    n, bmild = len(sched), variant == "bmild"
+    # stream_chunks(bmild) of csrc/ray_wgmma.cu
+    assert n == 1 + 7 * (2 if route == quant.ROUTE_INT8_COMPUTE else 4) + 1 + 4 * bmild + 4
+    offsets = np.cumsum([0] + [c.nbytes for c in sched])[:-1].tolist()
+    nd = 16 if route == quant.ROUTE_INT8_COMPUTE else 0
+    for j, c in enumerate(sched):
+        assert _chunk_offset(j, n, route) == offsets[j]
+        assert (c.fmt == "s8") == (j < nd) and c.n == (128 if j >= n - 4 else 256)
+        if c.fmt == "s8":
+            assert c.nbytes == 32768 and c.k == 128
+    land = 256 * (64 * (2 if route == quant.ROUTE_INT16 else 1) + 4)
+    assert max(c.nbytes for c in sched if c.fmt != "s8") <= land and land % 1024 == 0
+
+
+def test_quantized_stream_is_made_once_per_weights():
+    q, tc = _weights_of_route(quant.ROUTE_INT8)
+    s1 = ray_wgmma.stream_for(q, tc)
+    assert ray_wgmma.stream_for(q, tc) is s1 and s1.dtype == torch.uint8
+    # other scales under the same w0_q: a new stream
+    s2 = ray_wgmma.stream_for(q._replace(wt_s=q.wt_s * 2), tc)
+    assert s2 is not s1 and not torch.equal(s1, s2)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("bits,act_bits", [(8, None), (16, None), (8, 8)])
+def test_quantized_stream_renders_like_the_pallas_kernel(variant, bits, act_bits):
+    # the JAX package's quantized weights, carried into this package's
+    # layout, through the stream and back, in the plain version of K1 and K3
+    # at float32 against the JAX kernels in interpret mode (tolerances of
+    # tests/test_torch_quant.py::test_ray_kernels_plain_match_pallas_interpret)
+    jc, tc = _cfgs(variant)
+    jq, _ = jquant.quantize_model({"fine": _numpy_params(variant, 6)}, jc, bits=bits,
+                                  prune_fraction=0.0, act_bits=act_bits, pos_bound=8.0)
+    jq = jq["fine"]
+    tq = quant.quantized_from_numpy(
+        {k: None if v is None else np.asarray(v) for k, v in jq._asdict().items()}, tc, "cpu")
+    route = quant.route_of(tq)
+    back = ray_wgmma.unpack_stream(ray_wgmma.pack_stream(tq, tc), tc, route)
+    streamed = tq._replace(**back)
+    rng = np.random.default_rng(4)
+    ro = np.zeros((21, 3), np.float32)
+    ro[:, 2] = 4.0
+    rd = (rng.normal(size=(21, 3)) * [0.2, 0.2, 1.0]).astype(np.float32)
+    rd[:, 2] = -np.abs(rd[:, 2]) - 0.5
+    z = np.sort(np.random.default_rng(5).uniform(2.0, 6.0, (21, 16)), axis=1).astype(np.float32)
+    kw = dict(dtype=jnp.float32, interpret=True)
+    raw1_j, _ = jfrs(jq, jnp.asarray(ro), jnp.asarray(rd), 2.0, 6.0, 16, jc, raw=True, **kw)
+    from nerf_tpu.ops.render_kernel import fused_render_zvals_raw as jfrz
+    raw3_j = jfrz(jq, jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(z), jc, **kw)
+    raw1 = fused_render_samples_plain(streamed, torch.tensor(ro), torch.tensor(rd), 2.0, 6.0, 16,
+                                      tc, torch.float32)
+    raw3 = render_kernel.fused_render_zvals_plain(streamed, torch.tensor(ro), torch.tensor(rd),
+                                                  torch.tensor(z), tc, torch.float32)
+    for got, want in ((raw1, raw1_j), (raw3, raw3_j)):
+        got, want = got.numpy().reshape(-1, 4), np.asarray(want).reshape(-1, 4)
+        if act_bits is None:
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            scale = max(float(np.abs(want[:, 0]).max()), 1.0)
+            assert np.abs(got[:, 1:] - want[:, 1:]).max() < 2e-3
+            assert np.abs(got[:, 0] - want[:, 0]).max() < 1e-2 * scale
