@@ -9,8 +9,10 @@ shapes: K1 uniform ray kernel, K2 compositor, K3 per-ray-depth ray kernel
 (K1 and K3 with raw output, on every weight route: the Hopper kernels of
 ``csrc/ray_wgmma.cu``, one build per route, each also timed against the
 WMMA build of ``csrc/render_samples.cu`` it replaced), the composited modes
-of K1 and K3, K4 per-sample MLP forward, K5 MLP backward (also against
-float32 and bf16 autograd, and run twice for bit equality), K6 planar
+of K1 and K3, K4 per-sample MLP forward, K5 MLP backward (the Hopper row
+pass and weight-gradient pass of ``csrc/mlp_backward_wgmma.cu``, each against
+its plain version, the pair against float32 and bf16 autograd, run twice for
+bit equality, and timed against the WMMA build it replaced), K6 planar
 compositor, K7 per-sample MLP on int8 and int16 weights, the ray kernels on
 quantized weights (dequantized in the kernel), the int8-compute route (K8)
 in K7, K1 and K3, and the bf16 and planar raw outputs of K1 and K3 (B10).
@@ -33,8 +35,8 @@ unless every kernel of the path ran its expected number of times:
   ``CudaEngine(planar=True)`` in the hierarchical mode;
 - ``train_steps``: ``NeRFTrainer`` on the procedural sphere scene at the
   default ``TrainConfig`` (2,048 rays, 64 + 128, bf16, jitter), full-width
-  model from seed ``TRAIN_SEED``: 2 launches of K4 and 2 of K5 per step and
-  no render kernel; the loss must fall, and the first step's loss must match
+  model from seed ``TRAIN_SEED``: 2 launches of K4 and 8 of each K5 kernel
+  per step (passes of 65,536 samples), none of the WMMA K5, no render kernel; the loss must fall, and the first step's loss must match
   the same step through bf16 autograd of ``apply_nerf``;
 - ``train_resume``: a checkpoint saved and restored into a fresh trainer,
   then one more step in both: parameters bit-equal;
@@ -54,7 +56,6 @@ non-zero before that last line. Needs a CUDA device and ``nvcc`` (sm_90a);
 it has no CPU path.
 """
 
-import ctypes
 import dataclasses
 import json
 import math
@@ -82,6 +83,7 @@ PSNR_MIN = 40.0
 PSNR_FLOOR = {"benchmark": 57.4, "hierarchical": 61.3}   # the bf16 CudaEngine against the
                               # float32 engine: 0.5 dB under the WMMA kernels' 57.9 / 61.8 dB
 WGMMA = {"render_samples": "ray_wgmma_kernel", "render_zvals": "ray_z_wgmma_kernel"}
+K5_KERNELS = ("bwd_rows_wgmma_kernel", "wgrad_wgmma_kernel")   # K5a, K5b
 PSNR_MIN_INT8 = 30.0          # the int8-compute engine against the float32 engine (the JAX
                               # package's own bar for it: 20 dB)
 QUANT_TOL = 3e-2              # the quantized routes vs their plain versions: rgb abs, sigma
@@ -102,7 +104,13 @@ S3 = SPP + N_FINE             # depths per ray of the fine pass
 TRAIN_RAYS = 2048             # TrainConfig.n_rays
 N_COARSE_TRAIN = TRAIN_RAYS * SPP     # 131,072 samples: a train step's coarse pass
 N_FINE_TRAIN = TRAIN_RAYS * S3        # 393,216 samples: its fine pass
+K5_PASSES = 2 + 6              # K5a + K5b passes of 65,536 rows a step: coarse, fine
 K5_PLAIN_TOL = 2e-2           # K5 vs its plain version, per leaf ||a - b|| / ||b||
+K5B_PLAIN_TOL = 3e-4          # K5b's partials vs wgrad_split_plain on K5a's own scratch, per
+                              # slot and leaf: both sum the same bf16 values in float32
+                              # (observed on the H100: <= 3.1e-5); a split of a full pass
+                              # sums ~170 sample blocks, so one dropped block moves a slot
+                              # by ~1/170
 K5_MIN_TOL = 0.02             # worst leaf vs float32 autograd: max(2 x bf16 autograd's, this)
 TRAIN_STEPS = 200             # 25 passes over 8 views
 TRAIN_SEED = 3                # both networks' densities are alive at this seed's start
@@ -269,6 +277,25 @@ def profiled_ms(fn, kernel, reps):
     return us[kernel] / reps / 1e3
 
 
+def profiled_kernels_ms(fn, kernels, reps):
+    """Per named CUDA kernel: device ms per call and launches per call over
+    ``reps`` calls of ``fn`` (torch.profiler), or None if the trace does not
+    hold the same number of launches of each in every call."""
+    def run():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    fn()
+    _, us, n = profile_frame(run)
+    if any(n.get(k, 0) == 0 or n[k] % reps for k in kernels):
+        emit("profiler_note", kernels=list(kernels), reps=reps,
+             traced={k: n.get(k, 0) for k in kernels},
+             note="the trace does not hold every launch; timed by CUDA events instead")
+        return None
+    return {k: {"ms": us[k] / reps / 1e3, "launches_per_call": n[k] // reps} for k in kernels}
+
+
 def psnr(a, b):
     from nerf_tpu_torch.utils.metrics import psnr as psnr_db
 
@@ -322,47 +349,71 @@ def main():
     ptxas = {n: [ln.strip() for ln in _ext.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln or "Function properties" in ln]
              for n in _ext.LIBRARIES}
-    backward_lib = _ext.load("mlp_backward")
-    backward_lib.mlp_backward_smem_bytes.restype = ctypes.c_longlong
-    # the Hopper ray kernels, each build (weight route) of ray_wgmma.cu:
-    # registers, stack and spills per kernel, ptxas's notes on the wgmma
-    # pipeline (C7511/C7512: products serialized; C7519: a warpgroup.arrive
-    # it inserted), shared memory, ring stages and landing slots
-    wgmma_builds = {}
-    for route, name in ray_wgmma.LIBRARIES.items():
+    backward_lib = train_kernel.load(train_kernel.WMMA_LIBRARY)
+
+    def kernel_ptxas(name, kernels):
+        """ptxas's report of a library, per kernel: stack, spill bytes and
+        registers at launch, and its notes on the wgmma pipeline (C7511 /
+        C7512: products serialized; C7519: a warpgroup.arrive it inserted)."""
         log = _ext.build_log(name).splitlines()
-        kernels, entry = {}, None
+        out, entry = {}, None
         for ln in log:
             if "Function properties for" in ln:
-                entry = next((k for k in ("ray_z_wgmma_kernel", "ray_wgmma_kernel",
-                                          "l2_probe_kernel") if k in ln), None)
+                entry = next((k for k in kernels if k in ln), None)
             elif entry and "spill" in ln:
                 nums = [int(t) for t in ln.replace(",", " ").split() if t.isdigit()]
-                kernels[entry] = dict(stack_bytes=nums[0], spill_store_bytes=nums[1],
-                                      spill_load_bytes=nums[2])
+                out[entry] = dict(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                                  spill_load_bytes=nums[2])
             elif entry and "Used" in ln and "registers" in ln:
-                kernels[entry]["registers_at_launch"] = int(ln.split("Used")[1].split()[0])
+                out[entry]["registers_at_launch"] = int(ln.split("Used")[1].split()[0])
                 entry = None
+        notes = {"C7511_C7512_serialized": sum("C7511" in ln or "C7512" in ln for ln in log),
+                 "C7519_arrive_inserted": sum("C7519" in ln for ln in log)}
+        return out, notes
+
+    # the Hopper ray kernels, each build (weight route) of ray_wgmma.cu:
+    # registers, stack and spills per kernel, ptxas's notes on the wgmma
+    # pipeline, shared memory, ring stages and landing slots
+    wgmma_builds = {}
+    for route, name in ray_wgmma.LIBRARIES.items():
+        kernels, notes = kernel_ptxas(name, ("ray_z_wgmma_kernel", "ray_wgmma_kernel",
+                                             "l2_probe_kernel"))
         lib = ray_wgmma.load(name)
         require(lib.ray_wgmma_route() == route, f"{name} is built for route "
                 f"{lib.ray_wgmma_route()}, not {route}")
         wgmma_builds[name] = dict(
-            route=route, ptxas=kernels,
-            notes={"C7511_C7512_serialized": sum("C7511" in ln or "C7512" in ln for ln in log),
-                   "C7519_arrive_inserted": sum("C7519" in ln for ln in log)},
+            route=route, ptxas=kernels, notes=notes,
             dynamic_smem_bytes={S: lib.ray_wgmma_smem_bytes(S) for S in (SPP, S3)},
             ring_stages={S: lib.ray_wgmma_stages(S) for S in (SPP, S3)},
             landing_slots=lib.ray_wgmma_landing_slots(),
             registers_after_setmaxnreg={"consumers": lib.ray_wgmma_registers(1),
                                         "producer_warpgroup": lib.ray_wgmma_registers(0)})
+    # the Hopper K5 (csrc/mlp_backward_wgmma.cu): its two kernels, and the
+    # layout it shares with ops/train_kernel.py
+    k5_lib = train_kernel.load()
+    k5_ptxas, k5_notes = kernel_ptxas(train_kernel.LIBRARY, K5_KERNELS)
+    k5_build = dict(
+        ptxas=k5_ptxas, notes=k5_notes, row_pass_dynamic_smem_bytes=k5_lib.bwd_rows_smem_bytes(),
+        row_pass_ring_stages=k5_lib.bwd_rows_stages(),
+        wgrad_dynamic_smem_bytes=k5_lib.wgrad_smem_bytes(),
+        scratch_features=k5_lib.bwd_scratch_features(), stream_chunks=k5_lib.bwd_stream_chunks(),
+        wgrad_jobs=len(train_kernel.wgrad_jobs(default_config().model)))
     emit("build", seconds=secs, sources=list(_ext.SOURCES),
          variants={k: list(v) for k, v in _ext.VARIANTS.items()}, ptxas=ptxas,
-         mlp_backward_dynamic_smem_bytes=backward_lib.mlp_backward_smem_bytes(),
-         ray_wgmma=wgmma_builds)
+         mlp_backward_wmma_dynamic_smem_bytes=backward_lib.mlp_backward_smem_bytes(),
+         ray_wgmma=wgmma_builds, mlp_backward_wgmma=k5_build)
     for k in WGMMA.values():         # the bf16 route: no spill (the quantized builds: reported)
         r = wgmma_builds[ray_wgmma.LIBRARY]["ptxas"].get(k, {})
         require(r.get("spill_store_bytes") == 0 and r.get("spill_load_bytes") == 0,
                 f"ptxas: {k} spills ({r})")
+    for k in K5_KERNELS:
+        r = k5_ptxas.get(k, {})
+        require(r.get("spill_store_bytes") == 0 and r.get("spill_load_bytes") == 0,
+                f"ptxas: {k} spills ({r})")
+    require(k5_build["scratch_features"] == train_kernel.SCRATCH_FEATURES
+            and k5_build["stream_chunks"] == len(ray_wgmma.bwd_chunk_schedule(default_config().model))
+            and k5_lib.wgrad_job_ints() == train_kernel.jobs_tensor(default_config().model).shape[1],
+            f"K5's layout differs between the kernels and ops/train_kernel.py ({k5_build})")
 
     def reset_counts():
         for k in render_kernel.launches:
@@ -371,14 +422,16 @@ def main():
             quant.launches[k] = 0
         composite_kernel.launches = composite_kernel.planar_launches = 0
         composite_kernel.bf16_launches = 0
-        mlp_kernel.launches = train_kernel.launches = 0
+        mlp_kernel.launches = 0
+        for k in train_kernel.launches:
+            train_kernel.launches[k] = 0
 
     def read_counts():
         return {**render_kernel.launches, **quant.launches,
                 "composite": composite_kernel.launches,
                 "composite_bf16": composite_kernel.bf16_launches,
                 "composite_planar": composite_kernel.planar_launches,
-                "mlp_forward": mlp_kernel.launches, "mlp_backward": train_kernel.launches}
+                "mlp_forward": mlp_kernel.launches, **train_kernel.launches}
 
     white = lambda c: dataclasses.replace(
         c, render=dataclasses.replace(c.render, white_background=True))
@@ -568,6 +621,31 @@ def main():
                 pos, dirs = pos_all[:n].contiguous(), dirs_all[:n].contiguous()
                 dsig = torch.randn(n, device=dev, generator=g) / n
                 drgb = torch.randn(n, 3, device=dev, generator=g) / n
+                # each kernel on the first pass against its own plain version:
+                # K5a's scratch (every quantity a leaf), K5b's partials slot by
+                # slot on K5a's own scratch
+                p1 = min(n, train_kernel.PASS_ROWS)
+                scratch = torch.empty(train_kernel.scratch_elems(p1), dtype=torch.bfloat16,
+                                      device=dev)
+                parts = torch.empty(train_kernel.n_splits(p1), train_kernel.GRAD_FLOATS,
+                                    device=dev)
+                train_kernel.launch_rows(pk, pos[:p1], dirs[:p1], dsig[:p1], drgb[:p1], mcfg,
+                                         scratch)
+                train_kernel.launch_wgrad(scratch, p1, mcfg, parts, 0)
+                rows_k = train_kernel.image_rows(scratch, p1)
+                rows_p = train_kernel.scratch_rows(train_kernel.bwd_rows_plain(
+                    pk, pos[:p1], dirs[:p1], dsig[:p1], drgb[:p1], mcfg))
+                split = lambda f: {q: f[:, r:r + w] for (q, w), r in
+                                   zip(train_kernel.SCRATCH, train_kernel.SCRATCH_ROW.values())}
+                rows_vs_plain, rows_by_quantity = worst_rel(split(rows_k), split(rows_p))
+                rows_bit_equal = (rows_k == rows_p).float().mean().item()
+                parts_p = train_kernel.wgrad_split_plain(rows_k, train_kernel.split_bounds(p1),
+                                                         mcfg)
+                parts_vs_plain = max(worst_rel(train_kernel.grads_from_flat(parts[s]),
+                                               train_kernel.grads_from_flat(parts_p[s]))[0]
+                                     for s in range(parts.shape[0]))
+                require(bool(torch.isfinite(parts).all()), f"K5b {name} N={n}: non-finite partial")
+                del scratch, rows_k, rows_p, parts, parts_p
                 g_k = train_kernel._launch(pk, pos, dirs, dsig, drgb, mcfg)
                 g_k2 = train_kernel._launch(pk, pos, dirs, dsig, drgb, mcfg)
                 g_p = train_kernel.packed_grads_plain(pk, pos, dirs, dsig, drgb, mcfg)
@@ -584,10 +662,19 @@ def main():
                 bf16_noise, _ = worst_rel(g_bf16, g_f32)
                 limit = max(2.0 * bf16_noise, K5_MIN_TOL)
                 emit("k5_check", weights=name, samples=n, two_runs_bit_equal=bit_equal,
+                     passes=len(train_kernel.pass_bounds(n)),
+                     k5a_scratch_worst_quantity_vs_plain=rows_vs_plain,
+                     k5a_scratch_rel_err_by_quantity=rows_by_quantity,
+                     k5a_scratch_share_bit_equal=rows_bit_equal,
+                     k5b_worst_slot_leaf_vs_plain=parts_vs_plain, k5b_tol=K5B_PLAIN_TOL,
                      rel_err_vs_plain_by_leaf=per_leaf, worst_leaf_vs_plain=vs_plain,
                      plain_tol=K5_PLAIN_TOL, worst_leaf_vs_f32_autograd=kernel_noise,
                      bf16_autograd_worst_leaf_vs_f32=bf16_noise, limit=limit)
                 require(bit_equal, f"K5 {name} N={n}: two runs differ")
+                require(rows_vs_plain <= K5_PLAIN_TOL,
+                        f"K5a {name} N={n}: scratch {rows_vs_plain} from bwd_rows_plain")
+                require(parts_vs_plain <= K5B_PLAIN_TOL,
+                        f"K5b {name} N={n}: partials {parts_vs_plain} from wgrad_split_plain")
                 require(vs_plain <= K5_PLAIN_TOL,
                         f"K5 {name} N={n}: worst leaf {vs_plain} from the plain version")
                 require(kernel_noise < limit,
@@ -821,10 +908,19 @@ def main():
                 call_ms=call_ms(lambda: mlp_kernel._launch(pk, pos, dirs, mcfg), 10),
                 plain_ms=call_ms(lambda: mlp_kernel.fused_nerf_apply_plain(pk, pos, dirs, mcfg), 3),
                 bound=bound_ms(2 * fwd * n, 0, nbytes(pos, dirs) + weights_bytes + n * 16))
+            # the Hopper K5 and the WMMA build it replaced, in turns (old,
+            # new, new, old); the bound is the algorithm's, whatever runs it
+            new = lambda: train_kernel._launch(pk, pos, dirs, dsig, drgb, mcfg)
+            old = lambda: train_kernel._launch(pk, pos, dirs, dsig, drgb, mcfg,
+                                               library=train_kernel.WMMA_LIBRARY)
+            turns = [call_ms(old, 5), call_ms(new, 5), call_ms(new, 5), call_ms(old, 5)]
+            by_kernel = profiled_kernels_ms(new, K5_KERNELS, 5)
             res["mlp_backward"][n] = dict(
-                device_ms=profiled_ms(lambda: train_kernel._launch(pk, pos, dirs, dsig, drgb, mcfg),
-                                      "mlp_backward_kernel", 5),
-                call_ms=call_ms(lambda: train_kernel._launch(pk, pos, dirs, dsig, drgb, mcfg), 5),
+                device_ms=None if by_kernel is None else sum(v["ms"] for v in by_kernel.values()),
+                device_ms_by_kernel=by_kernel,
+                call_ms=(turns[1] + turns[2]) / 2, wmma_ms=(turns[0] + turns[3]) / 2,
+                call_ms_turns_old_new_new_old=turns,
+                wmma_device_ms=profiled_ms(old, "mlp_backward_kernel", 3),
                 plain_ms=call_ms(lambda: train_kernel.packed_grads_plain(pk, pos, dirs, dsig, drgb,
                                                                          mcfg), 2),
                 library_ms=call_ms(lambda: torch.autograd.grad(out, leaves, (dsig, drgb),
@@ -854,7 +950,9 @@ def main():
                          "bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
                 for n, v in by_n.items()} for k, by_n in res.items()},
             library="mlp_backward: the backward (and forward + backward) of bf16 autograd "
-                    "through apply_nerf, a chain of library products")
+                    "through apply_nerf, a chain of library products",
+            wmma="mlp_backward wmma_ms: call ms of the WMMA build (csrc/mlp_backward.cu), timed "
+                 "in turns with the Hopper kernels (old, new, new, old)")
         return res
 
     new_times = time_new_kernels()
@@ -1442,8 +1540,10 @@ def main():
     counts = read_counts()
     paths["train"] = counts
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    for k, n in counts.items():
-        want = 2 * TRAIN_STEPS if k in ("mlp_forward", "mlp_backward") else 0
+    train_expect = {"mlp_forward": 2 * TRAIN_STEPS, "bwd_rows": K5_PASSES * TRAIN_STEPS,
+                    "wgrad": K5_PASSES * TRAIN_STEPS}
+    for k, n in counts.items():     # the WMMA K5 among the zeros
+        want = train_expect.get(k, 0)
         require(n == want, f"train: {k} launched {n} times in {TRAIN_STEPS} steps, expected {want}")
     require(trainer.state.step == TRAIN_STEPS and all(np.isfinite(losses)),
             f"train: step count {trainer.state.step} or a non-finite loss")
@@ -1485,7 +1585,7 @@ def main():
     trained_rel = abs(loss_k - loss_p) / abs(loss_p)
     emit("train_steps", dataset="make_procedural_dataset(n_views=8, img_wh=(200, 200))",
          steps=TRAIN_STEPS, rays_per_step=TRAIN_RAYS, samples=[SPP, N_FINE], compute="bfloat16",
-         launches=counts, expected={"mlp_forward": 2 * TRAIN_STEPS, "mlp_backward": 2 * TRAIN_STEPS},
+         launches=counts, expected=train_expect,
          ms_per_step=step_ms, rays_per_s=TRAIN_RAYS / (step_ms / 1e3), peak_device_mb=peak_mb,
          first_loss=losses[0], last_loss=losses[-1], last_epoch_mean_loss=epoch_loss,
          mean_loss_first10=first10, mean_loss_last10=last10, required_ratio=LOSS_DROP,
@@ -1616,7 +1716,8 @@ def main():
         ("mlp_forward", "nerf_tpu_torch/csrc/mlp_forward.cu", "nerf_tpu/ops/mlp_kernel.py:410",
          "train", k4_err, N_FINE_TRAIN, f"{N_FINE_TRAIN} samples, bf16",
          f"{no_library} (encoding + the 10-layer MLP per sample)"),
-        ("mlp_backward", "nerf_tpu_torch/csrc/mlp_backward.cu", "nerf_tpu/ops/train_kernel.py:53",
+        ("mlp_backward", "nerf_tpu_torch/csrc/mlp_backward_wgmma.cu",
+         "nerf_tpu/ops/train_kernel.py:53",
          "train", k5_err, N_FINE_TRAIN, f"{N_FINE_TRAIN} samples, bf16, reference variant",
          "library_ms is the backward of bf16 autograd through apply_nerf on the same "
          "samples: a chain of library products, not one call, and without the forward "
@@ -1629,10 +1730,11 @@ def main():
     for name, source, replaces, path, err, n, shape, note in new_summary:
         t = new_times[name][n]
         ms = t["device_ms"]
+        counter = "bwd_rows" if name == "mlp_backward" else name   # K5: launches of K5a
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "status": "ported", "launches": paths[path][name], "launches_path": path,
-            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "status": "ported", "launches": paths[path][counter], "launches_path": path,
+            "launches_by_path": {p: c[counter] for p, c in paths.items()},
             "max_abs_err": err, "ms": ms if ms is not None else t["call_ms"],
             "ms_from": "profiler" if ms is not None else "events", "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
@@ -1644,6 +1746,23 @@ def main():
                                      "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
                                      **({"library_ms": c["library_ms"]} if "library_ms" in c
                                         else {})}
+        if name == "mlp_backward":
+            c = new_times[name][N_COARSE_TRAIN]
+            row["at_coarse_pass"]["wmma_ms"] = c["wmma_ms"]
+            row.update(
+                cuda_kernels={k: {"launches": paths[path][cnt], "launches_wmma_build":
+                                  paths[path]["mlp_backward_wmma"],
+                                  "device_ms_per_call": None if t["device_ms_by_kernel"] is None
+                                  else t["device_ms_by_kernel"][k]}
+                              for k, cnt in zip(K5_KERNELS, ("bwd_rows", "wgrad"))},
+                wmma_ms=t["wmma_ms"], wmma_device_ms=t["wmma_device_ms"],
+                wmma_note="call ms of the WMMA build csrc/mlp_backward.cu on the same "
+                          "inputs, timed in turns with the Hopper kernels",
+                design="K5a: warpgroup wgmma over the forward recompute and the input "
+                       "gradients (pre-transposed weight images), a producer warp "
+                       "streaming by cp.async.bulk, persistent blocks, a bf16 scratch; "
+                       "K5b: split-K wgmma X^T dY per output tile, fixed-order partials")
+            require(paths[path]["wgrad"] > 0, f"wgrad_wgmma_kernel was launched no time on {path}")
         kernels.append(row)
     # the kernels and routes of the compressed slice, at the 16,384-ray chunk
     # (times: kernel_times_quant; launches: the path named)

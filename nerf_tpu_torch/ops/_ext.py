@@ -34,7 +34,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_tpu_torch"
-SOURCES = ("render_samples", "composite", "mlp_forward", "mlp_backward", "mlp_quant", "ray_wgmma")
+SOURCES = ("render_samples", "composite", "mlp_forward", "mlp_backward", "mlp_quant", "ray_wgmma",
+           "mlp_backward_wgmma")
 # library -> (source, definition): the ray kernels on int8 and int16 weights
 # dequantized in the kernel, and on the int8-compute route
 VARIANTS = {

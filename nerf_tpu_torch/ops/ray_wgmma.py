@@ -35,12 +35,20 @@ beside them):
 ``unpack_stream`` undoes the layout in plain PyTorch; the tests hold it
 against the weights bit for bit. Biases, ``wsig``, ``wc1``, ``wdir`` and the
 s8 matrices' scales are read from the weights as they are.
+
+The training backward K5 (``csrc/mlp_backward_wgmma.cu``) streams the bf16
+route's chunks, then ``wdir`` (one slab, its rows padded to 64) and the
+pre-transposed images of ``wc0`` and ``wt[6..0]`` for its input gradients
+``dy @ W^T``, in the same layout (``bwd_chunk_schedule``, ``bwd_stream``;
+``unpack_bwd_stream`` undoes it).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import weakref
+from types import SimpleNamespace
 from typing import Dict, List, NamedTuple, Optional
 
 import torch
@@ -213,6 +221,88 @@ def unpack_stream(stream: torch.Tensor, cfg: ModelConfig, route: int = 0
             out[f"{name}_s"] = s[None]
     if ("wt", 0) in scales:
         out["wt_s"] = torch.stack([scales[("wt", i)][None] for i in range(7)])
+    return out
+
+
+# -- the stream of the training backward K5 (csrc/mlp_backward_wgmma.cu) -----
+
+def bwd_chunk_schedule(cfg: ModelConfig) -> List[Chunk]:
+    """The chunks of one tile of K5's row pass (reference variant, bf16), in
+    the order its consumers multiply them: the forward's (``chunk_schedule``);
+    ``wdir`` as one slab, its rows padded with zeros to 64 (the direction
+    term is a product of the per-sample encoding); then the pre-transposed
+    images of the input-gradient products ``dy @ W^T``: ``wc0_t`` (``wc0^T``,
+    two slabs of 256 columns) and ``wt_t`` of layers 6..0 (four slabs each).
+    A ``*_t`` chunk is a slab of ``W^T``: rows ``k0 .. k0 + 63`` of it are
+    columns ``k0 .. k0 + 63`` of ``W``."""
+    if cfg.variant != "reference":
+        raise ValueError("the backward kernel is written for the reference variant")
+    out = chunk_schedule(cfg) + [Chunk("wdir", None, 0, CH)]
+    out += [Chunk("wc0_t", None, k0, HID) for k0 in (0, CHUNK_K)]
+    for layer in range(6, -1, -1):
+        out += [Chunk("wt_t", layer, k0, HID) for k0 in range(0, HID, CHUNK_K)]
+    return out
+
+
+def _bwd_matrix(weights, c: Chunk, pad=0) -> torch.Tensor:
+    if c.name == "wt_t":
+        return weights.wt[c.layer].t()
+    if c.name == "wc0_t":
+        return weights.wc0.t()
+    if c.name == "wdir":
+        rows = weights.wdir.shape[0]
+        return torch.cat([weights.wdir, weights.wdir.new_full((CHUNK_K - rows, CH), pad)])
+    return _matrix(weights, c)
+
+
+def pack_bwd_stream(weights, cfg: ModelConfig, pad=0) -> torch.Tensor:
+    """The backward's weight stream of ``PackedWeights`` (1-D): every chunk of
+    ``bwd_chunk_schedule`` in its shared-memory image, concatenated (``wdir``'s
+    padding rows hold ``pad``)."""
+    return torch.cat([_swizzled(_bwd_matrix(weights, c, pad)[c.k0:c.k0 + CHUNK_K])
+                      for c in bwd_chunk_schedule(cfg)]).contiguous()
+
+
+_BWD_SOURCES = ("w0", "wt", "wskip", "wc0", "wdir")
+_BWD_INDEX: Dict[tuple, torch.Tensor] = {}
+
+
+def bwd_stream(weights: PackedWeights, cfg: ModelConfig) -> torch.Tensor:
+    """``pack_bwd_stream`` as one gather from the matrices: a train step packs
+    new weights for every backward, so this runs once per launch (two kernels
+    on the card). The gather's index is ``pack_bwd_stream`` of the matrices'
+    own positions in their concatenation, the padding pointing at a zero
+    appended to it; made once per device, skip layer and shapes."""
+    shapes = tuple(tuple(getattr(weights, n).shape) for n in _BWD_SOURCES)
+    key = (weights.w0.device, skip_position(cfg), shapes)
+    if key not in _BWD_INDEX:
+        at = [0]
+        for s in shapes:
+            at.append(at[-1] + math.prod(s))
+        pos = SimpleNamespace(**{n: torch.arange(at[i], at[i + 1]).reshape(s)
+                                 for i, (n, s) in enumerate(zip(_BWD_SOURCES, shapes))})
+        _BWD_INDEX[key] = pack_bwd_stream(pos, cfg, pad=at[-1]).to(weights.w0.device)
+    flat = torch.cat([getattr(weights, n).reshape(-1) for n in _BWD_SOURCES]
+                     + [weights.w0.new_zeros(1)])
+    return flat[_BWD_INDEX[key]]
+
+
+def unpack_bwd_stream(stream: torch.Tensor, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The matrices back from a backward stream: those of ``unpack_stream``,
+    ``wdir`` with its padding rows (64), ``wc0_t`` [128, 256] and ``wt_t`` [7,
+    256, 256] (layer ``i`` at index ``i``)."""
+    slabs: Dict[tuple, List[torch.Tensor]] = {}
+    at = 0
+    for c in bwd_chunk_schedule(cfg):
+        size = CHUNK_K * c.n
+        slabs.setdefault((c.name, c.layer), []).append(_unswizzled(stream[at:at + size], c.n))
+        at += size
+    if at != stream.numel():
+        raise ValueError(f"stream of {stream.numel()} values, the schedule covers {at}")
+    mats = {key: torch.cat(parts) for key, parts in slabs.items()}
+    out = {name: m for (name, layer), m in mats.items() if layer is None}
+    for name in ("wt", "wt_t"):
+        out[name] = torch.stack([mats[(name, i)] for i in range(7)])
     return out
 
 

@@ -6,10 +6,24 @@ Counterpart of ``nerf_tpu/ops/train_kernel.py``:
   from positions, directions ``[N, 3]`` and the cotangents ``dsigma [N]``,
   ``drgb [N, 3]`` it recomputes the forward and returns the gradient of
   every weight and bias in ``pack_params``' layout. Reference variant only,
-  as the TPU kernel. On CUDA tensors it launches ``csrc/mlp_backward.cu``
-  and counts the launch in ``launches``; on CPU tensors it runs
+  as the TPU kernel. On CUDA tensors it launches the two kernels of
+  ``csrc/mlp_backward_wgmma.cu`` (``_launch``); on CPU tensors it runs
   ``packed_grads_plain``, the same arithmetic in plain PyTorch. Nothing
   falls back: a CUDA launch either runs or raises.
+- The kernels, per pass of at most ``PASS_ROWS`` rows: the row pass K5a
+  (``bwd_rows_wgmma``; plain version ``bwd_rows_plain``) recomputes the
+  forward, walks back to every cotangent and stores, bf16, the quantities the
+  weight gradients contract over (``SCRATCH``) to a scratch, each 64-sample
+  block as the feature-major image K5b's descriptors read (``scratch_image``);
+  the weight-gradient pass K5b (``wgrad_wgmma``; plain version
+  ``wgrad_split_plain``) computes ``X^T @ dY`` over the sample axis for every
+  job of ``wgrad_jobs``, each block over a fixed range of sample blocks
+  (``split_bounds``), writing float32 partials into its own slot. The slots
+  are summed here in one fixed-order reduction: no atomics, nothing
+  zero-filled, two runs agree bit for bit. ``packed_grads_composed`` is the
+  plain version of that whole pipeline. The WMMA build it replaced
+  (``csrc/mlp_backward.cu``, per-block gradient copies) is reached only
+  through ``library="mlp_backward"``, as a timed comparison.
 - ``unpack_grads`` maps those to the params tree: the skip layer's hidden
   and encoding rows are joined again, as are the color layer's trunk and
   direction rows, and the zero-padded encoding rows (63 -> 64, 27 -> 32)
@@ -18,7 +32,7 @@ Counterpart of ``nerf_tpu/ops/train_kernel.py``:
   step: forward K4 (``ops/mlp_kernel.py``), backward K5. Positions and
   directions get no gradient: they are data in NeRF training.
 
-Roundings, shared by the kernel and the plain version (the TPU kernel's):
+Roundings, shared by the kernels and the plain versions (the TPU kernel's):
 every cotangent that enters a product (``dz1``, ``dc_pre``, ``dsigma_pre``,
 ``dpre_i``) is rounded to the compute dtype first, bias gradients sum those
 rounded values in float32, and ReLU masks read the rounded activations. The
@@ -29,13 +43,15 @@ float32 compute the plain version is exact backpropagation.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import math
+from itertools import accumulate
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from nerf_tpu_torch.config import ModelConfig
 from nerf_tpu_torch.models.nerf import NeRFParams
-from nerf_tpu_torch.ops import _ext
+from nerf_tpu_torch.ops import _ext, ray_wgmma
 from nerf_tpu_torch.ops.mlp_kernel import (
     DIR_ROWS,
     HID,
@@ -51,17 +67,37 @@ from nerf_tpu_torch.ops.mlp_kernel import (
 )
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
-# Launches of the CUDA kernel (not of the plain version).
-launches = 0
+LIBRARY = "mlp_backward_wgmma"     # K5a + K5b
+WMMA_LIBRARY = "mlp_backward"      # the WMMA build, a timed comparison only
+# Launches of the CUDA kernels (not of the plain versions): the row pass, the
+# weight-gradient pass, and the WMMA build (which no path of the port calls)
+launches = {"bwd_rows": 0, "wgrad": 0, "mlp_backward_wmma": 0}
 
-TILE = 128   # rows per tile of the kernel
-# Packed-layout gradients, in the order the C entry point takes them.
+PASS_ROWS = 65536   # rows of one pass of K5a + K5b: the scratch holds one pass
+BLOCK = 64          # samples per 128-byte image row of the scratch (a sample block)
+SPLITS = 6          # sample-block ranges of K5b per pass (22 jobs x 6 = 132 blocks)
+WMMA_TILE = 128     # rows per tile of the WMMA build
+CH = HID // 2
+# Packed-layout gradients, in the order of the flat partials (and of the
+# WMMA build's C entry point)
 GRAD_SHAPES = {
     "d_w0": (POS_ROWS, HID), "d_b0": (HID,), "d_wt": (7, HID, HID), "d_bt": (7, HID),
     "d_wskip": (POS_ROWS, HID), "d_wsig": (HID,), "d_bsig": (1,),
-    "d_wc0": (HID, HID // 2), "d_bc0": (HID // 2,), "d_wdir": (DIR_ROWS, HID // 2),
-    "d_wc1": (HID // 2, 3), "d_bc1": (3,),
+    "d_wc0": (HID, CH), "d_bc0": (CH,), "d_wdir": (DIR_ROWS, CH),
+    "d_wc1": (CH, 3), "d_bc1": (3,),
 }
+GRAD_OFFSETS = dict(zip(GRAD_SHAPES, accumulate((math.prod(s) for s in GRAD_SHAPES.values()),
+                                                 initial=0)))
+GRAD_FLOATS = sum(math.prod(s) for s in GRAD_SHAPES.values())   # floats of one slot of partials
+# The scratch of one row (K5a writes it, K5b reads it): (quantity, features),
+# in image order. denc is padded to 64 features, dy8 = [dz1 (3), dsigma_pre,
+# 0 x 4]; h_i are the trunk's activations, dpre_i the cotangents of their
+# pre-activations.
+SCRATCH = (("enc", POS_ROWS), ("denc", 64), *((f"h{i}", HID) for i in range(8)),
+           *((f"dpre{i}", HID) for i in range(8)), ("dc_pre", CH), ("c", CH), ("dy8", 8))
+SCRATCH_ROW = dict(zip((name for name, _ in SCRATCH),
+                       accumulate((width for _, width in SCRATCH), initial=0)))
+SCRATCH_FEATURES = sum(width for _, width in SCRATCH)   # 4488: 8,976 bytes a row
 
 
 def _require_reference(cfg: ModelConfig) -> None:
@@ -71,14 +107,17 @@ def _require_reference(cfg: ModelConfig) -> None:
 
 
 def packed_grads_plain(packed: PackedWeights, positions, directions, dsigma, drgb,
-                       cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """Plain-PyTorch version of the kernel: packed-layout gradients, keyed as
-    ``GRAD_SHAPES``, float32."""
+                       cfg: ModelConfig, keep: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """Plain-PyTorch version of the kernels: packed-layout gradients, keyed as
+    ``GRAD_SHAPES``, float32. ``keep`` (a dict) receives what
+    ``fused_nerf_apply_plain`` keeps of the forward (``enc``, ``denc``,
+    ``hs``, ``c``, ...) and the rounded cotangents as float32 (``dz1``,
+    ``dc_pre``, ``dsig_pre``, ``dpre`` [8])."""
     _require_reference(cfg)
     dt = packed.w0.dtype
-    keep: dict = {}
-    fused_nerf_apply_plain(packed, positions, directions, cfg, keep)
-    enc, denc, hs, c, rgb = (keep[k] for k in ("enc", "denc", "hs", "c", "rgb"))
+    fwd: dict = {}
+    fused_nerf_apply_plain(packed, positions, directions, cfg, fwd)
+    enc, denc, hs, c, rgb = (fwd[k] for k in ("enc", "denc", "hs", "c", "rgb"))
 
     def rnd(x):                    # a cotangent as it enters a product
         return x.to(dt).float()
@@ -95,7 +134,7 @@ def packed_grads_plain(packed: PackedWeights, positions, directions, dsigma, drg
     g["d_bc1"] = dz1.sum(0)
     dc_pre = rnd(torch.where(c.float() > 0, dgrad(dz1, packed.wc1), 0.0))
     g["d_wdir"] = wgrad(denc, dc_pre)
-    dsig_pre = rnd(torch.where(keep["sigma_raw"] > 0, dsigma.float(), 0.0))
+    dsig_pre = rnd(torch.where(fwd["sigma_raw"] > 0, dsigma.float(), 0.0))
     g["d_wc0"] = wgrad(hs[7], dc_pre)
     g["d_bc0"] = dc_pre.sum(0)
     g["d_wsig"] = wgrad(hs[7], dsig_pre[:, None])[:, 0]
@@ -103,22 +142,210 @@ def packed_grads_plain(packed: PackedWeights, positions, directions, dsigma, drg
     dh = dgrad(dc_pre, packed.wc0) + dsig_pre[:, None] * packed.wsig.float()[None, :]
 
     skip_pos = skip_position(cfg)
-    d_wt, d_bt = [None] * 7, [None] * 7
+    d_wt, d_bt, dpres = [None] * 7, [None] * 7, [None] * 8
     for i in range(7, 0, -1):
         dpre = rnd(torch.where(hs[i].float() > 0, dh, 0.0))
+        dpres[i] = dpre
         d_wt[i - 1] = wgrad(hs[i - 1], dpre)
         d_bt[i - 1] = dpre.sum(0)
         if i == skip_pos:
             g["d_wskip"] = wgrad(enc, dpre)
         dh = dgrad(dpre, packed.wt[i - 1])
     dpre0 = rnd(torch.where(hs[0].float() > 0, dh, 0.0))
+    dpres[0] = dpre0
     g["d_w0"] = wgrad(enc, dpre0)
     g["d_b0"] = dpre0.sum(0)
     g["d_wt"], g["d_bt"] = torch.stack(d_wt), torch.stack(d_bt)
+    if keep is not None:
+        keep.update(fwd, dz1=dz1, dc_pre=dc_pre, dsig_pre=dsig_pre, dpre=dpres)
     return {k: g[k] for k in GRAD_SHAPES}
 
 
-_ARGTYPES = (
+# -- the kernels' plain versions ------------------------------------------------
+
+def bwd_rows_plain(packed: PackedWeights, positions, directions, dsigma, drgb,
+                   cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """What K5a writes, as ``{quantity: [N, features]}`` of ``SCRATCH`` in
+    the compute dtype: the forward's encodings and activations and the
+    rounded cotangents of the walk back, as ``packed_grads_plain`` keeps
+    them."""
+    dt = packed.w0.dtype
+    keep: dict = {}
+    packed_grads_plain(packed, positions, directions, dsigma, drgb, cfg, keep)
+    zeros = torch.zeros(positions.shape[0], 64 - keep["denc"].shape[1], dtype=dt,
+                        device=positions.device)
+    rows = {"enc": keep["enc"], "denc": torch.cat([keep["denc"], zeros], 1),
+            "dc_pre": keep["dc_pre"].to(dt), "c": keep["c"],
+            "dy8": torch.cat([keep["dz1"].to(dt), keep["dsig_pre"].to(dt)[:, None],
+                              zeros[:, :4]], 1)}
+    rows.update({f"h{i}": keep["hs"][i] for i in range(8)})
+    rows.update({f"dpre{i}": keep["dpre"][i].to(dt) for i in range(8)})
+    return rows
+
+
+def scratch_rows(rows: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``[N, SCRATCH_FEATURES]``: the quantities side by side, in image order."""
+    return torch.cat([rows[name] for name, _ in SCRATCH], 1)
+
+
+def _sample_positions() -> torch.Tensor:
+    """Image position of each sample of a block: ``16 (s // 16) + 2 (s % 8) +
+    (s // 8) % 2``, so that a consumer thread's two rows (``s0``, ``s0 + 8``)
+    are neighbours (``csrc/mlp_backward_wgmma.cu`` sample_pos). K5b sums over
+    every sample, so the order changes no product."""
+    s = torch.arange(BLOCK)
+    return s // 16 * 16 + s % 8 * 2 + s // 8 % 2
+
+
+SAMPLE_POS = _sample_positions()
+
+
+def scratch_image(feats: torch.Tensor) -> torch.Tensor:
+    """The scratch as K5a lays it out, flat, from ``[N, SCRATCH_FEATURES]``:
+    per sample block of 64 rows (zeros past N), ``SCRATCH_FEATURES`` image
+    rows of 128 bytes, feature ``f``'s 64 samples (sample ``s`` at position
+    ``SAMPLE_POS[s]``) in 16-byte pieces of 8, piece ``p`` at position ``p ^
+    (f % 8)``: the image of a [64 samples, features] slab that the K-major
+    descriptors read (``ray_wgmma._swizzled``)."""
+    n = feats.shape[0]
+    pad = feats.new_zeros(-n % BLOCK, feats.shape[1])
+    blocks = torch.cat([feats, pad]).reshape(-1, BLOCK, feats.shape[1])
+    order = torch.argsort(SAMPLE_POS).to(feats.device)
+    return torch.cat([ray_wgmma._swizzled(b[order]) for b in blocks])
+
+
+def image_rows(image: torch.Tensor, n: int) -> torch.Tensor:
+    """The inverse of ``scratch_image``: the first ``n`` rows."""
+    per = SCRATCH_FEATURES * BLOCK
+    pos = SAMPLE_POS.to(image.device)
+    return torch.cat([ray_wgmma._unswizzled(image[b * per:(b + 1) * per], SCRATCH_FEATURES,
+                                            BLOCK)[pos]
+                      for b in range(-(-n // BLOCK))])[:n]
+
+
+def n_splits(rows: int) -> int:
+    """K5b's sample-block ranges for a pass of ``rows`` rows."""
+    return min(SPLITS, -(-rows // BLOCK))
+
+
+def split_bounds(rows: int) -> List[Tuple[int, int]]:
+    """The row range of each split of a pass: split ``s`` of ``S`` takes the
+    sample blocks ``[s B // S, (s + 1) B // S)`` of the pass's ``B``."""
+    blocks, splits = -(-rows // BLOCK), n_splits(rows)
+    return [(BLOCK * (s * blocks // splits), min(rows, BLOCK * ((s + 1) * blocks // splits)))
+            for s in range(splits)]
+
+
+def pass_bounds(n: int, pass_rows: int = PASS_ROWS) -> List[Tuple[int, int]]:
+    return [(p0, min(n, p0 + pass_rows)) for p0 in range(0, n, pass_rows)]
+
+
+def wgrad_jobs(cfg: ModelConfig) -> List[tuple]:
+    """K5b's jobs: ``(N, dY's first scratch row, consumer 0, consumer 1)``, a
+    consumer ``(X's first scratch row, out, ld, valid, col0, ncols, bias)``
+    or None. A consumer's tile is ``X[:, 64 rows]^T @ dY`` [64, N]: its row
+    ``r < valid``, column ``col0 <= col < col0 + ncols`` goes to float ``out
+    + r * ld + col - col0`` of a slot of partials (``GRAD_OFFSETS``), and
+    with ``bias`` (else -1) the column sums of dY to ``bias + col - col0``.
+    The two consumers of a job share dY; every float of a slot is written by
+    exactly one job."""
+    _require_reference(cfg)
+    skip_pos = skip_position(cfg)
+    o, r = GRAD_OFFSETS, SCRATCH_ROW
+    groups = []    # (N, dY row, [consumers])
+    groups.append((HID, r["dpre0"], [(r["enc"], o["d_w0"], HID, 64, 0, HID, o["d_b0"])]))
+    for i in range(1, 8):
+        tiles = [(r[f"h{i - 1}"] + 64 * m, o["d_wt"] + (i - 1) * HID * HID + 64 * m * HID, HID,
+                  64, 0, HID, o["d_bt"] + (i - 1) * HID if m == 0 else -1) for m in range(4)]
+        if i == skip_pos:
+            tiles.append((r["enc"], o["d_wskip"], HID, 64, 0, HID, -1))
+        groups.append((HID, r[f"dpre{i}"], tiles))
+    groups.append((CH, r["dc_pre"],
+                   [(r["h7"] + 64 * m, o["d_wc0"] + 64 * m * CH, CH, 64, 0, CH,
+                     o["d_bc0"] if m == 0 else -1) for m in range(4)]
+                   + [(r["denc"], o["d_wdir"], CH, DIR_ROWS, 0, CH, -1)]))
+    groups.append((8, r["dy8"],
+                   [(r["c"] + 64 * m, o["d_wc1"] + 64 * m * 3, 3, 64, 0, 3,
+                     o["d_bc1"] if m == 0 else -1) for m in range(2)]
+                   + [(r["h7"] + 64 * m, o["d_wsig"] + 64 * m, 1, 64, 3, 1,
+                       o["d_bsig"] if m == 0 else -1) for m in range(4)]))
+    jobs = []
+    for n, b_row, tiles in groups:
+        for k in range(0, len(tiles), 2):
+            pair = tiles[k:k + 2]
+            jobs.append((n, b_row, pair[0], pair[1] if len(pair) == 2 else None))
+    return jobs
+
+
+def jobs_tensor(cfg: ModelConfig) -> torch.Tensor:
+    """``wgrad_jobs`` as the kernel reads them: int32 ``[jobs, 18]``."""
+    rows = []
+    for n, b_row, c0, c1 in wgrad_jobs(cfg):
+        row = [n, b_row]
+        for c in (c0, c1):
+            row += list(c) + [0] if c is not None else [-1] * 8
+        rows.append(row)
+    return torch.tensor(rows, dtype=torch.int32)
+
+
+def wgrad_split_plain(feats: torch.Tensor, bounds: Sequence[Tuple[int, int]],
+                      cfg: ModelConfig) -> torch.Tensor:
+    """K5b's partials, float32 ``[splits, GRAD_FLOATS]``, from the scratch
+    rows ``[N, SCRATCH_FEATURES]`` (``scratch_rows``) and a row range per
+    split: every job's tiles as the kernel computes them. Floats no job
+    writes stay NaN (as ``torch.empty`` leaves the kernel's)."""
+    out = torch.full((len(bounds), GRAD_FLOATS), float("nan"), device=feats.device)
+    for s, (r0, r1) in enumerate(bounds):
+        x = feats[r0:r1].float()
+        for n, b_row, *cons in wgrad_jobs(cfg):
+            dy = x[:, b_row:b_row + n]
+            for c in cons:
+                if c is None:
+                    continue
+                a_row, off, ld, valid, col0, ncols, bias = c
+                tile = x[:, a_row:a_row + 64].t() @ dy
+                dst = out[s, off:off + (valid - 1) * ld + ncols].as_strided((valid, ncols), (ld, 1))
+                dst.copy_(tile[:valid, col0:col0 + ncols])
+                if bias >= 0:
+                    out[s, bias:bias + ncols] = dy.sum(0)[col0:col0 + ncols]
+    return out
+
+
+def grads_from_flat(flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``GRAD_SHAPES``' views of one slot of partials."""
+    return {k: flat[GRAD_OFFSETS[k]:GRAD_OFFSETS[k] + math.prod(s)].view(s)
+            for k, s in GRAD_SHAPES.items()}
+
+
+def packed_grads_composed(packed: PackedWeights, positions, directions, dsigma, drgb,
+                          cfg: ModelConfig, pass_rows: int = PASS_ROWS) -> Dict[str, torch.Tensor]:
+    """The kernels' pipeline in plain PyTorch: per pass, ``bwd_rows_plain``
+    then ``wgrad_split_plain`` over ``split_bounds``; the slots of all passes
+    summed in order."""
+    parts = []
+    for p0, p1 in pass_bounds(positions.shape[0], pass_rows):
+        rows = bwd_rows_plain(packed, positions[p0:p1], directions[p0:p1], dsigma[p0:p1],
+                              drgb[p0:p1], cfg)
+        parts.append(wgrad_split_plain(scratch_rows(rows), split_bounds(p1 - p0), cfg))
+    return grads_from_flat(torch.cat(parts).sum(0))
+
+
+# -- the CUDA kernels -------------------------------------------------------------
+
+_ROWS_ARGTYPES = (
+    [ctypes.c_void_p] * 4                 # positions, directions, dsigma, drgb (the pass's)
+    + [ctypes.c_longlong]                 # rows
+    + [ctypes.c_void_p] * 2               # weight stream, weights (PackedWeights order)
+    + [ctypes.c_int] * 6 + [ctypes.c_float]   # net_args
+    + [ctypes.c_void_p] * 2               # scratch, stream
+)
+_WGRAD_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_longlong]  # scratch, rows
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]   # jobs, n_jobs, splits
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong]   # partials, first slot, floats a slot
+    + [ctypes.c_void_p]                   # stream
+)
+_WMMA_ARGTYPES = (
     [ctypes.c_void_p] * 4                 # positions, directions, dsigma, drgb
     + [ctypes.c_longlong]                 # N
     + [ctypes.c_void_p]                   # weights (PackedWeights order)
@@ -127,14 +354,34 @@ _ARGTYPES = (
     + [ctypes.c_int]                      # blocks
     + [ctypes.c_void_p]                   # stream
 )
+_SIGNATURES = {
+    LIBRARY: {"bwd_rows_wgmma": (_ROWS_ARGTYPES, ctypes.c_int),
+              "wgrad_wgmma": (_WGRAD_ARGTYPES, ctypes.c_int),
+              "bwd_scratch_features": ([], ctypes.c_int),
+              "bwd_stream_chunks": ([], ctypes.c_int),
+              "bwd_rows_smem_bytes": ([], ctypes.c_longlong),
+              "bwd_rows_stages": ([], ctypes.c_int),
+              "wgrad_smem_bytes": ([], ctypes.c_longlong),
+              "wgrad_job_ints": ([], ctypes.c_int)},
+    WMMA_LIBRARY: {"mlp_backward": (_WMMA_ARGTYPES, ctypes.c_int),
+                   "mlp_backward_scratch_elems": ([], ctypes.c_longlong),
+                   "mlp_backward_smem_bytes": ([], ctypes.c_longlong)},
+}
+_JOBS: Dict[tuple, torch.Tensor] = {}
 
 
-def _launch(packed: PackedWeights, positions, directions, dsigma, drgb,
-            cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """Launch ``csrc/mlp_backward.cu``: a persistent grid of at most one
-    block per SM, each with its own float32 copy of every gradient and a
-    scratch for the activations of one tile; the copies are summed here."""
-    global launches
+def load(library: str = LIBRARY) -> ctypes.CDLL:
+    """A bound build of K5 (``LIBRARY`` or ``WMMA_LIBRARY``), its signatures
+    set once."""
+    lib = _ext.load(library)
+    for name, (argtypes, restype) in _SIGNATURES[library].items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
+def _check_inputs(packed, positions, directions, dsigma, drgb, cfg) -> None:
     _require_reference(cfg)
     dev = positions.device
     n = positions.shape[0]
@@ -144,26 +391,112 @@ def _launch(packed: PackedWeights, positions, directions, dsigma, drgb,
             raise ValueError(f"{name} must be float32 {shape} on {dev}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     check_packed(packed, cfg, dev)
+
+
+def scratch_elems(rows: int) -> int:
+    """bf16 elements of K5a's scratch for a pass of ``rows`` rows: two sample
+    blocks per 128-row tile."""
+    return 2 * -(-rows // (2 * BLOCK)) * BLOCK * SCRATCH_FEATURES
+
+
+def launch_rows(packed: PackedWeights, positions, directions, dsigma, drgb, cfg: ModelConfig,
+                scratch: torch.Tensor, stream: Optional[torch.Tensor] = None) -> None:
+    """K5a on one pass (at most ``PASS_ROWS`` contiguous float32 rows on the
+    card) into ``scratch`` (``scratch_elems`` bf16 at least)."""
+    rows = positions.shape[0]
+    if not 0 < rows <= PASS_ROWS or scratch.numel() < scratch_elems(rows):
+        raise ValueError(f"a pass of {rows} rows needs 1..{PASS_ROWS} rows and "
+                         f"{scratch_elems(rows)} scratch elements")
+    lib = load()
+    stream = ray_wgmma.bwd_stream(packed, cfg) if stream is None else stream
+    err = lib.bwd_rows_wgmma(_ext.ptr(positions), _ext.ptr(directions), _ext.ptr(dsigma),
+                             _ext.ptr(drgb), rows, _ext.ptr(stream), _ext.pointer_array(packed),
+                             *net_args(cfg), _ext.ptr(scratch), _ext.stream_ptr(positions.device))
+    _ext.check(lib, err, "bwd_rows_wgmma launch")
+    launches["bwd_rows"] += 1
+
+
+def _jobs(cfg: ModelConfig, dev: torch.device) -> torch.Tensor:
+    key = (dev, skip_position(cfg))
+    if key not in _JOBS:
+        _JOBS[key] = jobs_tensor(cfg).to(dev)
+    return _JOBS[key]
+
+
+def launch_wgrad(scratch: torch.Tensor, rows: int, cfg: ModelConfig, partials: torch.Tensor,
+                 slot: int) -> int:
+    """K5b on the scratch of a pass of ``rows`` rows, into slots ``slot ..
+    slot + n_splits(rows) - 1`` of ``partials`` [slots, GRAD_FLOATS]; returns
+    the next free slot."""
+    splits = n_splits(rows)
+    if partials.shape[1:] != (GRAD_FLOATS,) or not 0 <= slot <= partials.shape[0] - splits:
+        raise ValueError(f"partials {tuple(partials.shape)} have no slots {slot}..+{splits}")
+    lib = load()
+    jobs = _jobs(cfg, scratch.device)
+    err = lib.wgrad_wgmma(_ext.ptr(scratch), rows, _ext.ptr(jobs), jobs.shape[0], splits,
+                          _ext.ptr(partials), slot, GRAD_FLOATS, _ext.stream_ptr(scratch.device))
+    _ext.check(lib, err, "wgrad_wgmma launch")
+    launches["wgrad"] += 1
+    return slot + splits
+
+
+def _launch(packed: PackedWeights, positions, directions, dsigma, drgb,
+            cfg: ModelConfig, library: str = LIBRARY) -> Dict[str, torch.Tensor]:
+    """Launch K5: per pass of at most ``PASS_ROWS`` rows, the row pass K5a
+    into one scratch and the weight-gradient pass K5b into the pass's slots
+    of partials; the slots are summed here. ``library=WMMA_LIBRARY`` launches
+    the WMMA build instead (a timed comparison: no path of the port asks for
+    it)."""
+    _check_inputs(packed, positions, directions, dsigma, drgb, cfg)
+    if library == WMMA_LIBRARY:
+        return _launch_wmma(packed, positions, directions, dsigma, drgb, cfg)
+    if library != LIBRARY:
+        raise ValueError(f"K5 is built as {LIBRARY} (or {WMMA_LIBRARY}), not {library}")
+    dev = positions.device
+    n = positions.shape[0]
     if n == 0:
         return {k: torch.zeros(s, dtype=torch.float32, device=dev)
                 for k, s in GRAD_SHAPES.items()}
     positions, directions = positions.contiguous(), directions.contiguous()
     dsigma, drgb = dsigma.contiguous(), drgb.contiguous()
-    blocks = min(-(-n // TILE), torch.cuda.get_device_properties(dev).multi_processor_count)
+    stream = ray_wgmma.bwd_stream(packed, cfg)
+    passes = pass_bounds(n, PASS_ROWS)
+    scratch = torch.empty(scratch_elems(passes[0][1]), dtype=torch.bfloat16, device=dev)
+    partials = torch.empty(sum(n_splits(p1 - p0) for p0, p1 in passes), GRAD_FLOATS,
+                           dtype=torch.float32, device=dev)
+    slot = 0
+    for p0, p1 in passes:
+        launch_rows(packed, positions[p0:p1], directions[p0:p1], dsigma[p0:p1], drgb[p0:p1],
+                    cfg, scratch, stream)
+        slot = launch_wgrad(scratch, p1 - p0, cfg, partials, slot)
+    return grads_from_flat(partials.sum(0))
+
+
+def _launch_wmma(packed: PackedWeights, positions, directions, dsigma, drgb,
+                 cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Launch ``csrc/mlp_backward.cu``: a persistent grid of at most one
+    block per SM, each with its own float32 copy of every gradient (zeroed
+    here) and a scratch for the activations of one tile; the copies are
+    summed here."""
+    dev = positions.device
+    n = positions.shape[0]
+    if n == 0:
+        return {k: torch.zeros(s, dtype=torch.float32, device=dev)
+                for k, s in GRAD_SHAPES.items()}
+    positions, directions = positions.contiguous(), directions.contiguous()
+    dsigma, drgb = dsigma.contiguous(), drgb.contiguous()
+    blocks = min(-(-n // WMMA_TILE), torch.cuda.get_device_properties(dev).multi_processor_count)
     grads = [torch.zeros(blocks, *s, dtype=torch.float32, device=dev)
              for s in GRAD_SHAPES.values()]
-    lib = _ext.load("mlp_backward")
-    lib.mlp_backward_scratch_elems.restype = ctypes.c_longlong
+    lib = load(WMMA_LIBRARY)
     scratch = torch.empty(blocks, lib.mlp_backward_scratch_elems(), dtype=torch.bfloat16,
                           device=dev)
-    fn = lib.mlp_backward
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(_ext.ptr(positions), _ext.ptr(directions), _ext.ptr(dsigma), _ext.ptr(drgb), n,
-             _ext.pointer_array(packed), *net_args(cfg), _ext.ptr(scratch),
-             _ext.pointer_array(grads), blocks, _ext.stream_ptr(dev))
+    err = lib.mlp_backward(_ext.ptr(positions), _ext.ptr(directions), _ext.ptr(dsigma),
+                           _ext.ptr(drgb), n, _ext.pointer_array(packed), *net_args(cfg),
+                           _ext.ptr(scratch), _ext.pointer_array(grads), blocks,
+                           _ext.stream_ptr(dev))
     _ext.check(lib, err, "mlp_backward launch")
-    launches += 1
+    launches["mlp_backward_wmma"] += 1
     return {k: g.sum(0) for k, g in zip(GRAD_SHAPES, grads)}
 
 

@@ -48,7 +48,7 @@ def test_kernels_build_for_hopper_without_fast_math():
             f"-DNERF_WQ={i}" for i in (1, 2, 3)]
     assert {s for s, _ in _ext.VARIANTS.values()} == {"render_samples", "ray_wgmma"}
     paths = {_ext.library_path(n) for n in _ext.LIBRARIES}
-    assert len(paths) == len(_ext.LIBRARIES) == 12
+    assert len(paths) == len(_ext.LIBRARIES) == 13
 
 
 def _run_smoke(cwd):

@@ -228,7 +228,7 @@ def test_k5_packed_layout_padding_rows_and_launch_count(setup):
     rng = np.random.default_rng(5)
     dsig = torch.tensor(rng.normal(size=n).astype(np.float32))
     drgb = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32))
-    before = train_kernel.launches
+    before = dict(train_kernel.launches)
     g = packed_grads(packed, torch.tensor(pos[:n]), torch.tensor(dirs[:n]), dsig, drgb, tc)
     assert train_kernel.launches == before      # the CPU path launches no kernel
     assert {k: tuple(v.shape) for k, v in g.items()} == GRAD_SHAPES
