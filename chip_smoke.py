@@ -9,11 +9,14 @@ shapes: K1 uniform ray kernel, K2 compositor, K3 per-ray-depth ray kernel
 (K1 and K3 with raw output, on every weight route: the Hopper kernels of
 ``csrc/ray_wgmma.cu``, one build per route, each also timed against the
 WMMA build of ``csrc/render_samples.cu`` it replaced), the composited modes
-of K1 and K3, K4 per-sample MLP forward, K5 MLP backward (the Hopper row
-pass and weight-gradient pass of ``csrc/mlp_backward_wgmma.cu``, each against
-its plain version, the pair against float32 and bf16 autograd, run twice for
-bit equality, and timed against the WMMA build it replaced), K6 planar
-compositor, K7 per-sample MLP on int8 and int16 weights, the ray kernels on
+of K1 and K3, K4 per-sample MLP forward (the per-sample Hopper kernel of
+``csrc/ray_wgmma.cu``, timed against the WMMA build ``csrc/mlp_forward.cu``
+it replaced), K5 MLP backward (the Hopper row pass and weight-gradient pass
+of ``csrc/mlp_backward_wgmma.cu``, each against its plain version, the pair
+against float32 and bf16 autograd, run twice for bit equality, and timed
+against the WMMA build it replaced), K6 planar compositor, K7 per-sample MLP
+on int8 and int16 weights (the same Hopper kernel in the build of each
+quantized route, timed against ``csrc/mlp_quant.cu``), the ray kernels on
 quantized weights (dequantized in the kernel), the int8-compute route (K8)
 in K7, K1 and K3, and the bf16 and planar raw outputs of K1 and K3 (B10).
 Then it drives each path of the port,
@@ -83,6 +86,12 @@ PSNR_MIN = 40.0
 PSNR_FLOOR = {"benchmark": 57.4, "hierarchical": 61.3}   # the bf16 CudaEngine against the
                               # float32 engine: 0.5 dB under the WMMA kernels' 57.9 / 61.8 dB
 WGMMA = {"render_samples": "ray_wgmma_kernel", "render_zvals": "ray_z_wgmma_kernel"}
+K4_KERNEL = "mlp_wgmma_kernel"   # K4 and K7: the per-sample kernel of csrc/ray_wgmma.cu
+K4_DESIGN = ("the ray kernels' body (warpgroup wgmma m64n256k16 / m64n128k16, activations in "
+             "registers, a producer warp streaming the weights by cp.async.bulk into an "
+             "mbarrier ring, persistent blocks) with per-row positions and directions; the "
+             "direction term two m64n128k16 SS products of a per-row bf16 encoding tile with "
+             "wdir, which the stream carries after wc0")
 K5_KERNELS = ("bwd_rows_wgmma_kernel", "wgrad_wgmma_kernel")   # K5a, K5b
 PSNR_MIN_INT8 = 30.0          # the int8-compute engine against the float32 engine (the JAX
                               # package's own bar for it: 20 dB)
@@ -377,7 +386,7 @@ def main():
     wgmma_builds = {}
     for route, name in ray_wgmma.LIBRARIES.items():
         kernels, notes = kernel_ptxas(name, ("ray_z_wgmma_kernel", "ray_wgmma_kernel",
-                                             "l2_probe_kernel"))
+                                             K4_KERNEL, "l2_probe_kernel"))
         lib = ray_wgmma.load(name)
         require(lib.ray_wgmma_route() == route, f"{name} is built for route "
                 f"{lib.ray_wgmma_route()}, not {route}")
@@ -387,7 +396,15 @@ def main():
             ring_stages={S: lib.ray_wgmma_stages(S) for S in (SPP, S3)},
             landing_slots=lib.ray_wgmma_landing_slots(),
             registers_after_setmaxnreg={"consumers": lib.ray_wgmma_registers(1),
-                                        "producer_warpgroup": lib.ray_wgmma_registers(0)})
+                                        "producer_warpgroup": lib.ray_wgmma_registers(0)},
+            per_sample={"kernel": K4_KERNEL, "ptxas": kernels.get(K4_KERNEL),
+                        "dynamic_smem_bytes": lib.mlp_wgmma_smem_bytes(),
+                        "ring_stages": lib.mlp_wgmma_stages(),
+                        "stream_chunks": [lib.mlp_wgmma_stream_chunks(b) for b in (0, 1)]})
+        require([lib.mlp_wgmma_stream_chunks(b) for b in (0, 1)] == [
+            len(ray_wgmma.sample_chunk_schedule(c.model, route))
+            for c in (default_config(), bmild_config())],
+            f"{name}: the per-sample stream's chunks differ from ops/ray_wgmma.py")
     # the Hopper K5 (csrc/mlp_backward_wgmma.cu): its two kernels, and the
     # layout it shares with ops/train_kernel.py
     k5_lib = train_kernel.load()
@@ -406,6 +423,11 @@ def main():
         r = wgmma_builds[ray_wgmma.LIBRARY]["ptxas"].get(k, {})
         require(r.get("spill_store_bytes") == 0 and r.get("spill_load_bytes") == 0,
                 f"ptxas: {k} spills ({r})")
+    for route, name in ray_wgmma.LIBRARIES.items():   # K4 and K7's dequantize routes: no spill
+        r = wgmma_builds[name]["ptxas"].get(K4_KERNEL, {})
+        require(route == quant.ROUTE_INT8_COMPUTE or (r.get("spill_store_bytes") == 0
+                                                      and r.get("spill_load_bytes") == 0),
+                f"ptxas: {K4_KERNEL} in {name} spills ({r})")
     for k in K5_KERNELS:
         r = k5_ptxas.get(k, {})
         require(r.get("spill_store_bytes") == 0 and r.get("spill_load_bytes") == 0,
@@ -422,7 +444,7 @@ def main():
             quant.launches[k] = 0
         composite_kernel.launches = composite_kernel.planar_launches = 0
         composite_kernel.bf16_launches = 0
-        mlp_kernel.launches = 0
+        mlp_kernel.launches = mlp_kernel.wmma_launches = 0
         for k in train_kernel.launches:
             train_kernel.launches[k] = 0
 
@@ -431,7 +453,8 @@ def main():
                 "composite": composite_kernel.launches,
                 "composite_bf16": composite_kernel.bf16_launches,
                 "composite_planar": composite_kernel.planar_launches,
-                "mlp_forward": mlp_kernel.launches, **train_kernel.launches}
+                "mlp_forward": mlp_kernel.launches, "mlp_forward_wmma": mlp_kernel.wmma_launches,
+                **train_kernel.launches}
 
     white = lambda c: dataclasses.replace(
         c, render=dataclasses.replace(c.render, white_background=True))
@@ -590,7 +613,9 @@ def main():
             pk = pack_params(params, mc, torch.bfloat16)
             for n_rays, S4 in k4_shapes:
                 pos, dirs = sample_batch(n_rays, S4, seed=n_rays + S4)
+                hopper = mlp_kernel.launches
                 out_k = mlp_kernel._launch(pk, pos, dirs, mc)
+                require(mlp_kernel.launches == hopper + 1, f"K4 {name} did not reach {K4_KERNEL}")
                 out_p = mlp_kernel.fused_nerf_apply_plain(pk, pos, dirs, mc)
                 torch.cuda.synchronize()
                 require(bool(torch.isfinite(out_k).all()), f"K4 {name}: non-finite output")
@@ -598,7 +623,9 @@ def main():
                                                             out_p.reshape(n_rays, -1))
                 k4_err = max(k4_err, rgb_err)
                 emit("k4_check", variant=name, samples=n_rays * S4, rgb_max_abs_err=rgb_err,
-                     sigma_max_rel_err=sig_err, max_abs_sigma=sig_scale, tol=K1_TOL)
+                     sigma_max_rel_err=sig_err, max_abs_sigma=sig_scale, tol=K1_TOL,
+                     kernel=K4_KERNEL, library=ray_wgmma.LIBRARY,
+                     **agreement(out_k.reshape(n_rays, -1), out_p.reshape(n_rays, -1)))
                 require(rgb_err <= K1_TOL and sig_err <= K1_TOL,
                         f"K4 {name}: rgb err {rgb_err}, sigma rel err {sig_err} > {K1_TOL}")
                 del out_k, out_p
@@ -902,10 +929,17 @@ def main():
                 o = apply_nerf(tree, pos, dirs, mcfg, compute_dtype=torch.bfloat16)
                 torch.autograd.grad(o, leaves, (dsig, drgb))
 
+            # the Hopper K4 and the WMMA build it replaced, in turns (old,
+            # new, new, old)
+            k4 = lambda: mlp_kernel._launch(pk, pos, dirs, mcfg)
+            k4_old = lambda: mlp_kernel._launch(pk, pos, dirs, mcfg,
+                                                library=mlp_kernel.WMMA_LIBRARY)
+            turns = [call_ms(k4_old, 10), call_ms(k4, 10), call_ms(k4, 10), call_ms(k4_old, 10)]
             res["mlp_forward"][n] = dict(
-                device_ms=profiled_ms(lambda: mlp_kernel._launch(pk, pos, dirs, mcfg),
-                                      "mlp_kernel", 5),
-                call_ms=call_ms(lambda: mlp_kernel._launch(pk, pos, dirs, mcfg), 10),
+                device_ms=profiled_ms(k4, K4_KERNEL, 5),
+                call_ms=(turns[1] + turns[2]) / 2, wmma_ms=(turns[0] + turns[3]) / 2,
+                call_ms_turns_old_new_new_old=turns,
+                wmma_device_ms=profiled_ms(k4_old, "mlp_kernel", 5),
                 plain_ms=call_ms(lambda: mlp_kernel.fused_nerf_apply_plain(pk, pos, dirs, mcfg), 3),
                 bound=bound_ms(2 * fwd * n, 0, nbytes(pos, dirs) + weights_bytes + n * 16))
             # the Hopper K5 and the WMMA build it replaced, in turns (old,
@@ -951,8 +985,9 @@ def main():
                 for n, v in by_n.items()} for k, by_n in res.items()},
             library="mlp_backward: the backward (and forward + backward) of bf16 autograd "
                     "through apply_nerf, a chain of library products",
-            wmma="mlp_backward wmma_ms: call ms of the WMMA build (csrc/mlp_backward.cu), timed "
-                 "in turns with the Hopper kernels (old, new, new, old)")
+            wmma="wmma_ms: call ms of the WMMA build (mlp_forward: csrc/mlp_forward.cu; "
+                 "mlp_backward: csrc/mlp_backward.cu), timed in turns with the Hopper kernels "
+                 "(old, new, new, old)")
         return res
 
     new_times = time_new_kernels()
@@ -1003,13 +1038,16 @@ def main():
                 shapes = ((n_check, S3), (CHUNK, SPP), (CHUNK, N_FINE))
                 for n_rays, S in shapes if vname == "reference" else shapes[:1]:
                     pos, dirs = sample_batch(n_rays, S, seed=n_rays + S)
+                    hopper = quant.launches["mlp_quant"]
+                    got = quant._launch(q, pos, dirs, mcfg).reshape(n_rays, -1)
+                    require(quant.launches["mlp_quant"] == hopper + 1,
+                            f"K7 on {route} weights did not reach {K4_KERNEL}")
                     e = held("k8_check" if k8 else "k7_check",
-                             f"mlp_quant {route} {vname} {n_rays * S} samples",
-                             quant._launch(q, pos, dirs, mcfg).reshape(n_rays, -1),
+                             f"mlp_quant {route} {vname} {n_rays * S} samples", got,
                              quant.quantized_nerf_apply_plain(q, pos, dirs, mcfg).reshape(n_rays, -1),
-                             tol)
+                             tol, kernel=K4_KERNEL, library=ray_wgmma.LIBRARIES[quant.route_of(q)])
                     worst["int8" if k8 else "mlp_quant"] = max(worst["int8" if k8 else "mlp_quant"], e)
-                    del pos, dirs
+                    del pos, dirs, got
                 # -- K1 and K3 raw and composited (quant_ray_check / k8_check) at
                 #    1,001 rays and, for the trained network, at the chunk
                 for ro, rd in ((ro_s, rd_s), (ro_c, rd_c)) if vname == "reference" else (
@@ -1185,7 +1223,7 @@ def main():
             plain version's stream ms."""
             return dict(device_ms=profiled_ms(kern, name, reps), call_ms=call_ms(kern, reps),
                         plain_ms=call_ms(plain, 2) if callable(plain) else plain, bound=bound,
-                        **more)
+                        cuda_kernel=name, **more)
 
         for route, w in weights.items():
             # the Hopper kernels on every route; beside them, in turns (old,
@@ -1211,19 +1249,31 @@ def main():
                     wmma_call_ms=turns["wmma"], wgmma_call_ms=turns["wgmma"],
                     order="wmma, wgmma, wgmma, wmma")
             torch.cuda.empty_cache()
+        # K4 and K7 at the uniform hierarchical frame's two chunks: the Hopper
+        # kernel in the build of each route and, in turns (old, new, new,
+        # old), the WMMA build it replaced, on the same weights
         for S in (SPP, N_FINE):
             pos, dirs = sample_batch(CHUNK, S, seed=S)
             n = CHUNK * S
-            res[f"mlp_forward bf16 x{S}"] = timed(
-                lambda: mlp_kernel._launch(packed, pos, dirs, mcfg), "mlp_kernel", 3,
-                lambda: mlp_kernel.fused_nerf_apply_plain(packed, pos, dirs, mcfg),
-                ray_bound("bf16", S, nbytes(pos, dirs), n * 16, per_sample_dirs=True))
-            for route, _, _ in ROUTES:
-                w = weights[route]
-                res[f"mlp_quant {route} x{S}"] = timed(
-                    lambda: quant._launch(w, pos, dirs, mcfg), "mlp_quant_kernel", 3,
-                    lambda: quant.quantized_nerf_apply_plain(w, pos, dirs, mcfg),
-                    ray_bound(route, S, nbytes(pos, dirs), n * 16, per_sample_dirs=True))
+            for route, w in weights.items():
+                if route == "bf16":
+                    run = lambda lib=None: mlp_kernel._launch(w, pos, dirs, mcfg, library=lib)
+                    plain = lambda: mlp_kernel.fused_nerf_apply_plain(w, pos, dirs, mcfg)
+                    key, wmma = f"mlp_forward bf16 x{S}", mlp_kernel.WMMA_LIBRARY
+                    lib_name = ray_wgmma.LIBRARY
+                else:
+                    run = lambda lib=None: quant._launch(w, pos, dirs, mcfg, library=lib)
+                    plain = lambda: quant.quantized_nerf_apply_plain(w, pos, dirs, mcfg)
+                    key, wmma = f"mlp_quant {route} x{S}", quant.WMMA_LIBRARY
+                    lib_name = ray_wgmma.LIBRARIES[quant.route_of(w)]
+                old = lambda: run(wmma)
+                turns = [call_ms(old, 3), call_ms(run, 3), call_ms(run, 3), call_ms(old, 3)]
+                res[key] = timed(run, K4_KERNEL, 3, plain,
+                                 ray_bound(route, S, nbytes(pos, dirs), n * 16, per_sample_dirs=True),
+                                 library=lib_name, wmma_library=wmma,
+                                 wmma_call_ms=[turns[0], turns[3]],
+                                 wgmma_call_ms=[turns[1], turns[2]], order="wmma, wgmma, wgmma, wmma")
+                res[key]["wgmma_over_wmma"] = (turns[1] + turns[2]) / (turns[0] + turns[3])
             del pos, dirs
             torch.cuda.empty_cache()
         # the raw output forms of K1/K3 on bf16 weights, and K2 on a bf16 raw
@@ -1395,7 +1445,8 @@ def main():
     res_u = drive(engine_u, "hierarchical", "uniform_hierarchical",
                   {"mlp_forward": 2, "composite_planar": 2})
     per_launch, prof = frame_profile(engine_u, "hierarchical",
-                                     {"mlp_kernel": 2, "composite_planar_kernel": 2})
+                                     {K4_KERNEL: 2, "composite_planar_kernel": 2})
+    device_ms["uniform mlp_forward"] = per_launch.get(K4_KERNEL)
     ref_u = TorchEngine(SharedModel(uniform(f32(cfg_ref)), dev).load(PARAMS),
                         chunk_rays=CHUNK).render_image(
         poses[1], (qw, qh), SPP, focal=qfocal, mode="hierarchical", monitor=False).rgb
@@ -1452,6 +1503,10 @@ def main():
                                 "composite_kernel": 2})
                 for k, v in per_launch.items():
                     device_ms[f"{phase} {k}"] = v
+            elif path == "uniform_hierarchical":
+                per_launch, r["profile"] = frame_profile(
+                    eng, mode, {K4_KERNEL: 2, "composite_planar_kernel": 2})
+                device_ms[f"{phase} uniform {K4_KERNEL}"] = per_launch.get(K4_KERNEL)
             res[path] = r
             stats = eng.compression_stats()
         emit(phase, min_db=min_db, psnr_resolution=[qw, qh], compression_stats=stats,
@@ -1713,7 +1768,7 @@ def main():
     # the kernels of the training slice, at the train step's fine pass
     # (393,216 samples) and at a 16,384 x 128 chunk of the uniform fine pass
     new_summary = (
-        ("mlp_forward", "nerf_tpu_torch/csrc/mlp_forward.cu", "nerf_tpu/ops/mlp_kernel.py:410",
+        ("mlp_forward", rw, "nerf_tpu/ops/mlp_kernel.py:410",
          "train", k4_err, N_FINE_TRAIN, f"{N_FINE_TRAIN} samples, bf16",
          f"{no_library} (encoding + the 10-layer MLP per sample)"),
         ("mlp_backward", "nerf_tpu_torch/csrc/mlp_backward_wgmma.cu",
@@ -1746,6 +1801,21 @@ def main():
                                      "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
                                      **({"library_ms": c["library_ms"]} if "library_ms" in c
                                         else {})}
+        if name == "mlp_forward":
+            c = new_times[name][N_COARSE_TRAIN]
+            row["at_coarse_pass"]["wmma_ms"] = c["wmma_ms"]
+            chunk = {f"{CHUNK}x{S}": {k: quant_times[f"mlp_forward bf16 x{S}"][k] for k in
+                                      ("device_ms", "call_ms", "wmma_call_ms", "plain_ms")}
+                     | {"bound_ms": quant_times[f"mlp_forward bf16 x{S}"]["bound"][0]}
+                     for S in (SPP, N_FINE)}
+            row.update(cuda_kernel=K4_KERNEL, library=ray_wgmma.LIBRARY, wmma_ms=t["wmma_ms"],
+                       wmma_device_ms=t["wmma_device_ms"],
+                       wmma_note="call ms of the WMMA build csrc/mlp_forward.cu on the same "
+                                 "inputs, timed in turns with the Hopper kernel",
+                       design=K4_DESIGN, at_uniform_chunks=chunk,
+                       device_ms_in_uniform_frame=device_ms.get("uniform mlp_forward"),
+                       weight_stream="in a train step the prefix of K5's stream, gathered once "
+                                     "per network in the forward")
         if name == "mlp_backward":
             c = new_times[name][N_COARSE_TRAIN]
             row["at_coarse_pass"]["wmma_ms"] = c["wmma_ms"]
@@ -1767,14 +1837,14 @@ def main():
     # the kernels and routes of the compressed slice, at the 16,384-ray chunk
     # (times: kernel_times_quant; launches: the path named)
     quant_summary = (
-        ("mlp_quant", "nerf_tpu_torch/csrc/mlp_quant.cu", "nerf_tpu/ops/quant.py:420",
+        ("mlp_quant", rw, "nerf_tpu/ops/quant.py:420",
          "compressed_frames_uniform_hierarchical", "mlp_quant", quant_err["mlp_quant"],
          f"mlp_quant int8 x{N_FINE}", f"{CHUNK} x {N_FINE} samples, int8 weights dequantized "
          "in the kernel, bf16 compute"),
         ("int8_mm", rw, "nerf_tpu/ops/quant.py:339",
          "int8_frames_hierarchical", "int8", quant_err["int8"], "render_samples int8_compute",
-         f"the s8 x s8 -> s32 trunk inside K1 at {CHUNK} rays x {SPP} samples (also in K3; "
-         "in K7 on csrc/mlp_body.cuh)"),
+         f"the s8 x s8 -> s32 trunk inside K1 at {CHUNK} rays x {SPP} samples (also in K3, "
+         f"and in K7: at_k7)"),
         ("render_samples_int8_weights", rw, "nerf_tpu/ops/render_kernel.py:50",
          "compressed_frames_hierarchical", "render_samples", quant_err["ray_dequant"],
          "render_samples int8", f"{CHUNK} rays x {SPP} samples, int8 weights dequantized in "
@@ -1807,14 +1877,31 @@ def main():
             "ms": t["device_ms"] if t["device_ms"] is not None else t["call_ms"],
             "ms_from": "profiler" if t["device_ms"] is not None else "events",
             "call_ms": t["call_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-            "library_ms": None, "library_note": f"{no_library} ({mlp})"
-            if "composite" not in name else f"{no_library} (the transmittance scan)",
+            "library_ms": None, "library_note": f"{no_library} (the transmittance scan)"
+            if "composite" in name else f"{no_library} (encoding + the 10-layer MLP per sample)"
+            if name == "mlp_quant" else f"{no_library} ({mlp})",
             "shape": shape, "times_key": key})
         if "wmma_call_ms" in t:
-            kernels[-1].update(cuda_kernel=WGMMA[key.split()[0]], library=t["library"],
+            kernels[-1].update(cuda_kernel=t["cuda_kernel"], library=t["library"],
                                wmma_ms=float(np.mean(t["wmma_call_ms"])),
                                wmma_note=f"call ms of the WMMA build {t['wmma_library']} of the "
-                                         "same raw entry, timed in turns with this kernel")
+                                         "same entry, timed in turns with this kernel")
+        if name == "mlp_quant":
+            kernels[-1].update(design=K4_DESIGN, routes={
+                k: {f: quant_times[k][f] for f in ("device_ms", "call_ms", "wmma_call_ms",
+                                                   "wgmma_over_wmma", "plain_ms", "library")}
+                | {"bound_ms": quant_times[k]["bound"][0]}
+                for k in quant_times if k.startswith("mlp_quant")},
+                device_ms_in_uniform_frame=device_ms.get(
+                    f"compressed_frames uniform {K4_KERNEL}"))
+        if name == "int8_mm":
+            k7 = quant_times[f"mlp_quant int8_compute x{N_FINE}"]
+            kernels[-1]["at_k7"] = {
+                "shape": f"{CHUNK} x {N_FINE} samples", "cuda_kernel": K4_KERNEL,
+                "library": k7["library"], "ms": k7["device_ms"], "call_ms": k7["call_ms"],
+                "wmma_call_ms": k7["wmma_call_ms"], "bound_ms": k7["bound"][0],
+                "launches": paths["int8_frames_uniform_hierarchical"]["mlp_quant_int8"],
+                "device_ms_in_uniform_frame": device_ms.get(f"int8_frames uniform {K4_KERNEL}")}
     for row in kernels:
         require(row["launches"] > 0, f"{row['name']} was launched no time on {row['launches_path']}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,9 @@
-// The NeRF MLP on one 128-row tile, shared by every kernel that evaluates
-// the network: the ray kernels (render_samples.cu), the per-sample forward
-// (mlp_forward.cu) and the forward recompute of the backward kernel
-// (mlp_backward.cu). One body, so their arithmetic is the same.
+// The NeRF MLP on one 128-row tile, shared by the WMMA kernels that evaluate
+// the network: the composited ray kernels (render_samples.cu) and the builds
+// kept as timed comparisons of the Hopper kernels (mlp_forward.cu,
+// mlp_quant.cu, mlp_backward.cu). One body, so their arithmetic is the same;
+// wgmma_common.cuh builds the Hopper kernels on its constants, Net and
+// encoding.
 //
 // - one block of 512 threads (16 warps) owns M = 128 rows;
 // - the encoding [128 x 64] and the activations [128 x 256] are bf16 in

@@ -1,10 +1,11 @@
 // Per-sample fused NeRF MLP: positions and directions [N, 3] in,
-// (sigma, r, g, b) [N, 4] out.
+// (sigma, r, g, b) [N, 4] out, on the WMMA body.
 //
-// Replaces the Pallas TPU kernel `_nerf_kernel` of nerf_tpu/ops/mlp_kernel.py
-// (`_pallas_forward`, reached through `fused_nerf_apply` and the forward of
-// `fused_train_apply`). Plain PyTorch twin and wrapper:
-// nerf_tpu_torch/ops/mlp_kernel.py.
+// The first port of the Pallas TPU kernel `_nerf_kernel` of
+// nerf_tpu/ops/mlp_kernel.py. K4 now runs on `mlp_wgmma_kernel` of
+// ray_wgmma.cu; this build is reached only through
+// `ops/mlp_kernel._launch(..., library="mlp_forward")`, as a timed comparison.
+// Plain PyTorch twin and wrapper: nerf_tpu_torch/ops/mlp_kernel.py.
 //
 // What bounds it: tensor-core operations, as the ray kernels: ~0.53 M
 // multiply-adds per sample against 24 bytes read and 16 written.

@@ -2,10 +2,13 @@
 // [N, 3] in, (sigma, r, g, b) [N, 4] out, from int8 or int16 matrices with
 // one fp32 scale per output column.
 //
-// Replaces the Pallas TPU kernel `_quant_kernel` of nerf_tpu/ops/quant.py
-// (`quantized_nerf_apply`: `quant_w_dict` dequantizes inside VMEM) and, on
-// the int8-compute route, the `_int8_mm` hook that `int8_w_dict` hands to
-// `_nerf_math`. Plain PyTorch twin and wrapper: nerf_tpu_torch/ops/quant.py.
+// The first port of the Pallas TPU kernel `_quant_kernel` of
+// nerf_tpu/ops/quant.py (`quantized_nerf_apply`: `quant_w_dict` dequantizes
+// inside VMEM) and, on the int8-compute route, of the `_int8_mm` hook that
+// `int8_w_dict` hands to `_nerf_math`. K7 now runs on `mlp_wgmma_kernel` of
+// ray_wgmma.cu, built per weight route; this build is reached only through
+// `ops/quant._launch(..., library="mlp_quant")`, as a timed comparison.
+// Plain PyTorch twin and wrapper: nerf_tpu_torch/ops/quant.py.
 //
 // What bounds it: tensor-core operations, as the bf16 kernel
 // (mlp_forward.cu): ~0.53 M multiply-adds per sample against 24 bytes read

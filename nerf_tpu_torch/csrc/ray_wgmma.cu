@@ -1,14 +1,18 @@
-// The ray kernels K1 and K3 in their raw output forms, on every weight
-// route, redesigned for Hopper: warpgroup wgmma, a producer warpgroup that
-// streams the weights by bulk copy into a ring of mbarrier-guarded stages,
-// persistent blocks.
+// The ray kernels K1 and K3 in their raw output forms and the per-sample
+// forward K4 (K7 on quantized weights), on every weight route, redesigned
+// for Hopper: warpgroup wgmma, a producer warpgroup that streams the weights
+// by bulk copy into a ring of mbarrier-guarded stages, persistent blocks.
 //
-// Replaces the Pallas TPU kernels of nerf_tpu/ops/render_kernel.py:
-// - ray_wgmma_kernel: `_ray_kernel` (uniform depths, K1);
-// - ray_z_wgmma_kernel: `_ray_z_kernel` (per-ray depths z [R, S], K3);
-// both through `_nerf_math` (nerf_tpu/ops/mlp_kernel.py), in the raw output
-// forms (fp32 or bf16 interleaved (sigma, r, g, b) per sample, or four fp32
-// planes [R, S]), on the weights `_weights_for` hands them. This source is
+// Replaces the Pallas TPU kernels
+// - ray_wgmma_kernel: `_ray_kernel` (uniform depths, K1) and
+// - ray_z_wgmma_kernel: `_ray_z_kernel` (per-ray depths z [R, S], K3) of
+//   nerf_tpu/ops/render_kernel.py, in the raw output forms (fp32 or bf16
+//   interleaved (sigma, r, g, b) per sample, or four fp32 planes [R, S]), on
+//   the weights `_weights_for` hands them;
+// - mlp_wgmma_kernel: `_nerf_kernel` of nerf_tpu/ops/mlp_kernel.py (K4:
+//   positions and directions [N, 3] -> (sigma, r, g, b) [N, 4] fp32) and, on
+//   the quantized routes, `_quant_kernel` of nerf_tpu/ops/quant.py (K7);
+// all through `_nerf_math` (nerf_tpu/ops/mlp_kernel.py). This source is
 // built once per weight route (-DNERF_WQ, the routes of mlp_body.cuh):
 // - 0, bf16 weights;
 // - 1 and 2, int8 and int16 weights dequantized in the kernel (`quant_w_dict`,
@@ -16,8 +20,9 @@
 // - 3, int8 compute (`int8_w_dict` + `_int8_mm`): layer 0, the trunk and the
 //   skip product as s8 x s8 -> s32, the rest on route 1.
 // The composited modes stay on the WMMA body of render_samples.cu. Wrappers
-// and the dispatch rule: nerf_tpu_torch/ops/render_kernel.py; the weight
-// streams' layout and chunk schedule: nerf_tpu_torch/ops/ray_wgmma.py.
+// and the dispatch rules: nerf_tpu_torch/ops/render_kernel.py (K1, K3),
+// ops/mlp_kernel.py (K4), ops/quant.py (K7); the weight streams' layout and
+// chunk schedules: nerf_tpu_torch/ops/ray_wgmma.py.
 //
 // What bounds it: tensor-core operations (~0.52 M multiply-adds a sample
 // against 24 bytes in, 16 or 8 out). Next, the weight stream from L2: every
@@ -59,8 +64,17 @@
 //   dot products over the thread's columns, summed across the quad by
 //   shuffles; the quad then writes its two rows;
 // - biases, wsig and wc1 stay in shared memory for the kernel's lifetime
-//   (12 KB); the direction branch is computed once per ray of a consumer's
-//   64 rows (fp32, from the bf16 encoding, kept in shared memory).
+//   (12 KB); the ray kernels compute the direction branch once per ray of a
+//   consumer's 64 rows (fp32, from the bf16 encoding, kept in shared memory).
+//
+// The per-sample kernel keeps that design; what it changes: each consumer
+// row reads its position and direction from memory; the direction is
+// normalized (where the model asks) and encoded in fp32, rounded to bf16,
+// into a swizzled 64 x 64 tile of its own (K 0..31 used); the direction term
+// is two m64n128k16 SS products of that tile with wdir, which the stream
+// carries after wc0 (one chunk, its rows padded to 64), into the color
+// layer's accumulators; each row writes one float4. Rows at or past N are
+// encoded as zeros and not written.
 //
 // The quantized routes keep that design; what they change:
 // - the stream is intN (ops/ray_wgmma.py). A dequantize chunk is the bf16
@@ -96,8 +110,9 @@
 // Arithmetic contract (the WMMA body's, ops/render_kernel.py): pos = o + d z
 // in fp32 without FMA, K1's z = near + span * (s / (S - 1)); sinf/cosf at
 // full range reduction; the direction term per ray in fp32 from a bf16
-// encoding; bf16 products with fp32 accumulation; the fp32 bias (and the
-// direction term) added before the bf16 rounding; a quantized matrix
+// encoding (per sample: a bf16 product accumulated in fp32); bf16 products
+// with fp32 accumulation; the fp32 bias (and the ray kernels' direction
+// term) added before the bf16 rounding; a quantized matrix
 // rounded once, bf16(f32(q) * s[col]); the int8-compute route's scales and
 // roundings in _int8_mm's order. The sums run in another order than WMMA's,
 // so the two agree to bf16's rounding, not bit for bit (the int8-compute
@@ -128,6 +143,10 @@ constexpr int CHUNK_SMALL = CHUNK_K * CH * 2;     // 16 KB: a slab of wc0
 constexpr int ENC_TILE = RW_ROWS * KPOS * 2;      // 8 KB: one consumer's encoding (bf16, or
                                                   // s8 with K padded to 128)
 constexpr int OUT_F32 = 0, OUT_BF16 = 1, OUT_PLANAR = 2;
+// what a block evaluates: K1's uniform depths, K3's per-ray depths, or K4's
+// per-sample positions and directions
+constexpr int RAYS_UNIFORM = 0, RAYS_Z = 1, SAMPLES = 2;
+constexpr int N_SMALL_RAYS = 4, N_SMALL_SAMPLES = 5;   // the 128-wide chunks at a stream's end
 // a dequantize chunk in the stream: the intN image of a 64-row slab of N
 // columns, then its N scales; a landing slot holds the largest (N = 256)
 __host__ __device__ constexpr int conv_bytes(int n) { return n * (CHUNK_K * ES + 4); }
@@ -153,9 +172,10 @@ constexpr int P_B0 = 0, P_BT = P_B0 + HID, P_BBN = P_BT + 7 * HID, P_BC0 = P_BBN
 
 // shared-memory map (bytes from a 1024-aligned base): the encodings, the
 // resident parameters, the barriers (full and empty per stage, full per
-// landing slot), the direction branch of each consumer (its size follows
-// S), then the weight ring, as many 32 KB stages as fit beside the landing
-// slots, then the landing slots
+// landing slot), the direction branch of each consumer (the ray kernels':
+// per-ray rows, their size following S; the per-sample kernel's: a swizzled
+// bf16 encoding tile, 1024-aligned at OFF_DENC), then the weight ring, as
+// many 32 KB stages as fit beside the landing slots, then the landing slots
 constexpr int STAGES_MAX = 6;
 constexpr int SMEM_MAX = 232448;            // a block's shared memory on the H100
 constexpr int OFF_ENC = 0;
@@ -163,20 +183,23 @@ constexpr int OFF_PAR = OFF_ENC + 2 * ENC_TILE;
 constexpr int OFF_BAR = OFF_PAR + P_FLOATS * 4;
 constexpr int OFF_LBAR = OFF_BAR + 2 * STAGES_MAX * 8;
 constexpr int OFF_DIR = (OFF_LBAR + LANDS_MAX * 8 + 15) / 16 * 16;
+constexpr int OFF_DENC = (OFF_DIR + 1023) / 1024 * 1024;
 static_assert(OFF_PAR % 1024 == 0 && OFF_BAR % 8 == 0 && OFF_DIR % 16 == 0, "alignment");
 using Ring = RingT<CHUNK_BIG, STAGES_MAX>;   // the consumers' view of the weight ring
 
 struct RwParams {
   Net net;
   const unsigned char* wstream;   // the repacked matrices, in chunk order
-  const float* rays_o;
+  const float* rays_o;   // the ray kernels' rays [R, 3]
   const float* rays_d;
   const float* z;
   long long z_stride;
+  const float* pos;      // the per-sample kernel's positions and directions [N, 3]
+  const float* dirs;
   void* out;
-  long long total;       // n_rays * S
+  long long total;       // rows: n_rays * S, or N
   long long tiles;
-  int S, nr_max, n_chunks, out_mode;
+  int S, nr_max, n_chunks, n_small, out_mode;
   int ring_off, stages;  // the weight ring: byte offset in shared memory, 32 KB stages
   int land_off;          // the landing slots (quantized routes)
   float near, span;
@@ -436,8 +459,9 @@ __device__ __forceinline__ void trunk_s8(const Net& net, const float* par, Ring&
 
 // One consumer warpgroup (c = 0, 1): rows n0 .. n0 + 63 of every tile of
 // this block.
-template <bool ZIN>
+template <int MODE>
 __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, int c) {
+  constexpr bool RAYS = MODE != SAMPLES;
   const int t = threadIdx.x - 128 * (c + 1);
   const int warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
   const bool leader = t == 0;
@@ -448,6 +472,8 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
   const uint64_t enc_desc = sw128_desc(smem_u32(enc));
   float* denc = reinterpret_cast<float*>(sm + OFF_DIR) + c * p.nr_max * (KDIR + CH);
   float* cdir = denc + p.nr_max * KDIR;
+  unsigned char* dtile = sm + OFF_DENC + c * ENC_TILE;   // per sample: the bf16 encoding tile
+  const uint64_t denc_desc = sw128_desc(smem_u32(dtile));
   Ring ring{smem_u32(sm + p.ring_off), smem_u32(sm + OFF_BAR), p.stages, 0, 0u, 0};
   float acc[128];
   uint32_t a[16][4];
@@ -455,52 +481,81 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
   for (int tile = blockIdx.x; tile < int(p.tiles); tile += gridDim.x) {
     const long long n0 = (long long)tile * RW_TILE + c * RW_ROWS;
     const bool any = n0 < p.total;
-    const long long r_lo = any ? n0 / p.S : 0;
-    const int nr = any ? int((min(n0 + RW_ROWS, p.total) - 1) / p.S - r_lo) + 1 : 0;
+    const long long r_lo = RAYS && any ? n0 / p.S : 0;
+    const int nr = RAYS && any ? int((min(n0 + RW_ROWS, p.total) - 1) / p.S - r_lo) + 1 : 0;
 
-    // 1. the direction branch once per ray of these rows: cdir = bf16(denc) @ wdir
-    named_sync(bar_id);   // the previous tile's color epilogue is done with cdir
-    for (int e = t; e < nr * KDIR; e += 128) {
-      const int sl = e / KDIR, k = e % KDIR;
-      const long long r = r_lo + sl;
-      float d[3] = {p.rays_d[r * 3], p.rays_d[r * 3 + 1], p.rays_d[r * 3 + 2]};
-      if (net.normalize_dirs) normalize_dir(d);
-      denc[e] = __bfloat162float(
-          __float2bfloat16_rn(encode_xyz(d[0], d[1], d[2], k, net.Ld, net.band_scale)));
-    }
-    named_sync(bar_id);
-    for (int e = t; e < nr * CH; e += 128) {
-      const int sl = e / CH, col = e % CH;
-      float sum = 0.f;
+    // 1. the ray kernels' direction branch once per ray of these rows:
+    //    cdir = bf16(denc) @ wdir
+    named_sync(bar_id);   // the previous tile is done with cdir, enc and the encoding tile
+    if constexpr (RAYS) {
+      for (int e = t; e < nr * KDIR; e += 128) {
+        const int sl = e / KDIR, k = e % KDIR;
+        const long long r = r_lo + sl;
+        float d[3] = {p.rays_d[r * 3], p.rays_d[r * 3 + 1], p.rays_d[r * 3 + 2]};
+        if (net.normalize_dirs) normalize_dir(d);
+        denc[e] = __bfloat162float(
+            __float2bfloat16_rn(encode_xyz(d[0], d[1], d[2], k, net.Ld, net.band_scale)));
+      }
+      named_sync(bar_id);
+      for (int e = t; e < nr * CH; e += 128) {
+        const int sl = e / CH, col = e % CH;
+        float sum = 0.f;
 #pragma unroll 8
-      for (int k = 0; k < KDIR; ++k)
-        sum = fmaf(denc[sl * KDIR + k], weight_at<HQ>(net.wdir, net.wdir_s, k * CH + col, col), sum);
-      cdir[e] = sum;
+        for (int k = 0; k < KDIR; ++k)
+          sum = fmaf(denc[sl * KDIR + k], weight_at<HQ>(net.wdir, net.wdir_s, k * CH + col, col), sum);
+        cdir[e] = sum;
+      }
     }
 
-    // 2. depth, position (pos = o + d z in fp32, no fma) and its encoding:
-    //    thread t takes row t % 64 and half t / 64 of its columns (whole
-    //    warps per half, so the column pattern is known when compiled)
+    // 2. the position (the ray kernels: depth, then pos = o + d z in fp32, no
+    //    fma; per sample: read) and its encoding: thread t takes row t % 64
+    //    and half t / 64 of its columns (whole warps per half, so the column
+    //    pattern is known when compiled); per sample, half 0 also encodes the
+    //    row's direction into its bf16 tile
     {
       const int row = t & (RW_ROWS - 1);
       const long long n = n0 + row;
       const bool valid = n < p.total;
       float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+      float d[3] = {0.f, 0.f, 0.f};
       if (valid) {
-        const long long r = n / p.S;
-        const int s = int(n - r * p.S);
-        float zz;
-        if (ZIN) {
-          zz = p.z[r * p.z_stride + s];
+        if constexpr (MODE == SAMPLES) {
+          x0 = p.pos[n * 3];
+          x1 = p.pos[n * 3 + 1];
+          x2 = p.pos[n * 3 + 2];
+          if (t < RW_ROWS) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k) d[k] = p.dirs[n * 3 + k];
+            if (net.normalize_dirs) normalize_dir(d);
+          }
         } else {
-          const float u = __fdiv_rn(float(s), float(p.S - 1));
-          zz = __fadd_rn(p.near, __fmul_rn(p.span, u));
+          const long long r = n / p.S;
+          const int s = int(n - r * p.S);
+          float zz;
+          if (MODE == RAYS_Z) {
+            zz = p.z[r * p.z_stride + s];
+          } else {
+            const float u = __fdiv_rn(float(s), float(p.S - 1));
+            zz = __fadd_rn(p.near, __fmul_rn(p.span, u));
+          }
+          x0 = __fadd_rn(p.rays_o[r * 3], __fmul_rn(p.rays_d[r * 3], zz));
+          x1 = __fadd_rn(p.rays_o[r * 3 + 1], __fmul_rn(p.rays_d[r * 3 + 1], zz));
+          x2 = __fadd_rn(p.rays_o[r * 3 + 2], __fmul_rn(p.rays_d[r * 3 + 2], zz));
         }
-        x0 = __fadd_rn(p.rays_o[r * 3], __fmul_rn(p.rays_d[r * 3], zz));
-        x1 = __fadd_rn(p.rays_o[r * 3 + 1], __fmul_rn(p.rays_d[r * 3 + 1], zz));
-        x2 = __fadd_rn(p.rays_o[r * 3 + 2], __fmul_rn(p.rays_d[r * 3 + 2], zz));
       }
       uint32_t v[16];
+      if constexpr (MODE == SAMPLES) {
+        // the direction's columns 0..31 (KDIR): K 0..31 of the tile, the
+        // rest of its 128-byte row never read
+        if (t < RW_ROWS) {
+          encode_half<0>(d[0], d[1], d[2], valid ? net.Ld : -1, net.band_scale, v);
+          unsigned char* ddst = dtile + (row >> 3) * 1024 + (row & 7) * 128;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<uint4*>(ddst + ((j ^ (row & 7)) << 4)) =
+                make_uint4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+        }
+      }
       if (t < RW_ROWS)
         encode_half<0>(x0, x1, x2, valid ? net.Lp : -1, net.band_scale, v);
       else
@@ -542,8 +597,19 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
     if constexpr (WQ == WQ_INT8_COMPUTE) {
       // 3-4. the trunk as s8 x s8 products
       trunk_s8(net, par, ring, leader, enc_desc, q, a);
+      // per sample, the accumulators are set only here, so the last tile's
+      // are not kept alive through the encodings and the s8 trunk
+      if constexpr (MODE == SAMPLES) {
+#pragma unroll
+        for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      }
     } else {
-      // 3. layer 0 from the encoding, one chunk
+      // 3. layer 0 from the encoding, one chunk (per sample, the
+      //    accumulators are set only here, as above)
+      if constexpr (MODE == SAMPLES) {
+#pragma unroll
+        for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      }
       fence_regs(acc);
       wgmma_fence();
       {
@@ -591,7 +657,8 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
       epilogue_to_a(acc, a, par + P_BBN, q, false);
     }
 
-    // 7. color layer (128 wide) with the per-ray direction term
+    // 7. color layer (128 wide); per sample with the direction term as one
+    //    more chunk: denc @ wdir, K = 32 of the encoding tile
     fence_regs(acc);
     fence_regs(a);
     wgmma_fence();
@@ -604,13 +671,21 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
       wgmma_wait<0>();
       ring.release(leader);
     }
+    if constexpr (MODE == SAMPLES) {
+      const uint64_t b = sw128_desc(ring.acquire());
+#pragma unroll
+      for (int kk = 0; kk < KDIR / 16; ++kk) wgmma_ss_n128(acc, denc_desc + 2 * kk, b + 2 * kk, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      ring.release(leader);
+    }
     fence_regs(acc);
 
-    // 8. c = bf16(relu(acc + bc0 + cdir)), rgb = sigmoid(c @ wc1 + bc1),
+    // 8. c = bf16(relu(acc + bc0 (+ cdir))), rgb = sigmoid(c @ wc1 + bc1),
     //    from registers, summed across the quad
     const long long nrow0 = n0 + 16 * warp + g, nrow1 = nrow0 + 8;
-    const int sl0 = nrow0 < p.total ? int(nrow0 / p.S - r_lo) : 0;
-    const int sl1 = nrow1 < p.total ? int(nrow1 / p.S - r_lo) : 0;
+    const int sl0 = RAYS && nrow0 < p.total ? int(nrow0 / p.S - r_lo) : 0;
+    const int sl1 = RAYS && nrow1 < p.total ? int(nrow1 / p.S - r_lo) : 0;
     const float* cd0 = cdir + sl0 * CH;
     const float* cd1 = cdir + sl1 * CH;
     float c0[3] = {0.f, 0.f, 0.f}, c1[3] = {0.f, 0.f, 0.f};
@@ -618,12 +693,20 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
     for (int j = 0; j < 16; ++j) {
       const int col = 8 * j + 2 * q;
       const float2 b = *reinterpret_cast<const float2*>(par + P_BC0 + col);
-      const float2 d0 = *reinterpret_cast<const float2*>(cd0 + col);
-      const float2 d1 = *reinterpret_cast<const float2*>(cd1 + col);
-      const float v00 = __bfloat162float(__float2bfloat16_rn(fmaxf((acc[4 * j] + b.x) + d0.x, 0.f)));
-      const float v01 = __bfloat162float(__float2bfloat16_rn(fmaxf((acc[4 * j + 1] + b.y) + d0.y, 0.f)));
-      const float v10 = __bfloat162float(__float2bfloat16_rn(fmaxf((acc[4 * j + 2] + b.x) + d1.x, 0.f)));
-      const float v11 = __bfloat162float(__float2bfloat16_rn(fmaxf((acc[4 * j + 3] + b.y) + d1.y, 0.f)));
+      float u00 = acc[4 * j] + b.x, u01 = acc[4 * j + 1] + b.y;
+      float u10 = acc[4 * j + 2] + b.x, u11 = acc[4 * j + 3] + b.y;
+      if constexpr (RAYS) {
+        const float2 d0 = *reinterpret_cast<const float2*>(cd0 + col);
+        const float2 d1 = *reinterpret_cast<const float2*>(cd1 + col);
+        u00 += d0.x;
+        u01 += d0.y;
+        u10 += d1.x;
+        u11 += d1.y;
+      }
+      const float v00 = __bfloat162float(__float2bfloat16_rn(fmaxf(u00, 0.f)));
+      const float v01 = __bfloat162float(__float2bfloat16_rn(fmaxf(u01, 0.f)));
+      const float v10 = __bfloat162float(__float2bfloat16_rn(fmaxf(u10, 0.f)));
+      const float v11 = __bfloat162float(__float2bfloat16_rn(fmaxf(u11, 0.f)));
       const float* w = par + P_WC1 + col * 3;
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
@@ -646,7 +729,7 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
       const long long n = q ? nrow1 : nrow0;
       if (n < p.total) {
         const float v[4] = {q ? sg1 : sg0, q ? c1[0] : c0[0], q ? c1[1] : c0[1], q ? c1[2] : c0[2]};
-        if (p.out_mode == OUT_F32) {
+        if (MODE == SAMPLES || p.out_mode == OUT_F32) {
           static_cast<float4*>(p.out)[n] = make_float4(v[0], v[1], v[2], v[3]);
         } else if (p.out_mode == OUT_BF16) {
           __align__(8) bf16 h[4];
@@ -663,11 +746,11 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
 }
 
 // The producer: one thread streams the network once per tile of this block,
-// chunk after chunk, into the ring. Every chunk is 32 KB but the last four
-// (wc0's slabs, 16 KB).
+// chunk after chunk, into the ring. Every chunk is 32 KB but the last
+// n_small (wc0's four slabs and, per sample, wdir's: 16 KB).
 __device__ __forceinline__ void producer(const RwParams& p, unsigned char* sm) {
   const uint32_t ring = smem_u32(sm + p.ring_off), bars = smem_u32(sm + OFF_BAR);
-  const int n_big = p.n_chunks - 4, tiles = int(p.tiles);
+  const int n_big = p.n_chunks - p.n_small, tiles = int(p.tiles);
   int stage = 0;
   uint32_t phase = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -688,16 +771,16 @@ __device__ __forceinline__ void producer(const RwParams& p, unsigned char* sm) {
 
 // ---- the quantized routes' producer ------------------------------------------
 
-// The stream's chunks on a quantized route (ops/ray_wgmma.chunk_schedule):
-// first n_direct() s8 slabs of 32 KB copied as they are (int8 compute), then
-// dequantize chunks, 64-row slabs of 256 columns but the last four (wc0,
-// 128 columns).
+// The stream's chunks on a quantized route (ops/ray_wgmma.chunk_schedule,
+// sample_chunk_schedule): first n_direct() s8 slabs of 32 KB copied as they
+// are (int8 compute), then dequantize chunks, 64-row slabs of 256 columns
+// but the last ns of the n (wc0 and, per sample, wdir: 128 columns).
 __device__ __forceinline__ int n_direct() { return WQ == WQ_INT8_COMPUTE ? N_DIRECT_S8 : 0; }
-__device__ __forceinline__ int conv_cols(int j, int n) { return j >= n - 4 ? CH : HID; }
-__device__ __forceinline__ uint32_t chunk_offset(int j, int n) {
+__device__ __forceinline__ int conv_cols(int j, int n, int ns) { return j >= n - ns ? CH : HID; }
+__device__ __forceinline__ uint32_t chunk_offset(int j, int n, int ns) {
   const int nd = n_direct();
   if (j <= nd) return uint32_t(j) * CHUNK_BIG;
-  const int big = min(j, n - 4) - nd, small = max(j - (n - 4), 0);
+  const int big = min(j, n - ns) - nd, small = max(j - (n - ns), 0);
   return uint32_t(nd) * CHUNK_BIG + uint32_t(big) * conv_bytes(HID) + uint32_t(small) * conv_bytes(CH);
 }
 
@@ -769,11 +852,11 @@ __device__ __forceinline__ void producer_q(const RwParams& p, unsigned char* sm)
     const int j = nd + req % nconv;
     if (int(blockIdx.x) + (req / nconv) * int(gridDim.x) >= tiles) return;
     ++req;
-    const uint32_t bytes = conv_bytes(conv_cols(j, n));
+    const uint32_t bytes = conv_bytes(conv_cols(j, n, p.n_small));
     fence_async_smem();   // the slot's last reads were the generic proxy's
     mbar_expect_tx(lbars + 8 * slot, bytes);
-    bulk_load(smem_u32(sm + p.land_off + slot * LAND_BYTES), p.wstream + chunk_offset(j, n), bytes,
-              lbars + 8 * slot);
+    bulk_load(smem_u32(sm + p.land_off + slot * LAND_BYTES), p.wstream + chunk_offset(j, n, p.n_small),
+              bytes, lbars + 8 * slot);
   };
   if (t == 0)
     for (int s = 0; s < LANDS; ++s) request(s);
@@ -793,7 +876,7 @@ __device__ __forceinline__ void producer_q(const RwParams& p, unsigned char* sm)
         }
       } else {
         mbar_wait(lbars + 8 * slot, lphase);
-        convert_chunk(sm + p.land_off + slot * LAND_BYTES, dst, conv_cols(j, n), t);
+        convert_chunk(sm + p.land_off + slot * LAND_BYTES, dst, conv_cols(j, n, p.n_small), t);
         fence_async_smem();
         producer_sync(PRODUCER_BAR);
         if (t == 0) {
@@ -813,7 +896,7 @@ __device__ __forceinline__ void producer_q(const RwParams& p, unsigned char* sm)
   }
 }
 
-template <bool ZIN>
+template <int MODE>
 __device__ __forceinline__ void ray_wgmma_body(const RwParams& p, unsigned char* smem_raw) {
   unsigned char* sm = aligned_smem(smem_raw);
   const Net& net = p.net;
@@ -848,18 +931,23 @@ __device__ __forceinline__ void ray_wgmma_body(const RwParams& p, unsigned char*
       producer(p, sm);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    consumer<ZIN>(p, sm, threadIdx.x / 128 - 1);
+    consumer<MODE>(p, sm, threadIdx.x / 128 - 1);
   }
 }
 
 __global__ void __launch_bounds__(RW_THREADS, 1) ray_wgmma_kernel(const __grid_constant__ RwParams p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  ray_wgmma_body<false>(p, smem_raw);
+  ray_wgmma_body<RAYS_UNIFORM>(p, smem_raw);
 }
 
 __global__ void __launch_bounds__(RW_THREADS, 1) ray_z_wgmma_kernel(const __grid_constant__ RwParams p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  ray_wgmma_body<true>(p, smem_raw);
+  ray_wgmma_body<RAYS_Z>(p, smem_raw);
+}
+
+__global__ void __launch_bounds__(RW_THREADS, 1) mlp_wgmma_kernel(const __grid_constant__ RwParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  ray_wgmma_body<SAMPLES>(p, smem_raw);
 }
 
 // The L2 probe: every block streams a buffer of 32 KB chunks `reps` times
@@ -904,10 +992,12 @@ __global__ void __launch_bounds__(64, 1) l2_probe_kernel(const unsigned char* bu
   }
 }
 
-// Offset of the weight ring after the direction branch of nr_max rays per
-// consumer, and the stages that fit beside it.
+// Offset of the weight ring after the direction branch: the ray kernels'
+// nr_max rays per consumer, or (nr_max = 0) the per-sample kernel's two
+// encoding tiles; and the stages that fit beside it.
 int ring_offset(int nr_max) {
-  const int end = OFF_DIR + 2 * nr_max * (KDIR + CH) * int(sizeof(float));
+  const int end = nr_max ? OFF_DIR + 2 * nr_max * (KDIR + CH) * int(sizeof(float))
+                         : OFF_DENC + 2 * ENC_TILE;
   return (end + 1023) / 1024 * 1024;
 }
 // the 32 KB stages that fit beside the landing slots
@@ -942,6 +1032,12 @@ int ray_wgmma_route() { return WQ; }
 // registers a thread after setmaxnreg: a consumer's (1) or the producer's (0)
 int ray_wgmma_registers(int consumer) { return consumer ? CONSUMER_REGS : PRODUCER_REGS; }
 
+// The per-sample kernel's: its shared memory and ring stages, and the chunks
+// of its stream (ops/ray_wgmma.sample_chunk_schedule).
+long long mlp_wgmma_smem_bytes() { return (long long)rw_smem_bytes(0); }
+int mlp_wgmma_stages() { return ring_stages(0); }
+int mlp_wgmma_stream_chunks(int bmild) { return stream_chunks(bmild) + 1; }
+
 // `scales`: null on the bf16 route, else the eight matrices' scales and
 // enc_scale (mlp_body.cuh make_net); the matrices' own pointers serve the
 // resident heads and wdir, the stream the rest.
@@ -958,12 +1054,14 @@ int ray_wgmma_render(const float* rays_o, const float* rays_d, const float* z, l
   p.rays_d = rays_d;
   p.z = z;
   p.z_stride = z_stride;
+  p.pos = p.dirs = nullptr;
   p.out = out;
   p.total = (long long)n_rays * n_samples;
   p.tiles = (p.total + RW_TILE - 1) / RW_TILE;
   p.S = n_samples;
   p.nr_max = (RW_ROWS - 1) / n_samples + 2;
   p.n_chunks = stream_chunks(bmild);
+  p.n_small = N_SMALL_RAYS;
   p.out_mode = out_mode;
   p.near = near;
   p.span = span;
@@ -983,6 +1081,49 @@ int ray_wgmma_render(const float* rays_o, const float* rays_d, const float* z, l
   if (err != cudaSuccess) return int(err);
   const long long grid = p.tiles < sm_count() ? p.tiles : sm_count();
   kernel<<<unsigned(grid), RW_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return int(cudaGetLastError());
+}
+
+// The per-sample kernel (K4; K7 on the quantized builds): out[n] = (sigma,
+// r, g, b) of pos[n], dirs[n] for n < N, fp32 [N, 4]. `wstream`: the
+// per-sample stream, or one that begins with it (K5's); weights and scales
+// as ray_wgmma_render's.
+int mlp_wgmma_forward(const float* pos, const float* dirs, long long n, const void* wstream,
+                      const void* const* weights, const void* const* scales, int Lp, int Ld,
+                      int skip_pos, int bmild, int relu_sigma, int normalize_dirs,
+                      float band_scale, float* out, void* stream) {
+  RwParams p;
+  p.net = make_net(weights, scales, Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs,
+                   band_scale);
+  p.wstream = static_cast<const unsigned char*>(wstream);
+  p.rays_o = p.rays_d = p.z = nullptr;
+  p.z_stride = 0;
+  p.pos = pos;
+  p.dirs = dirs;
+  p.out = out;
+  p.total = n;
+  p.tiles = (n + RW_TILE - 1) / RW_TILE;
+  p.S = 1;
+  p.nr_max = 0;
+  p.n_chunks = stream_chunks(bmild) + 1;
+  p.n_small = N_SMALL_SAMPLES;
+  p.out_mode = OUT_F32;
+  p.near = p.span = 0.f;
+  p.ring_off = ring_offset(0);
+  p.stages = ring_stages(0);
+  p.land_off = land_offset(0);
+  if (p.stages < (WQ == WQ_INT8_COMPUTE ? 3 : 2) || !net_has_scales(p.net, WQ) || n < 0 ||
+      !net_fits(p.net) || !wstream || !pos || !dirs || !out || (bmild && (!p.net.wbn || !p.net.bbn)) ||
+      skip_pos < 1 || skip_pos > 7)
+    return int(cudaErrorInvalidValue);
+  if (n == 0) return int(cudaSuccess);
+  if (p.tiles > 0x7fffffff) return int(cudaErrorInvalidValue);
+  const size_t smem = rw_smem_bytes(0);
+  cudaError_t err = cudaFuncSetAttribute(mlp_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const long long grid = p.tiles < sm_count() ? p.tiles : sm_count();
+  mlp_wgmma_kernel<<<unsigned(grid), RW_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return int(cudaGetLastError());
 }
 

@@ -4,12 +4,17 @@ Counterpart of ``nerf_tpu/ops/mlp_kernel.py``:
 
 - ``fused_nerf_apply`` (the Pallas kernel ``_nerf_kernel``) is a drop-in for
   ``apply_nerf``: positions and directions ``[..., 3]`` in, ``(sigma [...],
-  rgb [..., 3])`` out, both variants. On a CUDA tensor it launches
-  ``csrc/mlp_forward.cu`` and counts the launch in ``launches``; on a CPU
-  tensor it runs ``fused_nerf_apply_plain``, the same arithmetic in plain
-  PyTorch. Nothing falls back: a CUDA launch either runs or raises. Its
-  gradient, as in the JAX package, is a recompute through ``apply_nerf``
-  under autograd; gradients reach the params only.
+  rgb [..., 3])`` out, both variants. On a CUDA tensor it launches the
+  per-sample Hopper kernel of ``csrc/ray_wgmma.cu`` (``mlp_wgmma_forward``:
+  warpgroup ``wgmma``, a producer warpgroup streaming the weights, persistent
+  blocks; its weight stream from ``ops/ray_wgmma.py``) and counts the launch
+  in ``launches``; on a CPU tensor it runs ``fused_nerf_apply_plain``, the
+  same arithmetic in plain PyTorch. Nothing falls back: a CUDA launch either
+  runs or raises. The WMMA build it replaced (``csrc/mlp_forward.cu``) is
+  reached only through ``_launch(..., library=WMMA_LIBRARY)``, a timed
+  comparison, and counted in ``wmma_launches``. Its gradient, as in the JAX
+  package, is a recompute through ``apply_nerf`` under autograd; gradients
+  reach the params only.
 - ``pack_params`` lays the weights out for every kernel that evaluates the
   network (this one, the ray kernels of ``ops/render_kernel.py`` and the
   backward kernel of ``ops/train_kernel.py``), in a layout chosen for the
@@ -49,8 +54,11 @@ from nerf_tpu_torch.ops import _ext
 from nerf_tpu_torch.utils.device import disable_tf32
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
-# Launches of the CUDA kernel (not of the plain version).
+# Launches of the CUDA kernel (not of the plain version), and of the WMMA
+# build it replaced (which no path of the port calls).
 launches = 0
+wmma_launches = 0
+WMMA_LIBRARY = "mlp_forward"
 
 HID = 256
 POS_ROWS = 64   # padded position-encoding width (3 + 6 * 10 = 63)
@@ -226,10 +234,19 @@ _ARGTYPES = (
 
 
 def _launch(packed: PackedWeights, positions: torch.Tensor, directions: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
-    """Launch ``csrc/mlp_forward.cu`` on float32 ``[N, 3]`` CUDA tensors:
-    ``[N, 4]``."""
-    global launches
+            cfg: ModelConfig, stream: Optional[torch.Tensor] = None,
+            library: Optional[str] = None) -> torch.Tensor:
+    """Launch K4 on float32 ``[N, 3]`` CUDA tensors: ``[N, 4]``. The Hopper
+    kernel reads ``stream`` (the weights' per-sample stream, or one that
+    begins with it), by default ``ray_wgmma.sample_stream_for(packed)``.
+    ``library=WMMA_LIBRARY`` launches the WMMA build instead (a timed
+    comparison: no path of the port asks for it)."""
+    global launches, wmma_launches
+    from nerf_tpu_torch.ops import ray_wgmma      # it imports this module
+
+    library = library or ray_wgmma.LIBRARY
+    if library not in (ray_wgmma.LIBRARY, WMMA_LIBRARY):
+        raise ValueError(f"K4 is built as {ray_wgmma.LIBRARY} (or {WMMA_LIBRARY}), not {library}")
     dev = positions.device
     n = positions.shape[0]
     for name, t in (("positions", positions), ("directions", directions)):
@@ -241,24 +258,30 @@ def _launch(packed: PackedWeights, positions: torch.Tensor, directions: torch.Te
     out = torch.empty(n, 4, dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    lib = _ext.load("mlp_forward")
-    fn = lib.mlp_forward
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(_ext.ptr(positions), _ext.ptr(directions), n, _ext.pointer_array(packed),
-             *net_args(cfg), _ext.ptr(out), _ext.stream_ptr(dev))
-    _ext.check(lib, err, "mlp_forward launch")
+    if library == WMMA_LIBRARY:
+        lib = _ext.load(library)
+        fn = lib.mlp_forward
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        err = fn(_ext.ptr(positions), _ext.ptr(directions), n, _ext.pointer_array(packed),
+                 *net_args(cfg), _ext.ptr(out), _ext.stream_ptr(dev))
+        _ext.check(lib, err, "mlp_forward launch")
+        wmma_launches += 1
+        return out
+    stream = ray_wgmma.sample_stream_for(packed, cfg) if stream is None else stream
+    ray_wgmma.forward_samples(library, packed, positions, directions, cfg, stream, out)
     launches += 1
     return out
 
 
 def mlp_forward(packed: PackedWeights, positions: torch.Tensor, directions: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
+                cfg: ModelConfig, stream: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[N, 4]`` from flat float32 ``[N, 3]`` inputs: the kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors (reading ``stream``, as ``_launch`` does), the plain version on
+    CPU tensors."""
     if positions.device.type == "cpu":
         return fused_nerf_apply_plain(packed, positions, directions, cfg)
-    return _launch(packed, positions, directions, cfg)
+    return _launch(packed, positions, directions, cfg, stream)
 
 
 def flat_inputs(positions: torch.Tensor, directions: Optional[torch.Tensor]):
@@ -270,24 +293,19 @@ def flat_inputs(positions: torch.Tensor, directions: Optional[torch.Tensor]):
     return pos, directions.expand(positions.shape).reshape(-1, 3).float()
 
 
-def apply_forward(ctx, pos, dirs, spec, *leaves):
-    """Forward of the differentiable wrappers (this module's and
-    ``ops/train_kernel``'s): pack the leaves, run K4, keep what either
-    backward needs. ``spec = (cfg, dtype, paths)``; the parameter leaves come
-    flat, in ``tree_leaves``' order."""
-    cfg, dtype, paths = spec
-    ctx.spec = spec
-    ctx.save_for_backward(pos, dirs, *leaves)
-    packed = pack_params(tree_from_leaves(paths, leaves), cfg, dtype)
-    out = mlp_forward(packed, pos, dirs, cfg)
-    return out[:, 0], out[:, 1:4]
-
-
 class _FusedApply(torch.autograd.Function):
     """Forward: the kernel. Backward: recompute through ``apply_nerf`` under
-    autograd (gradients to the params only)."""
+    autograd (gradients to the params only). ``spec = (cfg, dtype, paths)``;
+    the parameter leaves come flat, in ``tree_leaves``' order."""
 
-    forward = staticmethod(apply_forward)
+    @staticmethod
+    def forward(ctx, pos, dirs, spec, *leaves):
+        cfg, dtype, paths = spec
+        ctx.spec = spec
+        ctx.save_for_backward(pos, dirs, *leaves)
+        packed = pack_params(tree_from_leaves(paths, leaves), cfg, dtype)
+        out = mlp_forward(packed, pos, dirs, cfg)
+        return out[:, 0], out[:, 1:4]
 
     @staticmethod
     def backward(ctx, d_sigma, d_rgb):

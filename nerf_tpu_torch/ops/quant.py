@@ -12,11 +12,14 @@ Counterpart of ``nerf_tpu/ops/quant.py``:
   the TPU kernel's encoding layout, the port's keep the reference order).
 - ``quantized_nerf_apply`` (the Pallas kernel ``_quant_kernel``): the
   per-sample network on intN weights, same contract as
-  ``fused_nerf_apply``. On a CUDA tensor it launches ``csrc/mlp_quant.cu``,
-  which stages intN weight rows from global memory and writes
-  ``bf16(f32(q) * s[col])`` into the tensor-core operand buffer: no bf16
-  copy of a quantized matrix exists outside the kernel. On a CPU tensor it
-  runs ``quantized_nerf_apply_plain``. Inference only.
+  ``fused_nerf_apply``. On a CUDA tensor it launches the per-sample kernel
+  of ``csrc/ray_wgmma.cu`` in the build of the weights' route
+  (``ray_wgmma.LIBRARIES``), whose producer warpgroup copies intN chunks of
+  the weight stream into shared memory and writes ``bf16(f32(q) * s[col])``
+  into the operand ring: no bf16 copy of a quantized matrix exists outside
+  the kernel. The WMMA build it replaced (``csrc/mlp_quant.cu``) is reached
+  only through ``_launch(..., library=WMMA_LIBRARY)``, a timed comparison.
+  On a CPU tensor it runs ``quantized_nerf_apply_plain``. Inference only.
 - the int8-compute route (the ``_int8_mm`` hook of ``_nerf_math``), taken
   for ``Int8PackedWeights`` by this kernel and by the ray kernels of
   ``ops/render_kernel.py``: layer 0, trunk layers 1..7 and the skip product
@@ -55,8 +58,10 @@ from nerf_tpu_torch.ops.mlp_kernel import (
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
 # Launches of the CUDA kernel (not of the plain version): every launch of
-# K7, and those of them on the int8-compute route (K8).
-launches = {"mlp_quant": 0, "mlp_quant_int8": 0}
+# K7, those of them on the int8-compute route (K8), and those of the WMMA
+# build it replaced (which no path of the port calls).
+launches = {"mlp_quant": 0, "mlp_quant_int8": 0, "mlp_quant_wmma": 0}
+WMMA_LIBRARY = "mlp_quant"
 
 MATRICES = ("w0", "wt", "wskip", "wsig", "wbn", "wc0", "wdir", "wc1")
 
@@ -414,9 +419,19 @@ _ARGTYPES = (
 
 
 def _launch(q: Quantized, positions: torch.Tensor, directions: torch.Tensor,
-            cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Launch ``csrc/mlp_quant.cu`` on float32 ``[N, 3]`` CUDA tensors:
-    ``[N, 4]``."""
+            cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
+            library: Optional[str] = None) -> torch.Tensor:
+    """Launch K7 on float32 ``[N, 3]`` CUDA tensors: ``[N, 4]``, by default
+    in the build of ``csrc/ray_wgmma.cu`` for the weights' route, on their
+    cached per-sample stream. ``library=WMMA_LIBRARY`` launches the WMMA
+    build instead (a timed comparison: no path of the port asks for it)."""
+    from nerf_tpu_torch.ops import ray_wgmma      # it imports this module
+
+    route = route_of(q)
+    library = library or ray_wgmma.LIBRARIES[route]
+    if library not in (ray_wgmma.LIBRARIES[route], WMMA_LIBRARY):
+        raise ValueError(f"K7 on route {route} is built as {ray_wgmma.LIBRARIES[route]} "
+                         f"(or {WMMA_LIBRARY}), not {library}")
     dev = positions.device
     n = positions.shape[0]
     for name, t in (("positions", positions), ("directions", directions)):
@@ -428,15 +443,19 @@ def _launch(q: Quantized, positions: torch.Tensor, directions: torch.Tensor,
     out = torch.empty(n, 4, dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    lib = _ext.load("mlp_quant")
-    fn = lib.mlp_quant
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    route = route_of(q)
-    mats, scales = weight_pointers(q)
-    err = fn(_ext.ptr(positions), _ext.ptr(directions), n, mats, scales, route,
-             *net_args(cfg), _ext.ptr(out), _ext.stream_ptr(dev))
-    _ext.check(lib, err, "mlp_quant launch")
+    if library == WMMA_LIBRARY:
+        lib = _ext.load(library)
+        fn = lib.mlp_quant
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        mats, scales = weight_pointers(q)
+        err = fn(_ext.ptr(positions), _ext.ptr(directions), n, mats, scales, route,
+                 *net_args(cfg), _ext.ptr(out), _ext.stream_ptr(dev))
+        _ext.check(lib, err, "mlp_quant launch")
+        launches["mlp_quant_wmma"] += 1
+        return out
+    ray_wgmma.forward_samples(library, q, positions, directions, cfg,
+                              ray_wgmma.sample_stream_for(q, cfg), out)
     launches["mlp_quant"] += 1
     if route == ROUTE_INT8_COMPUTE:
         launches["mlp_quant_int8"] += 1

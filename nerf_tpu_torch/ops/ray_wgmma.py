@@ -1,13 +1,14 @@
-"""The weight streams of the Hopper ray kernels (``csrc/ray_wgmma.cu``).
+"""The weight streams of the Hopper MLP kernels (``csrc/ray_wgmma.cu``).
 
-K1 and K3 in their raw output forms run on ``csrc/ray_wgmma.cu``, built once
-per weight route (``LIBRARIES``): bf16 weights (``PackedWeights``), int8 or
-int16 weights dequantized in the kernel (``QuantizedPackedWeights``), and int8
-compute (``Int8PackedWeights``). A producer warpgroup copies the network into
-shared memory one chunk at a time (``cp.async.bulk``, one contiguous copy a
-chunk) and two consumer warpgroups multiply each chunk with ``wgmma``. This
-module lays the weights out for that stream, once per set of weights (cached
-beside them):
+K1 and K3 in their raw output forms, and the per-sample forward K4 (K7 on
+quantized weights), run on ``csrc/ray_wgmma.cu``, built once per weight route
+(``LIBRARIES``): bf16 weights (``PackedWeights``), int8 or int16 weights
+dequantized in the kernel (``QuantizedPackedWeights``), and int8 compute
+(``Int8PackedWeights``). A producer warpgroup copies the network into shared
+memory one chunk at a time (``cp.async.bulk``, one contiguous copy a chunk)
+and two consumer warpgroups multiply each chunk with ``wgmma``. This module
+lays the weights out for that stream, once per set of weights (cached beside
+them):
 
 - a chunk is a slab of one matrix, all its ``N`` columns (256, or 128 for
   ``wc0``), in the order the consumers multiply them (``chunk_schedule``):
@@ -36,11 +37,21 @@ beside them):
 against the weights bit for bit. Biases, ``wsig``, ``wc1``, ``wdir`` and the
 s8 matrices' scales are read from the weights as they are.
 
-The training backward K5 (``csrc/mlp_backward_wgmma.cu``) streams the bf16
-route's chunks, then ``wdir`` (one slab, its rows padded to 64) and the
-pre-transposed images of ``wc0`` and ``wt[6..0]`` for its input gradients
-``dy @ W^T``, in the same layout (``bwd_chunk_schedule``, ``bwd_stream``;
-``unpack_bwd_stream`` undoes it).
+The per-sample kernel (``mlp_wgmma_forward``; ``forward_samples``) encodes
+each sample's own direction, so its direction term is one more product: its
+stream (``sample_chunk_schedule``, ``pack_sample_stream``,
+``unpack_sample_stream``) is the ray kernels' followed by ``wdir`` as one
+slab, its rows padded with zeros to 64; a dequantize chunk on the quantized
+routes (int8 compute too: the route of the heads), made once per set of
+weights (``sample_stream_for``).
+
+The training backward K5 (``csrc/mlp_backward_wgmma.cu``) streams the
+per-sample kernel's bf16 chunks, then the pre-transposed images of ``wc0``
+and ``wt[6..0]`` for its input gradients ``dy @ W^T``, in the same layout
+(``bwd_chunk_schedule``, ``bwd_stream``; ``unpack_bwd_stream`` undoes it).
+So for the reference variant the per-sample stream is a prefix of K5's: a
+train step gathers K5's stream once per network in the forward, and K4
+reads its prefix.
 """
 
 from __future__ import annotations
@@ -55,7 +66,7 @@ import torch
 
 from nerf_tpu_torch.config import ModelConfig
 from nerf_tpu_torch.ops import _ext, quant
-from nerf_tpu_torch.ops.mlp_kernel import HID, POS_ROWS, PackedWeights, skip_position
+from nerf_tpu_torch.ops.mlp_kernel import HID, POS_ROWS, PackedWeights, net_args, skip_position
 
 LIBRARY = "ray_wgmma"
 # the build of csrc/ray_wgmma.cu for each weight route (0: bf16 weights)
@@ -104,11 +115,15 @@ def route_of(weights) -> int:
     return quant.route_of(weights) if quant.is_quantized(weights) else 0
 
 
+# the stream format of the heads' matrices (wbn, wc0, wdir) on each route
+_HEAD = {0: "bf16", quant.ROUTE_INT8: "int8", quant.ROUTE_INT16: "int16",
+         quant.ROUTE_INT8_COMPUTE: "int8"}
+
+
 def chunk_schedule(cfg: ModelConfig, route: int = 0) -> List[Chunk]:
-    """The chunks of one tile on a weight route, in the order the consumers
-    multiply them."""
-    head = {0: "bf16", quant.ROUTE_INT8: "int8", quant.ROUTE_INT16: "int16",
-            quant.ROUTE_INT8_COMPUTE: "int8"}[route]
+    """The chunks of one tile of the ray kernels on a weight route, in the
+    order the consumers multiply them."""
+    head = _HEAD[route]
     trunk, k = ("s8", S8_K) if route == quant.ROUTE_INT8_COMPUTE else (head, CHUNK_K)
     slabs = lambda name, layer=None, n=HID, fmt=head, k=CHUNK_K: [
         Chunk(name, layer, k0, n, fmt, k) for k0 in range(0, HID, k)]
@@ -123,12 +138,22 @@ def chunk_schedule(cfg: ModelConfig, route: int = 0) -> List[Chunk]:
     return out + slabs("wc0", n=CH)
 
 
-def _matrix(weights, c: Chunk) -> torch.Tensor:
+def sample_chunk_schedule(cfg: ModelConfig, route: int = 0) -> List[Chunk]:
+    """The chunks of one tile of the per-sample kernel: ``chunk_schedule``,
+    then ``wdir`` as one slab, its rows padded with zeros to 64 (the
+    direction term is a product of the per-sample encoding), in the heads'
+    format."""
+    return chunk_schedule(cfg, route) + [Chunk("wdir", None, 0, CH, _HEAD[route])]
+
+
+def _matrix(weights, c: Chunk, pad=0) -> torch.Tensor:
     """The chunk's matrix as the stream carries it: bf16, intN, or the s8
     operand (``wt`` rows in ``K_PERM`` order, ``w0``/``wskip`` padded to 128
-    rows)."""
+    rows); ``wdir`` with rows of ``pad`` up to 64."""
     w = getattr(weights, c.name if c.fmt == "bf16" else f"{c.name}_q")
     w = w if c.layer is None else w[c.layer]
+    if c.name == "wdir":
+        w = torch.cat([w, w.new_full((CHUNK_K - w.shape[0], w.shape[1]), pad)])
     if c.fmt == "s8":
         w = w[K_PERM.to(w.device)] if c.name == "wt" else torch.cat(
             [w, w.new_zeros(S8_K - w.shape[0], w.shape[1])])
@@ -159,11 +184,7 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.uint8)
 
 
-def pack_stream(weights, cfg: ModelConfig) -> torch.Tensor:
-    """The weight stream of ``PackedWeights`` (bf16, 1-D) or of quantized
-    weights (bytes, 1-D): every chunk of ``chunk_schedule`` in its
-    shared-memory image, a dequantize chunk followed by its scales,
-    concatenated."""
+def _pack(weights, sched: List[Chunk]) -> torch.Tensor:
     route = route_of(weights)
     suffix = "_q" if route else ""
     for name in ("w0", "wskip"):
@@ -171,27 +192,34 @@ def pack_stream(weights, cfg: ModelConfig) -> torch.Tensor:
             raise ValueError(f"{name} must have {POS_ROWS} rows")
     if route == 0:
         return torch.cat([_swizzled(_matrix(weights, c)[c.k0:c.k0 + CHUNK_K])
-                          for c in chunk_schedule(cfg)]).contiguous()
+                          for c in sched]).contiguous()
     parts = []
-    for c in chunk_schedule(cfg, route):
+    for c in sched:
         parts.append(_bytes(_swizzled(_matrix(weights, c)[c.k0:c.k0 + c.k])))
         if c.fmt in _QDTYPE:
             parts.append(_bytes(_scales(weights, c).float()))
     return torch.cat(parts)
 
 
-def unpack_stream(stream: torch.Tensor, cfg: ModelConfig, route: int = 0
-                  ) -> Dict[str, torch.Tensor]:
-    """The matrices back from a stream. bf16 route: ``w0``, ``wt`` [7, 256,
-    256], ``wskip``, ``wc0`` and, for bmild, ``wbn``. Quantized routes: the
-    same as ``*_q`` (the s8 rows back in their order, the padding dropped)
-    and, for the dequantize chunks, ``*_s`` as the weights hold them (``[1,
-    N]``; ``wt_s`` ``[7, 1, 256]``), each chunk's scales equal to its
-    matrix's first chunk's."""
+def pack_stream(weights, cfg: ModelConfig) -> torch.Tensor:
+    """The ray kernels' weight stream of ``PackedWeights`` (bf16, 1-D) or of
+    quantized weights (bytes, 1-D): every chunk of ``chunk_schedule`` in its
+    shared-memory image, a dequantize chunk followed by its scales,
+    concatenated."""
+    return _pack(weights, chunk_schedule(cfg, route_of(weights)))
+
+
+def pack_sample_stream(weights, cfg: ModelConfig) -> torch.Tensor:
+    """The per-sample kernel's weight stream: ``pack_stream``'s layout over
+    ``sample_chunk_schedule``."""
+    return _pack(weights, sample_chunk_schedule(cfg, route_of(weights)))
+
+
+def _unpack(stream: torch.Tensor, sched: List[Chunk], route: int) -> Dict[str, torch.Tensor]:
     slabs: Dict[tuple, List[torch.Tensor]] = {}
     scales: Dict[tuple, torch.Tensor] = {}
     at = 0
-    for c in chunk_schedule(cfg, route):
+    for c in sched:
         size = c.k * c.n * _BYTES[c.fmt] if route else c.k * c.n
         img = stream[at:at + size]
         if c.fmt in _QDTYPE:
@@ -224,20 +252,38 @@ def unpack_stream(stream: torch.Tensor, cfg: ModelConfig, route: int = 0
     return out
 
 
+def unpack_stream(stream: torch.Tensor, cfg: ModelConfig, route: int = 0
+                  ) -> Dict[str, torch.Tensor]:
+    """The matrices back from a stream. bf16 route: ``w0``, ``wt`` [7, 256,
+    256], ``wskip``, ``wc0`` and, for bmild, ``wbn``. Quantized routes: the
+    same as ``*_q`` (the s8 rows back in their order, the padding dropped)
+    and, for the dequantize chunks, ``*_s`` as the weights hold them (``[1,
+    N]``; ``wt_s`` ``[7, 1, 256]``), each chunk's scales equal to its
+    matrix's first chunk's."""
+    return _unpack(stream, chunk_schedule(cfg, route), route)
+
+
+def unpack_sample_stream(stream: torch.Tensor, cfg: ModelConfig, route: int = 0
+                         ) -> Dict[str, torch.Tensor]:
+    """The matrices back from a per-sample stream: ``unpack_stream``'s, and
+    ``wdir`` (``wdir_q``, ``wdir_s``) with its padding rows (64)."""
+    return _unpack(stream, sample_chunk_schedule(cfg, route), route)
+
+
 # -- the stream of the training backward K5 (csrc/mlp_backward_wgmma.cu) -----
 
 def bwd_chunk_schedule(cfg: ModelConfig) -> List[Chunk]:
     """The chunks of one tile of K5's row pass (reference variant, bf16), in
-    the order its consumers multiply them: the forward's (``chunk_schedule``);
-    ``wdir`` as one slab, its rows padded with zeros to 64 (the direction
-    term is a product of the per-sample encoding); then the pre-transposed
+    the order its consumers multiply them: the per-sample forward's
+    (``sample_chunk_schedule``: the ray kernels' chunks, then ``wdir``); then
+    the pre-transposed
     images of the input-gradient products ``dy @ W^T``: ``wc0_t`` (``wc0^T``,
     two slabs of 256 columns) and ``wt_t`` of layers 6..0 (four slabs each).
     A ``*_t`` chunk is a slab of ``W^T``: rows ``k0 .. k0 + 63`` of it are
     columns ``k0 .. k0 + 63`` of ``W``."""
     if cfg.variant != "reference":
         raise ValueError("the backward kernel is written for the reference variant")
-    out = chunk_schedule(cfg) + [Chunk("wdir", None, 0, CH)]
+    out = sample_chunk_schedule(cfg)
     out += [Chunk("wc0_t", None, k0, HID) for k0 in (0, CHUNK_K)]
     for layer in range(6, -1, -1):
         out += [Chunk("wt_t", layer, k0, HID) for k0 in range(0, HID, CHUNK_K)]
@@ -249,10 +295,7 @@ def _bwd_matrix(weights, c: Chunk, pad=0) -> torch.Tensor:
         return weights.wt[c.layer].t()
     if c.name == "wc0_t":
         return weights.wc0.t()
-    if c.name == "wdir":
-        rows = weights.wdir.shape[0]
-        return torch.cat([weights.wdir, weights.wdir.new_full((CHUNK_K - rows, CH), pad)])
-    return _matrix(weights, c)
+    return _matrix(weights, c, pad)
 
 
 def pack_bwd_stream(weights, cfg: ModelConfig, pad=0) -> torch.Tensor:
@@ -269,9 +312,10 @@ _BWD_INDEX: Dict[tuple, torch.Tensor] = {}
 
 def bwd_stream(weights: PackedWeights, cfg: ModelConfig) -> torch.Tensor:
     """``pack_bwd_stream`` as one gather from the matrices: a train step packs
-    new weights for every backward, so this runs once per launch (two kernels
-    on the card). The gather's index is ``pack_bwd_stream`` of the matrices'
-    own positions in their concatenation, the padding pointing at a zero
+    new weights for every step, so this runs once per network and step (in
+    the forward, whose K4 reads its prefix; the backward's two kernels take
+    the rest). The gather's index is ``pack_bwd_stream`` of the matrices' own
+    positions in their concatenation, the padding pointing at a zero
     appended to it; made once per device, skip layer and shapes."""
     shapes = tuple(tuple(getattr(weights, n).shape) for n in _BWD_SOURCES)
     key = (weights.w0.device, skip_position(cfg), shapes)
@@ -306,31 +350,40 @@ def unpack_bwd_stream(stream: torch.Tensor, cfg: ModelConfig) -> Dict[str, torch
     return out
 
 
-# id(first matrix) -> (weak references to the streamed tensors, variant,
-# stream), dropped when that matrix is freed
-_STREAMS: Dict[int, tuple] = {}
+# (id(first matrix), per-sample) -> (weak references to the streamed
+# tensors, variant, stream), dropped when that matrix is freed
+_STREAMS: Dict[tuple, tuple] = {}
 _STREAMED = ("w0", "wt", "wskip", "wbn", "wc0")
 
 
-def stream_for(weights, cfg: ModelConfig) -> torch.Tensor:
-    """``pack_stream`` of ``weights``, made once and cached beside them
-    (keyed by the identity of the tensors it is made from)."""
+def _cached(weights, cfg: ModelConfig, per_sample: bool) -> torch.Tensor:
+    names = list(_STREAMED) + (["wdir"] if per_sample else [])
     if quant.is_quantized(weights):
-        names = [f"{n}_{x}" for n in _STREAMED for x in "qs"]
-    else:
-        names = list(_STREAMED)
+        names = [f"{n}_{x}" for n in names for x in "qs"]
     mats = tuple(getattr(weights, n) for n in names)
-    key = id(mats[0])
+    key = (id(mats[0]), per_sample)
     hit = _STREAMS.get(key)
     if (hit is not None and len(hit[0]) == len(mats)
             and all(ref() is m for ref, m in zip(hit[0], mats)) and hit[1] == cfg.variant):
         return hit[2]
-    stream = pack_stream(weights, cfg)
+    stream = (pack_sample_stream if per_sample else pack_stream)(weights, cfg)
     refs = tuple((lambda: None) if m is None else weakref.ref(m) for m in mats)
     if hit is None:
         weakref.finalize(mats[0], _STREAMS.pop, key, None)
     _STREAMS[key] = (refs, cfg.variant, stream)
     return stream
+
+
+def stream_for(weights, cfg: ModelConfig) -> torch.Tensor:
+    """``pack_stream`` of ``weights``, made once and cached beside them
+    (keyed by the identity of the tensors it is made from)."""
+    return _cached(weights, cfg, False)
+
+
+def sample_stream_for(weights, cfg: ModelConfig) -> torch.Tensor:
+    """The per-sample stream of ``weights`` (``pack_sample_stream``), made
+    once and cached beside them as ``stream_for`` does."""
+    return _cached(weights, cfg, True)
 
 
 ARGTYPES = (
@@ -345,12 +398,27 @@ ARGTYPES = (
 )
 
 
+SAMPLE_ARGTYPES = (
+    [ctypes.c_void_p] * 2                 # positions, directions
+    + [ctypes.c_longlong]                 # N
+    + [ctypes.c_void_p] * 3               # weight stream, weights (PackedWeights order), scales
+    + [ctypes.c_int] * 6 + [ctypes.c_float]   # net_args
+    + [ctypes.c_void_p] * 2               # out, stream
+)
+
+
 def load(library: str = LIBRARY) -> ctypes.CDLL:
     """A bound build of ``csrc/ray_wgmma.cu``, its signatures set once."""
     lib = _ext.load(library)
     if lib.ray_wgmma_render.argtypes is None:
         lib.ray_wgmma_render.argtypes = ARGTYPES
         lib.ray_wgmma_render.restype = ctypes.c_int
+        lib.mlp_wgmma_forward.argtypes = SAMPLE_ARGTYPES
+        lib.mlp_wgmma_forward.restype = ctypes.c_int
+        lib.mlp_wgmma_smem_bytes.restype = ctypes.c_longlong
+        lib.mlp_wgmma_stages.restype = ctypes.c_int
+        lib.mlp_wgmma_stream_chunks.argtypes = [ctypes.c_int]
+        lib.mlp_wgmma_stream_chunks.restype = ctypes.c_int
         lib.ray_wgmma_smem_bytes.argtypes = [ctypes.c_int]
         lib.ray_wgmma_smem_bytes.restype = ctypes.c_longlong
         lib.ray_wgmma_stages.argtypes = [ctypes.c_int]
@@ -363,6 +431,39 @@ def load(library: str = LIBRARY) -> ctypes.CDLL:
                                         ctypes.c_int, ctypes.c_void_p]
         lib.l2_stream_probe.restype = ctypes.c_int
     return lib
+
+
+def sample_stream_bytes(cfg: ModelConfig, route: int = 0) -> int:
+    """Bytes of the per-sample stream on a weight route."""
+    return sum(c.nbytes for c in sample_chunk_schedule(cfg, route))
+
+
+def forward_samples(library: str, weights, positions: torch.Tensor, directions: torch.Tensor,
+                    cfg: ModelConfig, stream: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch the per-sample kernel of ``library`` (the build of the
+    weights' route) on float32 ``[N, 3]`` positions and directions into
+    float32 ``out [N, 4]``, all contiguous on one card. ``stream``: the
+    weights' per-sample stream, or a stream that begins with it (K5's, whose
+    prefix it is for the reference variant). The caller has checked the
+    weights (``check_packed``, ``quant.check_quantized``)."""
+    route = route_of(weights)
+    if LIBRARIES.get(route) != library:
+        raise ValueError(f"{library} is not the Hopper build for weight route {route}")
+    dev, n = positions.device, positions.shape[0]
+    need = sample_stream_bytes(cfg, route)
+    if (stream.device != dev or stream.dim() != 1 or not stream.is_contiguous()
+            or stream.numel() * stream.element_size() < need):
+        raise ValueError(f"the weight stream must be a contiguous 1-D tensor of at least "
+                         f"{need} bytes on {dev}")
+    if route:
+        weights_ptrs, scales = quant.weight_pointers(weights)
+    else:
+        weights_ptrs, scales = _ext.pointer_array(weights), None
+    lib = load(library)
+    err = lib.mlp_wgmma_forward(_ext.ptr(positions), _ext.ptr(directions), n, _ext.ptr(stream),
+                                weights_ptrs, scales, *net_args(cfg), _ext.ptr(out),
+                                _ext.stream_ptr(dev))
+    _ext.check(lib, err, f"mlp_wgmma_forward launch ({library})")
 
 
 def l2_probe(buf: torch.Tensor, reps: int, blocks: int) -> None:

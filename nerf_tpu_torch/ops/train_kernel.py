@@ -29,7 +29,10 @@ Counterpart of ``nerf_tpu/ops/train_kernel.py``:
   direction rows, and the zero-padded encoding rows (63 -> 64, 27 -> 32)
   are dropped. The port's layout has no row permutation to invert.
 - ``fused_train_apply`` is the drop-in for ``apply_nerf`` in the train
-  step: forward K4 (``ops/mlp_kernel.py``), backward K5. Positions and
+  step: forward K4 (``ops/mlp_kernel.py``), backward K5. The forward packs
+  the weights once and gathers K5's weight stream once (``bwd_stream``); K4
+  reads its prefix (the per-sample kernel's stream) and the backward reuses
+  both, so a network costs one packing and one gather a step. Positions and
   directions get no gradient: they are data in NeRF training.
 
 Roundings, shared by the kernels and the plain versions (the TPU kernel's):
@@ -57,10 +60,10 @@ from nerf_tpu_torch.ops.mlp_kernel import (
     HID,
     POS_ROWS,
     PackedWeights,
-    apply_forward,
     check_packed,
     flat_inputs,
     fused_nerf_apply_plain,
+    mlp_forward,
     net_args,
     pack_params,
     skip_position,
@@ -441,12 +444,14 @@ def launch_wgrad(scratch: torch.Tensor, rows: int, cfg: ModelConfig, partials: t
 
 
 def _launch(packed: PackedWeights, positions, directions, dsigma, drgb,
-            cfg: ModelConfig, library: str = LIBRARY) -> Dict[str, torch.Tensor]:
+            cfg: ModelConfig, stream: Optional[torch.Tensor] = None,
+            library: str = LIBRARY) -> Dict[str, torch.Tensor]:
     """Launch K5: per pass of at most ``PASS_ROWS`` rows, the row pass K5a
     into one scratch and the weight-gradient pass K5b into the pass's slots
-    of partials; the slots are summed here. ``library=WMMA_LIBRARY`` launches
-    the WMMA build instead (a timed comparison: no path of the port asks for
-    it)."""
+    of partials; the slots are summed here. ``stream``: ``bwd_stream`` of
+    ``packed`` if the caller has it (made here otherwise).
+    ``library=WMMA_LIBRARY`` launches the WMMA build instead (a timed
+    comparison: no path of the port asks for it)."""
     _check_inputs(packed, positions, directions, dsigma, drgb, cfg)
     if library == WMMA_LIBRARY:
         return _launch_wmma(packed, positions, directions, dsigma, drgb, cfg)
@@ -459,7 +464,7 @@ def _launch(packed: PackedWeights, positions, directions, dsigma, drgb,
                 for k, s in GRAD_SHAPES.items()}
     positions, directions = positions.contiguous(), directions.contiguous()
     dsigma, drgb = dsigma.contiguous(), drgb.contiguous()
-    stream = ray_wgmma.bwd_stream(packed, cfg)
+    stream = ray_wgmma.bwd_stream(packed, cfg) if stream is None else stream
     passes = pass_bounds(n, PASS_ROWS)
     scratch = torch.empty(scratch_elems(passes[0][1]), dtype=torch.bfloat16, device=dev)
     partials = torch.empty(sum(n_splits(p1 - p0) for p0, p1 in passes), GRAD_FLOATS,
@@ -529,17 +534,31 @@ def unpack_grads(g: Dict[str, torch.Tensor], cfg: ModelConfig) -> NeRFParams:
 
 class _TrainApply(torch.autograd.Function):
     """Forward K4, backward K5; the parameter leaves come flat, in
-    ``tree_leaves``' order, and their gradients go back in the same order."""
+    ``tree_leaves``' order, and their gradients go back in the same order.
+    ``spec = (cfg, dtype, paths)``. The forward's packed weights and, on the
+    card, K5's weight stream (whose prefix K4 reads) are kept for the
+    backward."""
 
-    forward = staticmethod(apply_forward)
+    @staticmethod
+    def forward(ctx, pos, dirs, spec, *leaves):
+        cfg, dtype, paths = spec
+        ctx.spec = spec
+        ctx.save_for_backward(pos, dirs)
+        packed = pack_params(tree_from_leaves(paths, leaves), cfg, dtype)
+        stream = None if pos.device.type == "cpu" else ray_wgmma.bwd_stream(packed, cfg)
+        ctx.packed, ctx.stream = packed, stream
+        out = mlp_forward(packed, pos, dirs, cfg, stream)
+        return out[:, 0], out[:, 1:4]
 
     @staticmethod
     def backward(ctx, d_sigma, d_rgb):
-        cfg, dtype, paths = ctx.spec
-        pos, dirs, *leaves = ctx.saved_tensors
-        packed = pack_params(tree_from_leaves(paths, leaves), cfg, dtype)
-        g = packed_grads(packed, pos, dirs, d_sigma.float().contiguous(),
-                         d_rgb.float().contiguous(), cfg)
+        cfg, _, paths = ctx.spec
+        pos, dirs = ctx.saved_tensors
+        ds, dr = d_sigma.float().contiguous(), d_rgb.float().contiguous()
+        if ctx.stream is None:          # CPU tensors: the plain version
+            g = packed_grads(ctx.packed, pos, dirs, ds, dr, cfg)
+        else:                           # the card: K5 on the forward's stream
+            g = _launch(ctx.packed, pos, dirs, ds, dr, cfg, ctx.stream)
         by_path = dict(tree_leaves(unpack_grads(g, cfg)))
         return (None, None, None, *(by_path[p] for p in paths))
 
