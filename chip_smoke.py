@@ -6,10 +6,10 @@
 Builds the CUDA kernels from ``nerf_tpu_torch/csrc`` (into ``build/``) and
 holds each kernel against its plain PyTorch version at the main paths'
 shapes: K1 uniform ray kernel, K2 compositor, K3 per-ray-depth ray kernel
-(K1 and K3 with raw output, on every weight route: the Hopper kernels of
-``csrc/ray_wgmma.cu``, one build per route, each also timed against the
-WMMA build of ``csrc/render_samples.cu`` it replaced), the composited modes
-of K1 and K3, K4 per-sample MLP forward (the per-sample Hopper kernel of
+(K1 and K3 with raw output and in their composited modes (B9), on every
+weight route: the Hopper kernels of ``csrc/ray_wgmma.cu``, one build per
+route, each also timed against the WMMA build of ``csrc/render_samples.cu``
+it replaced), K4 per-sample MLP forward (the per-sample Hopper kernel of
 ``csrc/ray_wgmma.cu``, timed against the WMMA build ``csrc/mlp_forward.cu``
 it replaced), K5 MLP backward (the Hopper row pass and weight-gradient pass
 of ``csrc/mlp_backward_wgmma.cu``, each against its plain version, the pair
@@ -32,8 +32,10 @@ unless every kernel of the path ran its expected number of times:
   ``use_importance=False`` (``render_rays`` on K4 + K6);
 - ``compressed_frames`` / ``int8_frames``: ``CompressedEngine`` and
   ``Int8ComputeEngine`` in both modes (the ray kernels on int8 weights,
-  dequantized in the kernel or multiplied as s8 x s8 -> s32), in the uniform
-  hierarchical mode (K7 + K6), and ``CompressedEngine(bits=16)``;
+  dequantized in the kernel or multiplied as s8 x s8 -> s32), both modes
+  again with ``fuse_composite=True`` (the composited K1/K3 on that route),
+  in the uniform hierarchical mode (K7 + K6), and
+  ``CompressedEngine(bits=16)``;
 - ``mode_frames``: ``CudaEngine(raw_dtype="bfloat16")`` and
   ``CudaEngine(planar=True)`` in the hierarchical mode;
 - ``train_steps``: ``NeRFTrainer`` on the procedural sphere scene at the
@@ -86,6 +88,17 @@ PSNR_MIN = 40.0
 PSNR_FLOOR = {"benchmark": 57.4, "hierarchical": 61.3}   # the bf16 CudaEngine against the
                               # float32 engine: 0.5 dB under the WMMA kernels' 57.9 / 61.8 dB
 WGMMA = {"render_samples": "ray_wgmma_kernel", "render_zvals": "ray_z_wgmma_kernel"}
+# the composited modes (B9) on the Hopper body, and the WMMA kernels of
+# csrc/render_samples.cu they replaced (timed in turns, never on a path)
+WGMMA_COMPOSITED = {"render_samples_composited": "ray_composite_wgmma_kernel",
+                    "render_zvals_composited": "ray_z_composite_wgmma_kernel"}
+WMMA_COMPOSITED = {"render_samples_composited": "ray_composite_kernel",
+                   "render_zvals_composited": "ray_z_composite_kernel"}
+B9_DESIGN = ("the raw kernels' Hopper body; each consumer warpgroup a lane of whole rays (2 x "
+             "grid contiguous ranges of near-equal count) walked 64 rows a step in order; after "
+             "the heads the quads put (sigma, r, g, b) into a 64 x 4 slot of the consumer, whose "
+             "warps run the segmented exclusive log-transmittance scan by shuffles, one warp a "
+             "ray segment, carrying each lane's state from step to step")
 K4_KERNEL = "mlp_wgmma_kernel"   # K4 and K7: the per-sample kernel of csrc/ray_wgmma.cu
 K4_DESIGN = ("the ray kernels' body (warpgroup wgmma m64n256k16 / m64n128k16, activations in "
              "registers, a producer warp streaming the weights by cp.async.bulk into an "
@@ -386,7 +399,8 @@ def main():
     wgmma_builds = {}
     for route, name in ray_wgmma.LIBRARIES.items():
         kernels, notes = kernel_ptxas(name, ("ray_z_wgmma_kernel", "ray_wgmma_kernel",
-                                             K4_KERNEL, "l2_probe_kernel"))
+                                             *WGMMA_COMPOSITED.values(), K4_KERNEL,
+                                             "l2_probe_kernel"))
         lib = ray_wgmma.load(name)
         require(lib.ray_wgmma_route() == route, f"{name} is built for route "
                 f"{lib.ray_wgmma_route()}, not {route}")
@@ -397,6 +411,7 @@ def main():
             landing_slots=lib.ray_wgmma_landing_slots(),
             registers_after_setmaxnreg={"consumers": lib.ray_wgmma_registers(1),
                                         "producer_warpgroup": lib.ray_wgmma_registers(0)},
+            composited_lanes={R: lib.ray_wgmma_composited_lanes(R) for R in (1, 1001, CHUNK)},
             per_sample={"kernel": K4_KERNEL, "ptxas": kernels.get(K4_KERNEL),
                         "dynamic_smem_bytes": lib.mlp_wgmma_smem_bytes(),
                         "ring_stages": lib.mlp_wgmma_stages(),
@@ -405,6 +420,10 @@ def main():
             len(ray_wgmma.sample_chunk_schedule(c.model, route))
             for c in (default_config(), bmild_config())],
             f"{name}: the per-sample stream's chunks differ from ops/ray_wgmma.py")
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        require(all(lib.ray_wgmma_composited_lanes(R) == 2 * ray_wgmma.composited_grid(R, n_sm)
+                    for R in (0, 1, 2, 3, 263, 264, 265, 1001, CHUNK)),
+                f"{name}: the composited modes' grid differs from ops/ray_wgmma.py")
     # the Hopper K5 (csrc/mlp_backward_wgmma.cu): its two kernels, and the
     # layout it shares with ops/train_kernel.py
     k5_lib = train_kernel.load()
@@ -423,6 +442,12 @@ def main():
         r = wgmma_builds[ray_wgmma.LIBRARY]["ptxas"].get(k, {})
         require(r.get("spill_store_bytes") == 0 and r.get("spill_load_bytes") == 0,
                 f"ptxas: {k} spills ({r})")
+    for route, name in ray_wgmma.LIBRARIES.items():   # B9: no spill but on int8 compute
+        for k in WGMMA_COMPOSITED.values():
+            r = wgmma_builds[name]["ptxas"].get(k, {})
+            require(route == quant.ROUTE_INT8_COMPUTE or (r.get("spill_store_bytes") == 0
+                                                          and r.get("spill_load_bytes") == 0),
+                    f"ptxas: {k} in {name} spills ({r})")
     for route, name in ray_wgmma.LIBRARIES.items():   # K4 and K7's dequantize routes: no spill
         r = wgmma_builds[name]["ptxas"].get(K4_KERNEL, {})
         require(route == quant.ROUTE_INT8_COMPUTE or (r.get("spill_store_bytes") == 0
@@ -526,33 +551,53 @@ def main():
                     f"K3 {name}: rgb err {rgb_err}, sigma rel err {sig_err} > {K1_TOL}")
             checked[name] = (mcfg, packed_f, raw_k, z_f, raw3_k)
 
-        # -- B9: the composited modes vs the plain compositing of the kernels'
-        #    own raw output (the MLP's error is held above; this isolates the
-        #    in-kernel compositing)
+        # -- B9: the composited modes (the Hopper entries) vs the plain
+        #    compositing of the raw Hopper kernels' own output (the MLP's error
+        #    is held above; this isolates the in-kernel compositing). Beside
+        #    the paths' depth counts, K1 at 8 and K3 at 100 depths for the
+        #    reference network: several rays a 64-row step, and rays that cross
+        #    steps at every offset
         b9_err = {"render_samples_composited": 0.0, "render_zvals_composited": 0.0}
+        sent, eps = rcfg.dist_sentinel, rcfg.transmittance_eps
+        g9 = torch.Generator(device=dev).manual_seed(9)
         for name, (mcfg, packed_f, raw_k, z_f, raw3_k) in checked.items():
-            sent, eps = rcfg.dist_sentinel, rcfg.transmittance_eps
-            out1, w1, z1 = render_kernel.fused_render_samples_composited(
-                packed_f, ro_chk, rd_chk, 2.0, 6.0, SPP, mcfg, with_weights=True,
-                sentinel=sent, eps=eps)
-            ref1 = composite_kernel.fused_volume_render_interleaved_plain(
-                raw_k, z1, rd_chk, sent, eps, dz=(6.0 - 2.0) / (SPP - 1))
-            out3, w3 = render_kernel.fused_render_zvals_composited(
-                packed_f, ro_chk, rd_chk, z_f, mcfg, with_weights=True, sentinel=sent, eps=eps)
-            ref3 = composite_kernel.fused_volume_render_interleaved_plain(raw3_k, z_f, rd_chk,
-                                                                          sent, eps)
-            torch.cuda.synchronize()
-            for kname, S, got, ref in (("render_samples_composited", SPP, (out1, w1), ref1),
-                                       ("render_zvals_composited", S3, (out3, w3), ref3)):
-                require(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
+            cases = [(SPP, raw_k, None), (S3, raw3_k, z_f)]
+            if name == "reference":
+                z100 = torch.sort(2.0 + 4.0 * torch.rand(n_check, 100, device=dev, generator=g9),
+                                  -1).values
+                cases += [(8, render_kernel.fused_render_samples(
+                    packed_f, ro_chk, rd_chk, 2.0, 6.0, 8, mcfg, raw=True)[0], None),
+                          (100, render_kernel.fused_render_zvals_raw(
+                              packed_f, ro_chk, rd_chk, z100, mcfg), z100)]
+            for S, raw, zz in cases:
+                kname = "render_samples_composited" if zz is None else "render_zvals_composited"
+                counter = "wgmma_samples" if zz is None else "wgmma_zvals"
+                before = render_kernel.launches[counter]
+                if zz is None:
+                    out, w, zz = render_kernel.fused_render_samples_composited(
+                        packed_f, ro_chk, rd_chk, 2.0, 6.0, S, mcfg, with_weights=True,
+                        sentinel=sent, eps=eps)
+                    ref = composite_kernel.fused_volume_render_interleaved_plain(
+                        raw, zz, rd_chk, sent, eps, dz=(6.0 - 2.0) / (S - 1))
+                else:
+                    out, w = render_kernel.fused_render_zvals_composited(
+                        packed_f, ro_chk, rd_chk, zz, mcfg, with_weights=True, sentinel=sent,
+                        eps=eps)
+                    ref = composite_kernel.fused_volume_render_interleaved_plain(raw, zz, rd_chk,
+                                                                                 sent, eps)
+                require(render_kernel.launches[counter] == before + 1,
+                        f"{kname} on bf16 weights did not reach csrc/ray_wgmma.cu")
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(out).all() and torch.isfinite(w).all()),
                         f"{kname} {name}: non-finite output")
-                e_rgb_acc, e_depth, e_w = composited_err(*got, *ref)
+                e_rgb_acc, e_depth, e_w = composited_err(out, w, *ref)
                 b9_err[kname] = max(b9_err[kname], e_rgb_acc, e_w)
-                emit("b9_check", kernel=kname, variant=name, rays=n_check, samples=S,
-                     rgb_acc_max_abs_err=e_rgb_acc, depth_max_rel_err=e_depth, w_max_abs_err=e_w,
-                     tol=B9_TOL, reference="plain compositing of the raw kernel's output")
+                emit("b9_check", kernel=kname, cuda_kernel=WGMMA_COMPOSITED[kname], variant=name,
+                     rays=n_check, samples=S, rgb_acc_max_abs_err=e_rgb_acc,
+                     depth_max_rel_err=e_depth, w_max_abs_err=e_w, tol=B9_TOL,
+                     reference="plain compositing of the raw Hopper kernel's output")
                 require(e_rgb_acc <= B9_TOL and e_depth <= B9_TOL and e_w <= B9_TOL,
-                        f"{kname} {name}: errors {e_rgb_acc}, {e_depth}, {e_w} > {B9_TOL}")
+                        f"{kname} {name} S={S}: errors {e_rgb_acc}, {e_depth}, {e_w} > {B9_TOL}")
 
         # -- K2: kernel vs plain, at both passes' sample counts ------------------
         g = torch.Generator(device=dev).manual_seed(2)
@@ -841,7 +886,7 @@ def main():
             require(max(e) <= K1_TOL, f"{name} bmild at {CHUNK} rays: errors {e} > {K1_TOL}")
             del got, want
         emit("chunk_check", rays=CHUNK, errors=chunk_err, agreement_raw=chunk_agree,
-             kernels={k: WGMMA[k] for k in WGMMA},
+             kernels={**WGMMA, **WGMMA_COMPOSITED},
              tol={name: c[5] for name, c in calls.items()},
              error_kinds={"raw": ["rgb max abs", "sigma max rel"],
                           "composited": ["rgb/acc max abs", "depth max rel", "w max abs"]})
@@ -862,16 +907,22 @@ def main():
             "render_zvals_composited": bound_ms(k1_flops(mcfg, CHUNK, S3), comp_ops * CHUNK * S3,
                                                 nbytes(ro, rd, z3, out8) + weights_bytes),
         }
-        # the Hopper kernels against the WMMA build of the same raw entry, in
-        # turns (old, new, new, old), and the L2 probe: 132 blocks stream the
-        # 1 MiB weight stream through a ring as the producer does
-        ab = {k: {"wmma": [], "wgmma": []} for k in WGMMA}
+        # the Hopper kernels against the WMMA build of the same entry (raw and
+        # composited), in turns (old, new, new, old), and the L2 probe: 132
+        # blocks stream the 1 MiB weight stream through a ring as the
+        # producer does
+        comp = dict(composited=True, sentinel=sent, eps=eps)
+        ab = {k: {"wmma": [], "wgmma": []} for k in (*WGMMA, *WGMMA_COMPOSITED)}
         for lib in ("render_samples", None, None, "render_samples"):
             for name, a in (("render_samples", dict(near=2.0, far=6.0, S=SPP)),
-                            ("render_zvals", dict(near=0.0, far=0.0, S=S3, z_vals=z3))):
+                            ("render_zvals", dict(near=0.0, far=0.0, S=S3, z_vals=z3)),
+                            ("render_samples_composited",
+                             dict(near=2.0, far=6.0, S=SPP, with_weights=True, **comp)),
+                            ("render_zvals_composited",
+                             dict(near=0.0, far=0.0, S=S3, z_vals=z3, **comp))):
                 ab[name]["wmma" if lib else "wgmma"].append(call_ms(
                     lambda: render_kernel._launch(packed, ro, rd, cfg=mcfg, library=lib, **a),
-                    10 if name == "render_samples" else 4))
+                    10 if a["S"] == SPP else 4))
         wmma_ms = {k: float(np.mean(v["wmma"])) for k, v in ab.items()}
         stream = ray_wgmma.stream_for(packed, mcfg)
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1013,7 +1064,7 @@ def main():
         ro_c, rd_c = camera_rays(poses[1], focal, dev, CHUNK, seed=1)
         sent, eps = rcfg.dist_sentinel, rcfg.transmittance_eps
         worst = {"mlp_quant": 0.0, "ray_dequant": 0.0, "int8": 0.0, "planar": 0.0,
-                 "raw_bf16": 0.0}
+                 "raw_bf16": 0.0, "b9": 0.0}
 
         def held(phase, what, got, want, tol, **kw):
             require(bool(torch.isfinite(got).all()), f"{phase} {what}: non-finite output")
@@ -1074,6 +1125,10 @@ def main():
                               render_kernel.fused_render_zvals_plain(q, ro, rd, z_f, mcfg), tol,
                               kernel=WGMMA["render_zvals"],
                               library=render_kernel.kernel_library(quant.route_of(q), False))
+                    # B9 on this route: the composited Hopper entries vs the plain
+                    # compositing of the route's raw Hopper output
+                    hopper = (render_kernel.launches["wgmma_samples"],
+                              render_kernel.launches["wgmma_zvals"])
                     out1, w1, _ = render_kernel.fused_render_samples_composited(
                         q, ro, rd, 2.0, 6.0, SPP, mcfg, with_weights=True, sentinel=sent, eps=eps)
                     ref1 = composite_kernel.fused_volume_render_interleaved_plain(
@@ -1082,14 +1137,23 @@ def main():
                         q, ro, rd, z_f, mcfg, with_weights=True, sentinel=sent, eps=eps)
                     ref3 = composite_kernel.fused_volume_render_interleaved_plain(raw3, z_f, rd,
                                                                                   sent, eps)
+                    require((render_kernel.launches["wgmma_samples"],
+                             render_kernel.launches["wgmma_zvals"]) == (hopper[0] + 1, hopper[1] + 1),
+                            f"composited K1/K3 on {route} weights did not reach csrc/ray_wgmma.cu")
                     torch.cuda.synchronize()
+                    require(all(bool(torch.isfinite(t).all()) for t in (out1, w1, out3, w3)),
+                            f"{phase} composited {route} {vname}: non-finite output")
                     ec = [composited_err(out1, w1, *ref1), composited_err(out3, w3, *ref3)]
                     emit(phase, what=f"composited {route} {vname} {R} rays",
                          errors={"render_samples_composited": ec[0],
                                  "render_zvals_composited": ec[1]}, tol=B9_TOL,
-                         reference="plain compositing of the raw kernel's output")
+                         error_kinds=["rgb/acc max abs", "depth max rel", "w max abs"],
+                         kernels=WGMMA_COMPOSITED,
+                         library=render_kernel.kernel_library(quant.route_of(q), True),
+                         reference="plain compositing of the raw Hopper kernel's output")
                     require(max(max(ec[0]), max(ec[1])) <= B9_TOL,
                             f"{phase} composited {route} {vname}: errors {ec} > {B9_TOL}")
+                    worst["b9"] = max(worst["b9"], *(max(e[0], e[2]) for e in ec))
                     key = "int8" if k8 else "ray_dequant"
                     worst[key] = max(worst[key], e1, e3)
                     del raw1, raw3, out1, out3, w1, w3, ref1, ref3, z_f
@@ -1211,11 +1275,12 @@ def main():
                      else k1_flops(mcfg, n_rays, S))
             return total, trunk_flops(mcfg, n_rays * S)
 
-        def ray_bound(route, S, in_bytes, out_bytes, per_sample_dirs=False):
+        def ray_bound(route, S, in_bytes, out_bytes, per_sample_dirs=False, f32_ops=0):
             total, trunk = flops(CHUNK, S, per_sample_dirs)
             if route == "int8_compute":
-                return bound_ms(total - trunk, 0, in_bytes + wbytes[route] + out_bytes, trunk)
-            return bound_ms(total, 0, in_bytes + wbytes[route] + out_bytes)
+                return bound_ms(total - trunk, f32_ops, in_bytes + wbytes[route] + out_bytes,
+                                trunk)
+            return bound_ms(total, f32_ops, in_bytes + wbytes[route] + out_bytes)
 
         def timed(kern, name, reps, plain, bound, **more):
             """Device ms per launch by the profiler, stream ms per call by
@@ -1225,26 +1290,42 @@ def main():
                         plain_ms=call_ms(plain, 2) if callable(plain) else plain, bound=bound,
                         cuda_kernel=name, **more)
 
+        comp = dict(composited=True, sentinel=sent, eps=eps)
         for route, w in weights.items():
-            # the Hopper kernels on every route; beside them, in turns (old,
-            # new, new, old), the WMMA build of the same raw entry on the
-            # same weights (csrc/render_samples.cu), which they replaced
+            # the Hopper kernels on every route, raw and composited (B9, K1
+            # with its weights as the hierarchical coarse pass takes them);
+            # beside them, in turns (old, new, new, old), the WMMA build of
+            # the same entry on the same weights (csrc/render_samples.cu),
+            # which they replaced
             wr = 0 if route == "bf16" else quant.route_of(w)
-            for name, S, kw, reps in (("render_samples", SPP, dict(near=2.0, far=6.0), 5),
-                                      ("render_zvals", S3, dict(near=0.0, far=0.0, z_vals=z3), 3)):
+            plain = {
+                "render_samples": lambda: render_kernel.fused_render_samples_plain(
+                    w, ro, rd, 2.0, 6.0, SPP, mcfg),
+                "render_zvals": lambda: render_kernel.fused_render_zvals_plain(w, ro, rd, z3, mcfg),
+                "render_samples_composited":
+                    lambda: render_kernel.fused_render_samples_composited_plain(
+                        w, ro, rd, 2.0, 6.0, SPP, mcfg, sent, eps),
+                "render_zvals_composited": lambda: render_kernel.fused_render_zvals_composited_plain(
+                    w, ro, rd, z3, mcfg, sent, eps)}
+            for name, S, kw, reps, out_bytes in (
+                    ("render_samples", SPP, dict(near=2.0, far=6.0), 5, CHUNK * SPP * 16),
+                    ("render_zvals", S3, dict(near=0.0, far=0.0, z_vals=z3), 3, CHUNK * S3 * 16),
+                    ("render_samples_composited", SPP,
+                     dict(near=2.0, far=6.0, with_weights=True, **comp), 5,
+                     CHUNK * 32 + CHUNK * SPP * 4),
+                    ("render_zvals_composited", S3, dict(near=0.0, far=0.0, z_vals=z3, **comp), 3,
+                     CHUNK * 32)):
                 turns = {"wmma": [], "wgmma": []}
                 for lib in (render_kernel._LIBRARY[wr], None, None, render_kernel._LIBRARY[wr]):
                     turns["wmma" if lib else "wgmma"].append(call_ms(
                         lambda: render_kernel._launch(w, ro, rd, S=S, cfg=mcfg, library=lib, **kw),
                         reps))
-                plain = (lambda: render_kernel.fused_render_samples_plain(
-                    w, ro, rd, 2.0, 6.0, SPP, mcfg)) if name == "render_samples" else (
-                    lambda: render_kernel.fused_render_zvals_plain(w, ro, rd, z3, mcfg))
                 res[f"{name} {route}"] = timed(
-                    lambda: render_kernel._launch(w, ro, rd, S=S, cfg=mcfg, **kw), WGMMA[name],
-                    reps, plain,
-                    ray_bound(route, S, nbytes(ro, rd, kw.get("z_vals")), CHUNK * S * 16),
-                    library=render_kernel.kernel_library(wr, False),
+                    lambda: render_kernel._launch(w, ro, rd, S=S, cfg=mcfg, **kw),
+                    {**WGMMA, **WGMMA_COMPOSITED}[name], reps, plain[name],
+                    ray_bound(route, S, nbytes(ro, rd, kw.get("z_vals")), out_bytes,
+                              f32_ops=20 * CHUNK * S if "composited" in name else 0),
+                    library=render_kernel.kernel_library(wr, "composited" in name),
                     wmma_library=render_kernel._LIBRARY[wr],
                     wmma_call_ms=turns["wmma"], wgmma_call_ms=turns["wgmma"],
                     order="wmma, wgmma, wgmma, wmma")
@@ -1306,6 +1387,8 @@ def main():
                 f32_raw_call_ms=call_ms(lambda: composite_kernel._launch(raw_f, zz, rd, sent, eps),
                                         20))
         emit("kernel_times_quant", rays=CHUNK, samples={"render_samples": SPP, "render_zvals": S3,
+                                                        "render_samples_composited": SPP,
+                                                        "render_zvals_composited": S3,
                                                         "mlp x64": SPP, "mlp x128": N_FINE},
              weights="final_params.npz fine, pruned 10% (the bf16 rows too)",
              times={k: {**{kk: vv for kk, vv in v.items() if kk != "bound"},
@@ -1419,24 +1502,30 @@ def main():
     require(p_db >= max(PSNR_MIN, PSNR_FLOOR["hierarchical"]),
             f"hierarchical PSNR {p_db} dB against the float32 torch engine")
 
-    # -- path 3: fuse_composite=True in both modes ----------------------------
+    # -- path 3: fuse_composite=True in both modes (the composited K1/K3 on
+    #    the Hopper body: every launch counts in wgmma_*; the profile shows
+    #    the kernels by name, and none of the WMMA build's)
     fused = CudaEngine(shared, chunk_rays=CHUNK, fuse_composite=True)
     fused_res = {}
     for mode, expect, ref_rgb in (
-            ("benchmark", {"render_samples_composited": 1}, ref_bench),
-            ("hierarchical", {"render_samples_composited": 1, "render_zvals_composited": 1},
-             ref_hier)):
+            ("benchmark", {"render_samples_composited": 1, "wgmma_samples": 1}, ref_bench),
+            ("hierarchical", {"render_samples_composited": 1, "render_zvals_composited": 1,
+                              "wgmma_samples": 1, "wgmma_zvals": 1}, ref_hier)):
         res = drive(fused, mode, f"fused_{mode}", expect)
         res["psnr_db"], res["max_abs_err"] = against_torch(fused, mode, ref_rgb)
         require(res["psnr_db"] >= PSNR_MIN,
                 f"fused {mode} PSNR {res['psnr_db']} dB against the float32 torch engine")
+        per_launch, res["profile"] = frame_profile(
+            fused, mode, {WGMMA_COMPOSITED[k]: 1 for k in expect if k in WGMMA_COMPOSITED})
+        require(not any(k in res["profile"]["launches_by_kernel"] for k in WMMA_COMPOSITED.values()),
+                f"fused {mode}: a WMMA composited kernel ran")
+        for k, v in per_launch.items():
+            device_ms[f"fused_{mode} {k}"] = v
         fused_res[mode] = res
-    per_launch, prof = frame_profile(fused, "hierarchical",
-                                     {"ray_composite_kernel": 1, "ray_z_composite_kernel": 1})
-    emit("fused_frames", min_db=PSNR_MIN, psnr_resolution=[qw, qh], **fused_res,
-         hierarchical_profile=prof)
-    device_ms["render_samples_composited"] = per_launch.get("ray_composite_kernel")
-    device_ms["render_zvals_composited"] = per_launch.get("ray_z_composite_kernel")
+    emit("fused_frames", min_db=PSNR_MIN, psnr_resolution=[qw, qh], **fused_res, nvidia_smi=smi)
+    # the hierarchical frame's: K1 with its weights, as the row's shape says
+    for k, cuda_name in WGMMA_COMPOSITED.items():
+        device_ms[k] = device_ms.get(f"fused_hierarchical {cuda_name}")
 
     # -- path 4: the uniform hierarchical frame (render_rays on K4 + K6) -------
     uniform = lambda c: dataclasses.replace(
@@ -1477,22 +1566,30 @@ def main():
         """Drive one quantized engine class through its modes."""
         res = {}
         k7_int8 = {"mlp_quant_int8": 2} if route_key == "int8" else {}
-        # every raw K1/K3 launch on the Hopper kernels (wgmma_samples, wgmma_zvals)
+        # every K1/K3 launch, raw or composited, on the Hopper kernels
+        # (wgmma_samples, wgmma_zvals)
         for path, eng, mode, expect, views in (
                 ("benchmark", cls(shared, chunk_rays=CHUNK, **kw), "benchmark",
                  {"render_samples": 1, "composite": 1, route_key: 1, "wgmma_samples": 1}, 3),
                 ("hierarchical", cls(shared, chunk_rays=CHUNK, **kw), "hierarchical",
                  {"render_samples": 1, "render_zvals": 1, "composite": 2, route_key: 2,
                   "wgmma_samples": 1, "wgmma_zvals": 1}, 3),
+                ("fused_benchmark", cls(shared, chunk_rays=CHUNK, fuse_composite=True, **kw),
+                 "benchmark", {"render_samples_composited": 1, route_key: 1, "wgmma_samples": 1},
+                 2),
+                ("fused_hierarchical", cls(shared, chunk_rays=CHUNK, fuse_composite=True, **kw),
+                 "hierarchical", {"render_samples_composited": 1, "render_zvals_composited": 1,
+                                  route_key: 2, "wgmma_samples": 1, "wgmma_zvals": 1}, 2),
                 ("uniform_hierarchical", cls(shared_u, chunk_rays=CHUNK, **kw), "hierarchical",
                  {"mlp_quant": 2, "composite_planar": 2, **k7_int8}, 2)):
             r = drive(eng, mode, f"{phase}_{path}", expect, views)
             small = eng.render_image(poses[1], (qw, qh), SPP, focal=qfocal, mode=mode,
                                      monitor=False).rgb
-            r["psnr_db_vs_torch_f32"] = psnr(small, torch_small[path])
-            r["max_abs_err_vs_torch_f32"] = float(np.abs(small - torch_small[path]).max())
-            r["psnr_db_vs_cuda_engine"] = psnr(small, cuda_small[path])
-            r["max_abs_err_vs_cuda_engine"] = float(np.abs(small - cuda_small[path]).max())
+            ref = path.replace("fused_", "")       # the fused frames: the same frames' references
+            r["psnr_db_vs_torch_f32"] = psnr(small, torch_small[ref])
+            r["max_abs_err_vs_torch_f32"] = float(np.abs(small - torch_small[ref]).max())
+            r["psnr_db_vs_cuda_engine"] = psnr(small, cuda_small[ref])
+            r["max_abs_err_vs_cuda_engine"] = float(np.abs(small - cuda_small[ref]).max())
             require(r["psnr_db_vs_torch_f32"] >= min_db and r["psnr_db_vs_cuda_engine"] >= min_db,
                     f"{phase} {path}: PSNR {r['psnr_db_vs_torch_f32']} dB against the float32 "
                     f"torch engine, {r['psnr_db_vs_cuda_engine']} dB against CudaEngine "
@@ -1503,6 +1600,14 @@ def main():
                                 "composite_kernel": 2})
                 for k, v in per_launch.items():
                     device_ms[f"{phase} {k}"] = v
+            elif path == "fused_hierarchical":
+                per_launch, r["profile"] = frame_profile(
+                    eng, mode, {k: 1 for k in WGMMA_COMPOSITED.values()})
+                require(not any(k in r["profile"]["launches_by_kernel"]
+                                for k in WMMA_COMPOSITED.values()),
+                        f"{phase} {path}: a WMMA composited kernel ran")
+                for k, v in per_launch.items():
+                    device_ms[f"{phase} fused {k}"] = v
             elif path == "uniform_hierarchical":
                 per_launch, r["profile"] = frame_profile(
                     eng, mode, {K4_KERNEL: 2, "composite_planar_kernel": 2})
@@ -1731,14 +1836,12 @@ def main():
         ("render_zvals", "wgmma_zvals", rw, "nerf_tpu/ops/render_kernel.py:455", "hierarchical",
          max(*k3_err.values(), chunk_abs["render_zvals"]),
          f"{CHUNK} rays x {S3} per-ray depths, bf16, raw out", mlp),
-        ("render_samples_composited", "render_samples_composited",
-         "nerf_tpu_torch/csrc/render_samples.cu", "nerf_tpu/ops/render_kernel.py:152",
-         "fused_hierarchical",
+        ("render_samples_composited", "render_samples_composited", rw,
+         "nerf_tpu/ops/render_kernel.py:152", "fused_hierarchical",
          max(b9_err["render_samples_composited"], chunk_abs["render_samples_composited"]),
          f"{CHUNK} rays x {SPP} samples, bf16, composited with weights", mlp + " + compositing"),
-        ("render_zvals_composited", "render_zvals_composited",
-         "nerf_tpu_torch/csrc/render_samples.cu", "nerf_tpu/ops/render_kernel.py:152",
-         "fused_hierarchical",
+        ("render_zvals_composited", "render_zvals_composited", rw,
+         "nerf_tpu/ops/render_kernel.py:152", "fused_hierarchical",
          max(b9_err["render_zvals_composited"], chunk_abs["render_zvals_composited"]),
          f"{CHUNK} rays x {S3} per-ray depths, bf16, composited", mlp + " + compositing"),
     )
@@ -1762,6 +1865,24 @@ def main():
                        "(RS form), a producer warp streaming the weights by cp.async.bulk "
                        "into an mbarrier ring, persistent blocks (grid = SMs)",
                 l2_probe_bytes_per_s=l2_probe["bytes_per_s"])
+        if name in WGMMA_COMPOSITED:
+            ck = WGMMA_COMPOSITED[name]
+            in_frame = {"bf16": device_ms.get(f"fused_hierarchical {ck}"),
+                        "int8": device_ms.get(f"compressed_frames fused {ck}"),
+                        "int16": None, "int8_compute": device_ms.get(f"int8_frames fused {ck}")}
+            routes = {}
+            for r, ms_frame in in_frame.items():
+                t = quant_times[f"{name} {r}"]
+                routes[r] = {f: t[f] for f in ("device_ms", "call_ms", "wmma_call_ms",
+                                                "wgmma_call_ms", "plain_ms")}
+                routes[r].update(bound_ms=t["bound"][0], device_ms_in_fused_frame=ms_frame)
+            kernels[-1].update(
+                cuda_kernel=ck, wmma_ms=wmma_ms[name], wmma_cuda_kernel=WMMA_COMPOSITED[name],
+                wmma_note="call ms of the WMMA build of the same composited entry "
+                          "(csrc/render_samples.cu), timed in turns with this kernel",
+                design=B9_DESIGN, routes=routes, max_abs_err_quantized_routes=quant_err["b9"],
+                launches_hopper=paths[path]["wgmma_samples" if "samples" in name
+                                            else "wgmma_zvals"])
     kernels[1]["at_192"] = {"call_ms": t_call["composite_192"],
                             "plain_ms": t_plain["composite_192"],
                             "bound_ms": bounds["composite_192"][0]}

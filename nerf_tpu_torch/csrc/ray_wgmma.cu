@@ -1,7 +1,8 @@
-// The ray kernels K1 and K3 in their raw output forms and the per-sample
-// forward K4 (K7 on quantized weights), on every weight route, redesigned
-// for Hopper: warpgroup wgmma, a producer warpgroup that streams the weights
-// by bulk copy into a ring of mbarrier-guarded stages, persistent blocks.
+// The ray kernels K1 and K3 in their raw output forms and their composited
+// modes, and the per-sample forward K4 (K7 on quantized weights), on every
+// weight route, redesigned for Hopper: warpgroup wgmma, a producer warpgroup
+// that streams the weights by bulk copy into a ring of mbarrier-guarded
+// stages, persistent blocks.
 //
 // Replaces the Pallas TPU kernels
 // - ray_wgmma_kernel: `_ray_kernel` (uniform depths, K1) and
@@ -9,6 +10,10 @@
 //   nerf_tpu/ops/render_kernel.py, in the raw output forms (fp32 or bf16
 //   interleaved (sigma, r, g, b) per sample, or four fp32 planes [R, S]), on
 //   the weights `_weights_for` hands them;
+// - ray_composite_wgmma_kernel, ray_z_composite_wgmma_kernel: their
+//   `composited=True` modes (`_composite_flat` + `_segmented_cumsum_excl`),
+//   which write per ray (r, g, b, depth, acc, 0, 0, 0) and optionally the
+//   weights [R, S];
 // - mlp_wgmma_kernel: `_nerf_kernel` of nerf_tpu/ops/mlp_kernel.py (K4:
 //   positions and directions [N, 3] -> (sigma, r, g, b) [N, 4] fp32) and, on
 //   the quantized routes, `_quant_kernel` of nerf_tpu/ops/quant.py (K7);
@@ -19,10 +24,10 @@
 //   nerf_tpu/ops/quant.py): bf16(f32(q) * s[col]), bf16 products;
 // - 3, int8 compute (`int8_w_dict` + `_int8_mm`): layer 0, the trunk and the
 //   skip product as s8 x s8 -> s32, the rest on route 1.
-// The composited modes stay on the WMMA body of render_samples.cu. Wrappers
-// and the dispatch rules: nerf_tpu_torch/ops/render_kernel.py (K1, K3),
-// ops/mlp_kernel.py (K4), ops/quant.py (K7); the weight streams' layout and
-// chunk schedules: nerf_tpu_torch/ops/ray_wgmma.py.
+// Wrappers and the dispatch rules: nerf_tpu_torch/ops/render_kernel.py (K1,
+// K3), ops/mlp_kernel.py (K4), ops/quant.py (K7); the weight streams' layout,
+// chunk schedules and the composited modes' schedule:
+// nerf_tpu_torch/ops/ray_wgmma.py.
 //
 // What bounds it: tensor-core operations (~0.52 M multiply-adds a sample
 // against 24 bytes in, 16 or 8 out). Next, the weight stream from L2: every
@@ -76,6 +81,35 @@
 // layer's accumulators; each row writes one float4. Rows at or past N are
 // encoded as zeros and not written.
 //
+// The composited modes keep the ray kernels' design; what they change is
+// the schedule and the epilogue. A ray's samples are consecutive rows, and
+// its carried log-transmittance must pass from one 64-row step to the next
+// in order, within one consumer, without waiting on the other consumer
+// (their overlap is where the body's speed comes from). So each consumer
+// warpgroup is a lane of whole rays: the R rays are split into 2 x grid
+// contiguous ranges of near-equal count, lane 2 b + c of block b taking
+// rays L R / lanes .. (L + 1) R / lanes - 1 (ops/ray_wgmma.lane_rays), and
+// walks their rows 64 at a time, in order. A block runs the larger of its
+// two lanes' step counts; a lane past its rows encodes zeros and writes
+// nothing, as rows past the end do in the raw forms; the producer streams
+// the network that many times. After the heads, each quad puts (sigma, r,
+// g, b) of its two rows into a 64 x 4 fp32 slot (in the consumer's
+// encoding tile, which the trunk has finished reading), the consumer meets
+// at its named barrier, and its warps run the segmented exclusive scan of
+// the TPU kernel's `_composite_flat`, one warp per ray segment of the 64
+// rows, 32 rows a piece with shuffles: dist = (s == S - 1 ? sentinel : dz
+// (K1, the constant step) or z[s + 1] - z[s]) x ||d||, alpha = 1 -
+// exp(-max(sigma, 0) dist), w = alpha exp(carry + exclusive sum of
+// log(max(1 - alpha, eps))), the five sums in fp32. The TPU kernel's
+// one-hot `selT @ fields` reduction and roll scan are layout tricks of its
+// own; here they are a shuffle scan and a sum. A segment that begins
+// mid-ray continues from the carry and sums its consumer keeps in shared
+// memory (never read by the other consumer; two slots by the parity of the
+// step that wrote them, since the first segment of a step may still be
+// reading the carry in while the last one leaves its own); one that ends
+// mid-ray leaves them there; one that reaches the ray's last sample writes
+// out. sigma and rgb never reach device memory.
+//
 // The quantized routes keep that design; what they change:
 // - the stream is intN (ops/ray_wgmma.py). A dequantize chunk is the bf16
 //   chunk's image element for element in int8 or int16, then the matrix's
@@ -107,7 +141,9 @@
 //   sums stay below 2^22 (256 * 127 * 127), which the exact int-to-float
 //   construction needs.
 //
-// Arithmetic contract (the WMMA body's, ops/render_kernel.py): pos = o + d z
+// Arithmetic contract (the WMMA body's, ops/render_kernel.py; the
+// compositing's is csrc/render_samples.cu composite_tile's: ||d|| in fp32
+// without FMA, expf/logf without fast math): pos = o + d z
 // in fp32 without FMA, K1's z = near + span * (s / (S - 1)); sinf/cosf at
 // full range reduction; the direction term per ray in fp32 from a bf16
 // encoding (per sample: a bf16 product accumulated in fp32); bf16 products
@@ -173,9 +209,10 @@ constexpr int P_B0 = 0, P_BT = P_B0 + HID, P_BBN = P_BT + 7 * HID, P_BC0 = P_BBN
 // shared-memory map (bytes from a 1024-aligned base): the encodings, the
 // resident parameters, the barriers (full and empty per stage, full per
 // landing slot), the direction branch of each consumer (the ray kernels':
-// per-ray rows, their size following S; the per-sample kernel's: a swizzled
-// bf16 encoding tile, 1024-aligned at OFF_DENC), then the weight ring, as
-// many 32 KB stages as fit beside the landing slots, then the landing slots
+// per-ray rows, their size following S, then the composited modes' carried
+// state of each consumer; the per-sample kernel's: a swizzled bf16 encoding
+// tile, 1024-aligned at OFF_DENC), then the weight ring, as many 32 KB
+// stages as fit beside the landing slots, then the landing slots
 constexpr int STAGES_MAX = 6;
 constexpr int SMEM_MAX = 232448;            // a block's shared memory on the H100
 constexpr int OFF_ENC = 0;
@@ -183,8 +220,14 @@ constexpr int OFF_PAR = OFF_ENC + 2 * ENC_TILE;
 constexpr int OFF_BAR = OFF_PAR + P_FLOATS * 4;
 constexpr int OFF_LBAR = OFF_BAR + 2 * STAGES_MAX * 8;
 constexpr int OFF_DIR = (OFF_LBAR + LANDS_MAX * 8 + 15) / 16 * 16;
+constexpr int STATE_FLOATS = 8;             // a carry and five sums (6 used)
+// the composited modes' state after the direction branch: [consumer][parity]
+__host__ __device__ constexpr int state_offset(int nr_max) {
+  return OFF_DIR + 2 * nr_max * (KDIR + CH) * 4;
+}
 constexpr int OFF_DENC = (OFF_DIR + 1023) / 1024 * 1024;
 static_assert(OFF_PAR % 1024 == 0 && OFF_BAR % 8 == 0 && OFF_DIR % 16 == 0, "alignment");
+static_assert(RW_ROWS * 4 * 4 <= ENC_TILE, "the composited field slot lives in the encoding tile");
 using Ring = RingT<CHUNK_BIG, STAGES_MAX>;   // the consumers' view of the weight ring
 
 struct RwParams {
@@ -197,13 +240,42 @@ struct RwParams {
   const float* pos;      // the per-sample kernel's positions and directions [N, 3]
   const float* dirs;
   void* out;
+  float* w;              // the composited modes' weights [R, S], or null
   long long total;       // rows: n_rays * S, or N
   long long tiles;
+  int n_rays;
   int S, nr_max, n_chunks, n_small, out_mode;
+  int composited, lanes; // composited: the consumer lanes of rays, 2 x grid
   int ring_off, stages;  // the weight ring: byte offset in shared memory, 32 KB stages
   int land_off;          // the landing slots (quantized routes)
   float near, span;
+  float dz, sentinel, eps;   // composited: K1's step, the last distance, 1 - alpha's floor
 };
+
+// The composited modes' schedule (ops/ray_wgmma.lane_rays, lane_steps): the
+// rows of consumer lane `cl`, rays cl R / lanes .. (cl + 1) R / lanes - 1.
+// With R = q lanes + m: cl R / lanes = cl q + cl m / lanes, in 32 bits.
+__device__ __forceinline__ int lane_first_ray(const RwParams& p, int cl) {
+  const int q = p.n_rays / p.lanes, m = p.n_rays - q * p.lanes;
+  return cl * q + cl * m / p.lanes;
+}
+__device__ __forceinline__ void lane_rows(const RwParams& p, int cl, long long& begin,
+                                          long long& end) {
+  begin = (long long)lane_first_ray(p, cl) * p.S;
+  end = (long long)lane_first_ray(p, cl + 1) * p.S;
+}
+__device__ __forceinline__ int lane_steps(const RwParams& p, int cl) {
+  long long begin, end;
+  lane_rows(p, cl, begin, end);
+  return int((end - begin + RW_ROWS - 1) / RW_ROWS);
+}
+// The steps of this block, each one pass of the network's stream: the raw
+// forms' tiles blockIdx.x + k gridDim.x < tiles; the composited modes', the
+// larger of its two lanes' counts.
+__device__ __forceinline__ int block_steps(const RwParams& p) {
+  if (p.composited) return max(lane_steps(p, 2 * blockIdx.x), lane_steps(p, 2 * blockIdx.x + 1));
+  return (long long)blockIdx.x < p.tiles ? int((p.tiles - 1 - blockIdx.x) / gridDim.x) + 1 : 0;
+}
 
 // ---- the int8-compute products (m64n128k32 and m64n64k32, s8 in, s32
 // accumulate); an overload per width, chosen by the accumulator set ----
@@ -457,11 +529,110 @@ __device__ __forceinline__ void trunk_s8(const Net& net, const float* par, Ring&
   }
 }
 
-// One consumer warpgroup (c = 0, 1): rows n0 .. n0 + 63 of every tile of
-// this block.
-template <int MODE>
+// The composited modes' volume rendering of one consumer's rows n0 ..
+// stop - 1 of a step ((sigma, r, g, b) of row n at fld[n - n0]): one warp per
+// ray segment, its lanes over 32 rows at a time, the exclusive scan of
+// log(max(1 - alpha, eps)) by shuffles, continued from the carry. A segment
+// that begins mid-ray (only the first) starts from the state `in` (carry,
+// r, g, b, depth, acc) its consumer's previous step left; one that ends
+// mid-ray (only the last) leaves its state in `out_st`, the other parity's
+// slot, since another warp may still be reading `in`; one that reaches the
+// ray's last sample writes out.
+template <bool ZIN>
+__device__ __forceinline__ void composite_step(const RwParams& p, const float* fld,
+                                               const float* in, float* out_st, long long n0,
+                                               long long stop, int warp, int lane) {
+  const long long r_lo = n0 / p.S;
+  const int nr = int((stop - 1) / p.S - r_lo) + 1;
+  for (int seg = warp; seg < nr; seg += 4) {
+    const long long r = r_lo + seg, first = r * p.S;
+    const long long a = max(n0, first), b = min(stop, first + p.S);
+    const bool cont = a > first, ends = b == first + p.S;
+    const float dx = p.rays_d[r * 3], dy = p.rays_d[r * 3 + 1], dzr = p.rays_d[r * 3 + 2];
+    const float dnorm =
+        sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dzr, dzr)));
+    const float* zr = ZIN ? p.z + r * p.z_stride : nullptr;
+    float carry = cont ? in[0] : 0.f;
+    float sr = 0.f, sg = 0.f, sb = 0.f, sd = 0.f, sa = 0.f;
+    for (long long c0 = a; c0 < b; c0 += 32) {
+      const long long n = c0 + lane;
+      const bool valid = n < b;
+      const int s = int(n - first);
+      float sigma = 0.f, cr = 0.f, cg = 0.f, cb = 0.f, zs = 0.f, dist = 0.f;
+      if (valid) {
+        const float4 f = reinterpret_cast<const float4*>(fld)[n - n0];
+        sigma = f.x;
+        cr = f.y;
+        cg = f.z;
+        cb = f.w;
+        if (ZIN)
+          zs = zr[s];
+        else
+          zs = __fadd_rn(p.near, __fmul_rn(p.span, __fdiv_rn(float(s), float(p.S - 1))));
+        if (s == p.S - 1)
+          dist = p.sentinel;
+        else
+          dist = ZIN ? __fsub_rn(zr[s + 1], zs) : p.dz;
+        dist = __fmul_rn(dist, dnorm);
+      }
+      const float alpha = valid ? 1.f - expf(-fmaxf(sigma, 0.f) * dist) : 0.f;
+      const float lt = valid ? logf(fmaxf(1.f - alpha, p.eps)) : 0.f;
+      float incl = lt;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float v = __shfl_up_sync(FULL, incl, off);
+        if (lane >= off) incl += v;
+      }
+      float excl = __shfl_up_sync(FULL, incl, 1);
+      if (lane == 0) excl = 0.f;
+      const float wv = alpha * expf(carry + excl);
+      if (valid && p.w) p.w[r * p.S + s] = wv;
+      sr = fmaf(wv, cr, sr);
+      sg = fmaf(wv, cg, sg);
+      sb = fmaf(wv, cb, sb);
+      sd = fmaf(wv, zs, sd);
+      sa += wv;
+      carry += __shfl_sync(FULL, incl, 31);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sr += __shfl_xor_sync(FULL, sr, off);
+      sg += __shfl_xor_sync(FULL, sg, off);
+      sb += __shfl_xor_sync(FULL, sb, off);
+      sd += __shfl_xor_sync(FULL, sd, off);
+      sa += __shfl_xor_sync(FULL, sa, off);
+    }
+    if (lane == 0) {
+      if (cont) {
+        sr += in[1];
+        sg += in[2];
+        sb += in[3];
+        sd += in[4];
+        sa += in[5];
+      }
+      if (ends) {
+        float4* o = static_cast<float4*>(p.out) + 2 * r;
+        o[0] = make_float4(sr, sg, sb, sd);
+        o[1] = make_float4(sa, 0.f, 0.f, 0.f);
+      } else {
+        out_st[0] = carry;
+        out_st[1] = sr;
+        out_st[2] = sg;
+        out_st[3] = sb;
+        out_st[4] = sd;
+        out_st[5] = sa;
+      }
+    }
+  }
+}
+
+// One consumer warpgroup (c = 0, 1). The raw forms and the per-sample
+// kernel: rows n0 .. n0 + 63 of every tile of this block. The composited
+// modes (COMP): the rows of its lane of rays, 64 at a time, in order.
+template <int MODE, bool COMP>
 __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, int c) {
   constexpr bool RAYS = MODE != SAMPLES;
+  static_assert(RAYS || !COMP, "the per-sample kernel has no composited mode");
   const int t = threadIdx.x - 128 * (c + 1);
   const int warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
   const bool leader = t == 0;
@@ -474,15 +645,30 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
   float* cdir = denc + p.nr_max * KDIR;
   unsigned char* dtile = sm + OFF_DENC + c * ENC_TILE;   // per sample: the bf16 encoding tile
   const uint64_t denc_desc = sw128_desc(smem_u32(dtile));
+  // composited: the step's fields, in the encoding tile once the trunk has
+  // read it, and the state carried from step to step (two slots, by the
+  // parity of the step that writes it)
+  float* fld = reinterpret_cast<float*>(enc);
+  float* st = reinterpret_cast<float*>(sm + state_offset(p.nr_max)) + c * 2 * STATE_FLOATS;
   Ring ring{smem_u32(sm + p.ring_off), smem_u32(sm + OFF_BAR), p.stages, 0, 0u, 0};
   float acc[128];
   uint32_t a[16][4];
+  const int steps = COMP ? block_steps(p) : 0;
 
-  for (int tile = blockIdx.x; tile < int(p.tiles); tile += gridDim.x) {
-    const long long n0 = (long long)tile * RW_TILE + c * RW_ROWS;
-    const bool any = n0 < p.total;
+  // the raw forms: tiles blockIdx.x + k gridDim.x; the composited modes: the
+  // lane's steps, its rows derived anew each step (no register held for them)
+  for (int tile = blockIdx.x, step = 0; COMP ? step < steps : tile < int(p.tiles);
+       tile += gridDim.x, ++step) {
+    long long n0, n_end = p.total;   // this step's rows n0 .. n0 + 63, those < n_end
+    if constexpr (COMP) {
+      lane_rows(p, 2 * blockIdx.x + c, n0, n_end);
+      n0 += (long long)step * RW_ROWS;
+    } else {
+      n0 = (long long)tile * RW_TILE + c * RW_ROWS;
+    }
+    const bool any = n0 < n_end;
     const long long r_lo = RAYS && any ? n0 / p.S : 0;
-    const int nr = RAYS && any ? int((min(n0 + RW_ROWS, p.total) - 1) / p.S - r_lo) + 1 : 0;
+    const int nr = RAYS && any ? int((min(n0 + RW_ROWS, n_end) - 1) / p.S - r_lo) + 1 : 0;
 
     // 1. the ray kernels' direction branch once per ray of these rows:
     //    cdir = bf16(denc) @ wdir
@@ -515,7 +701,7 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
     {
       const int row = t & (RW_ROWS - 1);
       const long long n = n0 + row;
-      const bool valid = n < p.total;
+      const bool valid = n < n_end;
       float x0 = 0.f, x1 = 0.f, x2 = 0.f;
       float d[3] = {0.f, 0.f, 0.f};
       if (valid) {
@@ -684,8 +870,8 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
     // 8. c = bf16(relu(acc + bc0 (+ cdir))), rgb = sigmoid(c @ wc1 + bc1),
     //    from registers, summed across the quad
     const long long nrow0 = n0 + 16 * warp + g, nrow1 = nrow0 + 8;
-    const int sl0 = RAYS && nrow0 < p.total ? int(nrow0 / p.S - r_lo) : 0;
-    const int sl1 = RAYS && nrow1 < p.total ? int(nrow1 / p.S - r_lo) : 0;
+    const int sl0 = RAYS && nrow0 < n_end ? int(nrow0 / p.S - r_lo) : 0;
+    const int sl1 = RAYS && nrow1 < n_end ? int(nrow1 / p.S - r_lo) : 0;
     const float* cd0 = cdir + sl0 * CH;
     const float* cd1 = cdir + sl1 * CH;
     float c0[3] = {0.f, 0.f, 0.f}, c1[3] = {0.f, 0.f, 0.f};
@@ -724,10 +910,21 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
       c1[k] = 1.f / (1.f + expf(-(c1[k] + par[P_BC1 + k])));
     }
 
-    // 9. lane q = 0 of the quad writes row g, q = 1 row g + 8
-    if (q < 2) {
+    // 9. lane q = 0 of the quad writes row g, q = 1 row g + 8: to the
+    //    output, or (composited) to the field slot, which the consumer's
+    //    warps then composite
+    if constexpr (COMP) {
+      if (q < 2)
+        reinterpret_cast<float4*>(fld)[16 * warp + g + 8 * q] =
+            q ? make_float4(sg1, c1[0], c1[1], c1[2]) : make_float4(sg0, c0[0], c0[1], c0[2]);
+      named_sync(bar_id);
+      if (any)
+        composite_step<MODE == RAYS_Z>(p, fld, st + (step & 1) * STATE_FLOATS,
+                                       st + (~step & 1) * STATE_FLOATS, n0,
+                                       min(n0 + RW_ROWS, n_end), warp, lane);
+    } else if (q < 2) {
       const long long n = q ? nrow1 : nrow0;
-      if (n < p.total) {
+      if (n < n_end) {
         const float v[4] = {q ? sg1 : sg0, q ? c1[0] : c0[0], q ? c1[1] : c0[1], q ? c1[2] : c0[2]};
         if (MODE == SAMPLES || p.out_mode == OUT_F32) {
           static_cast<float4*>(p.out)[n] = make_float4(v[0], v[1], v[2], v[3]);
@@ -745,15 +942,15 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
   }
 }
 
-// The producer: one thread streams the network once per tile of this block,
-// chunk after chunk, into the ring. Every chunk is 32 KB but the last
-// n_small (wc0's four slabs and, per sample, wdir's: 16 KB).
+// The producer: one thread streams the network once per step of this block
+// (block_steps), chunk after chunk, into the ring. Every chunk is 32 KB but
+// the last n_small (wc0's four slabs and, per sample, wdir's: 16 KB).
 __device__ __forceinline__ void producer(const RwParams& p, unsigned char* sm) {
   const uint32_t ring = smem_u32(sm + p.ring_off), bars = smem_u32(sm + OFF_BAR);
-  const int n_big = p.n_chunks - p.n_small, tiles = int(p.tiles);
+  const int n_big = p.n_chunks - p.n_small, steps = block_steps(p);
   int stage = 0;
   uint32_t phase = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int step = 0; step < steps; ++step) {
     const unsigned char* src = p.wstream;
     for (int j = 0; j < p.n_chunks; ++j) {
       const uint32_t bytes = j < n_big ? CHUNK_BIG : CHUNK_SMALL;
@@ -845,12 +1042,12 @@ __device__ __forceinline__ void convert_chunk(const unsigned char* __restrict__ 
 // requests the next chunk into the freed slot.
 __device__ __forceinline__ void producer_q(const RwParams& p, unsigned char* sm) {
   const int t = threadIdx.x, n = p.n_chunks, nd = n_direct(), nconv = n - nd;
-  const int tiles = int(p.tiles);
+  const int steps = block_steps(p);
   const uint32_t bars = smem_u32(sm + OFF_BAR), lbars = smem_u32(sm + OFF_LBAR);
-  int req = 0;   // thread 0: dequantize chunks requested, over this block's tiles
+  int req = 0;   // thread 0: dequantize chunks requested, over this block's steps
   auto request = [&](int slot) {
     const int j = nd + req % nconv;
-    if (int(blockIdx.x) + (req / nconv) * int(gridDim.x) >= tiles) return;
+    if (req / nconv >= steps) return;
     ++req;
     const uint32_t bytes = conv_bytes(conv_cols(j, n, p.n_small));
     fence_async_smem();   // the slot's last reads were the generic proxy's
@@ -862,7 +1059,7 @@ __device__ __forceinline__ void producer_q(const RwParams& p, unsigned char* sm)
     for (int s = 0; s < LANDS; ++s) request(s);
   int stage = 0, slot = 0;
   uint32_t phase = 0, lphase = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int step = 0; step < steps; ++step) {
     for (int j = 0; j < n; ++j) {
       const uint32_t full = bars + 8 * stage;
       unsigned char* dst = sm + p.ring_off + stage * CHUNK_BIG;
@@ -896,7 +1093,7 @@ __device__ __forceinline__ void producer_q(const RwParams& p, unsigned char* sm)
   }
 }
 
-template <int MODE>
+template <int MODE, bool COMP = false>
 __device__ __forceinline__ void ray_wgmma_body(const RwParams& p, unsigned char* smem_raw) {
   unsigned char* sm = aligned_smem(smem_raw);
   const Net& net = p.net;
@@ -931,7 +1128,7 @@ __device__ __forceinline__ void ray_wgmma_body(const RwParams& p, unsigned char*
       producer(p, sm);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    consumer<MODE>(p, sm, threadIdx.x / 128 - 1);
+    consumer<MODE, COMP>(p, sm, threadIdx.x / 128 - 1);
   }
 }
 
@@ -943,6 +1140,18 @@ __global__ void __launch_bounds__(RW_THREADS, 1) ray_wgmma_kernel(const __grid_c
 __global__ void __launch_bounds__(RW_THREADS, 1) ray_z_wgmma_kernel(const __grid_constant__ RwParams p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   ray_wgmma_body<RAYS_Z>(p, smem_raw);
+}
+
+__global__ void __launch_bounds__(RW_THREADS, 1)
+    ray_composite_wgmma_kernel(const __grid_constant__ RwParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  ray_wgmma_body<RAYS_UNIFORM, true>(p, smem_raw);
+}
+
+__global__ void __launch_bounds__(RW_THREADS, 1)
+    ray_z_composite_wgmma_kernel(const __grid_constant__ RwParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  ray_wgmma_body<RAYS_Z, true>(p, smem_raw);
 }
 
 __global__ void __launch_bounds__(RW_THREADS, 1) mlp_wgmma_kernel(const __grid_constant__ RwParams p) {
@@ -993,10 +1202,11 @@ __global__ void __launch_bounds__(64, 1) l2_probe_kernel(const unsigned char* bu
 }
 
 // Offset of the weight ring after the direction branch: the ray kernels'
-// nr_max rays per consumer, or (nr_max = 0) the per-sample kernel's two
-// encoding tiles; and the stages that fit beside it.
+// nr_max rays per consumer and the composited modes' state, or (nr_max = 0)
+// the per-sample kernel's two encoding tiles; and the stages that fit
+// beside it.
 int ring_offset(int nr_max) {
-  const int end = nr_max ? OFF_DIR + 2 * nr_max * (KDIR + CH) * int(sizeof(float))
+  const int end = nr_max ? state_offset(nr_max) + 2 * 2 * STATE_FLOATS * int(sizeof(float))
                          : OFF_DENC + 2 * ENC_TILE;
   return (end + 1023) / 1024 * 1024;
 }
@@ -1004,6 +1214,13 @@ int ring_offset(int nr_max) {
 int ring_stages(int nr_max) {
   const int n = (SMEM_MAX - 1024 - ring_offset(nr_max) - LANDS * LAND_BYTES) / CHUNK_BIG;
   return n < STAGES_MAX ? n : STAGES_MAX;
+}
+// The composited modes' grid: two lanes of rays a block, one block an SM,
+// but no more blocks than half the rays, rounded up
+// (ops/ray_wgmma.composited_grid)
+int composited_grid(long long n_rays) {
+  const long long g = (n_rays + 1) / 2, sms = sm_count();
+  return int(g < 1 ? 1 : g < sms ? g : sms);
 }
 int land_offset(int nr_max) { return ring_offset(nr_max) + ring_stages(nr_max) * CHUNK_BIG; }
 size_t rw_smem_bytes(int nr_max) { return 1024 + land_offset(nr_max) + size_t(LANDS) * LAND_BYTES; }
@@ -1026,6 +1243,8 @@ const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaEr
 long long ray_wgmma_smem_bytes(int n_samples) {
   return (long long)rw_smem_bytes((RW_ROWS - 1) / n_samples + 2);
 }
+// the composited modes' consumer lanes at n_rays rays (2 x grid)
+int ray_wgmma_composited_lanes(int n_rays) { return 2 * composited_grid(n_rays); }
 int ray_wgmma_stages(int n_samples) { return ring_stages((RW_ROWS - 1) / n_samples + 2); }
 int ray_wgmma_landing_slots() { return LANDS; }
 int ray_wgmma_route() { return WQ; }
@@ -1040,12 +1259,14 @@ int mlp_wgmma_stream_chunks(int bmild) { return stream_chunks(bmild) + 1; }
 
 // `scales`: null on the bf16 route, else the eight matrices' scales and
 // enc_scale (mlp_body.cuh make_net); the matrices' own pointers serve the
-// resident heads and wdir, the stream the rest.
+// resident heads and wdir, the stream the rest. `composited`: out is [R, 8]
+// fp32 (out_mode 0) and w [R, S] or null; dz is K1's constant step.
 int ray_wgmma_render(const float* rays_o, const float* rays_d, const float* z, long long z_stride,
                      int n_rays, int n_samples, float near, float span, const void* wstream,
                      const void* const* weights, const void* const* scales, int Lp, int Ld,
                      int skip_pos, int bmild, int relu_sigma, int normalize_dirs, float band_scale,
-                     int out_mode, void* out, void* stream) {
+                     int out_mode, int composited, float dz, float sentinel, float eps, void* out,
+                     float* w, void* stream) {
   RwParams p;
   p.net = make_net(weights, scales, Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs,
                    band_scale);
@@ -1056,30 +1277,42 @@ int ray_wgmma_render(const float* rays_o, const float* rays_d, const float* z, l
   p.z_stride = z_stride;
   p.pos = p.dirs = nullptr;
   p.out = out;
+  p.w = composited ? w : nullptr;
   p.total = (long long)n_rays * n_samples;
   p.tiles = (p.total + RW_TILE - 1) / RW_TILE;
+  p.n_rays = n_rays;
   p.S = n_samples;
   p.nr_max = (RW_ROWS - 1) / n_samples + 2;
   p.n_chunks = stream_chunks(bmild);
   p.n_small = N_SMALL_RAYS;
   p.out_mode = out_mode;
+  const long long grid =
+      composited ? composited_grid(n_rays) : (p.tiles < sm_count() ? p.tiles : sm_count());
+  p.composited = composited ? 1 : 0;
+  p.lanes = int(2 * grid);
   p.near = near;
   p.span = span;
+  p.dz = dz;
+  p.sentinel = sentinel;
+  p.eps = eps;
   p.ring_off = ring_offset(p.nr_max);
   p.stages = ring_stages(p.nr_max);
   p.land_off = land_offset(p.nr_max);
   // the int8-compute skip layer holds three chunks at once
-  if (p.stages < (WQ == WQ_INT8_COMPUTE ? 3 : 2) || !net_has_scales(p.net, WQ) || n_samples < (z ? 1 : 2) || !net_fits(p.net) || out_mode < OUT_F32 || out_mode > OUT_PLANAR ||
-      !wstream || (bmild && (!p.net.wbn || !p.net.bbn)) || skip_pos < 1 || skip_pos > 7)
+  if (p.stages < (WQ == WQ_INT8_COMPUTE ? 3 : 2) || !net_has_scales(p.net, WQ) ||
+      n_samples < (z ? 1 : 2) || !net_fits(p.net) || out_mode < OUT_F32 || out_mode > OUT_PLANAR ||
+      (composited && out_mode != OUT_F32) || n_rays < 0 || !wstream ||
+      (bmild && (!p.net.wbn || !p.net.bbn)) || skip_pos < 1 || skip_pos > 7)
     return int(cudaErrorInvalidValue);
   if (p.total == 0) return int(cudaSuccess);
   if (p.tiles > 0x7fffffff) return int(cudaErrorInvalidValue);
-  void (*kernel)(const RwParams) = z ? ray_z_wgmma_kernel : ray_wgmma_kernel;
+  void (*kernel)(const RwParams) =
+      composited ? (z ? ray_z_composite_wgmma_kernel : ray_composite_wgmma_kernel)
+                 : (z ? ray_z_wgmma_kernel : ray_wgmma_kernel);
   const size_t smem = rw_smem_bytes(p.nr_max);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  const long long grid = p.tiles < sm_count() ? p.tiles : sm_count();
   kernel<<<unsigned(grid), RW_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return int(cudaGetLastError());
 }
@@ -1101,8 +1334,12 @@ int mlp_wgmma_forward(const float* pos, const float* dirs, long long n, const vo
   p.pos = pos;
   p.dirs = dirs;
   p.out = out;
+  p.w = nullptr;
   p.total = n;
   p.tiles = (n + RW_TILE - 1) / RW_TILE;
+  p.n_rays = 0;
+  p.composited = p.lanes = 0;
+  p.dz = p.sentinel = p.eps = 0.f;
   p.S = 1;
   p.nr_max = 0;
   p.n_chunks = stream_chunks(bmild) + 1;

@@ -1,10 +1,11 @@
 // Fused ray kernels: samples along each ray + the whole NeRF MLP, and
 // optionally the volume rendering of those samples, on the WMMA body of
-// mlp_body.cuh. This source serves the composited modes (every weight
-// route). The raw modes, on every weight route, run on the Hopper kernels
-// of ray_wgmma.cu (warpgroup wgmma, weights streamed by a producer
-// warpgroup, persistent blocks); the raw entries here are kept built and
-// are timed beside them, but no wrapper sends a launch to them.
+// mlp_body.cuh. Every form and mode, on every weight route, runs on the
+// Hopper kernels of ray_wgmma.cu (warpgroup wgmma, weights streamed by a
+// producer warpgroup, persistent blocks; the composited modes with whole
+// rays per consumer warpgroup); the entries here are kept built and are
+// timed beside them, but no wrapper sends a launch to them unless asked
+// (`library=`).
 //
 // Replaces the Pallas TPU kernels of nerf_tpu/ops/render_kernel.py:
 // - ray_kernel: `_ray_kernel` (uniform depths, `fused_render_samples`);
@@ -21,8 +22,8 @@
 // multiply-adds (8 x 256 trunk, skip, heads) against 24 bytes of ray input
 // and 16 bytes of output, about 25,000 operations per byte moved.
 //
-// Design (simple first; ray_wgmma.cu has the Hopper design these modes
-// are to move to):
+// Design (simple first; ray_wgmma.cu has the Hopper design that replaced
+// it):
 // - one block of 512 threads (16 warps) owns M = 128 consecutive samples
 //   (flat index n = ray * S + s, so a tile holds whole or partial rays);
 // - positions (one per row, kept in shared memory), phases and sin/cos in

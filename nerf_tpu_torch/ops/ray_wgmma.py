@@ -1,7 +1,9 @@
-"""The weight streams of the Hopper MLP kernels (``csrc/ray_wgmma.cu``).
+"""The weight streams of the Hopper MLP kernels (``csrc/ray_wgmma.cu``), and
+the schedule of its composited modes.
 
-K1 and K3 in their raw output forms, and the per-sample forward K4 (K7 on
-quantized weights), run on ``csrc/ray_wgmma.cu``, built once per weight route
+K1 and K3 in their raw output forms and their composited modes, and the
+per-sample forward K4 (K7 on quantized weights), run on
+``csrc/ray_wgmma.cu``, built once per weight route
 (``LIBRARIES``): bf16 weights (``PackedWeights``), int8 or int16 weights
 dequantized in the kernel (``QuantizedPackedWeights``), and int8 compute
 (``Int8PackedWeights``). A producer warpgroup copies the network into shared
@@ -52,6 +54,16 @@ and ``wt[6..0]`` for its input gradients ``dy @ W^T``, in the same layout
 So for the reference variant the per-sample stream is a prefix of K5's: a
 train step gathers K5's stream once per network in the forward, and K4
 reads its prefix.
+
+The composited modes of K1 and K3 (``composited_grid``, ``lane_rays``,
+``lane_steps``, ``composited_schedule``) give each consumer warpgroup a lane
+of whole rays, a contiguous range of near-equal count, and walk its rows 64
+at a time, in order, so that a ray's carried log-transmittance passes from
+step to step within one consumer. ``composite_on_schedule_plain`` runs the
+plain compositing along that schedule as the kernel does (32-row pieces of
+each ray segment, carries from piece to piece and, through the lane's
+state, from step to step); the tests hold it against the plain composited
+versions of ``ops/render_kernel.py``.
 """
 
 from __future__ import annotations
@@ -60,7 +72,7 @@ import ctypes
 import math
 import weakref
 from types import SimpleNamespace
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -393,8 +405,9 @@ ARGTYPES = (
     + [ctypes.c_float] * 2                # near, far - near
     + [ctypes.c_void_p] * 3               # weight stream, weights (PackedWeights order), scales
     + [ctypes.c_int] * 6 + [ctypes.c_float]   # net_args
-    + [ctypes.c_int]                      # raw output form
-    + [ctypes.c_void_p] * 2               # out, stream
+    + [ctypes.c_int] * 2                  # raw output form, composited
+    + [ctypes.c_float] * 3                # uniform step dz, sentinel, eps
+    + [ctypes.c_void_p] * 3               # out, w (NULL: none), stream
 )
 
 
@@ -424,6 +437,8 @@ def load(library: str = LIBRARY) -> ctypes.CDLL:
         lib.ray_wgmma_stages.argtypes = [ctypes.c_int]
         lib.ray_wgmma_stages.restype = ctypes.c_int
         lib.ray_wgmma_landing_slots.restype = ctypes.c_int
+        lib.ray_wgmma_composited_lanes.argtypes = [ctypes.c_int]
+        lib.ray_wgmma_composited_lanes.restype = ctypes.c_int
         lib.ray_wgmma_route.restype = ctypes.c_int
         lib.ray_wgmma_registers.argtypes = [ctypes.c_int]
         lib.ray_wgmma_registers.restype = ctypes.c_int
@@ -474,3 +489,94 @@ def l2_probe(buf: torch.Tensor, reps: int, blocks: int) -> None:
     err = lib.l2_stream_probe(_ext.ptr(buf), buf.numel() * buf.element_size(), reps, blocks,
                               _ext.stream_ptr(buf.device))
     _ext.check(lib, err, "l2_stream_probe launch")
+
+
+# -- the composited modes' schedule (csrc/ray_wgmma.cu lane_rows, block_steps) --
+
+STEP_ROWS = 64        # rows a consumer warpgroup takes a step
+
+
+def composited_grid(n_rays: int, sms: int) -> int:
+    """Blocks of a composited launch: one an SM, but no more than half the
+    rays, rounded up (two consumer lanes a block)."""
+    return max(1, min(sms, (n_rays + 1) // 2))
+
+
+def lane_rays(n_rays: int, lanes: int) -> List[Tuple[int, int]]:
+    """Rays ``[begin, end)`` of each consumer lane: lane ``L`` (consumer
+    ``L % 2`` of block ``L // 2``) takes ``L R // lanes .. (L + 1) R //
+    lanes - 1``, so the counts differ by at most one."""
+    return [(lane * n_rays // lanes, (lane + 1) * n_rays // lanes) for lane in range(lanes)]
+
+
+def lane_steps(rays: Tuple[int, int], n_samples: int) -> int:
+    """Steps of 64 rows a lane's rays take."""
+    return -(-(rays[1] - rays[0]) * n_samples // STEP_ROWS)
+
+
+def composited_schedule(n_rays: int, n_samples: int, grid: int
+                        ) -> List[List[Tuple[Tuple[int, int], Tuple[int, int]]]]:
+    """Per block, per step: the flat rows ``[n0, stop)`` of each of its two
+    consumers (empty past its lane's rows). A block runs the larger of its
+    lanes' step counts, the producer streaming the network once a step."""
+    lanes = lane_rays(n_rays, 2 * grid)
+    out = []
+    for b in range(grid):
+        pair = lanes[2 * b:2 * b + 2]
+        steps = max(lane_steps(r, n_samples) for r in pair)
+        block = []
+        for k in range(steps):
+            rows = []
+            for begin, end in pair:
+                n0, n_end = begin * n_samples + k * STEP_ROWS, end * n_samples
+                rows.append((n0, min(n0 + STEP_ROWS, n_end)) if n0 < n_end else (n0, n0))
+            block.append(tuple(rows))
+        out.append(block)
+    return out
+
+
+def composite_on_schedule_plain(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
+                                grid: int, sentinel: float = 1e10, eps: float = 1e-10,
+                                dz: Optional[float] = None):
+    """The composited modes' volume rendering of ``raw [R, 4S]`` in the
+    kernel's order: each consumer's rows step by step
+    (``composited_schedule``), each step's ray segments in 32-row pieces, the
+    exclusive sum of ``log(max(1 - alpha, eps))`` within a piece continued
+    from the carry, the carry and the five sums kept in the lane's state
+    where a segment ends mid-ray. ``dz``: K1's constant step. Returns
+    ``(out [R, 8], w [R, S])`` in float32."""
+    R, S = z_vals.shape
+    raw = raw.float().reshape(R, S, 4)
+    z = z_vals.float()
+    dnorm = torch.linalg.norm(rays_d.float(), dim=-1)
+    out = torch.zeros(R, 8)
+    w = torch.zeros(R, S)
+    for block in composited_schedule(R, S, grid):
+        state = [None, None]                       # per consumer: (carry, sums [5])
+        for rows in block:
+            for c, (n0, stop) in enumerate(rows):
+                if stop == n0:                     # past this lane's rows
+                    continue
+                for r in range(n0 // S, (stop - 1) // S + 1):
+                    a, b = max(n0, r * S), min(stop, (r + 1) * S)
+                    carry, sums = state[c] if a > r * S else (torch.zeros(()), torch.zeros(5))
+                    for c0 in range(a, b, 32):
+                        s = torch.arange(c0, min(c0 + 32, b)) - r * S
+                        sigma, rgb = raw[r, s, 0], raw[r, s, 1:]
+                        zs = z[r, s]
+                        nxt = z[r, torch.clamp(s + 1, max=S - 1)]
+                        step = nxt - zs if dz is None else torch.full_like(zs, dz)
+                        dist = torch.where(s == S - 1, torch.full_like(zs, sentinel), step)
+                        alpha = 1.0 - torch.exp(-torch.relu(sigma) * (dist * dnorm[r]))
+                        incl = torch.cumsum(torch.log(torch.clamp(1.0 - alpha, min=eps)), 0)
+                        excl = torch.cat([incl.new_zeros(1), incl[:-1]])
+                        wv = alpha * torch.exp(carry + excl)
+                        w[r, s] = wv
+                        sums = sums + torch.cat([(wv[:, None] * rgb).sum(0),
+                                                 (wv * zs).sum()[None], wv.sum()[None]])
+                        carry = carry + incl[-1]
+                    if b == (r + 1) * S:
+                        out[r, :5] = sums
+                    else:
+                        state[c] = (carry, sums)
+    return out, w

@@ -34,12 +34,14 @@ of each CUDA source.
 On a CUDA tensor each wrapper launches its CUDA kernel and counts the launch
 in ``launches[name]``; on a CPU tensor it runs its ``*_plain`` twin, the same
 arithmetic in plain PyTorch. Nothing falls back: a CUDA launch either runs
-or raises. Which kernel (``kernel_library``): the raw forms, on every weight
-route, go to the Hopper kernels of ``csrc/ray_wgmma.cu`` (warpgroup
+or raises. Which kernel (``kernel_library``): every form and mode, on every
+weight route, goes to the Hopper kernels of ``csrc/ray_wgmma.cu`` (warpgroup
 ``wgmma``, weights streamed by a producer warpgroup, persistent blocks; the
-weight stream is laid out once per set of weights by ``ops/ray_wgmma.py``);
-the composited modes to the WMMA kernels of ``csrc/render_samples.cu``,
-built for the weights' route.
+weight stream is laid out once per set of weights, and the composited
+modes' schedule of whole rays per consumer is written out, by
+``ops/ray_wgmma.py``), built for the weights' route. The WMMA builds of
+``csrc/render_samples.cu`` they replaced are reached only through
+``library=``, to time them beside the Hopper kernels.
 
 Arithmetic shared by both versions, and the tolerances it sets:
 
@@ -81,13 +83,15 @@ from nerf_tpu_torch.utils.rendering import RenderOutputs
 # routes through them: a launch adds one to its function's count (K1 or K3,
 # raw or composited), to each route it takes (planar or bfloat16 raw output;
 # intN weights dequantized in the kernel; int8 compute) and, on the Hopper
-# kernels of csrc/ray_wgmma.cu, to wgmma_samples (K1) or wgmma_zvals (K3).
+# kernels of csrc/ray_wgmma.cu (raw or composited), to wgmma_samples (K1) or
+# wgmma_zvals (K3).
 launches = {"render_samples": 0, "render_zvals": 0,
             "render_samples_composited": 0, "render_zvals_composited": 0,
             "planar": 0, "raw_bf16": 0, "dequant": 0, "int8": 0,
             "wgmma_samples": 0, "wgmma_zvals": 0}
 
-# the build of csrc/render_samples.cu for each weight route (0: bf16 weights)
+# the WMMA build of csrc/render_samples.cu for each weight route (0: bf16
+# weights), which the Hopper kernels replaced: reached only through library=
 _LIBRARY = {0: "render_samples", quant.ROUTE_INT8: "render_samples_q8",
             quant.ROUTE_INT16: "render_samples_q16",
             quant.ROUTE_INT8_COMPUTE: "render_samples_i8"}
@@ -98,9 +102,9 @@ _OUT_F32, _OUT_BF16, _OUT_PLANAR = 0, 1, 2
 
 def kernel_library(route: int, composited: bool) -> str:
     """The library a CUDA launch on a weight route goes to: the route's
-    build of ``csrc/ray_wgmma.cu`` for the raw forms (float32, bfloat16,
-    planar), of ``csrc/render_samples.cu`` for the composited modes."""
-    return _LIBRARY[route] if composited else ray_wgmma.LIBRARIES[route]
+    build of ``csrc/ray_wgmma.cu``, for the raw forms (float32, bfloat16,
+    planar) and the composited modes alike."""
+    return ray_wgmma.LIBRARIES[route]
 
 
 def _mlp_plain(packed, pos: torch.Tensor, d: torch.Tensor, cfg: ModelConfig,
@@ -198,8 +202,8 @@ def _launch(packed, rays_o, rays_d, near, far, S,
     (float32 or bfloat16), planar ``(sigma [R, S], (r, g, b))`` or
     composited ``(out [R, 8], w [R, S] or None)``. ``library`` names
     another library of the same function on the same weight route; only
-    ``chip_smoke.py`` passes it, to time the WMMA build of a raw form beside
-    the Hopper kernel."""
+    ``chip_smoke.py`` passes it, to time the WMMA build
+    (``csrc/render_samples.cu``) beside the Hopper kernel."""
     dev = rays_o.device
     R = rays_o.shape[0]
     for name, t in (("rays_o", rays_o), ("rays_d", rays_d)):
@@ -232,8 +236,6 @@ def _launch(packed, rays_o, rays_d, near, far, S,
         raise ValueError("need at least 2 samples for uniform depths")
     library = library or kernel_library(route, composited)
     hopper = library in ray_wgmma.LIBRARIES.values()
-    if hopper and composited:
-        raise ValueError("the Hopper ray kernels write raw output")
     lib_route = next((r for r, n in (*ray_wgmma.LIBRARIES.items(), *_LIBRARY.items())
                       if n == library), None)
     if lib_route != route:
@@ -258,24 +260,26 @@ def _launch(packed, rays_o, rays_d, near, far, S,
     out_mode = (_OUT_PLANAR if planar else
                 _OUT_BF16 if raw_dtype == torch.bfloat16 else _OUT_F32)
     z_arg = None if z_vals is None else _ext.ptr(z_vals)
+    w_arg = None if w is None else _ext.ptr(w)
+    dz = (far - near) / (S - 1) if z_vals is None else 0.0
     if hopper:
         stream = ray_wgmma.stream_for(packed, cfg)
         lib = ray_wgmma.load(library)
         err = lib.ray_wgmma_render(_ext.ptr(rays_o), _ext.ptr(rays_d), z_arg, z_stride, R, S,
                                    float(near), float(far - near), _ext.ptr(stream), weights,
-                                   scales, *net_args(cfg), out_mode, _ext.ptr(out),
+                                   scales, *net_args(cfg), out_mode, int(composited), float(dz),
+                                   float(sentinel), float(eps), _ext.ptr(out), w_arg,
                                    _ext.stream_ptr(dev))
     else:
         lib = _ext.load(library)
         fn = lib.ray_render
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        dz = (far - near) / (S - 1) if z_vals is None else 0.0
         err = fn(_ext.ptr(rays_o), _ext.ptr(rays_d), z_arg, z_stride, R, S,
                  float(near), float(far - near),
                  weights, scales, *net_args(cfg),
                  int(composited), out_mode, float(dz), float(sentinel), float(eps),
-                 _ext.ptr(out), None if w is None else _ext.ptr(w), _ext.stream_ptr(dev))
+                 _ext.ptr(out), w_arg, _ext.stream_ptr(dev))
     name = ("render_samples" if z_vals is None else "render_zvals") + (
         "_composited" if composited else "")
     _ext.check(lib, err, f"{name} launch ({library})")

@@ -1,0 +1,52 @@
+"""The port's frame monitor (``nerf_tpu_torch/utils/monitor.py``): its host
+memory is the peak resident set over the window, as the JAX package's
+``PerformanceMonitor`` polls it, not the process's lifetime peak."""
+
+import os
+import resource
+import time
+
+import numpy as np
+
+from nerf_tpu_torch.utils.monitor import PerformanceMonitor
+
+
+def _rss_mb():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e6
+
+
+def _lifetime_peak_mb():
+    # ru_maxrss is in KiB on Linux
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e6
+
+
+def test_window_peak_is_not_the_lifetime_peak():
+    # a ~200 MB array, touched and freed, raises the lifetime peak; a window
+    # opened after it around a small allocation reads its own, lower peak
+    big = np.ones(200 * 2 ** 20 // 8)
+    big[::512] = 2.0
+    del big
+    mon = PerformanceMonitor("cpu").start()
+    small = np.ones(2 ** 20 // 8)
+    time.sleep(0.05)                       # a few polls of the thread
+    stats = mon.stop()
+    del small
+    assert stats.peak_device_mb is None and stats.device_kind == "cpu"
+    assert stats.peak_host_rss_mb > 0.0
+    assert stats.peak_host_rss_mb <= _lifetime_peak_mb() - 100.0, (
+        stats.peak_host_rss_mb, _lifetime_peak_mb())
+
+
+def test_window_peak_sees_an_allocation_inside_it():
+    # an allocation of ~100 MB made and freed inside the window counts in
+    # its peak, though the resident set at stop is back below it
+    mon = PerformanceMonitor("cpu").start()
+    before = _rss_mb()
+    buf = np.ones(100 * 2 ** 20 // 8)
+    time.sleep(0.05)
+    del buf
+    after = _rss_mb()
+    stats = mon.stop()
+    assert stats.peak_host_rss_mb >= before + 90.0 > after - 10.0
+    assert stats.wall_time_s >= 0.05

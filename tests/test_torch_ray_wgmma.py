@@ -3,12 +3,15 @@
 bit for bit on every route, the producer's chunk schedule and its
 conversion of dequantize chunks, the int8-compute stream's row permutation
 against the s8 A fragments the consumers build, which library a launch
-reaches, and the streamed weights rendering like the JAX Pallas kernel
-(interpret mode). The CUDA kernel itself (``csrc/ray_wgmma.cu``) runs only on
+reaches, the streamed weights rendering like the JAX Pallas kernel
+(interpret mode), and the composited modes' schedule (whole rays per
+consumer lane, 64-row steps, the carried state) against the plain
+composited versions. The CUDA kernel itself (``csrc/ray_wgmma.cu``) runs only on
 the card; ``chip_smoke.py`` holds it against the plain versions."""
 
 import ctypes
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -21,11 +24,12 @@ from nerf_tpu.config import bmild_config as jbmild
 from nerf_tpu.models.nerf import init_nerf_params as jinit
 from nerf_tpu.ops import quant as jquant
 from nerf_tpu.ops.render_kernel import fused_render_samples as jfrs
-from nerf_tpu_torch.config import ModelConfig
+from nerf_tpu_torch.config import ModelConfig, default_config
 from nerf_tpu_torch.models.nerf import params_from_numpy
 from nerf_tpu_torch.ops import _ext, quant, ray_wgmma, render_kernel
 from nerf_tpu_torch.ops.mlp_kernel import PackedWeights, pack_params, skip_position
 from nerf_tpu_torch.ops.render_kernel import fused_render_samples_plain
+from nerf_tpu_torch.train.checkpoint import restore_bare_params
 
 VARIANTS = ["reference", "bmild"]
 MATRICES = ("w0", "wt", "wskip", "wbn", "wc0")
@@ -154,14 +158,11 @@ ROUTES = [0, quant.ROUTE_INT8, quant.ROUTE_INT16, quant.ROUTE_INT8_COMPUTE]
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("route", ROUTES)
 def test_kernel_library_by_route_and_form(route, form):
-    # the raw forms on every weight route go to that route's build of
-    # ray_wgmma.cu; the composited modes keep their build of render_samples.cu
+    # every form and mode on every weight route goes to that route's build
+    # of ray_wgmma.cu; the WMMA builds of render_samples.cu stay built
     lib = render_kernel.kernel_library(route, form == "composited")
-    if form != "composited":
-        assert lib == ray_wgmma.LIBRARIES[route] and lib.startswith("ray_wgmma")
-    else:
-        assert lib == render_kernel._LIBRARY[route] and lib.startswith("render_samples")
-    assert lib in _ext.LIBRARIES
+    assert lib == ray_wgmma.LIBRARIES[route] and lib.startswith("ray_wgmma")
+    assert lib in _ext.LIBRARIES and render_kernel._LIBRARY[route] in _ext.LIBRARIES
     assert ray_wgmma.LIBRARIES[0] == ray_wgmma.LIBRARY == "ray_wgmma"
 
 
@@ -201,9 +202,8 @@ def _weights_of_route(route, variant="reference", seed=0):
 @pytest.mark.parametrize("form", FORMS)
 def test_launch_reaches_the_library_of_the_rule(monkeypatch, form, depths, route):
     # _launch on each weight route, with the libraries replaced by
-    # recorders: the raw forms call the route's Hopper entry (and count
-    # wgmma_*), the composited modes the route's WMMA build; nothing else is
-    # called
+    # recorders: every form and mode calls the route's Hopper entry (and
+    # counts wgmma_*); nothing else is called
     calls = []
     monkeypatch.setattr(_ext, "load", lambda name: _Lib(name, calls))
     monkeypatch.setattr(ray_wgmma, "load", lambda name=ray_wgmma.LIBRARY: _Lib(name, calls))
@@ -217,13 +217,33 @@ def test_launch_reaches_the_library_of_the_rule(monkeypatch, form, depths, route
     before = dict(render_kernel.launches)
     render_kernel._launch(weights, ro, rd, 2.0, 6.0, S, tc, z_vals=z, **kw)
     fn = "render_samples" if z is None else "render_zvals"
-    if form == "composited":
-        assert calls == [f"{render_kernel._LIBRARY[route]}.ray_render"]
-        counted = {f"{fn}_composited"}
-    else:
-        assert calls == [f"{ray_wgmma.LIBRARIES[route]}.ray_wgmma_render"]
-        counted = {fn, "wgmma_samples" if z is None else "wgmma_zvals"}
-        counted |= {"raw_bf16"} if form == "raw_bf16" else {"planar"} if form == "planar" else set()
+    assert calls == [f"{ray_wgmma.LIBRARIES[route]}.ray_wgmma_render"]
+    counted = {f"{fn}_composited" if form == "composited" else fn,
+               "wgmma_samples" if z is None else "wgmma_zvals"}
+    counted |= {"raw_bf16"} if form == "raw_bf16" else {"planar"} if form == "planar" else set()
+    counted |= {quant.ROUTE_INT8_COMPUTE: {"int8"}, 0: set()}.get(route, {"dequant"})
+    moved = {k for k in before if render_kernel.launches[k] != before[k]}
+    assert moved == counted and all(render_kernel.launches[k] == before[k] + 1 for k in moved)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("depths", ["uniform", "per_ray"])
+def test_wmma_build_is_reached_only_when_named(monkeypatch, depths, route):
+    # library= names the route's WMMA build of render_samples.cu (chip_smoke's
+    # timings): its composited entry is called, the launch counts as the
+    # composited function's and its route's, and not as a Hopper launch
+    calls = []
+    monkeypatch.setattr(_ext, "load", lambda name: _Lib(name, calls))
+    monkeypatch.setattr(ray_wgmma, "load", lambda name=ray_wgmma.LIBRARY: _Lib(name, calls))
+    monkeypatch.setattr(_ext, "stream_ptr", lambda dev: ctypes.c_void_p(0))
+    weights, tc = _weights_of_route(route)
+    R, S = 3, 8
+    z = torch.linspace(2.0, 6.0, S).expand(R, S).contiguous() if depths == "per_ray" else None
+    before = dict(render_kernel.launches)
+    render_kernel._launch(weights, torch.zeros(R, 3), torch.ones(R, 3), 2.0, 6.0, S, tc,
+                          z_vals=z, composited=True, library=render_kernel._LIBRARY[route])
+    assert calls == [f"{render_kernel._LIBRARY[route]}.ray_render"]
+    counted = {"render_samples_composited" if z is None else "render_zvals_composited"}
     counted |= {quant.ROUTE_INT8_COMPUTE: {"int8"}, 0: set()}.get(route, {"dequant"})
     moved = {k for k in before if render_kernel.launches[k] != before[k]}
     assert moved == counted and all(render_kernel.launches[k] == before[k] + 1 for k in moved)
@@ -232,8 +252,8 @@ def test_launch_reaches_the_library_of_the_rule(monkeypatch, form, depths, route
 def test_hopper_library_refuses_what_it_does_not_compute(monkeypatch):
     packed, tc = _packed("reference")
     ro, rd = torch.zeros(3, 3), torch.ones(3, 3)
-    with pytest.raises(ValueError, match="raw output"):
-        render_kernel._launch(packed, ro, rd, 2.0, 6.0, 8, tc, composited=True,
+    with pytest.raises(ValueError, match="planar"):
+        render_kernel._launch(packed, ro, rd, 2.0, 6.0, 8, tc, composited=True, planar=True,
                               library=ray_wgmma.LIBRARY)
     q = quant.quantize_packed(packed, 8)
     with pytest.raises(ValueError, match="bf16 weights"):
@@ -480,3 +500,106 @@ def test_quantized_stream_renders_like_the_pallas_kernel(variant, bits, act_bits
             scale = max(float(np.abs(want[:, 0]).max()), 1.0)
             assert np.abs(got[:, 1:] - want[:, 1:]).max() < 2e-3
             assert np.abs(got[:, 0] - want[:, 0]).max() < 1e-2 * scale
+
+
+# -- the composited modes' schedule ------------------------------------------
+
+# (rays, grid): ray counts that fill no lane evenly, grids smaller than the
+# lanes the rays could fill (several rays a lane), and one of a ray a lane
+SCHEDULES = [(37, 3), (29, 5), (11, 6)]
+
+
+@pytest.mark.parametrize("S", [8, 64, 100, 192, 200])
+@pytest.mark.parametrize("rays,grid", SCHEDULES)
+def test_schedule_visits_every_row_once(rays, grid, S):
+    # each row of every ray in exactly one consumer's step, each lane's rows
+    # in order; a lane's rays differ from its block neighbour's by at most
+    # one, so their step counts by at most ceil(S / 64)
+    seen = np.zeros(rays * S, np.int64)
+    lanes = ray_wgmma.lane_rays(rays, 2 * grid)
+    assert lanes[0][0] == 0 and lanes[-1][1] == rays
+    assert all(a[1] == b[0] for a, b in zip(lanes, lanes[1:]))
+    for b, block in enumerate(ray_wgmma.composited_schedule(rays, S, grid)):
+        pair = lanes[2 * b:2 * b + 2]
+        steps = [ray_wgmma.lane_steps(r, S) for r in pair]
+        assert len(block) == max(steps) and abs(steps[0] - steps[1]) <= -(-S // 64)
+        for c, (begin, end) in enumerate(pair):
+            rows = [block[k][c] for k in range(len(block))]
+            at = begin * S
+            for k, (n0, stop) in enumerate(rows):
+                if k < steps[c]:
+                    assert n0 == at and stop == min(at + 64, end * S)
+                    seen[n0:stop] += 1
+                    at = stop
+                else:
+                    assert stop == n0           # a lane past its rows composites nothing
+            assert at == end * S
+    assert (seen == 1).all()
+
+
+def test_composited_grid_gives_two_lanes_a_block():
+    # one block an SM, but no more blocks than half the rays, rounded up
+    assert [ray_wgmma.composited_grid(r, 132) for r in (0, 1, 2, 3, 263, 264, 265, 16384)] == [
+        1, 1, 1, 2, 132, 132, 132, 132]
+    counts = [b - a for a, b in ray_wgmma.lane_rays(16384, 264)]
+    assert set(counts) == {62, 63} and sum(counts) == 16384
+    # the balance at the frames' chunk: 186 or 189 steps a lane at 192 depths
+    assert {ray_wgmma.lane_steps(r, 192) for r in ray_wgmma.lane_rays(16384, 264)} == {186, 189}
+    # the kernel's 32-bit form of a lane's first ray (csrc/ray_wgmma.cu
+    # lane_first_ray): L R // lanes = L q + L m // lanes with R = q lanes + m
+    for n_rays in (1, 7, 1001, 16384, 2 ** 31 - 1):
+        for lanes in (2, 6, 264):
+            q, m = divmod(n_rays, lanes)
+            assert [lane * q + lane * m // lanes for lane in range(lanes + 1)] == [
+                a for a, _ in ray_wgmma.lane_rays(n_rays, lanes)] + [n_rays]
+
+
+def _trained_rays(n, seed):
+    """Rays into the trained procedural scene: origins on a sphere of radius
+    4 looking at the centre, jittered."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = -o / 4.0 + rng.normal(size=(n, 3)) * 0.15
+    return torch.tensor(o, dtype=torch.float32), torch.tensor(d, dtype=torch.float32)
+
+
+@pytest.fixture(scope="module")
+def trained_packed():
+    """The trained reference network (float32 packing): opaque and clear
+    rays both, so the carries matter."""
+    path = Path(__file__).resolve().parents[1] / "results" / "convergence" / "final_params.npz"
+    cfg = default_config().model
+    fine = params_from_numpy(restore_bare_params(str(path))["fine"], "cpu")
+    return pack_params(fine, cfg, torch.float32), cfg
+
+
+@pytest.mark.parametrize("S", [8, 64, 100, 192, 200])
+@pytest.mark.parametrize("depths", ["uniform", "per_ray"])
+@pytest.mark.parametrize("rays,grid", SCHEDULES[:2])
+def test_scheduled_compositing_matches_the_plain_composited_modes(trained_packed, rays, grid,
+                                                                  depths, S):
+    # the plain compositing walked along the kernel's schedule (64-row steps
+    # of whole-ray lanes, 32-row pieces, carries through the lane's state)
+    # against fused_render_*_composited_plain on the same network: rgb,
+    # depth, acc and every weight within 1e-6 (float32 sums in another order)
+    packed, cfg = trained_packed
+    ro, rd = _trained_rays(rays, seed=S)
+    sent, eps = 1e10, 1e-10
+    if depths == "uniform":
+        raw = render_kernel.fused_render_samples_plain(packed, ro, rd, 2.0, 6.0, S, cfg)
+        z = render_kernel._uniform_z(2.0, 6.0, S, "cpu").expand(rays, S)
+        want = render_kernel.fused_render_samples_composited_plain(packed, ro, rd, 2.0, 6.0, S,
+                                                                   cfg, sent, eps)
+        got = ray_wgmma.composite_on_schedule_plain(raw, z, rd, grid, sent, eps,
+                                                    dz=(6.0 - 2.0) / (S - 1))
+    else:
+        z = torch.tensor(np.sort(np.random.default_rng(S).uniform(2.0, 6.0, (rays, S)), axis=1),
+                         dtype=torch.float32)
+        raw = render_kernel.fused_render_zvals_plain(packed, ro, rd, z, cfg)
+        want = render_kernel.fused_render_zvals_composited_plain(packed, ro, rd, z, cfg, sent, eps)
+        got = ray_wgmma.composite_on_schedule_plain(raw, z, rd, grid, sent, eps)
+    acc = want[0][:, 4]
+    assert float(acc.max()) > 0.5 and float(acc.min()) < 0.5    # opaque rays and clear ones
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), atol=1e-6, rtol=0)
