@@ -18,8 +18,9 @@ against the WMMA build it replaced), K6 planar compositor, K7 per-sample MLP
 on int8 and int16 weights (the same Hopper kernel in the build of each
 quantized route, timed against ``csrc/mlp_quant.cu``), the ray kernels on
 quantized weights (dequantized in the kernel), the int8-compute route (K8)
-in K7, K1 and K3, and the bf16 and planar raw outputs of K1 and K3 (B10).
-Then it drives each path of the port,
+in K7, K1 and K3, the bf16 and planar raw outputs of K1 and K3 (B10), and
+K3 at one depth per ray on every route (``c1_check``: the per-sample kernel
+of the route's build, then K2). Then it drives each path of the port,
 with every launch count set to 0 just before and read just after, and fails
 unless every kernel of the path ran its expected number of times:
 
@@ -38,6 +39,15 @@ unless every kernel of the path ran its expected number of times:
   ``CompressedEngine(bits=16)``;
 - ``mode_frames``: ``CudaEngine(raw_dtype="bfloat16")`` and
   ``CudaEngine(planar=True)`` in the hierarchical mode;
+- ``accel_frames``: ``AccelEngine`` in the benchmark mode at 16, 32 and 64
+  samples per ray (the occupancy grid, baked through K4 in the first frame's
+  warm frame, places the depths: K3 -> K2; ``accel_bake`` and
+  ``accel_depths`` hold the bake and the depths against their plain
+  versions), its fused frame at 64 (composited K3), and the uniform
+  benchmark frame at each count; both scored against float32 truth at 256
+  uniform samples (the accel frame no more than 0.5 dB under the uniform,
+  the JAX package's gate), and the accel frame against its plain versions
+  on the CPU on a copy of the card's grid (>= 40 dB);
 - ``train_steps``: ``NeRFTrainer`` on the procedural sphere scene at the
   default ``TrainConfig`` (2,048 rays, 64 + 128, bf16, jitter), full-width
   model from seed ``TRAIN_SEED``: 2 launches of K4 and 8 of each K5 kernel
@@ -139,6 +149,17 @@ TRAIN_SEED = 3                # both networks' densities are alive at this seed'
 LOSS_DROP = 0.75              # mean loss of the last 10 steps <= this x the first 10's
                               # (observed on the H100: 0.61, from 0.391 to 0.240)
 LOSS_TOL = 2e-2               # a loss through the kernels vs through bf16 autograd, relative
+ACCEL_SPP = (16, 32, 64)      # the accel frames' samples per ray
+TRUTH_SPP = 256               # the float32 truth the accel and uniform frames are scored against
+ACCEL_DB_MARGIN = 0.5         # accel PSNR >= uniform PSNR - this at each spp (the JAX
+                              # package's gate, tests/test_occupancy.py)
+BAKE_CHUNK = 1 << 18          # points per K4 launch of the grid bake (ops/occupancy.py)
+BAKE_F32_TOL = 0.1            # the bf16 bake vs float32 apply_nerf, relative to max sigma: bf16
+                              # activations through 8 layers (the CPU bake at G = 64 differs by
+                              # 3.6% of max sigma)
+BAKE_FLIPS = 0.01             # binary cells that flip at the threshold, share of occupied ones
+                              # (the CPU bake at G = 64: 46 of 37,166)
+Z_TOL = 1e-3                  # depths, card vs CPU: sample_pdf's sums in another order
 
 
 def emit(phase, **kw):
@@ -348,12 +369,12 @@ def main():
     from nerf_tpu_torch.config import default_config, bmild_config
     from nerf_tpu_torch.data.synthetic import make_procedural_dataset
     from nerf_tpu_torch.models.nerf import apply_nerf, init_nerf_params, params_from_numpy
-    from nerf_tpu_torch.ops import (_ext, composite_kernel, mlp_kernel, quant, ray_wgmma,
-                                    render_kernel, train_kernel)
+    from nerf_tpu_torch.ops import (_ext, composite_kernel, mlp_kernel, occupancy, quant,
+                                    ray_wgmma, render_kernel, train_kernel)
     from nerf_tpu_torch.ops.mlp_kernel import pack_params
     from nerf_tpu_torch.ops.quant import prune_params, quantize_model
-    from nerf_tpu_torch.render.engines import (CompressedEngine, CudaEngine, Int8ComputeEngine,
-                                               SharedModel, TorchEngine)
+    from nerf_tpu_torch.render.engines import (AccelEngine, CompressedEngine, CudaEngine,
+                                               Int8ComputeEngine, SharedModel, TorchEngine)
     from nerf_tpu_torch.render.pipeline import render_rays
     from nerf_tpu_torch.train.checkpoint import restore_bare_params
     from nerf_tpu_torch.train.trainer import NeRFTrainer
@@ -1254,6 +1275,71 @@ def main():
     quant_err = check_quant_kernels()
     torch.cuda.empty_cache()
 
+    def check_one_depth():
+        """K3 at one depth per ray (ROADMAP C1) on every weight route, both
+        variants, in every form: each ray one row of the route's per-sample
+        kernel, the composited form composited by K2. Held against K3's
+        plain version (the route's tolerance), the bf16 raw and the planes
+        against the float32 raw (bit-equal), the composited output against
+        plain compositing of the kernel's own raw (B9_TOL). Returns the
+        largest raw rgb error."""
+        cfg_bm = bmild_config()
+        seeded_bm = init_nerf_params(torch.Generator().manual_seed(1), cfg_bm.model, dev)
+        n_check = 1001
+        ro, rd = with_padding(*camera_rays(poses[0], focal, dev, n_check - 3, seed=0), 3)
+        z = 2.0 + 4.0 * torch.rand(n_check, 1, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(11))
+        sent, eps = rcfg.dist_sentinel, rcfg.transmittance_eps
+        worst = 0.0
+        for vname, mcfg, params in (("reference", cfg_ref.model, fine),
+                                    ("bmild", cfg_bm.model, seeded_bm)):
+            for route, bits, act_bits in (("bf16", None, None), *ROUTES):
+                w = (pack_params(params, mcfg, torch.bfloat16) if bits is None
+                     else quantized(params, mcfg, bits, act_bits))
+                tol = K8_TOL if act_bits else QUANT_TOL if bits else K1_TOL
+                before = read_counts()
+                raw = render_kernel.fused_render_zvals_raw(w, ro, rd, z, mcfg)
+                b16 = render_kernel.fused_render_zvals_raw(w, ro, rd, z, mcfg,
+                                                           raw_dtype=torch.bfloat16)
+                sg, pl = render_kernel.fused_render_zvals_planar(w, ro, rd, z, mcfg)
+                out, wts = render_kernel.fused_render_zvals_composited(
+                    w, ro, rd, z, mcfg, with_weights=True, sentinel=sent, eps=eps)
+                torch.cuda.synchronize()
+                moved = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
+                entry = "mlp_forward" if bits is None else "mlp_quant"
+                require(moved.get(entry) == 4 and moved.get("composite") == 1
+                        and not any(moved.get(k) for k in WGMMA) and not any(
+                            moved.get(k) for k in ("wgmma_zvals", "render_zvals_composited")),
+                        f"c1_check {route} {vname}: launches {moved}, expected 4 of {entry} "
+                        "and 1 of composite, no ray kernel")
+                require(all(bool(torch.isfinite(t).all()) for t in (raw, out, wts)),
+                        f"c1_check {route} {vname}: non-finite output")
+                plain = render_kernel.fused_render_zvals_plain(w, ro, rd, z, mcfg)
+                e_raw = rgb_sigma_err(raw, plain)[:2]
+                want_sg, want_pl = render_kernel.planes_of(raw)
+                planes_equal = torch.equal(sg, want_sg) and all(
+                    torch.equal(a, c) for a, c in zip(pl, want_pl))
+                bf16_exact = torch.equal(b16, raw.bfloat16())
+                e_comp = composited_err(out, wts, *composite_kernel.fused_volume_render_interleaved_plain(
+                    raw, z, rd, sent, eps))
+                emit("c1_check", route=route, variant=vname, rays=n_check, samples=1,
+                     entry=K4_KERNEL, library=render_kernel.kernel_library(
+                         0 if bits is None else quant.route_of(w), False),
+                     launches=moved, raw_vs_plain_errors=e_raw, tol=tol,
+                     bf16_raw_equals_rounded_f32_raw=bf16_exact,
+                     planes_bit_equal_to_deinterleaved_raw=planes_equal,
+                     composited_errors=e_comp, composited_tol=B9_TOL)
+                require(max(e_raw) <= tol, f"c1_check {route} {vname}: raw {e_raw} > {tol}")
+                require(bf16_exact and planes_equal,
+                        f"c1_check {route} {vname}: bf16 raw or planes differ from the raw")
+                require(max(e_comp) <= B9_TOL,
+                        f"c1_check {route} {vname}: composited {e_comp} > {B9_TOL}")
+                worst = max(worst, e_raw[0])
+        return worst
+
+    c1_err = check_one_depth()
+    torch.cuda.empty_cache()
+
     def time_quant_kernels():
         """Device ms per launch (torch.profiler) of every new kernel and route
         at the 16,384-ray chunk, beside the bf16 kernels on the same weights
@@ -1408,13 +1494,13 @@ def main():
     qfocal = focal_from_angle(qw, CAMERA_ANGLE_X)
     paths = {}            # path -> launches by kernel over its timed frames
 
-    def drive(engine, mode, name, expect, views=3):
+    def drive(engine, mode, name, expect, views=3, spp=SPP):
         """One warm frame, then the path: counts set to 0, ``views`` views,
         counts read. Requires ``expect[kernel]`` launches per chunk of every
         kernel (0 for the kernels the path must not run)."""
-        engine.render_image(poses[0], (W, H), SPP, focal=focal, mode=mode, monitor=True)
+        engine.render_image(poses[0], (W, H), spp, focal=focal, mode=mode, monitor=True)
         reset_counts()
-        frames = [engine.render_image(p, (W, H), SPP, focal=focal, mode=mode, monitor=True)
+        frames = [engine.render_image(p, (W, H), spp, focal=focal, mode=mode, monitor=True)
                   for p in poses[1:1 + views]]
         counts = read_counts()
         paths[name] = counts
@@ -1442,12 +1528,12 @@ def main():
                                 monitor=False).rgb
         return psnr(a, ref_rgb), float(np.abs(a - ref_rgb).max())
 
-    def frame_profile(engine, mode, expect):
+    def frame_profile(engine, mode, expect, spp=SPP):
         """Where one frame's device time goes; each kernel's device ms per
         launch is its total over the frame's launches (``expect``: launches
         per chunk by CUDA kernel name)."""
         traced, us, n = profile_frame(lambda: engine.render_image(
-            poses[2], (W, H), SPP, focal=focal, mode=mode, monitor=True))
+            poses[2], (W, H), spp, focal=focal, mode=mode, monitor=True))
         frame_ms = traced.stats.wall_time_s * 1e3
         busy_ms = sum(us.values()) / 1e3
         per_launch = {k: us[k] / n[k] / 1e3 for k in expect if n.get(k) == per_frame * expect[k]}
@@ -1654,10 +1740,162 @@ def main():
             f"planar frame differs from the interleaved one by "
             f"{mode_res['planar']['max_abs_err_vs_cuda_engine']}")
     emit("mode_frames", min_db=PSNR_MIN, psnr_resolution=[qw, qh], **mode_res)
-    del engine_u, engine, fused, ref_engine, eng16, shared_u
+
+    # -- path 7: the accel engine (benchmark mode: the occupancy grid, baked
+    #    once through K4 in the first frame's untimed warm frame, places the
+    #    depths; K3 -> K2, or the composited K3), and beside it the uniform
+    #    benchmark frame at the same sample counts
+    mcfg = cfg_ref.model
+    acc = AccelEngine(shared, chunk_rays=CHUNK)
+    grid_res = acc.grid_resolution
+    bake_launches = -(-grid_res ** 3 // BAKE_CHUNK)
+    reset_counts()
+    acc.render_image(poses[0], (W, H), ACCEL_SPP[0], focal=focal, monitor=True)
+    paths["accel_first_frame"] = first = read_counts()
+    require(first["mlp_forward"] == bake_launches and first["render_zvals"] == 2 * per_frame
+            and first["composite"] == 2 * per_frame and first["render_samples"] == 0,
+            f"accel: the first frame (warm + timed) launched {first}, expected "
+            f"{bake_launches} of K4 (the bake) and {2 * per_frame} of K3 and K2")
+
+    def bake():
+        """A fresh accel engine's bake, between two synchronize fences:
+        (grid, wall ms)."""
+        eng = AccelEngine(shared, chunk_rays=CHUNK)
+        eng.engine_params()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = eng.occupancy_grid()
+        torch.cuda.synchronize()
+        return grid, (time.perf_counter() - t0) * 1e3
+
+    _, bake_wall_ms = bake()
+    (_, bake_wall_profiled_ms), us_b, n_b = profile_frame(bake)
+    # the grid at full resolution through K4, against K4's plain version in
+    # bf16 and against the float32 apply_nerf, both on the card
+    packed_f = acc.engine_params()["fine"]
+    plain_k4 = lambda p, x, d, cfg, compute_dtype=None: (
+        lambda o: (o[:, 0], o[:, 1:4]))(mlp_kernel.fused_nerf_apply_plain(p, x, d, cfg))
+    dens = {name: occupancy.build_occupancy_grid(
+                p, mcfg, resolution=grid_res, aabb=acc.aabb, apply_fn=fn,
+                compute_dtype=torch.float32, store="density").occupancy
+            for name, p, fn in (("k4", packed_f, mlp_kernel.make_cuda_apply_fn(torch.bfloat16)),
+                                ("k4_plain", packed_f, plain_k4),
+                                ("apply_nerf_f32", fine, apply_nerf))}
+    th = acc.density_threshold
+    scale = dens["apply_nerf_f32"].max().item()
+    e_plain = (dens["k4"] - dens["k4_plain"]).abs().max().item() / scale
+    e_f32 = (dens["k4"] - dens["apply_nerf_f32"]).abs().max().item() / scale
+    occupied = int((dens["apply_nerf_f32"] > th).sum())
+    flips = int(((dens["k4"] > th) != (dens["apply_nerf_f32"] > th)).sum())
+    grid = acc.occupancy_grid()
+    emit("accel_bake", grid_resolution=grid_res, store=acc.grid_store,
+         points=grid_res ** 3, k4_launches=n_b.get(K4_KERNEL), expected_k4_launches=bake_launches,
+         k4_launches_in_first_frame=first["mlp_forward"],
+         device_ms=sum(us_b.values()) / 1e3, k4_device_ms=us_b.get(K4_KERNEL, 0.0) / 1e3,
+         device_ms_by_kernel={k: v / 1e3 for k, v in sorted(us_b.items(), key=lambda kv: -kv[1])},
+         wall_ms=bake_wall_ms, wall_ms_profiled=bake_wall_profiled_ms,
+         occupied_share=(dens["k4"] > th).float().mean().item(), threshold=th,
+         probe_grid_resolution=grid.resolution,
+         probe_grid_occupied_share=(grid.occupancy > th).float().mean().item(),
+         max_sigma=scale, k4_vs_plain_max_rel=e_plain, k4_vs_plain_tol=K1_TOL,
+         k4_vs_apply_nerf_f32_max_rel=e_f32, k4_vs_f32_tol=BAKE_F32_TOL,
+         binary_flips_vs_f32=flips, occupied_cells_f32=occupied, flips_tol=BAKE_FLIPS,
+         sigma_finite=bool(torch.isfinite(dens["k4"]).all()), nvidia_smi=smi)
+    require(n_b.get(K4_KERNEL) == bake_launches, f"accel bake: {n_b.get(K4_KERNEL)} K4 launches")
+    require(bool(torch.isfinite(dens["k4"]).all()), "accel bake: non-finite sigma")
+    require(e_plain <= K1_TOL, f"accel bake: K4 vs its plain version {e_plain} > {K1_TOL}")
+    require(e_f32 <= BAKE_F32_TOL and flips <= BAKE_FLIPS * occupied,
+            f"accel bake: K4 vs float32 apply_nerf {e_f32}, {flips} flips of {occupied}")
+    del dens
+
+    # the depths on the card against the same function on the CPU, at the
+    # first chunk of a frame (scanline order, as the engine's groups are)
+    ro_f, rd_f = generate_rays(poses[1], W, H, focal, dev)
+    ro_f, rd_f = ro_f.reshape(-1, 3)[:CHUNK].contiguous(), rd_f.reshape(-1, 3)[:CHUNK].contiguous()
+    grid_cpu = occupancy.OccupancyGrid(grid.occupancy.cpu(), grid.aabb_lo.cpu(),
+                                       grid.aabb_hi.cpu(), grid.resolution)
+    z_err = {}
+    for spp in ACCEL_SPP:
+        kw = dict(n_probe=acc.n_probe, ray_stride=acc.probe_ray_stride,
+                  weight_mode=acc.weight_mode)
+        zc = occupancy.grid_guided_z_vals(grid, ro_f, rd_f, rcfg.near, rcfg.far, spp, **kw)
+        zp = occupancy.grid_guided_z_vals(grid_cpu, ro_f.cpu(), rd_f.cpu(), rcfg.near, rcfg.far,
+                                          spp, **kw)
+        zc = zc.cpu()
+        z_err[spp] = dict(max_abs=(zc - zp).abs().max().item(),
+                          share_equal=(zc == zp).float().mean().item(),
+                          sorted=bool((zc[:, 1:] >= zc[:, :-1]).all()))
+        require(z_err[spp]["max_abs"] <= Z_TOL and z_err[spp]["sorted"],
+                f"accel depths at spp {spp}: card vs CPU {z_err[spp]}")
+    emit("accel_depths", rays=CHUNK, n_probe=acc.n_probe, ray_stride=acc.probe_ray_stride,
+         weight_mode=acc.weight_mode, card_vs_cpu=z_err, tol=Z_TOL)
+
+    # the frames, the profile of each, and their quality against float32
+    # truth at 256 uniform samples (the JAX suite's gt_quality_report): the
+    # accel frame and the uniform cuda frame at the same sample count; and
+    # the accel frame against the same engine's plain versions on the CPU,
+    # on a copy of the card's grid
+    truth = TorchEngine(SharedModel(f32(cfg_ref), dev).load(PARAMS),
+                        chunk_rays=4096).render_image(poses[1], (qw, qh), TRUTH_SPP, focal=qfocal,
+                                                      monitor=False).rgb
+    acc_cpu = AccelEngine(SharedModel(cfg_ref, "cpu").load(PARAMS), chunk_rays=CHUNK)
+    acc_cpu._grid = grid_cpu
+    accel_res, accel_small = {}, {}
+    for spp in ACCEL_SPP:
+        r = drive(acc, "benchmark", f"accel_{spp}",
+                  {"render_zvals": 1, "wgmma_zvals": 1, "composite": 1}, spp=spp)
+        per_launch, prof = frame_profile(acc, "benchmark",
+                                         {WGMMA["render_zvals"]: 1, "composite_kernel": 1}, spp)
+        glue = {k: v for k, v in prof["device_ms_by_kernel"].items()
+                if k not in (WGMMA["render_zvals"], "composite_kernel")}
+        r.update(profile=prof, k3_device_ms_per_launch=per_launch.get(WGMMA["render_zvals"]),
+                 glue_device_ms=sum(glue.values()), glue_device_ms_by_kernel=glue)
+        device_ms[f"accel_{spp} render_zvals"] = per_launch.get(WGMMA["render_zvals"])
+        u = drive(engine, "benchmark", f"uniform_{spp}",
+                  {"render_samples": 1, "wgmma_samples": 1, "composite": 1}, spp=spp)
+        small = {name: eng.render_image(poses[1], (qw, qh), spp, focal=qfocal,
+                                        monitor=False).rgb
+                 for name, eng in (("accel", acc), ("uniform", engine), ("plain", acc_cpu))}
+        accel_small[spp] = small["accel"]
+        r["psnr_db_vs_truth"], u["psnr_db_vs_truth"] = (psnr(small["accel"], truth),
+                                                        psnr(small["uniform"], truth))
+        r["psnr_db_vs_plain"] = psnr(small["accel"], small["plain"])
+        r["max_abs_err_vs_plain"] = float(np.abs(small["accel"] - small["plain"]).max())
+        r["uniform"] = {k: u[k] for k in ("ms_per_frame", "rays_per_s", "peak_device_mb",
+                                          "psnr_db_vs_truth")}
+        r["accel_minus_uniform_db"] = r["psnr_db_vs_truth"] - u["psnr_db_vs_truth"]
+        accel_res[spp] = r
+        require(r["psnr_db_vs_plain"] >= PSNR_MIN,
+                f"accel at spp {spp}: {r['psnr_db_vs_plain']} dB against its plain versions")
+        require(r["accel_minus_uniform_db"] >= -ACCEL_DB_MARGIN,
+                f"accel at spp {spp}: {r['psnr_db_vs_truth']} dB against the truth, uniform "
+                f"{u['psnr_db_vs_truth']} dB")
+    accf = AccelEngine(shared, chunk_rays=CHUNK, fuse_composite=True)
+    spp = ACCEL_SPP[-1]
+    rf = drive(accf, "benchmark", f"accel_fused_{spp}",
+               {"render_zvals_composited": 1, "wgmma_zvals": 1}, spp=spp)
+    per_launch, rf["profile"] = frame_profile(
+        accf, "benchmark", {WGMMA_COMPOSITED["render_zvals_composited"]: 1}, spp)
+    rf["k3_composited_device_ms_per_launch"] = per_launch.get(
+        WGMMA_COMPOSITED["render_zvals_composited"])
+    small = accf.render_image(poses[1], (qw, qh), spp, focal=qfocal, monitor=False).rgb
+    rf["psnr_db_vs_truth"] = psnr(small, truth)
+    rf["psnr_db_vs_accel_raw"] = psnr(small, accel_small[spp])
+    require(rf["psnr_db_vs_accel_raw"] >= PSNR_MIN,
+            f"fused accel at spp {spp}: {rf['psnr_db_vs_accel_raw']} dB against the raw one")
+    emit("accel_frames", scene="procedural sphere (final_params.npz)", truth_spp=TRUTH_SPP,
+         psnr_resolution=[qw, qh], db_margin=ACCEL_DB_MARGIN, min_db_vs_plain=PSNR_MIN,
+         grid_resolution=grid_res,
+         probe_grid_resolution=grid.resolution, n_probe=acc.n_probe,
+         ray_stride=acc.probe_ray_stride, weight_mode=acc.weight_mode, grid_store=acc.grid_store,
+         frames=accel_res, fused=rf, nvidia_smi=smi)
+    k3_bounds = {spp: bound_ms(k1_flops(mcfg, CHUNK, spp), 0,
+                               CHUNK * (6 + spp) * 4 + nbytes(*[t for t in packed_f if t is not None])
+                               + CHUNK * spp * 16)[0] for spp in ACCEL_SPP}
+    del engine_u, engine, fused, ref_engine, eng16, shared_u, acc, accf, acc_cpu, grid, grid_cpu
     torch.cuda.empty_cache()
 
-    # -- path 7: training (NeRFTrainer: K4 + K5 twice a step) ------------------
+    # -- path 8: training (NeRFTrainer: K4 + K5 twice a step) ------------------
     train_hw = (200, 200)
     ds = make_procedural_dataset(n_views=8, img_wh=train_hw)
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -1886,6 +2124,24 @@ def main():
     kernels[1]["at_192"] = {"call_ms": t_call["composite_192"],
                             "plain_ms": t_plain["composite_192"],
                             "bound_ms": bounds["composite_192"][0]}
+    # the accel engine's paths (its K3 at the accel frames' sample counts,
+    # K2 after it, K4 in its bake), and K3 at one depth per ray
+    accel_paths = lambda counter: {p: c[counter] for p, c in paths.items()
+                                   if p.startswith("accel")}
+    kernels[1]["launches_accel"] = accel_paths("composite")
+    kernels[4].update(launches_accel=accel_paths("render_zvals_composited"),
+                      at_accel={ACCEL_SPP[-1]: {"samples": ACCEL_SPP[-1],
+                                                "ms": rf["k3_composited_device_ms_per_launch"],
+                                                "ms_from": "profiler, in the fused accel frame"}})
+    kernels[2].update(
+        launches_accel=accel_paths("render_zvals"),
+        at_accel={spp: {"samples": spp, "ms": device_ms.get(f"accel_{spp} render_zvals"),
+                        "ms_from": "profiler, in the accel frame", "bound_ms": k3_bounds[spp],
+                        "launches": paths[f"accel_{spp}"]["render_zvals"]} for spp in ACCEL_SPP},
+        one_depth_per_ray={"entry": f"{K4_KERNEL} of the route's build, then composite_kernel",
+                           "routes": ["bf16", *(r for r, _, _ in ROUTES)],
+                           "forms": ["raw", "bf16 raw", "planar", "composited"],
+                           "max_abs_err": c1_err})
     # the kernels of the training slice, at the train step's fine pass
     # (393,216 samples) and at a 16,384 x 128 chunk of the uniform fine pass
     new_summary = (
@@ -1925,6 +2181,9 @@ def main():
         if name == "mlp_forward":
             c = new_times[name][N_COARSE_TRAIN]
             row["at_coarse_pass"]["wmma_ms"] = c["wmma_ms"]
+            row["launches_accel"] = accel_paths("mlp_forward")
+            row["accel_bake"] = {"points": grid_res ** 3, "launches": first["mlp_forward"],
+                                 "k4_device_ms": us_b.get(K4_KERNEL, 0.0) / 1e3}
             chunk = {f"{CHUNK}x{S}": {k: quant_times[f"mlp_forward bf16 x{S}"][k] for k in
                                       ("device_ms", "call_ms", "wmma_call_ms", "plain_ms")}
                      | {"bound_ms": quant_times[f"mlp_forward bf16 x{S}"]["bound"][0]}

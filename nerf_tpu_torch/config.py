@@ -3,10 +3,11 @@
 The port's own copy of what rendering and training need from
 ``nerf_tpu/config.py``: the model architecture, the sampling schedule and
 compositing constants, the optimization schedule and the run's directories,
-all with the same names and defaults, so one config dict (a checkpoint's
-``meta["config"]``) describes the same run to both packages. Occupancy-grid
-and mesh settings arrive with the slices that read them; ``from_dict``
-ignores them in a dict written by the JAX package.
+the occupancy-grid engine's scene constants, all with the same names and
+defaults, so one config dict (a checkpoint's ``meta["config"]``) describes
+the same run to both packages. The mesh settings and ``data_dir`` arrive
+with the slices that read them; ``from_dict`` ignores them in a dict written
+by the JAX package.
 """
 
 from __future__ import annotations
@@ -79,10 +80,27 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class AccelConfig:
+    """The occupancy-grid engine's scene constants (``AccelEngine``): the
+    JAX package's defaults, tuned there for an object inside a
+    ``[-1.5, 1.5]^3`` box. Per scene, not magic numbers."""
+
+    grid_resolution: int = 128
+    density_threshold: float = 5.0    # sigma above which a cell is occupied (binary store)
+    aabb: Tuple[float, float] = (-1.5, 1.5)   # scene bounds, the same on every axis
+    n_probe: int = 96                 # grid probes per ray that place the depths
+    probe_resolution: int = 64        # probe a max-pooled mip of this resolution; 0: the grid
+    grid_store: str = "density"       # "binary": thresholded {0, 1}; "density": relu(sigma)
+    weight_mode: str = "alpha"        # probe pdf: "occupancy", "alpha" or "transmittance"
+    probe_ray_stride: int = 4         # probe every k-th ray, its group shares the depths
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    accel: AccelConfig = field(default_factory=AccelConfig)
     checkpoint_dir: str = "checkpoints"
     output_dir: str = "outputs"
     img_wh: Tuple[int, int] = (800, 800)
@@ -102,9 +120,11 @@ class Config:
         top = {k: d[k] for k in ("checkpoint_dir", "output_dir") if k in d}
         if "img_wh" in d:
             top["img_wh"] = tuple(d["img_wh"])
+        accel = build(AccelConfig, d.get("accel"))
         return Config(model=build(ModelConfig, d.get("model")),
                       render=build(RenderConfig, d.get("render")),
-                      train=build(TrainConfig, d.get("train")), **top)
+                      train=build(TrainConfig, d.get("train")),
+                      accel=dataclasses.replace(accel, aabb=tuple(accel.aabb)), **top)
 
 
 def default_config() -> Config:

@@ -39,7 +39,9 @@ weight route, goes to the Hopper kernels of ``csrc/ray_wgmma.cu`` (warpgroup
 ``wgmma``, weights streamed by a producer warpgroup, persistent blocks; the
 weight stream is laid out once per set of weights, and the composited
 modes' schedule of whole rays per consumer is written out, by
-``ops/ray_wgmma.py``), built for the weights' route. The WMMA builds of
+``ops/ray_wgmma.py``), built for the weights' route; K3 at one depth per
+ray runs each ray as one row of the per-sample kernel of that build
+(``mlp_wgmma_kernel``), composited by K2. The WMMA builds of
 ``csrc/render_samples.cu`` they replaced are reached only through
 ``library=``, to time them beside the Hopper kernels.
 
@@ -68,7 +70,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from nerf_tpu_torch.config import ModelConfig, RenderConfig
-from nerf_tpu_torch.ops import _ext, quant, ray_wgmma
+from nerf_tpu_torch.ops import _ext, composite_kernel, mlp_kernel, quant, ray_wgmma
 from nerf_tpu_torch.ops.composite_kernel import fused_volume_render_interleaved_plain
 from nerf_tpu_torch.ops.mlp_kernel import (
     PackedWeights,
@@ -241,6 +243,9 @@ def _launch(packed, rays_o, rays_d, near, far, S,
     if lib_route != route:
         raise ValueError(f"{library} computes on {_WEIGHTS.get(lib_route, 'unknown')} weights, "
                          f"not on {_WEIGHTS[route]} ones")
+    if hopper and z_vals is not None and S == 1:
+        return _one_depth(packed, rays_o, rays_d, z_vals, cfg, composited, with_weights,
+                          sentinel, eps, raw_dtype, planar, dtype)
     rays_o = rays_o.contiguous()
     rays_d = rays_d.contiguous()
     if composited:
@@ -295,6 +300,25 @@ def _launch(packed, rays_o, rays_d, near, far, S,
     elif route:
         launches["dequant"] += 1
     return result
+
+
+def _one_depth(packed, rays_o, rays_d, z_vals, cfg, composited, with_weights, sentinel, eps,
+               raw_dtype, planar, dtype):
+    """K3 at one depth per ray, in every form: each ray is one row of the
+    per-sample kernel of the weights' route (``mlp_wgmma_kernel``, K4 / K7 /
+    K8, counted by ``mlp_kernel`` or ``quant``), composited by K2. The ray
+    kernels size their direction region for ``63 / S + 2`` rays a consumer,
+    which at S = 1 leaves the int16 and int8-compute builds too few ring
+    stages; the per-sample kernel reads a direction per row anyway."""
+    pos = rays_o + rays_d * z_vals                    # the plain version's o + d * z
+    if quant.is_quantized(packed):
+        raw = quant._launch(packed, pos, rays_d, cfg, dtype)
+    else:
+        raw = mlp_kernel._launch(packed, pos, rays_d, cfg)
+    if composited:
+        out, w = composite_kernel._launch(raw, z_vals, rays_d, sentinel, eps)
+        return out, (w if with_weights else None)
+    return planes_of(raw) if planar else raw.to(raw_dtype)
 
 
 def _packed(params, cfg: ModelConfig, dtype):

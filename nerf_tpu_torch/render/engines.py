@@ -28,12 +28,17 @@ at the merged, sorted ``n_coarse + n_fine`` depths):
   ray kernels dequantize on chip; its per-sample ``apply_fn`` is the
   dequantize-in-kernel MLP (``quantized_nerf_apply``, K7);
 - ``int8`` (``Int8ComputeEngine``): the compressed engine with ``act_bits=8``:
-  the trunk's products run as s8 x s8 -> s32 on the tensor cores (K8).
+  the trunk's products run as s8 x s8 -> s32 on the tensor cores (K8);
+- ``accel`` (``AccelEngine``): the cuda engine whose benchmark mode places
+  its depths from an occupancy grid (``ops/occupancy.py``), baked once
+  through K4: ``grid_guided_z_vals`` -> K3 -> K2 (composited K3 with
+  ``fuse_composite``).
 
-``ENGINE_CLASSES`` and ``available_engines`` are the registry of these four.
-A frame is cut into chunks of ``chunk_rays`` rays; the last chunk is padded
-with rays of zero origin and unit direction so every chunk has one shape.
-The accel engine (sample placement from an occupancy grid) is not ported yet.
+``ENGINE_CLASSES`` and ``available_engines`` are the registry of these five,
+named as the JAX package's (``torch`` and ``cuda`` for ``xla`` and
+``pallas``). A frame is cut into chunks of ``chunk_rays`` rays; the last
+chunk is padded with rays of zero origin and direction ``(1, 1, 1)`` so
+every chunk has one shape.
 """
 
 from __future__ import annotations
@@ -60,6 +65,12 @@ from nerf_tpu_torch.ops.composite_kernel import (
     fused_volume_render_interleaved,
 )
 from nerf_tpu_torch.ops.mlp_kernel import make_cuda_apply_fn, pack_params
+from nerf_tpu_torch.ops.occupancy import (
+    OccupancyGrid,
+    build_occupancy_grid,
+    downsample_grid,
+    grid_guided_z_vals,
+)
 from nerf_tpu_torch.ops.quant import make_quantized_apply_fn, quantize_model
 from nerf_tpu_torch.ops.render_kernel import (
     composited_to_outputs,
@@ -290,19 +301,24 @@ class CudaEngine(Engine):
         out_c, z_c = self._uniform(packed["coarse"], ro, rd, rcfg.n_coarse, rcfg, True)
         z_new = sample_pdf(z_c, out_c.weights, rcfg.n_fine, deterministic=True)
         z_f = torch.sort(torch.cat([z_c, z_new], dim=-1), dim=-1).values
+        return self._at_depths(packed["fine"], ro, rd, z_f, rcfg)
+
+    def _at_depths(self, packed, ro, rd, z, rcfg):
+        """One network at per-ray depths ``z [N, S]`` (K3), composited:
+        ``(rgb, depth)``."""
         mcfg, dt = self.cfg.model, self.compute_dtype
         if self.fuse_composite:
             out8 = fused_render_zvals_composited(
-                packed["fine"], ro, rd, z_f, mcfg, dtype=dt, sentinel=rcfg.dist_sentinel,
+                packed, ro, rd, z, mcfg, dtype=dt, sentinel=rcfg.dist_sentinel,
                 eps=rcfg.transmittance_eps)
             out = composited_to_outputs(out8, None, rcfg)
         elif self.planar:
-            sigma, planes = fused_render_zvals_planar(packed["fine"], ro, rd, z_f, mcfg, dtype=dt)
-            out = fused_volume_render(sigma, planes, z_f, rd, rcfg)
+            sigma, planes = fused_render_zvals_planar(packed, ro, rd, z, mcfg, dtype=dt)
+            out = fused_volume_render(sigma, planes, z, rd, rcfg)
         else:
-            raw = fused_render_zvals_raw(packed["fine"], ro, rd, z_f, mcfg, dtype=dt,
+            raw = fused_render_zvals_raw(packed, ro, rd, z, mcfg, dtype=dt,
                                          raw_dtype=self.raw_dtype)
-            out = fused_volume_render_interleaved(raw, z_f, rd, rcfg)
+            out = fused_volume_render_interleaved(raw, z, rd, rcfg)
         return out.rgb, out.depth
 
 
@@ -353,11 +369,75 @@ class Int8ComputeEngine(CompressedEngine):
         super().__init__(shared, chunk_rays, **kw)
 
 
+class AccelEngine(CudaEngine):
+    """Occupancy-grid sample placement (empty-space skipping): the cuda
+    engine whose benchmark mode places its ``samples_per_ray`` depths per
+    ray from a grid baked once, lazily (in the first frame, the untimed
+    warm frame under the monitor), from the fine network: ``grid_guided_z_vals``
+    -> K3 -> K2, or the composited K3 with ``fuse_composite``. The bake
+    evaluates ``relu(sigma)`` at every cell centre through K4 on the packed
+    fine network in bfloat16, whatever ``compute_dtype`` says (the JAX
+    engine's bake is bfloat16 too). The hierarchical mode is the cuda
+    engine's. Scene constants come from ``cfg.accel``; the constructor's
+    arguments override them."""
+
+    name = "accel"
+
+    def __init__(self, shared: Optional[SharedModel] = None, chunk_rays: int = 16384,
+                 grid_resolution: Optional[int] = None,
+                 density_threshold: Optional[float] = None,
+                 aabb: Optional[Tuple[float, float]] = None,
+                 n_probe: Optional[int] = None,
+                 probe_resolution: Optional[int] = None,
+                 probe_ray_stride: Optional[int] = None,
+                 grid_store: Optional[str] = None,
+                 weight_mode: Optional[str] = None, **kw):
+        super().__init__(shared, chunk_rays, **kw)
+        acfg = self.cfg.accel
+        self.grid_resolution = grid_resolution or acfg.grid_resolution
+        self.density_threshold = (acfg.density_threshold if density_threshold is None
+                                  else density_threshold)
+        self.aabb = tuple(aabb if aabb is not None else acfg.aabb)
+        self.n_probe = n_probe or acfg.n_probe
+        self.probe_resolution = (acfg.probe_resolution if probe_resolution is None
+                                 else probe_resolution)
+        self.probe_ray_stride = (acfg.probe_ray_stride if probe_ray_stride is None
+                                 else probe_ray_stride)
+        self.grid_store = grid_store or acfg.grid_store
+        self.weight_mode = weight_mode or acfg.weight_mode
+        self._grid: Optional[OccupancyGrid] = None
+
+    def occupancy_grid(self) -> OccupancyGrid:
+        """The grid the depths are placed from, baked on the first call:
+        the dilated mip when ``0 < probe_resolution < grid_resolution``."""
+        if self._grid is None:
+            fine = self.engine_params()["fine"]
+            if fine.w0.dtype != torch.bfloat16:
+                fine = pack_params(self.shared.params["fine"], self.cfg.model, torch.bfloat16)
+            grid = build_occupancy_grid(
+                fine, self.cfg.model, resolution=self.grid_resolution, aabb=self.aabb,
+                density_threshold=self.density_threshold,
+                apply_fn=make_cuda_apply_fn(torch.bfloat16), store=self.grid_store)
+            if self.probe_resolution and self.probe_resolution < grid.resolution:
+                grid = downsample_grid(grid, grid.resolution // self.probe_resolution)
+            self._grid = grid
+        return self._grid
+
+    def render_chunk(self, packed, ro, rd, spp, rcfg, mode):
+        if mode != "benchmark":
+            return super().render_chunk(packed, ro, rd, spp, rcfg, mode)
+        z = grid_guided_z_vals(self.occupancy_grid(), ro, rd, rcfg.near, rcfg.far, spp,
+                               n_probe=self.n_probe, ray_stride=self.probe_ray_stride,
+                               weight_mode=self.weight_mode)
+        return self._at_depths(packed["fine"], ro, rd, z, rcfg)
+
+
 ENGINE_CLASSES = {
     "torch": TorchEngine,
     "cuda": CudaEngine,
     "compressed": CompressedEngine,
     "int8": Int8ComputeEngine,
+    "accel": AccelEngine,
 }
 
 

@@ -18,7 +18,8 @@ from nerf_tpu.train.trainer import (
     init_train_state as jinit_train_state,
     make_ray_train_step as jmake_ray_train_step,
 )
-from nerf_tpu_torch.config import Config, ModelConfig, RenderConfig, TrainConfig, default_config
+from nerf_tpu_torch.config import (AccelConfig, Config, ModelConfig, RenderConfig, TrainConfig,
+                                   default_config)
 from nerf_tpu_torch.data.synthetic import make_procedural_dataset
 from nerf_tpu_torch.render.engines import SharedModel
 from nerf_tpu_torch.train import checkpoint as ckpt
@@ -196,10 +197,19 @@ def test_config_round_trips_and_reads_the_jax_dict():
                               train=TrainConfig(n_rays=512, seed=4))
     again = Config.from_dict(json.loads(json.dumps(cfg.to_dict())))
     assert again == cfg and again.img_wh == (64, 48)
-    # the JAX package's dict has sections the port does not (mesh, accel,
+    # the JAX package's dict has sections the port does not (mesh,
     # data_dir): they are ignored, the shared ones carry over
     jcfg = JConfig.from_dict(cfg.to_dict())
     assert Config.from_dict(jcfg.to_dict()) == cfg
     assert {f.name for f in dataclasses.fields(TrainConfig)} == {
         f.name for f in dataclasses.fields(type(jcfg.train))}
     assert TrainConfig() == TrainConfig(**dataclasses.asdict(JConfig().train))
+    # the accel section, its aabb a tuple again after JSON, with the JAX names
+    # and defaults
+    jacc = dataclasses.replace(jcfg, accel=dataclasses.replace(
+        jcfg.accel, aabb=(-2.0, 2.5), n_probe=48, grid_store="binary",
+        weight_mode="occupancy", probe_ray_stride=1, probe_resolution=0))
+    got = Config.from_dict(json.loads(json.dumps(jacc.to_dict()))).accel
+    assert dataclasses.asdict(got) == dataclasses.asdict(jacc.accel)
+    assert got.aabb == (-2.0, 2.5) and isinstance(got.aabb, tuple)
+    assert AccelConfig() == AccelConfig(**dataclasses.asdict(JConfig().accel))

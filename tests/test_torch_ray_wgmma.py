@@ -3,7 +3,8 @@
 bit for bit on every route, the producer's chunk schedule and its
 conversion of dequantize chunks, the int8-compute stream's row permutation
 against the s8 A fragments the consumers build, which library a launch
-reaches, the streamed weights rendering like the JAX Pallas kernel
+reaches (K3 at one depth per ray: the per-sample entry of the route's build,
+then K2), the streamed weights rendering like the JAX Pallas kernel
 (interpret mode), and the composited modes' schedule (whole rays per
 consumer lane, 64-row steps, the carried state) against the plain
 composited versions. The CUDA kernel itself (``csrc/ray_wgmma.cu``) runs only on
@@ -26,7 +27,7 @@ from nerf_tpu.ops import quant as jquant
 from nerf_tpu.ops.render_kernel import fused_render_samples as jfrs
 from nerf_tpu_torch.config import ModelConfig, default_config
 from nerf_tpu_torch.models.nerf import params_from_numpy
-from nerf_tpu_torch.ops import _ext, quant, ray_wgmma, render_kernel
+from nerf_tpu_torch.ops import _ext, composite_kernel, mlp_kernel, quant, ray_wgmma, render_kernel
 from nerf_tpu_torch.ops.mlp_kernel import PackedWeights, pack_params, skip_position
 from nerf_tpu_torch.ops.render_kernel import fused_render_samples_plain
 from nerf_tpu_torch.train.checkpoint import restore_bare_params
@@ -184,6 +185,9 @@ class _Lib:
         self.ray_render = _Fn(f"{name}.ray_render", calls)
         self.ray_wgmma_render = _Fn(f"{name}.ray_wgmma_render", calls)
         self.ray_wgmma_render.argtypes = ray_wgmma.ARGTYPES     # what ray_wgmma.load sets
+        self.mlp_wgmma_forward = _Fn(f"{name}.mlp_wgmma_forward", calls)
+        self.mlp_wgmma_forward.argtypes = ray_wgmma.SAMPLE_ARGTYPES
+        self.composite = _Fn(f"{name}.composite", calls)
 
 
 def _weights_of_route(route, variant="reference", seed=0):
@@ -224,6 +228,83 @@ def test_launch_reaches_the_library_of_the_rule(monkeypatch, form, depths, route
     counted |= {quant.ROUTE_INT8_COMPUTE: {"int8"}, 0: set()}.get(route, {"dequant"})
     moved = {k for k in before if render_kernel.launches[k] != before[k]}
     assert moved == counted and all(render_kernel.launches[k] == before[k] + 1 for k in moved)
+
+
+def _per_sample_counts():
+    return {"mlp_forward": mlp_kernel.launches, "composite": composite_kernel.launches,
+            **quant.launches, **render_kernel.launches}
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("form", FORMS)
+def test_one_depth_per_ray_takes_the_per_sample_entry(monkeypatch, form, route):
+    # K3 at S = 1: the ray kernels size their direction region for 63/S + 2
+    # rays a consumer, which leaves the int16 and int8-compute builds too few
+    # ring stages (ray_wgmma_render refuses the launch). On every route each
+    # ray is one row of the per-sample entry of the route's build (K4, K7 or
+    # K8), and the composited mode composites it with K2: no route calls
+    # ray_wgmma_render, and the launches count where those kernels count them
+    calls = []
+    monkeypatch.setattr(_ext, "load", lambda name: _Lib(name, calls))
+    monkeypatch.setattr(ray_wgmma, "load", lambda name=ray_wgmma.LIBRARY: _Lib(name, calls))
+    monkeypatch.setattr(_ext, "stream_ptr", lambda dev: ctypes.c_void_p(0))
+    weights, tc = _weights_of_route(route)
+    R = 5
+    z = torch.full((R, 1), 3.0)
+    kw = {"raw_f32": {}, "raw_bf16": {"raw_dtype": torch.bfloat16}, "planar": {"planar": True},
+          "composited": {"composited": True, "with_weights": True}}[form]
+    before = _per_sample_counts()
+    out = render_kernel._launch(weights, torch.zeros(R, 3), torch.ones(R, 3), 0.0, 0.0, 1, tc,
+                                z_vals=z, **kw)
+    want = [f"{ray_wgmma.LIBRARIES[route]}.mlp_wgmma_forward"]
+    assert calls == want + (["composite.composite"] if form == "composited" else [])
+    moved = {k: v - before[k] for k, v in _per_sample_counts().items() if v != before[k]}
+    counted = ({"mlp_forward": 1} if route == 0 else
+               {"mlp_quant": 1, "mlp_quant_int8": 1} if route == quant.ROUTE_INT8_COMPUTE else
+               {"mlp_quant": 1})
+    assert moved == {**counted, **({"composite": 1} if form == "composited" else {})}
+    shapes = {"raw_f32": [(R, 4)], "raw_bf16": [(R, 4)], "planar": [(R, 1)] * 4,
+              "composited": [(R, 8), (R, 1)]}[form]
+    flat = [out] if torch.is_tensor(out) else [out[0], *out[1]] if form == "planar" else list(out)
+    assert [tuple(t.shape) for t in flat] == shapes
+    assert flat[0].dtype == (torch.bfloat16 if form == "raw_bf16" else torch.float32)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("form", FORMS)
+def test_one_depth_per_ray_is_the_plain_k3(monkeypatch, form, route):
+    # the S = 1 route's own arithmetic (positions o + d z, the output forms,
+    # the composite of one sample), with the per-sample kernels and K2
+    # replaced by their plain versions: bit-equal to the plain versions of K3
+    monkeypatch.setattr(mlp_kernel, "_launch", lambda p, pos, d, cfg:
+                        mlp_kernel.fused_nerf_apply_plain(p, pos, d, cfg))
+    monkeypatch.setattr(quant, "_launch", lambda q, pos, d, cfg, dt:
+                        quant.quantized_nerf_apply_plain(q, pos, d, cfg, dt))
+    monkeypatch.setattr(composite_kernel, "_launch", lambda raw, z, d, s, e:
+                        composite_kernel.fused_volume_render_interleaved_plain(raw, z, d, s, e))
+    weights, tc = _weights_of_route(route, seed=4)
+    g = np.random.default_rng(4)
+    R = 37
+    ro = torch.from_numpy(g.uniform(-1.0, 1.0, (R, 3)).astype(np.float32))
+    rd = torch.from_numpy(g.normal(size=(R, 3)).astype(np.float32))
+    z = torch.from_numpy(g.uniform(2.0, 6.0, (R, 1)).astype(np.float32))
+    plain = render_kernel.fused_render_zvals_plain(weights, ro, rd, z, tc)
+    if form == "composited":
+        out, w = render_kernel._launch(weights, ro, rd, 0.0, 0.0, 1, tc, z_vals=z,
+                                       composited=True, with_weights=True)
+        want = render_kernel.fused_render_zvals_composited_plain(weights, ro, rd, z, tc)
+        torch.testing.assert_close(out, want[0], rtol=0, atol=0)
+        torch.testing.assert_close(w, want[1], rtol=0, atol=0)
+    elif form == "planar":
+        sigma, planes = render_kernel._launch(weights, ro, rd, 0.0, 0.0, 1, tc, z_vals=z,
+                                              planar=True)
+        want = render_kernel.planes_of(plain)
+        for a, b in zip((sigma, *planes), (want[0], *want[1])):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    else:
+        dt = torch.bfloat16 if form == "raw_bf16" else torch.float32
+        raw = render_kernel._launch(weights, ro, rd, 0.0, 0.0, 1, tc, z_vals=z, raw_dtype=dt)
+        torch.testing.assert_close(raw, plain.to(dt), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("route", ROUTES)
