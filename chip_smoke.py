@@ -60,7 +60,20 @@ unless every kernel of the path ran its expected number of times:
   which each network's ReLU'd density is positive before and after, and each
   network's loss. About half of all seeds start a network with a density of
   0 everywhere, in this package and in the JAX package alike (the density
-  head's initial weights against 256 non-negative inputs).
+  head's initial weights against 256 non-negative inputs);
+- ``suite``: ``UnifiedBenchmarkSuite`` with all five engines on the trained
+  weights, 200x150 and 800x600 at 32 and 64 samples, 2 orbit views: 40 rows,
+  all successful, finite, view 0 not degenerate; the exact launches of K1
+  (its dequantize and int8-compute routes among them), K2, K3 and K4 (the
+  accel bake) over the sweep, and none of the others; the CSV, the JSON and
+  the 40 PNGs, decoded here with ``zlib`` and equal to the frames; a
+  ``profile_trace`` of one frame; ``quality_report`` against the plain
+  ``torch`` engine (cuda and compressed >= 40 dB, int8 >= 30 dB in every
+  informative cell, every SSIM <= 1) and ``gt_quality_report`` against it
+  at 256 samples (accel no more than 0.5 dB under cuda at 16, 32, 64);
+- ``bench_cuda``: ``python3 bench_cuda.py`` in a child process: exit code 0,
+  one JSON line on stdout with its four keys and a positive value, its
+  stderr's bmild frame, and its ratio to the ``frame`` phase's rays/s.
 
 The frames use trained weights from ``results/convergence/final_params.npz``
 at 800x600 and are compared with the float32 plain PyTorch engine
@@ -75,9 +88,12 @@ import dataclasses
 import json
 import math
 import os
+import struct
 import subprocess
+import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -160,6 +176,21 @@ BAKE_F32_TOL = 0.1            # the bf16 bake vs float32 apply_nerf, relative to
 BAKE_FLIPS = 0.01             # binary cells that flip at the threshold, share of occupied ones
                               # (the CPU bake at G = 64: 46 of 37,166)
 Z_TOL = 1e-3                  # depths, card vs CPU: sample_pdf's sums in another order
+SUITE_RES = ((200, 150), (800, 600))   # the suite's sweep: 5 engines x 2 x 2 x 2 views = 40 rows
+SUITE_SPP = (32, 64)
+SUITE_VIEWS = 2
+# launches over the suite's sweep, by counter (every other counter 0; the
+# torch engine launches nothing). A kernel engine renders 66 chunks of
+# 16,384 rays a sample count: one warm frame per (mode, spp, chunk), and the
+# chunk is 16,384 at both sizes, so only 200 x 150 warms (2 chunks), then 2
+# views x 2 chunks at 200 x 150 and 2 views x 30 at 800 x 600; 132 over
+# both counts. K1 on cuda, compressed (dequantize route) and int8 (int8
+# compute); K3 on accel; K2 after each of the four; K4 the accel bake, once
+# (128^3 points, 262,144 a launch)
+SUITE_LAUNCHES = {"render_samples": 396, "wgmma_samples": 396, "dequant": 132, "int8": 132,
+                  "render_zvals": 132, "wgmma_zvals": 132, "composite": 528, "mlp_forward": 8}
+SUITE_DB = {"cuda": 40.0, "compressed": 40.0, "int8": 30.0}   # quality_report, every
+                              # informative cell against the torch engine (PERF.md section 2)
 
 
 def emit(phase, **kw):
@@ -339,6 +370,33 @@ def profiled_kernels_ms(fn, kernels, reps):
     return {k: {"ms": us[k] / reps / 1e3, "launches_per_call": n[k] // reps} for k in kernels}
 
 
+def decode_png(path):
+    """An 8-bit greyscale or RGB PNG without row filters, as the suite's
+    ``write_png`` writes them, decoded with ``zlib``; every chunk's CRC is
+    checked."""
+    with open(path, "rb") as f:
+        data = f.read()
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        require(struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] == zlib.crc32(kind + body),
+                f"{path}: bad CRC in {kind}")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color = header[:4]
+    require(depth == 8 and color in (0, 2), f"{path}: bit depth {depth}, color type {color}")
+    ch = 1 if color == 0 else 3
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * ch)
+    require(not rows[:, 0].any(), f"{path}: filtered rows")
+    img = rows[:, 1:].reshape(h, w, ch)
+    return img[..., 0] if ch == 1 else img
+
+
 def psnr(a, b):
     from nerf_tpu_torch.utils.metrics import psnr as psnr_db
 
@@ -373,13 +431,17 @@ def main():
                                     ray_wgmma, render_kernel, train_kernel)
     from nerf_tpu_torch.ops.mlp_kernel import pack_params
     from nerf_tpu_torch.ops.quant import prune_params, quantize_model
-    from nerf_tpu_torch.render.engines import (AccelEngine, CompressedEngine, CudaEngine,
-                                               Int8ComputeEngine, SharedModel, TorchEngine)
+    from nerf_tpu_torch.bench.suite import UnifiedBenchmarkSuite, summarize
+    from nerf_tpu_torch.render.engines import (ENGINE_CLASSES, AccelEngine, CompressedEngine,
+                                               CudaEngine, Int8ComputeEngine, SharedModel,
+                                               TorchEngine)
     from nerf_tpu_torch.render.pipeline import render_rays
     from nerf_tpu_torch.train.checkpoint import restore_bare_params
     from nerf_tpu_torch.train.trainer import NeRFTrainer
     from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
-    from nerf_tpu_torch.utils.cameras import focal_from_angle, generate_rays, spherical_pose
+    from nerf_tpu_torch.utils.cameras import (BENCHMARK_FOCAL, focal_from_angle, generate_rays,
+                                              orbit_poses, spherical_pose)
+    from nerf_tpu_torch.utils.monitor import profile_trace
     from nerf_tpu_torch.utils.rendering import sample_pdf
 
     dev = torch.device("cuda")
@@ -1547,9 +1609,9 @@ def main():
 
     # -- path 1: the benchmark frame (K1 -> K2) -------------------------------
     engine = CudaEngine(shared, chunk_rays=CHUNK)
-    emit("frame", mode="benchmark", samples=SPP, **drive(
-        engine, "benchmark", "benchmark",
-        {"render_samples": 1, "wgmma_samples": 1, "composite": 1}))
+    frame_res = drive(engine, "benchmark", "benchmark",
+                      {"render_samples": 1, "wgmma_samples": 1, "composite": 1})
+    emit("frame", mode="benchmark", samples=SPP, **frame_res)
     per_launch, prof = frame_profile(engine, "benchmark",
                                      {WGMMA["render_samples"]: 1, "composite_kernel": 1})
     emit("frame_profile", mode="benchmark", **prof)
@@ -2057,6 +2119,136 @@ def main():
          note="a record, not a check: nothing is required of this run's loss")
     require(all(np.isfinite(d_losses)), "train_default_seed: a non-finite loss")
     del default_trainer
+    torch.cuda.empty_cache()
+
+    # -- path 9: the unified benchmark suite (every engine, one report) -------
+    t_suite = time.perf_counter()
+    suite_dir = tempfile.mkdtemp(prefix="nerf_suite_")
+    suite = UnifiedBenchmarkSuite(cfg_ref, suite_dir, device=dev)
+    suite.add_available_renderers()
+    require(list(suite.engines) == list(ENGINE_CLASSES),
+            f"suite: engines {list(suite.engines)} registered, expected {list(ENGINE_CLASSES)}")
+    frames_seen = []      # (std, finite, rgb) of each frame the sweep renders, in its order
+    for eng in suite.engines.values():
+        def seen(*a, _render=eng.render_image, **k):
+            out = _render(*a, **k)
+            frames_seen.append((float(out.rgb.std()), bool(np.isfinite(out.rgb).all()
+                                                            and np.isfinite(out.depth).all()),
+                                out.rgb))
+            return out
+        eng.render_image = seen
+    reset_counts()
+    results = suite.run_benchmark(PARAMS, resolutions=SUITE_RES, samples=SUITE_SPP,
+                                  n_views=SUITE_VIEWS)
+    paths["suite"] = suite_counts = read_counts()
+    for eng in suite.engines.values():
+        del eng.render_image                  # the class's method again
+    n_rows = len(ENGINE_CLASSES) * len(SUITE_RES) * len(SUITE_SPP) * SUITE_VIEWS
+    failed = [(r.renderer_name, r.resolution, r.samples_per_ray, r.view_idx, r.error)
+              for r in results if not r.success]
+    require(not failed, f"suite: failed rows {failed}")
+    require(len(results) == n_rows == len(frames_seen),
+            f"suite: {len(results)} rows and {len(frames_seen)} frames, expected {n_rows}")
+    for k, n in suite_counts.items():
+        require(n == SUITE_LAUNCHES.get(k, 0),
+                f"suite: {k} launched {n} times, expected {SUITE_LAUNCHES.get(k, 0)}")
+    require(all(f[1] for f in frames_seen), "suite: a non-finite frame")
+    view0_std = {f"{r.renderer_name} {r.resolution[0]}x{r.resolution[1]}@{r.samples_per_ray}":
+                 f[0] for r, f in zip(results, frames_seen) if r.view_idx == 0}
+    require(min(view0_std.values()) > 0.05, f"suite: a degenerate view-0 frame {view0_std}")
+    sweep_s = time.perf_counter() - t_suite
+    # a profiler trace of one cuda frame through the monitor's helper
+    with profile_trace(os.path.join(suite_dir, "trace")) as prof_s:
+        suite.engines["cuda"].render_image(orbit_poses(SUITE_VIEWS)[0], SUITE_RES[0], SPP,
+                                           focal=BENCHMARK_FOCAL, monitor=False)
+        torch.cuda.synchronize()
+    with open(prof_s.trace_path) as f:
+        trace_events = json.load(f)["traceEvents"]
+    k1_events = sum(1 for e in trace_events if e.get("cat") == "kernel"
+                    and WGMMA["render_samples"] in e.get("name", ""))
+    require(k1_events > 0, f"suite: the trace holds no launch of {WGMMA['render_samples']}")
+    # the gates, at 200 x 150 with the lego camera's focal
+    gw, gh = SUITE_RES[0]
+    gfocal = focal_from_angle(gw, CAMERA_ANGLE_X)
+    quality = suite.quality_report(resolutions=[SUITE_RES[0]], spp=SPP, focal=gfocal,
+                                   reference_engine="torch", n_views=4)
+    gt = suite.gt_quality_report(resolution=SUITE_RES[0], gt_spp=TRUTH_SPP, spps=ACCEL_SPP,
+                                 focal=gfocal, gt_engine="torch", n_views=4,
+                                 engines=["cuda", "accel"])
+    paths_written = suite.generate_report(chart=False)
+    with open(paths_written["csv"]) as f:
+        csv_rows = f.read().splitlines()[1:]
+    with open(paths_written["json"]) as f:
+        report = json.load(f)
+    require(len(csv_rows) == len(report["results"]) == n_rows and report["quality"] == quality
+            and set(report["gt_quality"]) == {"_meta", "cuda", "accel"},
+            f"suite: {len(csv_rows)} CSV rows, {len(report['results'])} JSON rows, expected "
+            f"{n_rows}; JSON keys {list(report)}")
+    pngs = 0
+    for r, (_, _, rgb) in zip(results, frames_seen):
+        if r.view_idx:
+            continue
+        w_, h_ = r.resolution
+        stem = os.path.join(suite_dir, "sample_renders", r.renderer_name,
+                            f"view0_{w_}x{h_}_s{r.samples_per_ray}")
+        img, dimg = decode_png(stem + "_rgb.png"), decode_png(stem + "_depth.png")
+        require(np.array_equal(img, (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
+                and dimg.shape == (h_, w_), f"suite: {stem} PNGs differ from the frame")
+        pngs += 2
+    require(pngs == n_rows, f"suite: {pngs} PNGs, expected {n_rows}")
+    for name, q in quality.items():
+        require("error" not in q, f"suite quality: {name}: {q}")
+        require(all(c["ssim"] <= 1.0 for c in q["cells"].values()),
+                f"suite quality: {name}: an SSIM above 1")
+        if name in SUITE_DB:
+            require(q["psnr_db_min"] >= SUITE_DB[name],
+                    f"suite quality: {name} {q['psnr_db_min']} dB < {SUITE_DB[name]}")
+    require(set(quality) == set(ENGINE_CLASSES) - {"torch"}, f"suite quality: {list(quality)}")
+    for spp in ACCEL_SPP:
+        c, a = gt["cuda"][str(spp)], gt["accel"][str(spp)]
+        require("error" not in c and "error" not in a, f"suite gt: {c}, {a}")
+        require(c["ssim_vs_gt"] <= 1.0 and a["ssim_vs_gt"] <= 1.0, "suite gt: an SSIM above 1")
+        require(a["psnr_db_vs_gt"] >= c["psnr_db_vs_gt"] - ACCEL_DB_MARGIN,
+                f"suite gt at spp {spp}: accel {a['psnr_db_vs_gt']} dB, cuda {c['psnr_db_vs_gt']}")
+    full = [r for r in results if r.resolution == SUITE_RES[-1] and r.samples_per_ray == SPP]
+    summary = summarize(results)
+    per_engine = {name: dict(
+        rays_per_s_800x600_64=float(np.median([r.rays_per_second for r in full
+                                                if r.renderer_name == name])),
+        ms_800x600_64=[r.render_time_s * 1e3 for r in full if r.renderer_name == name],
+        peak_device_mb=summary[name]["peak_device_mb"],
+        peak_host_rss_mb=summary[name]["peak_host_rss_mb"]) for name in suite.engines}
+    emit("suite", engines=list(suite.engines), rows=len(results), views=SUITE_VIEWS,
+         resolutions=[list(r) for r in SUITE_RES], samples=list(SUITE_SPP),
+         launches=suite_counts, expected=SUITE_LAUNCHES, per_engine=per_engine,
+         view0_rgb_std=view0_std, pngs=pngs, csv_rows=len(csv_rows),
+         report_files=sorted(paths_written), trace_k1_launches=k1_events,
+         quality={k: {f: v[f] for f in ("psnr_db", "psnr_db_min", "ssim", "ssim_min",
+                                         "cells_aggregated")} for k, v in quality.items()},
+         quality_min_db=SUITE_DB, gt_quality=gt, gt_db_margin=ACCEL_DB_MARGIN,
+         sweep_seconds=sweep_s, seconds=time.perf_counter() - t_suite, nvidia_smi=smi)
+    del suite, frames_seen
+    torch.cuda.empty_cache()
+
+    # -- path 10: bench_cuda.py, the port's headline line ---------------------
+    t_bench = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_cuda.py")], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0,
+            f"bench_cuda.py exited {proc.returncode}: {proc.stderr[-3000:]}")
+    out_lines = proc.stdout.splitlines()
+    require(len(out_lines) == 1, f"bench_cuda.py printed {len(out_lines)} stdout lines")
+    line = json.loads(out_lines[0])
+    require(set(line) == {"metric", "value", "unit", "vs_baseline"}
+            and line["metric"] == "rays_per_second" and line["unit"] == "rays/s"
+            and line["value"] > 0, f"bench_cuda.py: {line}")
+    bmild_line = [ln for ln in proc.stderr.splitlines() if ln.startswith("bmild frame")]
+    require(len(bmild_line) == 1, f"bench_cuda.py: no bmild frame on stderr: {proc.stderr}")
+    emit("bench_cuda", line=line, bmild_frame=bmild_line[0],
+         stderr=[ln for ln in proc.stderr.splitlines() if ln.startswith(("device", "view"))],
+         frame_phase_rays_per_s=frame_res["rays_per_s"],
+         ratio_to_frame_phase=line["value"] / frame_res["rays_per_s"],
+         seconds=time.perf_counter() - t_bench, nvidia_smi=smi)
 
     # -- summary -------------------------------------------------------------
     no_library = "no single PyTorch call computes this function"

@@ -36,9 +36,10 @@ at the merged, sorted ``n_coarse + n_fine`` depths):
 
 ``ENGINE_CLASSES`` and ``available_engines`` are the registry of these five,
 named as the JAX package's (``torch`` and ``cuda`` for ``xla`` and
-``pallas``). A frame is cut into chunks of ``chunk_rays`` rays; the last
-chunk is padded with rays of zero origin and direction ``(1, 1, 1)`` so
-every chunk has one shape.
+``pallas``); each says in ``description`` which kernels it runs on the card,
+and ``device_info()`` labels its benchmark rows. A frame is cut into chunks
+of ``chunk_rays`` rays; the last chunk is padded with rays of zero origin
+and direction ``(1, 1, 1)`` so every chunk has one shape.
 """
 
 from __future__ import annotations
@@ -88,7 +89,7 @@ from nerf_tpu_torch.train.checkpoint import (
 )
 from nerf_tpu_torch.utils.cameras import BENCHMARK_FOCAL, generate_rays
 from nerf_tpu_torch.utils.device import resolve_device, torch_dtype
-from nerf_tpu_torch.utils.monitor import PerformanceMonitor, PerfStats
+from nerf_tpu_torch.utils.monitor import PerformanceMonitor, PerfStats, device_info_string
 from nerf_tpu_torch.utils.rendering import sample_pdf, sample_points_on_rays, volume_render
 
 
@@ -149,6 +150,7 @@ class Engine:
     """One execution method; subclasses implement ``render_chunk``."""
 
     name = "base"
+    description = "abstract"
 
     def __init__(self, shared: Optional[SharedModel] = None, chunk_rays: int = 16384):
         if shared is None:
@@ -159,6 +161,9 @@ class Engine:
         self.chunk_rays = chunk_rays
         self.compute_dtype = torch_dtype(self.cfg.train.compute_dtype)
         self._warmed: set = set()
+
+    def device_info(self) -> str:
+        return device_info_string(self.device)
 
     def engine_params(self):
         if self.shared.params is None:
@@ -221,6 +226,7 @@ class Engine:
 
 class TorchEngine(Engine):
     name = "torch"
+    description = "plain PyTorch: apply_nerf and volume_render, no kernel of the port"
 
     def render_chunk(self, params, ro, rd, spp, rcfg, mode):
         if mode == "hierarchical":
@@ -247,6 +253,8 @@ class CudaEngine(Engine):
     ``render_rays`` on uniform coarse and fine depths with K4 and K6."""
 
     name = "cuda"
+    description = ("Hopper ray kernel K1 (K3 at per-ray depths) -> compositor K2; "
+                   "uniform hierarchical K4 -> K6")
 
     def __init__(self, shared: Optional[SharedModel] = None, chunk_rays: int = 16384,
                  fuse_composite: bool = False, planar: bool = False,
@@ -330,6 +338,7 @@ class CompressedEngine(CudaEngine):
     (K7)."""
 
     name = "compressed"
+    description = "pruned intN weights dequantized inside K1/K3 (K7 per sample) -> K2"
 
     def __init__(self, shared: Optional[SharedModel] = None, chunk_rays: int = 16384,
                  bits: int = 8, prune_fraction: float = 0.1,
@@ -363,6 +372,7 @@ class Int8ComputeEngine(CompressedEngine):
     products with quantized activations; the heads stay in bf16."""
 
     name = "int8"
+    description = "int8 compute: s8 x s8 -> s32 trunk inside K1/K3 (K8) -> K2"
 
     def __init__(self, shared: Optional[SharedModel] = None, chunk_rays: int = 16384, **kw):
         kw.setdefault("act_bits", 8)
@@ -382,6 +392,7 @@ class AccelEngine(CudaEngine):
     arguments override them."""
 
     name = "accel"
+    description = "occupancy grid baked through K4 once; grid-guided depths -> K3 -> K2"
 
     def __init__(self, shared: Optional[SharedModel] = None, chunk_rays: int = 16384,
                  grid_resolution: Optional[int] = None,

@@ -1,27 +1,29 @@
-"""Frame timing and peak memory for ``Engine.render_image``.
+"""Frame timing, peak memory, device labels and profiler traces.
 
-Counterpart of ``PerfStats``/``PerformanceMonitor`` in
-``nerf_tpu/utils/monitor.py``, reduced to what the render needs: wall time
-between two ``torch.cuda.synchronize()`` fences, the peak of
-``torch.cuda.max_memory_allocated`` over the window as device memory, and
-the peak resident set of the process over the window as host memory. The
-resident set is polled from ``start`` to ``stop`` on a daemon thread at the
-JAX package's 10 ms cadence, read from ``/proc/self/statm`` (no ``psutil``
-needed), and once more at each end of the window, so a window shorter than
-the cadence still reads its own peak and never the process's lifetime
-peak. The profiler trace and device-info helpers arrive with the benchmark
-slice.
+Counterpart of ``nerf_tpu/utils/monitor.py``. ``PerformanceMonitor`` times
+a window between two ``torch.cuda.synchronize()`` fences and reads the peak
+of ``torch.cuda.max_memory_allocated`` over it as device memory
+(``device_peak_memory_mb``) and the peak resident set of the process over
+it as host memory. The resident set is polled from ``start`` to ``stop`` on
+a daemon thread at the JAX package's 10 ms cadence, read from
+``/proc/self/statm`` (no ``psutil`` needed), and once more at each end of
+the window, so a window shorter than the cadence still reads its own peak
+and never the process's lifetime peak. ``device_info_string`` labels
+benchmark rows; ``profile_trace`` writes a ``torch.profiler`` Chrome trace
+and, unlike the JAX helper, raises where tracing fails.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 _PAGE_BYTES = os.sysconf("SC_PAGE_SIZE")
 _POLL_S = 0.01        # the JAX package's cadence
@@ -81,10 +83,44 @@ class PerformanceMonitor:
         self._stop_evt.set()
         self._thread.join()
         self._sample()
-        if self._cuda():
-            peak = torch.cuda.max_memory_allocated(self.device) / 1e6
-            kind = torch.cuda.get_device_name(self.device)
-        else:
-            peak, kind = None, "cpu"
         return PerfStats(wall_time_s=wall, peak_host_rss_mb=self._peak_rss,
-                         peak_device_mb=peak, device_kind=kind)
+                         peak_device_mb=device_peak_memory_mb(self.device),
+                         device_kind=device_kind(self.device))
+
+
+def device_peak_memory_mb(device="cuda") -> Optional[float]:
+    """Peak bytes allocated on a CUDA device since its last reset, in MB
+    (10^6 bytes); None on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 1e6
+
+
+def device_kind(device="cuda") -> str:
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def device_info_string(device="cuda") -> str:
+    """Label for benchmark rows, as the JAX package's ``"{PLATFORM} -
+    {kind}"``: ``"CUDA - NVIDIA H100 80GB HBM3"``, ``"CPU - cpu"``."""
+    device = torch.device(device)
+    return f"{device.type.upper()} - {device_kind(device)}"
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str) -> Iterator[profile]:
+    """``with profile_trace(log_dir) as prof: ...`` profiles the block
+    (CPU activity, and CUDA activity where a card is present) and writes a
+    Chrome trace (chrome://tracing, Perfetto) to
+    ``log_dir/trace_<pid>_<ns>.json``, whose path it keeps in
+    ``prof.trace_path``. It raises where the profiler or the write fails."""
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.trace_path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(prof.trace_path)

@@ -6,7 +6,7 @@ sampling from coarse weights (``sample_pdf``, ``importance_sample``); and
 the compositor with a 1e10 sentinel last distance scaled by ``||d||``,
 ``alpha = 1 - exp(-relu(sigma) * dist)`` and exclusive cumulative-product
 transmittance with a ``+1e-10`` epsilon, with optional density noise during
-training.
+training; ``normalized_depth`` divides a map's depth by its opacity.
 """
 
 from __future__ import annotations
@@ -165,3 +165,11 @@ def volume_render(
     if cfg.white_background:
         rgb_map = rgb_map + (1.0 - acc_map[..., None])
     return RenderOutputs(rgb_map, depth_map, acc_map, weights)
+
+
+def normalized_depth(out: RenderOutputs, eps: float = 1e-6) -> torch.Tensor:
+    """Expected depth normalized by accumulated opacity, ``sum(w z) /
+    max(sum(w), eps)``: the documented depth of the reference, where
+    ``RenderOutputs.depth`` is the unnormalized ``sum(w z)`` its code
+    computes (background pixels read near the far plane, not 0)."""
+    return out.depth / torch.clamp(out.acc, min=eps)

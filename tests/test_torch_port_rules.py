@@ -1,4 +1,5 @@
-"""Rules of the port: no JAX in it, no CPU fallback in the chip smoke."""
+"""Rules of the port: no JAX in it, nothing the card's machine lacks, no CPU
+fallback in the chip smoke or the headline benchmark."""
 
 import ast
 import shutil
@@ -12,16 +13,23 @@ import torch
 from nerf_tpu_torch.ops import _ext
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "nerf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "nerf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                 ROOT / "bench_cuda.py"]
 FORBIDDEN = ("jax", "jaxlib", "nerf_tpu")
+ABSENT_ON_THE_CARD = ("pandas", "PIL", "psutil", "matplotlib")   # the card's machine lacks them
+BENCH_FILES = sorted((ROOT / "nerf_tpu_torch" / "bench").rglob("*.py")) + [ROOT / "bench_cuda.py"]
+
+
+def _imported_modules_of(node):
+    if isinstance(node, ast.Import):
+        yield from (a.name for a in node.names)
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+        yield node.module
 
 
 def _imported_modules(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
-        if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+        yield from _imported_modules_of(node)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -29,6 +37,18 @@ def test_port_imports_no_jax(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_needs_nothing_the_card_lacks(path):
+    # importing a module of the port needs none of them; the benchmark
+    # files use none but matplotlib, for the suite's chart, inside a function
+    tree = ast.parse(path.read_text(), str(path))
+    top = [m for node in tree.body for m in _imported_modules_of(node)
+           if m.split(".")[0] in ABSENT_ON_THE_CARD]
+    anywhere = [m for m in _imported_modules(path)
+                if m.split(".")[0] in ABSENT_ON_THE_CARD[:-1]] if path in BENCH_FILES else []
+    assert not top and not anywhere, f"{path.name} imports {top + anywhere}"
 
 
 def test_kernels_build_for_hopper_without_fast_math():
