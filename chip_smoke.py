@@ -52,9 +52,25 @@ unless every kernel of the path ran its expected number of times:
   default ``TrainConfig`` (2,048 rays, 64 + 128, bf16, jitter), full-width
   model from seed ``TRAIN_SEED``: 2 launches of K4 and 8 of each K5 kernel
   per step (passes of 65,536 samples), none of the WMMA K5, no render kernel; the loss must fall, and the first step's loss must match
-  the same step through bf16 autograd of ``apply_nerf``;
+  the same step through bf16 autograd of ``apply_nerf``; its ``train_epoch``
+  is a CUDA graph of 8 steps, and the ``apply_nerf`` trainer's two epochs
+  are one too (no kernel launched);
 - ``train_resume``: a checkpoint saved and restored into a fresh trainer,
   then one more step in both: parameters bit-equal;
+- ``train_graphed``: the train loop as CUDA graphs (``make_multi_train_step``
+  through ``NeRFTrainer._multi_step_fn``): two eager runs of 20 steps and two
+  calls of a 10-step graph from the same seed, all bit-equal (params, Adam
+  moments, counts, generator state, the 20 losses); then 200 steps as 20
+  fenced replays (ms per step, peak MB, the loss must fall), the 20
+  replays again, each under the profiler (2 K4, 8 K5a and 8 K5b a step by
+  kernel name: a replay advances no launch counter) and ``train_epoch`` (one chunk
+  of 8 a pass: the first eager, counted, then captured; the second a
+  replay, traced; 16 K4, 64 K5a, 64 K5b each);
+- ``train_streaming``: ``NeRFTrainer.train_streaming`` on the port's C++ ray
+  producer (``nerf_tpu_torch/runtime``), 200 steps at the default
+  ``TrainConfig``: ms per step, time blocked in ``next_batch``, the loss
+  must fall, two runs from one seed bit-equal, and ``assemble_tiles`` on a
+  frame equal to the numpy scatter;
 - ``train_default_seed``: the same steps from ``TrainConfig``'s default seed,
   as a record (nothing is required of its loss): the share of samples on
   which each network's ReLU'd density is positive before and after, and each
@@ -132,6 +148,7 @@ K4_DESIGN = ("the ray kernels' body (warpgroup wgmma m64n256k16 / m64n128k16, ac
              "direction term two m64n128k16 SS products of a per-row bf16 encoding tile with "
              "wdir, which the stream carries after wc0")
 K5_KERNELS = ("bwd_rows_wgmma_kernel", "wgrad_wgmma_kernel")   # K5a, K5b
+TRAIN_COUNTERS = {K4_KERNEL: "mlp_forward", K5_KERNELS[0]: "bwd_rows", K5_KERNELS[1]: "wgrad"}
 PSNR_MIN_INT8 = 30.0          # the int8-compute engine against the float32 engine (the JAX
                               # package's own bar for it: 20 dB)
 QUANT_TOL = 3e-2              # the quantized routes vs their plain versions: rgb abs, sigma
@@ -163,6 +180,8 @@ K5_MIN_TOL = 0.02             # worst leaf vs float32 autograd: max(2 x bf16 aut
 TRAIN_STEPS = 200             # 25 passes over 8 views
 TRAIN_SEED = 3                # both networks' densities are alive at this seed's start
 LOSS_DROP = 0.75              # mean loss of the last 10 steps <= this x the first 10's
+GRAPH_STEPS = 10              # steps in one CUDA graph of the train loop (train_epoch's chunk)
+GRAPH_REPLAYS = 20            # timed replays of it: 200 steps
                               # (observed on the H100: 0.61, from 0.391 to 0.240)
 LOSS_TOL = 2e-2               # a loss through the kernels vs through bf16 autograd, relative
 ACCEL_SPP = (16, 32, 64)      # the accel frames' samples per ray
@@ -1994,12 +2013,13 @@ def main():
     trainer = NeRFTrainer(tcfg, train_hw)
     require(trainer.device.type == "cuda", "the trainer is not on the card")
     torch.cuda.reset_peak_memory_stats()
+    at_reset_mb = torch.cuda.memory_allocated() / 2 ** 20    # the trainer's state and more
     reset_counts()
     losses, secs, _ = run_steps(trainer, TRAIN_STEPS - len(ds))
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20    # over the eager steps
     epoch_loss = trainer.train_epoch(ds)             # the loop a user calls: 8 more steps
     counts = read_counts()
     paths["train"] = counts
-    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     train_expect = {"mlp_forward": 2 * TRAIN_STEPS, "bwd_rows": K5_PASSES * TRAIN_STEPS,
                     "wgrad": K5_PASSES * TRAIN_STEPS}
     for k, n in counts.items():     # the WMMA K5 among the zeros
@@ -2028,7 +2048,12 @@ def main():
     plain_trainer = NeRFTrainer(tcfg, train_hw, apply_fn=apply_nerf)   # bf16 autograd, same seed
     reset_counts()
     plain_losses, plain_secs, _ = run_steps(plain_trainer, 24)
+    # its train_epoch: a CUDA graph of apply_nerf's 8 steps, then a replay of it
+    plain_epochs = [plain_trainer.train_epoch(ds) for _ in range(2)]
     require(sum(read_counts().values()) == 0, "the apply_nerf trainer launched a kernel")
+    require(plain_trainer.state.step == 24 + 2 * len(ds) and all(np.isfinite(plain_epochs)),
+            f"train: the apply_nerf trainer's epochs {plain_epochs} at step "
+            f"{plain_trainer.state.step}")
     first_rel = abs(losses[0] - plain_losses[0]) / abs(plain_losses[0])
 
     def trained_loss(apply_fn):
@@ -2047,10 +2072,12 @@ def main():
          steps=TRAIN_STEPS, rays_per_step=TRAIN_RAYS, samples=[SPP, N_FINE], compute="bfloat16",
          launches=counts, expected=train_expect,
          ms_per_step=step_ms, rays_per_s=TRAIN_RAYS / (step_ms / 1e3), peak_device_mb=peak_mb,
+         device_mb_at_reset=at_reset_mb,
          first_loss=losses[0], last_loss=losses[-1], last_epoch_mean_loss=epoch_loss,
          mean_loss_first10=first10, mean_loss_last10=last10, required_ratio=LOSS_DROP,
          apply_nerf_bf16_ms_per_step=float(np.median(plain_secs[5:])) * 1e3,
          apply_nerf_first_loss=plain_losses[0], first_loss_rel_diff=first_rel,
+         apply_nerf_graphed_epoch_losses=plain_epochs,
          trained_params_loss=loss_k, trained_params_loss_apply_nerf=loss_p,
          trained_params_loss_rel_diff=trained_rel, loss_tol=LOSS_TOL, seed=TRAIN_SEED,
          profile=train_profile, nvidia_smi=smi)
@@ -2081,6 +2108,291 @@ def main():
     os.remove(path)
     os.rmdir(ckpt_dir)
     del resumed
+
+    # -- train_graphed: the train loop as CUDA graphs (make_multi_train_step) ---
+    t_graphed = time.perf_counter()
+    train_focal = float(ds.focal)
+    order = torch.tensor([k % len(ds) for k in range(2 * GRAPH_STEPS)], device=dev)
+
+    def train_snapshot(t):
+        opt = t.state.optimizer
+        return {"params": [x.detach().clone() for x in t.state.leaves()],
+                "mu": [x.clone() for x in opt.mu], "nu": [x.clone() for x in opt.nu],
+                "counts": [opt.count, int(opt.device_count), t.state.step],
+                "generator": t.generator.get_state()}
+
+    def train_equal(a, b):
+        """Group -> whether two snapshots are bit-equal in it."""
+        out = {g: all(torch.equal(x, y) for x, y in zip(a[g], b[g]))
+               for g in ("params", "mu", "nu")}
+        out.update(counts=a["counts"] == b["counts"],
+                   generator=torch.equal(a["generator"], b["generator"]))
+        return out
+
+    def eager_twenty():
+        t = NeRFTrainer(tcfg, train_hw)
+        im, po = t._device_dataset(ds)
+        losses = [t.step_fn(t.state, im[i], po[i], train_focal, t.generator)["loss"]
+                  for i in order.tolist()]
+        return train_snapshot(t), torch.stack(losses)
+
+    def steps_of(n):
+        """The K4 / K5a / K5b launches of ``n`` train steps, by counter."""
+        return {"mlp_forward": 2 * n, "bwd_rows": K5_PASSES * n, "wgrad": K5_PASSES * n}
+
+    def traced(fn):
+        """``(fn(), device us by kernel, launches by kernel, K4 / K5a / K5b
+        launches by counter)`` of one call under the profiler. A graph's
+        replays advance no counter (a wrapper counts a launch that ran, and
+        a capture only records them), so their launches come from the trace."""
+        res, us, n = profile_frame(fn)
+        return res, us, n, {c: n.get(k, 0) for k, c in TRAIN_COUNTERS.items()}
+
+    def check_launches(want, got, what):
+        for k in set(want) | set(got):
+            require(got.get(k, 0) == want.get(k, 0),
+                    f"train_graphed: {k} launched {got.get(k, 0)} times in {what}, "
+                    f"expected {want.get(k, 0)}")
+
+    reset_counts()
+    (snap_a, loss_a), (snap_b, loss_b) = eager_twenty(), eager_twenty()
+    graphed = NeRFTrainer(tcfg, train_hw)
+    im_g, po_g = graphed._device_dataset(ds)
+    multi = graphed._multi_step_fn(GRAPH_STEPS)
+    halves = (order[:GRAPH_STEPS], order[GRAPH_STEPS:])
+    # the first call: eager on a side stream, then captured; the second a replay
+    metrics_g = [multi(graphed.state, im_g[halves[0]], po_g[halves[0]], train_focal,
+                       graphed.generator)]
+    im_h, po_h = im_g[halves[1]], po_g[halves[1]]
+
+    def replay_gate():
+        out = multi(graphed.state, im_h, po_h, train_focal, graphed.generator)
+        torch.cuda.synchronize()
+        return out
+
+    replayed, _, _, gate_traced = traced(replay_gate)
+    metrics_g.append(replayed)
+    loss_g = torch.cat([m["loss"] for m in metrics_g])
+    snap_g = train_snapshot(graphed)
+    gate_counts = read_counts()
+    eager_vs_eager = {**train_equal(snap_a, snap_b), "losses": torch.equal(loss_a, loss_b)}
+    graphed_vs_eager = {**train_equal(snap_a, snap_g), "losses": torch.equal(loss_a, loss_g)}
+    del graphed, multi, im_h, po_h
+
+    # (b) 200 steps as replays of one graph of 10, each call fenced
+    looped = NeRFTrainer(tcfg, train_hw)
+    im_l, po_l = looped._device_dataset(ds)
+    multi = looped._multi_step_fn(GRAPH_STEPS)
+
+    def chunk(c):
+        """The images and poses of the ``c``-th 10 steps, each view in turn."""
+        idx = torch.tensor([(c * GRAPH_STEPS + k) % len(ds) for k in range(GRAPH_STEPS)],
+                           device=dev)
+        return im_l[idx], po_l[idx]
+
+    chunks = [chunk(c) for c in range(1, GRAPH_REPLAYS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    graph_at_reset_mb = torch.cuda.memory_allocated() / 2 ** 20
+    reserved_before_mb = torch.cuda.memory_reserved() / 2 ** 20
+    reset_counts()
+    graph_losses = [multi(looped.state, *chunk(0), train_focal, looped.generator)["loss"]]
+    replay_s = []
+    for im_c, po_c in chunks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph_losses.append(multi(looped.state, im_c, po_c, train_focal, looped.generator)["loss"])
+        torch.cuda.synchronize()
+        replay_s.append(time.perf_counter() - t0)
+    graph_counts = read_counts()         # the first call's eager steps; replays count nothing
+    graph_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    graph_losses = torch.cat(graph_losses).tolist()
+    n_graph_steps = (GRAPH_REPLAYS + 1) * GRAPH_STEPS
+    graph_ms = float(np.median(replay_s)) * 1e3 / GRAPH_STEPS
+    g_first10, g_last10 = float(np.mean(graph_losses[:10])), float(np.mean(graph_losses[-10:]))
+    replayed_first10 = float(np.mean(graph_losses[GRAPH_STEPS:GRAPH_STEPS + 10]))
+
+    # the same 20 replays again under the profiler, untimed by the table: their
+    # launches by kernel name, the device's share of them. One trace a
+    # replay: a trace of all 20 (58,000 kernels) dropped 3 of 1,600 K5a and
+    # K5b records on the H100
+    def fenced_replay(im_c, po_c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multi(looped.state, im_c, po_c, train_focal, looped.generator)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    prof_calls_ms, us_g, n_g, graph_traced = [], {}, {}, {}
+    for im_c, po_c in chunks:
+        ms, us, n, by_counter = traced(lambda: fenced_replay(im_c, po_c))
+        prof_calls_ms.append(ms)
+        for total, part in ((us_g, us), (n_g, n), (graph_traced, by_counter)):
+            for k, v in part.items():
+                total[k] = total.get(k, 0) + v
+    traced_steps = GRAPH_REPLAYS * GRAPH_STEPS
+    paths["train_graphed"] = {k: v + graph_traced.get(k, 0) for k, v in graph_counts.items()}
+    busy_g = sum(us_g.values()) / 1e3
+    top_g = sorted(us_g.items(), key=lambda kv: -kv[1])
+    per_step_launches = {k: n_g.get(k, 0) / traced_steps for k in (K4_KERNEL, *K5_KERNELS)}
+    graph_profile = dict(
+        replays=GRAPH_REPLAYS, traces=len(prof_calls_ms),
+        call_ms_median=float(np.median(prof_calls_ms)),
+        device_busy_ms_per_step=busy_g / traced_steps,
+        device_idle_share=1.0 - busy_g / sum(prof_calls_ms),
+        device_kernels_per_step=sum(n_g.values()) / traced_steps,
+        launches=graph_traced, launches_per_step=per_step_launches,
+        device_ms_per_step_by_kernel={k: v / 1e3 / traced_steps for k, v in top_g[:12]},
+        device_ms_per_step_other=sum(v for _, v in top_g[12:]) / 1e3 / traced_steps)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    graph_pool_mb = torch.cuda.memory_reserved() / 2 ** 20 - reserved_before_mb
+
+    # (c) train_epoch itself: one chunk of 8 a pass, eager then captured on the
+    # first pass (counted; no capture runs under the profiler), a replay on
+    # the second (traced); its graph shares the trainer's pool with the graph
+    # of 10
+    epochs = []
+    for replay in (False, True):
+        reset_counts()
+        step0 = looped.state.step
+        if replay:
+            epoch_loss, _, _, epoch_traced = traced(lambda: looped.train_epoch(ds))
+        else:
+            epoch_loss, epoch_traced = looped.train_epoch(ds), None
+        epochs.append({"loss": epoch_loss, "steps": looped.state.step - step0,
+                       "launches_counted": {k: v for k, v in read_counts().items() if v},
+                       "launches_traced": epoch_traced})
+    torch.cuda.empty_cache()
+    second_graph_pool_mb = (torch.cuda.memory_reserved() / 2 ** 20 - reserved_before_mb
+                            - graph_pool_mb)
+    del chunks, im_c, po_c
+    emit("train_graphed", steps_per_graph=GRAPH_STEPS, replays=GRAPH_REPLAYS,
+         eager_vs_eager_bit_equal=eager_vs_eager, graphed_vs_eager_bit_equal=graphed_vs_eager,
+         gate_losses=loss_g.tolist(), gate_launches_counted=gate_counts,
+         gate_launches_traced=gate_traced,
+         ms_per_step=graph_ms, replay_ms=[t * 1e3 for t in replay_s],
+         rays_per_s=TRAIN_RAYS / (graph_ms / 1e3), eager_ms_per_step=step_ms,
+         eager_over_graphed=step_ms / graph_ms, peak_device_mb=graph_peak_mb,
+         eager_peak_device_mb=peak_mb, device_mb_at_reset=graph_at_reset_mb,
+         peak_over_reset_mb=graph_peak_mb - graph_at_reset_mb,
+         eager_peak_over_reset_mb=peak_mb - at_reset_mb,
+         reserved_growth_graph_of_10_mb=graph_pool_mb,
+         reserved_growth_then_graph_of_8_mb=second_graph_pool_mb,
+         launches_counted=graph_counts, launches_traced=graph_traced,
+         launches=paths["train_graphed"],
+         launches_note="counted: the first call's eager steps; traced: the 20 replays run "
+                       "again under the profiler (a replay advances no counter)",
+         steps=n_graph_steps, mean_loss_first10=g_first10, mean_loss_last10=g_last10,
+         mean_loss_first10_replayed=replayed_first10, required_ratio=LOSS_DROP,
+         profile=graph_profile, train_epoch=epochs,
+         seed=TRAIN_SEED, seconds=time.perf_counter() - t_graphed, nvidia_smi=smi)
+    require(all(eager_vs_eager.values()),
+            f"train_graphed: two eager runs of 20 steps differ ({eager_vs_eager}): a kernel of "
+            "the step is not deterministic")
+    require(all(graphed_vs_eager.values()),
+            f"train_graphed: two calls of a 10-step graph differ from 20 eager steps "
+            f"({graphed_vs_eager})")
+    check_launches(steps_of(5 * GRAPH_STEPS), gate_counts,
+                   "the gate's counted 50 steps (2 x 20 eager, the graph's first call)")
+    check_launches(steps_of(GRAPH_STEPS), gate_traced, "the gate's replay (traced)")
+    check_launches(steps_of(GRAPH_STEPS), graph_counts, "the graph's first call")
+    check_launches(steps_of(traced_steps), graph_traced, f"{GRAPH_REPLAYS} replays (traced)")
+    check_launches(steps_of(len(ds)), epochs[0]["launches_counted"],
+                   "the first epoch of 8 (eager, then captured)")
+    check_launches({}, epochs[1]["launches_counted"], "the second epoch of 8 (a replay)")
+    check_launches(steps_of(len(ds)), epochs[1]["launches_traced"],
+                   "the second epoch of 8 (traced)")
+    require(all(e["steps"] == len(ds) and np.isfinite(e["loss"]) for e in epochs)
+            # the traced replays took as many steps again
+            and looped.state.step == n_graph_steps + traced_steps + 2 * len(ds)
+            and all(np.isfinite(graph_losses)),
+            f"train_graphed: step count {looped.state.step} or a non-finite loss")
+    require(g_last10 <= LOSS_DROP * g_first10,
+            f"train_graphed: mean loss of the last 10 steps {g_last10} vs the first 10 {g_first10}")
+    require(per_step_launches == {K4_KERNEL: 2, K5_KERNELS[0]: K5_PASSES, K5_KERNELS[1]: K5_PASSES},
+            f"train_graphed: the traced replays launched {per_step_launches} per step")
+    del looped, multi
+    torch.cuda.empty_cache()
+
+    # -- train_streaming: batches from the port's C++ producer (runtime) -------
+    from nerf_tpu_torch import runtime
+
+    t_stream = time.perf_counter()
+    runtime.load_library()               # g++ builds it here, outside the timed steps
+    runtime_build_s = time.perf_counter() - t_stream
+
+    def timed_stream():
+        """A fresh trainer's 200 streamed steps, the loss read once at the end:
+        (trainer, last loss, wall ms a step, process CPU ms a step)."""
+        t = NeRFTrainer(tcfg, train_hw)
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        last = t.train_streaming(ds, TRAIN_STEPS, log_every=TRAIN_STEPS, log_fn=lambda m: None)
+        torch.cuda.synchronize()
+        return (t, last, (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS,
+                (time.process_time() - c0) * 1e3 / TRAIN_STEPS)
+
+    reset_counts()
+    streamer, stream_last, stream_ms, stream_cpu_ms = timed_stream()
+    stream_counts = read_counts()
+    paths["train_streaming"] = stream_counts
+    stream_blocked = streamer.sampler_blocked_s
+    # the same run once more in this process: the spread of the unfenced step
+    # within one call (runs of one commit read 8.7 to 13.6 ms between calls)
+    again, again_last, again_ms, again_cpu_ms = timed_stream()
+    again_equal = again_last == stream_last and all(
+        torch.equal(x, y) for x, y in zip(streamer.state.leaves(), again.state.leaves()))
+    del again
+    # the same run again, its loss read at every step: the per-step losses, and
+    # a run from one seed is bit-equal (the two pinned buffers in turn hold)
+    logged = NeRFTrainer(tcfg, train_hw)
+    lines = []
+    t0 = time.perf_counter()
+    logged_last = logged.train_streaming(ds, TRAIN_STEPS, log_every=1, log_fn=lines.append)
+    logged_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    stream_losses = [float(line.rsplit("loss=", 1)[1]) for line in lines]
+    s_first10, s_last10 = float(np.mean(stream_losses[:10])), float(np.mean(stream_losses[-10:]))
+    stream_equal = stream_last == logged_last and all(
+        torch.equal(x, y) for x, y in zip(streamer.state.leaves(), logged.state.leaves()))
+    # assemble_tiles on one frame: the trained streamer's view 0 in 4,096-ray tiles
+    rgb_view, _ = streamer.render_image(streamer.state.params, ds.poses[0], train_hw, train_focal)
+    frame_np = rgb_view.reshape(-1, 3).cpu().numpy()
+    offsets = list(range(0, frame_np.shape[0], 4096))
+    tiles = [frame_np[o:o + 4096] for o in offsets]
+    scatter = np.zeros_like(frame_np)
+    for t, o in zip(tiles, offsets):
+        scatter[o:o + len(t)] = t
+    tiled = runtime.assemble_tiles(tiles, offsets, frame_np.shape[0], 3)
+    tiles_equal = bool(np.array_equal(tiled, scatter) and np.array_equal(tiled, frame_np))
+    stream_expect = {"mlp_forward": 2 * TRAIN_STEPS, "bwd_rows": K5_PASSES * TRAIN_STEPS,
+                     "wgrad": K5_PASSES * TRAIN_STEPS}
+    emit("train_streaming", steps=TRAIN_STEPS, rays_per_step=TRAIN_RAYS,
+         ms_per_step=stream_ms, rays_per_s=TRAIN_RAYS / (stream_ms / 1e3),
+         process_cpu_ms_per_step=stream_cpu_ms, ms_per_step_second_run=again_ms,
+         process_cpu_ms_per_step_second_run=again_cpu_ms,
+         next_batch_blocked_s=stream_blocked, ms_per_step_loss_read_each_step=logged_ms,
+         next_batch_blocked_s_loss_read_each_step=logged.sampler_blocked_s,
+         last_loss=stream_last, mean_loss_first10=s_first10, mean_loss_last10=s_last10,
+         required_ratio=LOSS_DROP, two_runs_bit_equal=stream_equal,
+         third_run_bit_equal=again_equal, launches=stream_counts,
+         expected=stream_expect, assemble_tiles_bit_equal=tiles_equal, tiles=len(tiles),
+         eager_ms_per_step=step_ms, seed=TRAIN_SEED, runtime_build_s=runtime_build_s,
+         runtime_library=str(runtime.library_path().relative_to(ROOT)),
+         seconds=time.perf_counter() - t_stream, nvidia_smi=smi)
+    for k in set(stream_expect) | set(stream_counts):
+        require(stream_counts.get(k, 0) == stream_expect.get(k, 0),
+                f"train_streaming: {k} launched {stream_counts.get(k, 0)} times, expected "
+                f"{stream_expect.get(k, 0)}")
+    require(len(stream_losses) == TRAIN_STEPS and all(np.isfinite(stream_losses))
+            and streamer.state.step == TRAIN_STEPS, "train_streaming: a step or a loss is missing")
+    require(s_last10 <= LOSS_DROP * s_first10,
+            f"train_streaming: mean loss of the last 10 steps {s_last10} vs the first 10 {s_first10}")
+    require(stream_equal and again_equal, "train_streaming: two runs from one seed differ")
+    require(tiles_equal, "train_streaming: assemble_tiles differs from the numpy scatter")
+    del streamer, logged
+    torch.cuda.empty_cache()
 
     # -- train_default_seed: the same steps from TrainConfig's own seed, a record
     #    of the reference's own behaviour at a dead start (not a fault of the port)

@@ -13,14 +13,28 @@ import numpy as np
 import torch
 
 
+# (num_freqs, include_pi, dtype, device) -> the bands, made once: a copy
+# from the host on every call would stall the device and cannot be captured
+# in a CUDA graph (the train loop's, make_multi_train_step)
+_BANDS = {}
+
+
+def _bands(num_freqs: int, include_pi: bool, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    key = (num_freqs, include_pi, dtype, device)
+    if key not in _BANDS:
+        scale = np.pi if include_pi else 1.0
+        _BANDS[key] = torch.as_tensor((2.0 ** np.arange(num_freqs)) * scale,
+                                      dtype=dtype, device=device)
+    return _BANDS[key]
+
+
 def positional_encoding(x: torch.Tensor, num_freqs: int,
                         include_pi: bool = True) -> torch.Tensor:
     """Encode ``x [..., D] -> [..., D * (1 + 2 * num_freqs)]``."""
     if num_freqs == 0:
         return x
-    scale = np.pi if include_pi else 1.0
-    freqs = torch.as_tensor((2.0 ** np.arange(num_freqs)) * scale,
-                            dtype=x.dtype, device=x.device)
+    freqs = _bands(num_freqs, include_pi, x.dtype, x.device)
     xf = x[..., None, :] * freqs[:, None]                 # [..., L, D]
     enc = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-2)
     enc = enc.reshape(*x.shape[:-1], 2 * num_freqs * x.shape[-1])

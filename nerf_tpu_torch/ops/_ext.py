@@ -143,3 +143,12 @@ def pointer_array(tensors: Iterable[Optional[torch.Tensor]]):
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ran() -> int:
+    """What a launch just made on the current stream adds to its wrapper's
+    count: 1 if it ran, 0 if the stream is capturing a CUDA graph. A captured
+    launch only records the kernel; it runs on each replay, which no wrapper
+    sees (a profiler trace counts those)."""
+    capturing = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+    return 0 if capturing else 1

@@ -41,7 +41,8 @@ from nerf_tpu_torch.config import RenderConfig
 from nerf_tpu_torch.ops import _ext
 from nerf_tpu_torch.utils.rendering import RenderOutputs, volume_render
 
-# Launches of the CUDA kernels (not of the plain version).
+# Launches of the CUDA kernels (not of the plain version); a launch recorded
+# into a CUDA graph is not one (_ext.ran).
 launches = 0          # K2, interleaved
 bf16_launches = 0     # those of K2's launches that read a bfloat16 raw
 planar_launches = 0   # K6, planar
@@ -106,8 +107,9 @@ def _launch(raw, z_vals, rays_d, sentinel, eps):
              n, s, float(sentinel), float(eps), _ext.ptr(out), _ext.ptr(w),
              _ext.stream_ptr(dev))
     _ext.check(lib, err, "composite launch")
-    launches += 1
-    bf16_launches += int(raw_bf16)
+    ran = _ext.ran()
+    launches += ran
+    bf16_launches += ran * int(raw_bf16)
     return out, w
 
 
@@ -183,7 +185,7 @@ def _launch_planar(sigma, planes, z_vals, rays_d, sentinel, eps):
              _ext.ptr(z_vals), z_vals.stride(0), _ext.ptr(rays_d), n, s,
              float(sentinel), float(eps), _ext.ptr(out), _ext.ptr(w), _ext.stream_ptr(dev))
     _ext.check(lib, err, "composite_planar launch")
-    planar_launches += 1
+    planar_launches += _ext.ran()
     return out, w
 
 

@@ -55,7 +55,8 @@ from nerf_tpu_torch.utils.device import disable_tf32
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
 # Launches of the CUDA kernel (not of the plain version), and of the WMMA
-# build it replaced (which no path of the port calls).
+# build it replaced (which no path of the port calls). A launch recorded
+# into a CUDA graph is not one (_ext.ran).
 launches = 0
 wmma_launches = 0
 WMMA_LIBRARY = "mlp_forward"
@@ -266,11 +267,11 @@ def _launch(packed: PackedWeights, positions: torch.Tensor, directions: torch.Te
         err = fn(_ext.ptr(positions), _ext.ptr(directions), n, _ext.pointer_array(packed),
                  *net_args(cfg), _ext.ptr(out), _ext.stream_ptr(dev))
         _ext.check(lib, err, "mlp_forward launch")
-        wmma_launches += 1
+        wmma_launches += _ext.ran()
         return out
     stream = ray_wgmma.sample_stream_for(packed, cfg) if stream is None else stream
     ray_wgmma.forward_samples(library, packed, positions, directions, cfg, stream, out)
-    launches += 1
+    launches += _ext.ran()
     return out
 
 

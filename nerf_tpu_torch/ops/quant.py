@@ -59,7 +59,8 @@ from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
 # Launches of the CUDA kernel (not of the plain version): every launch of
 # K7, those of them on the int8-compute route (K8), and those of the WMMA
-# build it replaced (which no path of the port calls).
+# build it replaced (which no path of the port calls). A launch recorded
+# into a CUDA graph is not one (_ext.ran).
 launches = {"mlp_quant": 0, "mlp_quant_int8": 0, "mlp_quant_wmma": 0}
 WMMA_LIBRARY = "mlp_quant"
 
@@ -452,13 +453,14 @@ def _launch(q: Quantized, positions: torch.Tensor, directions: torch.Tensor,
         err = fn(_ext.ptr(positions), _ext.ptr(directions), n, mats, scales, route,
                  *net_args(cfg), _ext.ptr(out), _ext.stream_ptr(dev))
         _ext.check(lib, err, "mlp_quant launch")
-        launches["mlp_quant_wmma"] += 1
+        launches["mlp_quant_wmma"] += _ext.ran()
         return out
     ray_wgmma.forward_samples(library, q, positions, directions, cfg,
                               ray_wgmma.sample_stream_for(q, cfg), out)
-    launches["mlp_quant"] += 1
+    ran = _ext.ran()
+    launches["mlp_quant"] += ran
     if route == ROUTE_INT8_COMPUTE:
-        launches["mlp_quant_int8"] += 1
+        launches["mlp_quant_int8"] += ran
     return out
 
 

@@ -86,7 +86,8 @@ from nerf_tpu_torch.utils.rendering import RenderOutputs
 # raw or composited), to each route it takes (planar or bfloat16 raw output;
 # intN weights dequantized in the kernel; int8 compute) and, on the Hopper
 # kernels of csrc/ray_wgmma.cu (raw or composited), to wgmma_samples (K1) or
-# wgmma_zvals (K3).
+# wgmma_zvals (K3). A launch recorded into a CUDA graph is not one
+# (_ext.ran).
 launches = {"render_samples": 0, "render_zvals": 0,
             "render_samples_composited": 0, "render_zvals_composited": 0,
             "planar": 0, "raw_bf16": 0, "dequant": 0, "int8": 0,
@@ -288,17 +289,18 @@ def _launch(packed, rays_o, rays_d, near, far, S,
     name = ("render_samples" if z_vals is None else "render_zvals") + (
         "_composited" if composited else "")
     _ext.check(lib, err, f"{name} launch ({library})")
-    launches[name] += 1
+    ran = _ext.ran()
+    launches[name] += ran
     if hopper:
-        launches["wgmma_samples" if z_vals is None else "wgmma_zvals"] += 1
+        launches["wgmma_samples" if z_vals is None else "wgmma_zvals"] += ran
     if planar:
-        launches["planar"] += 1
+        launches["planar"] += ran
     if out_mode == _OUT_BF16:
-        launches["raw_bf16"] += 1
+        launches["raw_bf16"] += ran
     if route == quant.ROUTE_INT8_COMPUTE:
-        launches["int8"] += 1
+        launches["int8"] += ran
     elif route:
-        launches["dequant"] += 1
+        launches["dequant"] += ran
     return result
 
 

@@ -73,7 +73,8 @@ from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 LIBRARY = "mlp_backward_wgmma"     # K5a + K5b
 WMMA_LIBRARY = "mlp_backward"      # the WMMA build, a timed comparison only
 # Launches of the CUDA kernels (not of the plain versions): the row pass, the
-# weight-gradient pass, and the WMMA build (which no path of the port calls)
+# weight-gradient pass, and the WMMA build (which no path of the port calls);
+# a launch recorded into a CUDA graph is not one (_ext.ran)
 launches = {"bwd_rows": 0, "wgrad": 0, "mlp_backward_wmma": 0}
 
 PASS_ROWS = 65536   # rows of one pass of K5a + K5b: the scratch holds one pass
@@ -416,7 +417,7 @@ def launch_rows(packed: PackedWeights, positions, directions, dsigma, drgb, cfg:
                              _ext.ptr(drgb), rows, _ext.ptr(stream), _ext.pointer_array(packed),
                              *net_args(cfg), _ext.ptr(scratch), _ext.stream_ptr(positions.device))
     _ext.check(lib, err, "bwd_rows_wgmma launch")
-    launches["bwd_rows"] += 1
+    launches["bwd_rows"] += _ext.ran()
 
 
 def _jobs(cfg: ModelConfig, dev: torch.device) -> torch.Tensor:
@@ -439,7 +440,7 @@ def launch_wgrad(scratch: torch.Tensor, rows: int, cfg: ModelConfig, partials: t
     err = lib.wgrad_wgmma(_ext.ptr(scratch), rows, _ext.ptr(jobs), jobs.shape[0], splits,
                           _ext.ptr(partials), slot, GRAD_FLOATS, _ext.stream_ptr(scratch.device))
     _ext.check(lib, err, "wgrad_wgmma launch")
-    launches["wgrad"] += 1
+    launches["wgrad"] += _ext.ran()
     return slot + splits
 
 
@@ -501,7 +502,7 @@ def _launch_wmma(packed: PackedWeights, positions, directions, dsigma, drgb,
                            _ext.ptr(scratch), _ext.pointer_array(grads), blocks,
                            _ext.stream_ptr(dev))
     _ext.check(lib, err, "mlp_backward launch")
-    launches["mlp_backward_wmma"] += 1
+    launches["mlp_backward_wmma"] += _ext.ran()
     return {k: g.sum(0) for k, g in zip(GRAD_SHAPES, grads)}
 
 

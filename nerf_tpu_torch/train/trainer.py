@@ -49,6 +49,7 @@ from nerf_tpu_torch.render.pipeline import render_rays
 from nerf_tpu_torch.train import checkpoint as ckpt
 from nerf_tpu_torch.utils.cameras import generate_rays
 from nerf_tpu_torch.utils.device import resolve_device, torch_dtype
+from nerf_tpu_torch.utils.graph import GraphedCall, HostCounters
 from nerf_tpu_torch.utils.metrics import psnr_from_mse
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
@@ -57,7 +58,12 @@ class Optimizer:
     """optax's ``chain(clip_by_global_norm, add_decayed_weights,
     scale_by_adam, scale_by_learning_rate(exponential_decay))`` over a list
     of leaves, updated in place. ``mu`` and ``nu`` line up with the leaves;
-    ``count`` is the number of updates made."""
+    ``count`` is the number of updates made, a host int (the checkpoints
+    write it). ``device_count`` holds the same number on the leaves' device,
+    and the update's scalars (the learning rate, Adam's bias corrections)
+    are made from it there, in float64: an update captured in a CUDA graph
+    then reads the count of each replay, and the eager and the captured
+    update run the same arithmetic."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
@@ -66,15 +72,31 @@ class Optimizer:
         self.mu = [torch.zeros_like(p) for p in leaves]
         self.nu = [torch.zeros_like(p) for p in leaves]
         self.count = 0
+        self.device_count = torch.zeros((), dtype=torch.int64, device=leaves[0].device)
 
-    def learning_rate(self, count: int) -> float:
+    def set_count(self, count: int) -> None:
+        self.count = int(count)
+        self.device_count.fill_(self.count)
+
+    def learning_rate(self, count):
+        """The schedule at ``count`` updates: of an int, a float; of a
+        float64 tensor (``update``'s device count), a tensor."""
         t = self.tcfg
         return t.learning_rate * t.lr_decay ** (count / t.lr_decay_steps)
+
+    def _scalars(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(lr(count) / (1 - b1^n), 1 - b2^n)``, ``n = count + 1``: float32
+        device scalars computed in float64 from ``device_count``."""
+        count = self.device_count.double()
+        n = count + 1.0
+        step_size = self.learning_rate(count) / (1.0 - self.b1 ** n)
+        return step_size.float(), (1.0 - self.b2 ** n).float()
 
     @torch.no_grad()
     def update(self, leaves: List[torch.Tensor], grads: List[torch.Tensor]) -> None:
         """One update of ``leaves`` from ``grads`` (which it overwrites)."""
         t = self.tcfg
+        step_size, bias2 = self._scalars()
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         scale = torch.where(norm < t.grad_clip_norm, torch.ones_like(norm),
                             t.grad_clip_norm / norm)
@@ -84,13 +106,14 @@ class Optimizer:
         torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(self.nu, self.b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
-        n = self.count + 1
-        denom = torch._foreach_div(self.nu, 1.0 - self.b2 ** n)
+        denom = torch._foreach_div(self.nu, bias2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        step_size = self.learning_rate(self.count) / (1.0 - self.b1 ** n)
-        torch._foreach_addcdiv_(leaves, self.mu, denom, value=-step_size)
-        self.count = n
+        step = torch._foreach_div(self.mu, denom)
+        torch._foreach_mul_(step, step_size)
+        torch._foreach_sub_(leaves, step)
+        self.device_count += 1
+        self.count += 1
 
 
 @dataclass
@@ -185,6 +208,64 @@ def make_train_step(cfg: Config, img_hw: Tuple[int, int], apply_fn=apply_nerf):
     return step_fn
 
 
+def make_multi_train_step(cfg: Config, img_hw: Tuple[int, int], n_inner: int,
+                          apply_fn=apply_nerf, pool=None):
+    """``n_inner`` train steps in one launch: ``fn(state, images [K, H, W, 3],
+    poses [K, 4, 4], focal, generator) -> metrics`` (each a ``[K]`` tensor),
+    with the semantics of ``K = n_inner`` sequential calls of
+    ``make_train_step``'s step on the same generator; the state is updated in
+    place. The counterpart of the JAX package's ``lax.scan`` of the steps.
+
+    On CPU tensors the K steps run eagerly. On the card they are one CUDA
+    graph (``utils/graph.GraphedCall``): the first call for a state,
+    generator, image shape and ``focal`` (a Python float inside the step)
+    runs its K steps eagerly on a side stream, which fills the kernels'
+    caches, then captures them; later calls copy their images and poses
+    into the graph's static buffers and replay it. The graph holds the
+    addresses of the params, ``mu``, ``nu`` and the device count: the
+    trainer only ever writes into them (``load_checkpoint`` too), and a
+    state whose tensors moved is captured anew. ``pool`` is the memory pool
+    of the capture (``torch.cuda.graph_pool_handle()``, shared by graphs
+    that are replayed one at a time on one stream; None: a pool of its
+    own). The kernels' launch counters count the first call's launches, not
+    the replays' (``ops/_ext.ran``)."""
+    step_fn = make_train_step(cfg, img_hw, apply_fn)
+    graphed: Dict[str, Any] = {}
+
+    def steps(state: TrainState, images, poses, focal, generator) -> Dict[str, torch.Tensor]:
+        per_step = [step_fn(state, images[i], poses[i], focal, generator)
+                    for i in range(n_inner)]
+        return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+    def multi_step(state: TrainState, images, poses, focal, generator):
+        if images.shape[0] != n_inner or poses.shape[0] != n_inner:
+            raise ValueError(f"{n_inner} steps need {n_inner} images and poses, got "
+                             f"{images.shape[0]} and {poses.shape[0]}")
+        if images.device.type != "cuda":
+            return steps(state, images, poses, focal, generator)
+        opt = state.optimizer
+        key = (tuple(images.shape), images.dtype, images.device, float(focal),
+               tuple(t.data_ptr() for t in state.leaves() + opt.mu + opt.nu
+                     + [opt.device_count]))
+        if (graphed.get("key") != key or graphed["state"] is not state
+                or graphed["generator"] is not generator):
+            graphed.clear()
+            static_images, static_poses = images.clone(), poses.clone()
+            call = GraphedCall(
+                lambda: steps(state, static_images, static_poses, focal, generator),
+                HostCounters([(state, "step"), (state.optimizer, "count")]), [generator],
+                pool)
+            graphed.update(key=key, state=state, generator=generator, call=call,
+                           images=static_images, poses=static_poses)
+        else:
+            graphed["images"].copy_(images)
+            graphed["poses"].copy_(poses)
+        with torch.cuda.device(images.device):       # its streams and graph on that card
+            return graphed["call"]()
+
+    return multi_step
+
+
 def make_eval_render(cfg: Config, n_rays_chunk: int, apply_fn=apply_nerf, device="cuda"):
     """Chunk renderer for validation and full images: fixed chunk shape (the
     last chunk is padded), deterministic sampling, fine output only, no
@@ -250,6 +331,21 @@ class NeRFTrainer:
         self.train_losses: List[float] = []
         self.val_losses: List[float] = []
         self._device_ds: Optional[Tuple[Any, torch.Tensor, torch.Tensor]] = None
+        self._multi_step_cache: Dict[int, Any] = {}
+        self._graph_pool = None
+        self.sampler_blocked_s = 0.0
+
+    def _multi_step_fn(self, k: int):
+        """``make_multi_train_step`` of ``k`` steps, made once per ``k`` (on
+        the card each holds its CUDA graph, all of them in one memory pool:
+        the trainer replays them one at a time)."""
+        fn = self._multi_step_cache.get(k)
+        if fn is None:
+            if self.device.type == "cuda" and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            fn = self._multi_step_cache[k] = make_multi_train_step(
+                self.cfg, self.img_hw, k, self.apply_fn, self._graph_pool)
+        return fn
 
     # -- checkpointing ------------------------------------------------------
 
@@ -289,11 +385,13 @@ class NeRFTrainer:
                     raise KeyError(f"checkpoint {path} does not match the model at "
                                    f"{name} {tpath}")
             loaded.append([got[tpath] for tpath, _ in own])
+        # in place, as a captured step (make_multi_train_step) reads and
+        # writes these tensors at their addresses
         with torch.no_grad():
-            for (_, leaf), value in zip(own, loaded[0]):
-                leaf.copy_(value)
-        opt.mu, opt.nu = loaded[1], loaded[2]
-        opt.count = state["count"]
+            for leaves, values in zip(([leaf for _, leaf in own], opt.mu, opt.nu), loaded):
+                for leaf, value in zip(leaves, values):
+                    leaf.copy_(value)
+        opt.set_count(state["count"])
         self.state.step = state["step"]
         self.train_losses = list(meta.get("train_losses", []))
         self.val_losses = list(meta.get("val_losses", []))
@@ -327,17 +425,71 @@ class NeRFTrainer:
             cached = self._device_ds = (dataset, images, poses)
         return cached[1], cached[2]
 
-    def train_epoch(self, dataset) -> float:
-        """One pass over the dataset, one step per image. The JAX trainer
-        scans several steps into one dispatch to amortise a remote backend's
-        dispatch cost; that has no counterpart here: the steps run eagerly,
-        nothing in them waits for the device, and the host reads the mean
-        loss once per epoch."""
+    def train_epoch(self, dataset, inner: Optional[int] = None) -> float:
+        """One pass over the dataset, one step per image, in chunks of
+        ``inner`` images (default 10, at most the dataset's size): a chunk
+        of one is ``step_fn``, a longer one ``make_multi_train_step``'s (on
+        the card one CUDA graph of its steps). Returns the mean loss of the
+        epoch's steps, read once. (The JAX trainer returns the mean of the
+        chunks' means, the same where the chunks are of one size.)"""
         images, poses = self._device_dataset(dataset)
         focal = float(dataset.focal)
-        losses = [self.step_fn(self.state, images[i], poses[i], focal, self.generator)["loss"]
-                  for i in range(images.shape[0])]
-        return float(torch.stack(losses).mean())
+        n = images.shape[0]
+        inner = min(inner if inner is not None else 10, n)
+        losses = []
+        for i in range(0, n, inner):
+            k = min(inner, n - i)
+            if k == 1:
+                m = self.step_fn(self.state, images[i], poses[i], focal, self.generator)
+                losses.append(m["loss"][None])
+            else:
+                m = self._multi_step_fn(k)(self.state, images[i:i + k], poses[i:i + k], focal,
+                                           self.generator)
+                losses.append(m["loss"])
+        return float(torch.cat(losses).mean())
+
+    def train_streaming(self, dataset, n_steps: int, log_every: int = 100,
+                        log_fn=print) -> float:
+        """Train from the port's background ray producer
+        (``runtime.RayBatchSampler``, C++ on a host thread, seeded with
+        ``train.seed``): shuffled ray batches are assembled on the host while
+        the card runs the previous step, one ``make_ray_train_step`` step a
+        batch on the trainer's generator. On the card each batch goes up
+        through one of two pinned host buffers in turn, copied without
+        blocking; a buffer is refilled only after its last copy has ended.
+        The loss is read at the log points, and after the last step only if
+        no step was one. Returns the last logged loss, or the last step's
+        where none was logged (appended to ``train_losses``);
+        ``sampler_blocked_s`` is the time spent waiting in ``next_batch``."""
+        from nerf_tpu_torch.runtime import RayBatchSampler
+
+        step_fn = make_ray_train_step(self.cfg, self.apply_fn)
+        n_rays = self.cfg.train.n_rays
+        on_card = self.device.type == "cuda"
+        staging = [torch.empty(3, n_rays, 3, pin_memory=on_card) for _ in range(2)]
+        copied: List[Optional[torch.cuda.Event]] = [None, None]
+        last, metrics = float("nan"), None
+        with RayBatchSampler(dataset.images, dataset.poses, dataset.focal, n_rays=n_rays,
+                             seed=self.cfg.train.seed) as sampler:
+            for i in range(n_steps):
+                buf = staging[i % 2]
+                if copied[i % 2] is not None:
+                    copied[i % 2].synchronize()
+                for dst, src in zip(buf.numpy(), sampler.next_batch()):
+                    dst[...] = src
+                rays_o, rays_d, rgb = buf.to(self.device, non_blocking=True)
+                if on_card:
+                    copied[i % 2] = torch.cuda.Event()
+                    copied[i % 2].record()
+                metrics = step_fn(self.state, rays_o, rays_d, rgb, self.generator)
+                if (i + 1) % log_every == 0:
+                    last = float(metrics["loss"])
+                    log_fn(f"step {i + 1}/{n_steps} loss={last:.6f}")
+            self.sampler_blocked_s = sampler.blocked_s
+        if last != last and metrics is not None:   # no log point hit: read once at the end
+            last = float(metrics["loss"])
+        self.train_losses.append(last)
+        return last
 
     def validate(self, dataset) -> float:
         n = min(len(dataset), self.cfg.train.max_val_images)

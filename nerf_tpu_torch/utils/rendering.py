@@ -135,6 +135,27 @@ def importance_sample(
     return points, z_all
 
 
+class _PositiveCumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of a tensor without zeros. Its
+    backward is ATen's for an input without zeros (the reversed cumulative
+    sum of ``output * grad``, over the input), without ATen's test for
+    zeros first: that test reads a flag back to the host, which a CUDA graph
+    of a train step (``make_multi_train_step``) cannot capture."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        if x.shape[-1] == 1:
+            return grad
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def volume_render(
     sigma: torch.Tensor,
     rgb: torch.Tensor,
@@ -155,7 +176,11 @@ def volume_render(
     dists = dists * torch.linalg.norm(rays_d[..., None, :], dim=-1)
 
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
-    trans = torch.cumprod(1.0 - alpha + cfg.transmittance_eps, dim=-1)
+    factors = 1.0 - alpha + cfg.transmittance_eps
+    if cfg.transmittance_eps >= torch.finfo(factors.dtype).tiny:   # every factor > 0
+        trans = _PositiveCumprod.apply(factors)
+    else:
+        trans = torch.cumprod(factors, dim=-1)
     trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
     weights = alpha * trans
 
