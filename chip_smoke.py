@@ -90,6 +90,25 @@ unless every kernel of the path ran its expected number of times:
 - ``bench_cuda``: ``python3 bench_cuda.py`` in a child process: exit code 0,
   one JSON line on stdout with its four keys and a positive value, its
   stderr's bmild frame, and its ratio to the ``frame`` phase's rays/s.
+- the command line (``nerf_tpu_torch/cli``), called in this process through
+  ``cli.main`` with ``--device cuda``; the card's machine has no libpng
+  headers, so the port's PNG decoder is not built and training reads the
+  procedural scene (the command line's stand-in for a missing Blender
+  directory): ``cli_pipeline`` (``pipeline``: 2 epochs at full width, then
+  the benchmark of cuda, compressed, int8 and accel at 800x600@64, 2 views:
+  the exact launches of the train loop's eager first chunk and of the
+  suite's rule, the epochs' loss must fall, every row successful, each
+  engine's ms/frame beside the ``suite`` phase's); ``cli_render``
+  (``render --engine cuda`` at 800x600@64 in both modes with ``--trace``,
+  and once untraced: ``rgb.png`` / ``depth.png`` equal the uint8 images of
+  an in-process frame, the trace names the Hopper ray kernels);
+  ``cli_export`` (the pipeline's checkpoint as a ``.pth``: params and a
+  200x150 frame in both modes bit-equal to the ``.npz``'s);
+  ``cli_compare`` (every engine at 128x128@32: the grid's tiles equal each
+  engine's frame, no black image); ``cli_streaming`` (``train
+  --streaming_steps 200``: 2 K4, 8 K5a, 8 K5b a step, the loss must fall);
+  ``cli_smoke`` (``python3 -m nerf_tpu_torch.cli smoke`` in a child
+  process: exit code 0).
 
 The frames use trained weights from ``results/convergence/final_params.npz``
 at 800x600 and are compared with the float32 plain PyTorch engine
@@ -100,7 +119,9 @@ non-zero before that last line. Needs a CUDA device and ``nvcc`` (sm_90a);
 it has no CPU path.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -455,7 +476,7 @@ def main():
                                                CudaEngine, Int8ComputeEngine, SharedModel,
                                                TorchEngine)
     from nerf_tpu_torch.render.pipeline import render_rays
-    from nerf_tpu_torch.train.checkpoint import restore_bare_params
+    from nerf_tpu_torch.train.checkpoint import restore_bare_params, restore_checkpoint
     from nerf_tpu_torch.train.trainer import NeRFTrainer
     from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
     from nerf_tpu_torch.utils.cameras import (BENCHMARK_FOCAL, focal_from_angle, generate_rays,
@@ -2561,6 +2582,251 @@ def main():
          frame_phase_rays_per_s=frame_res["rays_per_s"],
          ratio_to_frame_phase=line["value"] / frame_res["rays_per_s"],
          seconds=time.perf_counter() - t_bench, nvidia_smi=smi)
+
+    # -- paths 11-16: the command line (python -m nerf_tpu_torch.cli), in this
+    #    process through cli.main, each with the launch counts set to 0 just
+    #    before and read just after. The card's machine has no libpng headers,
+    #    so the PNG decoder (runtime/png.cpp) is not built here and training
+    #    reads the procedural scene, the command line's own stand-in for a
+    #    missing Blender directory
+    from nerf_tpu_torch.cli import main as cli
+
+    t_cli = time.perf_counter()
+    cli_root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    no_dataset = os.path.join(cli_root, "no_blender_dataset")
+    cli_cfg = default_config()                       # the command line's config for a .npz
+
+    def run_cli(name, argv, expect):
+        """``cli.main(argv)`` with its stdout kept, between fences, the
+        launch counts set to 0 before and read after: (lines, seconds).
+        Requires exit code 0 and ``expect[counter]`` launches of every
+        counter (0 for those not named)."""
+        buf = io.StringIO()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+        except BaseException:
+            print(buf.getvalue()[-4000:], flush=True)
+            raise
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = paths[name] = read_counts()
+        require(rc == 0, f"{name}: exit code {rc}: {buf.getvalue()[-3000:]}")
+        for k in set(counts) | set(expect):
+            require(counts.get(k, 0) == expect.get(k, 0),
+                    f"{name}: {k} launched {counts.get(k, 0)} times, expected {expect.get(k, 0)}")
+        return buf.getvalue().splitlines(), secs
+
+    def eval_loss(params, ds_eval):
+        """The trainer's loss (coarse + fine MSE) of 8,192 fixed rays of
+        view 0, rendered without jitter through bf16 ``apply_nerf``."""
+        rays_o, rays_d = generate_rays(ds_eval.poses[0], ds_eval.img_wh[0], ds_eval.img_wh[1],
+                                       float(ds_eval.focal), dev)
+        idx = torch.randperm(rays_o.shape[0] * rays_o.shape[1],
+                             generator=torch.Generator().manual_seed(13))[:8192].to(dev)
+        target = torch.as_tensor(ds_eval.images[0], device=dev).reshape(-1, 3)[idx]
+        with torch.no_grad():
+            res = render_rays(params["coarse"], params["fine"], rays_o.reshape(-1, 3)[idx],
+                              rays_d.reshape(-1, 3)[idx], cli_cfg.model, cli_cfg.render,
+                              compute_dtype=torch.bfloat16)
+        return float(((res.coarse.rgb - target) ** 2).mean() + ((res.fine.rgb - target) ** 2).mean())
+
+    train_views = make_procedural_dataset(n_views=20, img_wh=(200, 200), seed=0)
+    init_params = NeRFTrainer(cli_cfg, (200, 200), device=dev).state.params     # the CLI's seed-0 start
+    loss_init = eval_loss(init_params, train_views)
+    del init_params
+
+    # -- cli_pipeline: train 2 epochs at full width, then the benchmark of 4 engines
+    ckpt_dir, bench_dir = os.path.join(cli_root, "ckpt"), os.path.join(cli_root, "bench")
+    cli_views, train_chunk = 2, min(10, len(train_views))    # train_epoch's chunk of 10 images
+    per_engine_frames = (cli_views + 1) * per_frame          # a warm frame, then the views
+    bake = cli_cfg.accel.grid_resolution ** 3 // BAKE_CHUNK
+    # the train loop's first chunk runs eagerly (counted), then its graph is
+    # captured and replayed (not counted); the suite's rule as in `suite`
+    pipeline_expect = {"render_samples": 3 * per_engine_frames,
+                       "wgmma_samples": 3 * per_engine_frames, "dequant": per_engine_frames,
+                       "int8": per_engine_frames, "render_zvals": per_engine_frames,
+                       "wgmma_zvals": per_engine_frames, "composite": 4 * per_engine_frames,
+                       "mlp_forward": bake + 2 * train_chunk, "bwd_rows": K5_PASSES * train_chunk,
+                       "wgrad": K5_PASSES * train_chunk}
+    cli_engines = ["cuda", "compressed", "int8", "accel"]
+    lines, secs = run_cli("cli_pipeline", [
+        "pipeline", "--device", "cuda", "--data_dir", no_dataset, "--image_size", "200",
+        "--epochs", "2", "--n_rays", "2048", "--no_resume", "--checkpoint_dir", ckpt_dir,
+        "--output_dir", bench_dir, "--resolutions", "800x600", "--samples", "64",
+        "--views", str(cli_views), "--engines", *cli_engines], pipeline_expect)
+    final_npz = os.path.join(ckpt_dir, "final_model.npz")
+    require(os.path.exists(final_npz), f"cli_pipeline: no {final_npz}")
+    final_state, final_meta = restore_checkpoint(final_npz)
+    epoch_losses = final_meta["train_losses"]
+    loss_pipeline = eval_loss(params_from_numpy(final_state["params"], dev), train_views)
+    with open(os.path.join(bench_dir, "benchmark_results.json")) as f:
+        rows = json.load(f)["results"]
+    require(sorted(r["renderer_name"] for r in rows) == sorted(cli_engines * cli_views)
+            and all(r["success"] and r["resolution"] == [800, 600] and r["samples_per_ray"] == 64
+                    for r in rows), f"cli_pipeline: benchmark rows {rows}")
+    cli_ms = {name: float(np.median([r["render_time_s"] * 1e3 for r in rows
+                                     if r["renderer_name"] == name])) for name in cli_engines}
+    suite_ms = {name: float(np.median(per_engine[name]["ms_800x600_64"])) for name in cli_engines}
+    emit("cli_pipeline", argv="pipeline --data_dir (none: the procedural scene) --image_size 200 "
+         "--epochs 2 --n_rays 2048 --resolutions 800x600 --samples 64 --views 2 --engines "
+         + " ".join(cli_engines), launches=paths["cli_pipeline"], expected=pipeline_expect,
+         epoch_losses=epoch_losses, step=final_state["step"], eval_loss_before=loss_init,
+         eval_loss_after=loss_pipeline, ms_per_frame_800x600_64=cli_ms,
+         suite_phase_ms_per_frame_800x600_64=suite_ms,
+         ratio_to_suite_phase={k: cli_ms[k] / suite_ms[k] for k in cli_engines},
+         stdout_tail=lines[-8:], seconds=secs, nvidia_smi=smi)
+    require(final_state["step"] == 2 * len(train_views) and len(epoch_losses) == 2
+            and all(np.isfinite(epoch_losses)), f"cli_pipeline: {final_state['step']} steps, "
+            f"epoch losses {epoch_losses}")
+    require(epoch_losses[1] < epoch_losses[0],
+            f"cli_pipeline: the loss did not fall over the epochs: {epoch_losses}")
+
+    # -- cli_render: render --engine cuda at 800x600@64 in both modes, traced,
+    #    and the benchmark mode once more untraced for its time
+    cli_pose = spherical_pose(30.0, -30.0, 4.0)              # render's default camera
+    cli_focal = focal_from_angle(W, CAMERA_ANGLE_X)
+    in_process = CudaEngine(SharedModel(cli_cfg, dev).load(PARAMS), chunk_rays=CHUNK)
+    render_res = {}
+    for mode, traced in (("benchmark", True), ("hierarchical", True), ("benchmark", False)):
+        out_dir = os.path.join(cli_root, f"render_{mode}_{'traced' if traced else 'untraced'}")
+        per = {"render_samples": 1, "wgmma_samples": 1, "composite": 1} if mode == "benchmark" \
+            else {"render_samples": 1, "wgmma_samples": 1, "composite": 2, "render_zvals": 1,
+                  "wgmma_zvals": 1}
+        lines, secs = run_cli(f"cli_render_{mode}" + ("" if traced else "_untraced"), [
+            "render", "--device", "cuda", "--weights", PARAMS, "--engine", "cuda", "--width",
+            str(W), "--height", str(H), "--samples", str(SPP), "--mode", mode, "--out", out_dir,
+            *(["--trace", os.path.join(out_dir, "trace")] if traced else [])],
+            {k: 2 * per_frame * v for k, v in per.items()})     # the warm frame and the frame
+        line = next(ln for ln in lines if ln.startswith("rendered "))
+        frame_ms = float(line.split(" in ")[1].split("s ")[0]) * 1e3
+        ref = in_process.render_image(cli_pose, (W, H), SPP, focal=cli_focal, mode=mode,
+                                      monitor=False)
+        rgb_png = decode_png(os.path.join(out_dir, "rgb.png"))
+        depth_png = decode_png(os.path.join(out_dir, "depth.png"))
+        d = ref.depth
+        depth_u8 = ((d - d.min()) / max(float(d.max() - d.min()), 1e-9) * 255).astype(np.uint8)
+        require(np.array_equal(rgb_png, (np.clip(ref.rgb, 0, 1) * 255).astype(np.uint8))
+                and np.array_equal(depth_png, depth_u8),
+                f"cli_render {mode}: rgb.png / depth.png differ from the in-process frame")
+        entry = dict(frame_ms_printed=frame_ms, rgb_std=float(ref.rgb.std()), seconds=secs)
+        if traced:
+            traces = [os.path.join(out_dir, "trace", f) for f in os.listdir(os.path.join(out_dir,
+                                                                                         "trace"))]
+            require(len(traces) == 1, f"cli_render {mode}: traces {traces}")
+            with open(traces[0]) as f:
+                names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                         if e.get("cat") == "kernel"]
+            kernels = {k: sum(1 for n in names if k in n) for k in WGMMA.values()}
+            want = [WGMMA["render_samples"]] + ([WGMMA["render_zvals"]]
+                                                if mode == "hierarchical" else [])
+            require(all(kernels[k] > 0 for k in want),
+                    f"cli_render {mode}: the trace names {kernels}, expected {want}")
+            entry.update(trace_kernel_events=kernels, trace_kernel_events_all=len(names))
+        render_res[f"{mode}{'' if traced else '_untraced'}"] = entry
+    emit("cli_render", argv=f"render --weights final_params.npz --engine cuda --width {W} "
+         f"--height {H} --samples {SPP} --mode benchmark|hierarchical --trace",
+         launches={k: paths[k] for k in paths if k.startswith("cli_render")}, runs=render_res,
+         frame_phase_ms=frame_res["ms_per_frame"],
+         ratio_untraced_to_frame_phase=render_res["benchmark_untraced"]["frame_ms_printed"]
+         / frame_res["ms_per_frame"], pngs_equal_in_process_frame=True, nvidia_smi=smi)
+    del in_process
+
+    # -- cli_export: the pipeline's checkpoint as a .pth, read back by SharedModel
+    pth = os.path.join(cli_root, "final_model.pth")
+    lines, secs = run_cli("cli_export", ["export", "--device", "cuda", "--checkpoint", final_npz,
+                                         "--out", pth], {})
+    from_pth = SharedModel(cli_cfg, dev).load(pth)
+    from_npz = SharedModel(cli_cfg, dev).load(final_npz)
+    leaves = {net: (tree_leaves(from_pth.params[net]), tree_leaves(from_npz.params[net]))
+              for net in ("coarse", "fine")}
+    params_equal = all(len(a) == len(b) and all(pa == pb and torch.equal(x, y)
+                                                for (pa, x), (pb, y) in zip(a, b))
+                       for a, b in leaves.values())
+    frames_equal = {}
+    for mode in ("benchmark", "hierarchical"):
+        fa, fb = (CudaEngine(s, chunk_rays=CHUNK).render_image(
+            poses[1], (qw, qh), SPP, focal=qfocal, mode=mode, monitor=False)
+            for s in (from_pth, from_npz))
+        frames_equal[mode] = bool(np.array_equal(fa.rgb, fb.rgb)
+                                  and np.array_equal(fa.depth, fb.depth))
+    emit("cli_export", checkpoint="the cli_pipeline final_model.npz", pth_bytes=os.path.getsize(pth),
+         leaves=sum(len(a) for a, _ in leaves.values()), params_bit_equal=params_equal,
+         frames_bit_equal=frames_equal, frame=[qw, qh], launches=paths["cli_export"],
+         seconds=secs, stdout=lines)
+    require(params_equal, "cli_export: the .pth's params differ from the .npz's")
+    require(all(frames_equal.values()), f"cli_export: frames differ {frames_equal}")
+    del from_pth, from_npz
+
+    # -- cli_compare: every engine at 128x128@32 on the trained weights, one grid
+    cmp_size, cmp_spp = 128, 32
+    cmp_dir = os.path.join(cli_root, "compare")
+    one = math.ceil(cmp_size * cmp_size / CHUNK)            # chunks a frame (1)
+    cmp_expect = {"render_samples": 6 * one, "wgmma_samples": 6 * one, "dequant": 2 * one,
+                  "int8": 2 * one, "render_zvals": 2 * one, "wgmma_zvals": 2 * one,
+                  "composite": 8 * one, "mlp_forward": bake}
+    lines, secs = run_cli("cli_compare", [
+        "compare", "--device", "cuda", "--checkpoint", PARAMS, "--size", str(cmp_size),
+        "--samples", str(cmp_spp), "--output_dir", cmp_dir], cmp_expect)
+    grid = decode_png(os.path.join(cmp_dir, "renderer_comparison.png"))
+    require(grid.shape == (2 * cmp_size, cmp_size * len(ENGINE_CLASSES), 3),
+            f"cli_compare: grid {grid.shape}")
+    status = {ln.split(":")[0]: ln.split(": ", 1)[1] for ln in lines
+              if ln.split(":")[0] in ENGINE_CLASSES}
+    require(list(status) == list(ENGINE_CLASSES) and not any("BLACK" in s for s in status.values()),
+            f"cli_compare: engine lines {status}")
+    cmp_shared = SharedModel(cli_cfg, dev).load(PARAMS)
+    tiles_equal = {}
+    for col, (name, cls) in enumerate(ENGINE_CLASSES.items()):
+        res = cls(cmp_shared).render_image(spherical_pose(40.0, -30.0, 4.0), (cmp_size, cmp_size),
+                                           cmp_spp, focal=focal_from_angle(cmp_size, CAMERA_ANGLE_X))
+        d = res.depth
+        dn = ((d - d.min()) / max(float(d.max() - d.min()), 1e-9) * 255).astype(np.uint8)
+        tile = grid[:, col * cmp_size:(col + 1) * cmp_size]
+        tiles_equal[name] = bool(
+            np.array_equal(tile[:cmp_size], (np.clip(res.rgb, 0, 1) * 255).astype(np.uint8))
+            and np.array_equal(tile[cmp_size:], np.repeat(dn[..., None], 3, axis=-1)))
+    emit("cli_compare", argv=f"compare --checkpoint final_params.npz --size {cmp_size} "
+         f"--samples {cmp_spp}", grid_shape=list(grid.shape), engines=status,
+         tiles_equal_in_process_frames=tiles_equal, launches=paths["cli_compare"],
+         expected=cmp_expect, seconds=secs, nvidia_smi=smi)
+    require(all(tiles_equal.values()), f"cli_compare: tiles differ from the frames {tiles_equal}")
+    del cmp_shared
+    torch.cuda.empty_cache()
+
+    # -- cli_streaming: train 200 steps from the C++ ray producer
+    stream_dir = os.path.join(cli_root, "stream")
+    stream_expect = {"mlp_forward": 2 * TRAIN_STEPS, "bwd_rows": K5_PASSES * TRAIN_STEPS,
+                     "wgrad": K5_PASSES * TRAIN_STEPS}
+    lines, secs = run_cli("cli_streaming", [
+        "train", "--device", "cuda", "--data_dir", no_dataset, "--image_size", "200",
+        "--streaming_steps", str(TRAIN_STEPS), "--no_resume", "--checkpoint_dir", stream_dir,
+        "--output_dir", stream_dir], stream_expect)
+    logged = [float(ln.rsplit("loss=", 1)[1]) for ln in lines if ln.startswith("step ")]
+    stream_state, _ = restore_checkpoint(os.path.join(stream_dir, "final_model.npz"))
+    loss_stream = eval_loss(params_from_numpy(stream_state["params"], dev), train_views)
+    emit("cli_streaming", argv=f"train --data_dir (none: the procedural scene) --image_size 200 "
+         f"--streaming_steps {TRAIN_STEPS} --no_resume", step=stream_state["step"],
+         logged_losses=logged, eval_loss_before=loss_init, eval_loss_after=loss_stream,
+         launches=paths["cli_streaming"], expected=stream_expect,
+         ms_per_step_with_setup=secs * 1e3 / TRAIN_STEPS, seconds=secs, nvidia_smi=smi)
+    require(stream_state["step"] == TRAIN_STEPS and len(logged) == TRAIN_STEPS // 100,
+            f"cli_streaming: step {stream_state['step']}, logged {logged}")
+    require(loss_stream < loss_init,
+            f"cli_streaming: the loss did not fall: {loss_init} -> {loss_stream}")
+
+    # -- cli_smoke: the module entry in a child process (its own card context)
+    t_smoke = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "nerf_tpu_torch.cli", "smoke"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    emit("cli_smoke", returncode=proc.returncode, stdout_tail=proc.stdout.splitlines()[-3:],
+         seconds=time.perf_counter() - t_smoke)
+    require(proc.returncode == 0 and "smoke test passed" in proc.stdout,
+            f"cli_smoke: exit code {proc.returncode}: {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    emit("cli", seconds=time.perf_counter() - t_cli, nvidia_smi=smi)
 
     # -- summary -------------------------------------------------------------
     no_library = "no single PyTorch call computes this function"

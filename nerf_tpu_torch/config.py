@@ -2,12 +2,13 @@
 
 The port's own copy of what rendering and training need from
 ``nerf_tpu/config.py``: the model architecture, the sampling schedule and
-compositing constants, the optimization schedule and the run's directories,
-the occupancy-grid engine's scene constants, all with the same names and
-defaults, so one config dict (a checkpoint's ``meta["config"]``) describes
-the same run to both packages. The mesh settings and ``data_dir`` arrive
-with the slices that read them; ``from_dict`` ignores them in a dict written
-by the JAX package.
+compositing constants, the optimization schedule, the run's directories
+(the dataset's ``data_dir`` among them) and the occupancy-grid engine's
+scene constants, all with the same names and defaults, so one config dict
+(a checkpoint's ``meta["config"]``) describes the same run to both
+packages: ``to_dict`` has the JAX package's keys but ``mesh``, which
+arrives with the multi-GPU slice; ``from_dict`` ignores it in a dict
+written by the JAX package.
 """
 
 from __future__ import annotations
@@ -101,6 +102,7 @@ class Config:
     render: RenderConfig = field(default_factory=RenderConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     accel: AccelConfig = field(default_factory=AccelConfig)
+    data_dir: str = "data/nerf_synthetic/lego"
     checkpoint_dir: str = "checkpoints"
     output_dir: str = "outputs"
     img_wh: Tuple[int, int] = (800, 800)
@@ -117,7 +119,7 @@ class Config:
             names = {f.name for f in dataclasses.fields(cls)}
             return cls(**{k: v for k, v in (sub or {}).items() if k in names})
 
-        top = {k: d[k] for k in ("checkpoint_dir", "output_dir") if k in d}
+        top = {k: d[k] for k in ("data_dir", "checkpoint_dir", "output_dir") if k in d}
         if "img_wh" in d:
             top["img_wh"] = tuple(d["img_wh"])
         accel = build(AccelConfig, d.get("accel"))

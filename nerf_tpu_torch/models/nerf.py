@@ -165,6 +165,21 @@ def params_from_torch_state_dict(state_dict: Mapping[str, Any], cfg: ModelConfig
     }
 
 
+def params_to_torch_state_dict(params: NeRFParams) -> Dict[str, np.ndarray]:
+    """Export "reference"-variant params (tensors on any device) as a
+    reference-format state_dict of numpy arrays, Linear weights ``[out,
+    in]``: the inverse of ``params_from_torch_state_dict``."""
+    out: Dict[str, np.ndarray] = {}
+    for i, layer in enumerate(params["trunk"]):
+        out[f"layers.{i}.weight"] = layer["w"].detach().cpu().numpy().T
+        out[f"layers.{i}.bias"] = layer["b"].detach().cpu().numpy()
+    for name, key in (("density_head", "density"), ("color_layers.0", "color0"),
+                      ("color_layers.1", "color1")):
+        out[f"{name}.weight"] = params[key]["w"].detach().cpu().numpy().T
+        out[f"{name}.bias"] = params[key]["b"].detach().cpu().numpy()
+    return out
+
+
 def load_bmild_weights(path: str, device="cuda") -> NeRFParams:
     """Original-NeRF Keras weights: an object array of 24 ``[in, out]``
     weight/bias arrays (8 trunk pairs, bottleneck, viewdir, rgb, alpha)."""

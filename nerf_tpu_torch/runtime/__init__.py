@@ -1,17 +1,22 @@
-"""ctypes bindings for the port's host runtime (``runtime.cpp``).
+"""ctypes bindings for the port's host runtime: two C++ libraries.
 
-Counterpart of ``nerf_tpu/runtime/__init__.py`` without the PNG decoder:
+Counterpart of ``nerf_tpu/runtime/__init__.py``. ``runtime.cpp`` holds
 ``RayBatchSampler``, a background C++ producer of shuffled training ray
 batches (the streaming trainer's input), and ``assemble_tiles``, which
-stitches ray tiles into a frame. The same C interface and arithmetic as the
-JAX package's library, so one seed gives the same batches bit for bit.
+stitches ray tiles into a frame; ``png.cpp`` holds ``decode_png_batch``,
+the threaded PNG decoder (libpng) that ``data/blender.py`` reads a dataset
+with. The same C interfaces and arithmetic as the JAX package's library, so
+one seed gives the same batches, and one file the same floats, bit for bit.
+The decoder is a library of its own, so the ray producer needs no libpng.
 
-The library is built at first use with ``g++`` into ``build/nerf_tpu_torch/``
-beside the package, named by a hash of the source and the flags (an edited
-source is rebuilt), under a file lock, through a temporary file and
-``os.replace``; the compiler's output is kept in ``runtime.log`` there.
-Nothing falls back: a failed build or load raises (the JAX module's numpy
-fallback would draw other batches from the same seed).
+Each library is built at first use with ``g++`` into
+``build/nerf_tpu_torch/`` beside the package, named by a hash of its source
+and its flags (an edited source is rebuilt), under a file lock, through a
+temporary file and ``os.replace``; the compiler's output is kept in
+``runtime.log`` / ``png.log`` there. Nothing falls back: a failed build or
+load raises (the JAX module's numpy fallback would draw other batches from
+the same seed), and so does a PNG that fails to decode (the JAX module
+decodes it with PIL instead, which the card's machine lacks), naming it.
 """
 
 from __future__ import annotations
@@ -29,11 +34,19 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "runtime.cpp"
+PNG_SOURCE = SOURCE.with_name("png.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_tpu_torch"
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared")
+# library -> (source, its own compiler flags, what it links). The decoder's
+# products and sums stay as written on any target (no contraction to FMA)
+LIBRARIES = {
+    "nerf_runtime": (SOURCE, (), ()),
+    "nerf_png": (PNG_SOURCE, ("-ffp-contract=off",), ("-lpng", "-lz")),
+}
 
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional[ctypes.CDLL] = None        # libnerf_runtime, bound at first use
+_png_lib: Optional[ctypes.CDLL] = None    # libnerf_png, bound at first use
 _lib_lock = threading.Lock()
 
 _F = ctypes.POINTER(ctypes.c_float)
@@ -46,32 +59,38 @@ _SIGNATURES = {
     "nerf_assemble_tiles": ([_F, _U64, _U64, ctypes.c_uint32, _F, ctypes.c_uint64,
                              ctypes.c_uint32], None),
 }
+_PNG_SIGNATURES = {
+    "nerf_decode_png_batch": ([ctypes.c_char_p, ctypes.c_int, _F, ctypes.c_uint32,
+                               ctypes.c_uint32, ctypes.c_int, ctypes.c_int], ctypes.c_int),
+}
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    digest.update(" ".join((CXX,) + CXX_FLAGS).encode())
-    return BUILD_DIR / f"libnerf_runtime-{digest.hexdigest()[:16]}.so"
+def library_path(name: str = "nerf_runtime") -> Path:
+    source, flags, libs = LIBRARIES[name]
+    digest = hashlib.sha256(source.read_bytes())
+    digest.update(" ".join((CXX,) + CXX_FLAGS + flags + libs).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
+def build(name: str = "nerf_runtime") -> Path:
     """Compile the library unless it is built already; returns its path.
     Raises with the compiler's output if the build fails."""
-    so = library_path()
+    source, flags, libs = LIBRARIES[name]
+    so = library_path(name)
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
-    with open(so.parent / "runtime.lock", "w") as lock:
+    with open(so.parent / f"{source.stem}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)        # another process may be building it
         if so.exists():
             return so
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         try:
-            proc = subprocess.run([CXX, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
+            proc = subprocess.run([CXX, *CXX_FLAGS, *flags, str(source), "-o", str(tmp), *libs],
                                   capture_output=True, text=True)
         except OSError as e:                    # no compiler at all
             raise RuntimeError(f"nerf_tpu_torch.runtime: cannot run {CXX}: {e}") from e
-        (so.parent / "runtime.log").write_text(proc.stdout + proc.stderr)
+        (so.parent / f"{source.stem}.log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nerf_tpu_torch.runtime: {CXX} failed ({proc.returncode}):\n"
@@ -80,21 +99,62 @@ def build() -> Path:
     return so
 
 
+def _bind(name: str, signatures) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(name)))
+    for fn_name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
-    """The bound library, built at first use."""
+    """The bound ray-producer library, built at first use."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, (argtypes, restype) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes, fn.restype = argtypes, restype
-            _lib = lib
+            _lib = _bind("nerf_runtime", _SIGNATURES)
         return _lib
+
+
+def load_png_library() -> ctypes.CDLL:
+    """The bound PNG decoder, built at first use (needs libpng's headers)."""
+    global _png_lib
+    with _lib_lock:
+        if _png_lib is None:
+            _png_lib = _bind("nerf_png", _PNG_SIGNATURES)
+        return _png_lib
 
 
 def _fptr(a: np.ndarray):
     return a.ctypes.data_as(_F)
+
+
+def decode_png_batch(paths: Sequence[str], img_wh: Tuple[int, int],
+                     white_background: bool = True, n_threads: int = 0) -> np.ndarray:
+    """Decode PNGs into ``[n, H, W, 3]`` float32 in ``[0, 1]`` on the host:
+    bilinearly resized to ``img_wh = (W, H)`` (at the PNG's own size each
+    pixel is its bytes / 255), RGBA composited onto white where
+    ``white_background``, on ``n_threads`` threads (0: one per hardware
+    thread). Raises naming the files that failed to decode."""
+    w, h = img_wh
+    paths = [os.fspath(p) for p in paths]
+    if w <= 0 or h <= 0:
+        raise ValueError(f"decode_png_batch: image size {img_wh}")
+    if any("\n" in p for p in paths):
+        raise ValueError("decode_png_batch: a path holds a newline")
+    out = np.empty((len(paths), h, w, 3), np.float32)
+    if not paths:
+        return out
+    lib = load_png_library()
+    failures = lib.nerf_decode_png_batch("\n".join(paths).encode(), len(paths), _fptr(out),
+                                         w, h, int(white_background), n_threads)
+    if failures:
+        probe = np.empty((h, w, 3), np.float32)
+        bad = [p for p in paths if lib.nerf_decode_png_batch(p.encode(), 1, _fptr(probe), w, h,
+                                                             0, 1)]
+        raise RuntimeError(f"nerf_tpu_torch.runtime: {failures} of {len(paths)} PNGs failed "
+                           f"to decode: {bad}")
+    return out
 
 
 class RayBatchSampler:

@@ -7,7 +7,8 @@
 //      images (xorshift64*, the reference camera model) into a bounded queue
 //      while the card trains;
 //   2. tile assembly: stitch row-contiguous ray tiles into one frame.
-// The PNG decoder of the JAX runtime (libpng) is not part of it.
+// The JAX runtime's PNG decoder (section 1, libpng) is a library of its
+// own, png.cpp, so that this one needs no libpng.
 //
 // A plain C ABI bound with ctypes (nerf_tpu_torch/runtime/__init__.py),
 // built there with g++ -O3 -fPIC -std=c++17 -pthread -shared.

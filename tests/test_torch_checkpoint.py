@@ -197,8 +197,8 @@ def test_config_round_trips_and_reads_the_jax_dict():
                               train=TrainConfig(n_rays=512, seed=4))
     again = Config.from_dict(json.loads(json.dumps(cfg.to_dict())))
     assert again == cfg and again.img_wh == (64, 48)
-    # the JAX package's dict has sections the port does not (mesh,
-    # data_dir): they are ignored, the shared ones carry over
+    # the JAX package's dict has a section the port does not (mesh): it is
+    # ignored, the shared ones carry over
     jcfg = JConfig.from_dict(cfg.to_dict())
     assert Config.from_dict(jcfg.to_dict()) == cfg
     assert {f.name for f in dataclasses.fields(TrainConfig)} == {

@@ -21,6 +21,7 @@ from nerf_tpu.models.nerf import (
     init_nerf_params as jinit,
     params_to_torch_state_dict,
 )
+from nerf_tpu_torch.models.nerf import params_to_torch_state_dict as port_to_state_dict
 from nerf_tpu.train.checkpoint import restore_bare_params as jrestore
 from nerf_tpu_torch.config import ModelConfig
 from nerf_tpu_torch.models.encoding import positional_encoding
@@ -168,3 +169,23 @@ def test_torch_state_dict_import_matches_jax():
     tp = params_from_torch_state_dict(sd, tc, "cpu")
     jax.tree.map(np.testing.assert_array_equal, params_to_numpy(tp),
                  jax.tree.map(np.asarray, p))
+
+
+@pytest.mark.parametrize("narrow", [{}, dict(hidden_dim=32, n_layers=4, skip_layer=2,
+                                            color_hidden_dim=16)],
+                         ids=["full_width", "narrow"])
+def test_torch_state_dict_export_matches_jax_and_round_trips(narrow):
+    jc, tc = _cfgs("reference", **narrow)
+    p = _jax_params(jc, 12)
+    got = port_to_state_dict(params_from_numpy(p, "cpu"))
+    ref = params_to_torch_state_dict(p)
+    assert list(got) == list(ref)
+    for k in ref:
+        assert got[k].dtype == np.float32 and got[k].shape == ref[k].shape, k
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    # the inverse of params_from_torch_state_dict, bit for bit both ways
+    back = params_from_torch_state_dict(got, tc, "cpu")
+    jax.tree.map(np.testing.assert_array_equal, params_to_numpy(back),
+                 jax.tree.map(np.asarray, p))
+    again = port_to_state_dict(back)
+    assert all(np.array_equal(again[k], got[k]) for k in got)

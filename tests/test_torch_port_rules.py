@@ -18,6 +18,7 @@ PORT_FILES = sorted((ROOT / "nerf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smo
 FORBIDDEN = ("jax", "jaxlib", "nerf_tpu")
 ABSENT_ON_THE_CARD = ("pandas", "PIL", "psutil", "matplotlib")   # the card's machine lacks them
 BENCH_FILES = sorted((ROOT / "nerf_tpu_torch" / "bench").rglob("*.py")) + [ROOT / "bench_cuda.py"]
+CLI_FILES = sorted((ROOT / "nerf_tpu_torch" / "cli").rglob("*.py"))
 
 
 def _imported_modules_of(node):
@@ -42,13 +43,26 @@ def test_port_imports_no_jax(path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_needs_nothing_the_card_lacks(path):
     # importing a module of the port needs none of them; the benchmark
-    # files use none but matplotlib, for the suite's chart, inside a function
+    # files use none but matplotlib, for the suite's chart, inside a function;
+    # the command line uses none at all, and only asks importlib whether
+    # matplotlib is there (the loss plot and the chart are drawn elsewhere)
     tree = ast.parse(path.read_text(), str(path))
     top = [m for node in tree.body for m in _imported_modules_of(node)
            if m.split(".")[0] in ABSENT_ON_THE_CARD]
-    anywhere = [m for m in _imported_modules(path)
-                if m.split(".")[0] in ABSENT_ON_THE_CARD[:-1]] if path in BENCH_FILES else []
+    absent = (ABSENT_ON_THE_CARD if path in CLI_FILES
+              else ABSENT_ON_THE_CARD[:-1] if path in BENCH_FILES else ())
+    anywhere = [m for m in _imported_modules(path) if m.split(".")[0] in absent]
     assert not top and not anywhere, f"{path.name} imports {top + anywhere}"
+    if path in CLI_FILES:
+        named = [(node.lineno, node.value) for node in ast.walk(tree)
+                 if isinstance(node, ast.Constant) and isinstance(node.value, str)
+                 and node.value.split(".")[0] in ABSENT_ON_THE_CARD]
+        looked_up = [(call.lineno, call.args[0].value) for call in ast.walk(tree)
+                     if isinstance(call, ast.Call) and isinstance(call.func, ast.Attribute)
+                     and call.func.attr == "find_spec" and call.args
+                     and isinstance(call.args[0], ast.Constant)]
+        assert named == looked_up and all(m == "matplotlib" for _, m in named), (
+            f"{path.name} names {named} outside importlib.util.find_spec('matplotlib')")
 
 
 def test_kernels_build_for_hopper_without_fast_math():

@@ -211,3 +211,114 @@ def test_streamed_steps_match_the_jax_package_under_optax(ds):
     moved = max(float((leaf.detach() - start[k]).abs().max())
                 for k, leaf in tree_leaves(state.params))
     assert state.step == 5 and moved > 1e-3        # 5 steps of up to 3e-4 each, not nothing
+
+
+# -- the PNG decoder (png.cpp) against the JAX package's native decoder ------
+
+def _write_png16_rgba(path, rgba16):
+    """A 16-bit RGBA PNG (colour type 6, depth 16: Pillow writes none), no
+    row filter, one zlib stream."""
+    import struct
+    import zlib
+
+    h, w, _ = rgba16.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           rgba16.astype(">u2").view(np.uint8).reshape(h, -1)], axis=1)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 6, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
+
+
+PNG_KINDS = ("rgb8", "rgba8", "grey", "grey_alpha", "rgba16", "palette_trns")
+
+
+def _write_png(path, kind, w=13, h=9, seed=0):
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    rgba = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    if kind == "rgb8":
+        Image.fromarray(rgba[..., :3], "RGB").save(path)
+    elif kind == "rgba8":
+        Image.fromarray(rgba, "RGBA").save(path)
+    elif kind == "grey":
+        Image.fromarray(rgba[..., 0], "L").save(path)
+    elif kind == "grey_alpha":
+        Image.fromarray(rgba[..., :2].copy(), "LA").save(path)
+    elif kind == "rgba16":
+        _write_png16_rgba(path, rng.integers(0, 65536, (h, w, 4), dtype=np.uint16))
+    else:   # 16 palette entries, each with its own alpha (a tRNS chunk)
+        img = Image.fromarray((rgba[..., 0] % 16).astype(np.uint8), "P")
+        img.putpalette(rng.integers(0, 256, 48, dtype=np.uint8).tolist())
+        img.save(path, transparency=bytes(rng.integers(0, 256, 16, dtype=np.uint8).tolist()))
+    return path
+
+
+@pytest.fixture(scope="module")
+def jax_decoder():
+    from nerf_tpu import runtime as jruntime
+
+    if jruntime.load_library() is None:
+        pytest.skip("the JAX package's native runtime does not load here (it would decode "
+                    "with PIL)")
+    return jruntime.decode_png_batch
+
+
+@pytest.mark.parametrize("size", [(13, 9), (20, 7)], ids=["own_size", "resized"])
+@pytest.mark.parametrize("kind", PNG_KINDS)
+def test_decode_png_batch_matches_the_jax_packages_decoder_bit_for_bit(kind, size, tmp_path,
+                                                                       jax_decoder):
+    paths = [str(_write_png(tmp_path / f"{kind}_{i}.png", kind, seed=i)) for i in range(3)]
+    for white in (True, False):
+        ref = jax_decoder(paths, size, white_background=white, n_threads=1)
+        for threads in (1, 4):
+            got = runtime.decode_png_batch(paths, size, white_background=white,
+                                           n_threads=threads)
+            assert got.shape == (3, size[1], size[0], 3) and got.dtype == np.float32
+            np.testing.assert_array_equal(got, ref, err_msg=f"white={white} threads={threads}")
+    assert runtime.library_path("nerf_png").exists()
+    assert runtime.library_path("nerf_png") != runtime.library_path()
+
+
+def test_decode_png_batch_at_its_own_size_is_the_composite(tmp_path):
+    # no resampling: each pixel is its bytes / 255, composited as rgb a + (1 - a)
+    from PIL import Image
+
+    rgba = np.random.default_rng(3).integers(0, 256, (9, 13, 4), dtype=np.uint8)
+    Image.fromarray(rgba, "RGBA").save(tmp_path / "a.png")
+    f = rgba.astype(np.float32) / np.float32(255)
+    a = f[..., 3:]
+    got = runtime.decode_png_batch([str(tmp_path / "a.png")], (13, 9))
+    np.testing.assert_array_equal(got[0], f[..., :3] * a + (np.float32(1) - a))
+    got = runtime.decode_png_batch([tmp_path / "a.png"], (13, 9), white_background=False)
+    np.testing.assert_array_equal(got[0], f[..., :3])
+    assert runtime.decode_png_batch([], (13, 9)).shape == (0, 9, 13, 3)
+
+
+def test_decode_png_batch_raises_naming_the_files_that_failed(tmp_path):
+    good = str(_write_png(tmp_path / "good.png", "rgba8"))
+    corrupt = tmp_path / "corrupt.png"
+    corrupt.write_bytes(open(good, "rb").read()[:60])
+    missing = str(tmp_path / "missing.png")
+    with pytest.raises(RuntimeError, match="2 of 3 PNGs") as e:
+        runtime.decode_png_batch([good, str(corrupt), missing], (13, 9))
+    assert str(corrupt) in str(e.value) and missing in str(e.value) and good not in str(e.value)
+    with pytest.raises(ValueError):
+        runtime.decode_png_batch(["a\nb.png"], (13, 9))
+
+
+def test_failed_png_build_raises_and_leaves_the_ray_producer_alone(monkeypatch, tmp_path):
+    monkeypatch.setattr(runtime, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(runtime, "_png_lib", None)
+    monkeypatch.setitem(runtime.LIBRARIES, "nerf_png",
+                        (runtime.PNG_SOURCE, ("-DNO_SUCH_HEADER",), ("-lnerf_no_such_library",)))
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        runtime.decode_png_batch([str(tmp_path / "x.png")], (4, 4))
+    assert runtime._png_lib is None and not list(tmp_path.glob("libnerf_png*.so"))
+    # the ray producer's library links no libpng
+    assert "-lpng" not in runtime.LIBRARIES["nerf_runtime"][2]
