@@ -109,6 +109,27 @@ unless every kernel of the path ran its expected number of times:
   --streaming_steps 200``: 2 K4, 8 K5a, 8 K5b a step, the loss must fall);
   ``cli_smoke`` (``python3 -m nerf_tpu_torch.cli smoke`` in a child
   process: exit code 0).
+- multi-GPU on ``torch.distributed`` (``nerf_tpu_torch/parallel``,
+  ``bench/scaling.py``) on this one card, at the training phases' config
+  (seed ``TRAIN_SEED``, 2,048 rays, 64 + 128, bf16, jitter): ``nccl_probe``
+  (two child ranks on the one device over NCCL, one all-reduce: what NCCL
+  says is recorded; the two-process phases use NCCL if it took them, gloo
+  on CUDA tensors if not); ``dist_world1`` (a process group of one over
+  NCCL: ``make_sharded_train_step``'s 20 steps bit-equal to eager
+  ``make_train_step``'s, K4 2 and K5 8 + 8 a step, ms per step beside it,
+  the all-reduce's device time from a trace); ``dist_dp2`` (two child
+  ranks, data 2 x model 1: the same loss on both each step, step 1 within
+  rtol 1e-5 of one process's loss and its params within rtol 1e-4 / atol
+  1e-6, each rank's K4 / K5 launches those of a step of 1,024 rays);
+  ``dist_tp2`` (data 1 x model 2: each rank holds half the columns of the
+  trunk's ``w``, ``mu`` and ``nu``; 5 steps bit-equal to one process's);
+  ``scale`` (``python -m nerf_tpu_torch.cli scale`` at its defaults, then
+  ``scaling_report`` over the card named 2 and 4 times, one shard each:
+  K4's launches, frames stitched from 2 and 4 shards within 1e-5 of the
+  one-shard frame, no scaling number); ``cli_dist`` (``train
+  --num_processes 2`` on the card where the probe found that NCCL takes two
+  ranks on one device; otherwise the line says why it did not run). Each
+  child runs ``python3 chip_smoke.py --dist-child ...`` under a timeout.
 
 The frames use trained weights from ``results/convergence/final_params.npz``
 at 800x600 and are compared with the float32 plain PyTorch engine
@@ -203,6 +224,7 @@ TRAIN_SEED = 3                # both networks' densities are alive at this seed'
 LOSS_DROP = 0.75              # mean loss of the last 10 steps <= this x the first 10's
 GRAPH_STEPS = 10              # steps in one CUDA graph of the train loop (train_epoch's chunk)
 GRAPH_REPLAYS = 20            # timed replays of it: 200 steps
+RETRACES = 2                  # more traces of a replay whose trace lost kernel records
                               # (observed on the H100: 0.61, from 0.391 to 0.240)
 LOSS_TOL = 2e-2               # a loss through the kernels vs through bf16 autograd, relative
 ACCEL_SPP = (16, 32, 64)      # the accel frames' samples per ray
@@ -461,6 +483,452 @@ def worst_rel(a, b):
     return max(rels.values()), rels
 
 
+# ---------------------------------------------------------------------------
+# multi-GPU on torch.distributed (nerf_tpu_torch/parallel, bench/scaling.py)
+
+DIST_STEPS = 20               # sharded steps held against eager make_train_step (dist_world1, dp2)
+TP_STEPS = 5                  # tensor-parallel steps held against it bit for bit (dist_tp2)
+DIST_HW = (200, 200)          # the training phases' scene: 8 procedural views
+DP_LOSS_RTOL = 1e-5           # data-parallel step 1 vs one process: tests/test_sharding.py:61-69
+DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-4, 1e-6
+SCALE_TOL = 1e-5              # a frame stitched from shards vs the one-shard frame
+CHILD_TIMEOUT = 240           # seconds a child process may take
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_setup(dev):
+    """The training phases' config (the default Config, white background,
+    seed TRAIN_SEED) and scene (images and poses on ``dev``)."""
+    from nerf_tpu_torch.config import default_config
+    from nerf_tpu_torch.data.synthetic import make_procedural_dataset
+
+    cfg = default_config()
+    cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, white_background=True),
+                              train=dataclasses.replace(cfg.train, seed=TRAIN_SEED))
+    ds = make_procedural_dataset(n_views=8, img_wh=DIST_HW)
+    images = torch.as_tensor(np.asarray(ds.images, np.float32), device=dev)
+    poses = torch.as_tensor(np.asarray(ds.poses, np.float32), device=dev)
+    return cfg, images, poses, float(ds.focal)
+
+
+def leaf_arrays(state):
+    """{path: numpy} of a train state's params, mu and nu."""
+    from nerf_tpu_torch.utils.tree import tree_leaves
+
+    out = {}
+    for (path, leaf), mu, nu in zip(tree_leaves(state.params), state.optimizer.mu,
+                                    state.optimizer.nu):
+        key = "/".join(map(str, path))
+        out[f"param {key}"] = leaf.detach().cpu().numpy()
+        out[f"mu {key}"] = mu.cpu().numpy()
+        out[f"nu {key}"] = nu.cpu().numpy()
+    return out
+
+
+def k5_passes(n_rays):
+    """K5a (and K5b) launches of one train step of ``n_rays`` rays."""
+    from nerf_tpu_torch.ops import train_kernel
+
+    return sum(len(train_kernel.pass_bounds(n_rays * s)) for s in (SPP, S3))
+
+
+def child_main(argv):
+    """One rank of a two-process phase: ``--dist-child MODE RANK WORLD PORT
+    BACKEND OUT``. ``probe``: one all-reduce; ``dp2`` / ``tp2``: the sharded
+    train step on a 2 x 1 / 1 x 2 mesh. Writes its result to OUT (JSON, and
+    OUT.npz with rank 0's gathered state)."""
+    mode, rank, world, port, backend, out = argv
+    rank, world = int(rank), int(world)
+    import torch.distributed as dist
+
+    from nerf_tpu_torch.parallel import (make_mesh, make_sharded_train_step, shard_train_state,
+                                         tp_param_shardings)
+    from nerf_tpu_torch.parallel.train import gather_train_state, initialize_distributed
+    from nerf_tpu_torch.train.trainer import init_train_state
+    from nerf_tpu_torch.utils.tree import tree_leaves
+
+    res = {"mode": mode, "rank": rank, "backend": backend}
+    if mode == "probe":      # what the backend says to two ranks on one card, recorded
+        try:
+            initialize_distributed(f"127.0.0.1:{port}", world, rank, backend=backend)
+            x = torch.full((4,), rank + 1.0, device="cuda")
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            res.update(ok=x.tolist() == [float(world * (world + 1) // 2)] * 4, values=x.tolist())
+            dist.destroy_process_group()
+        except Exception as e:      # the probe's finding, not a failure of this script
+            res.update(ok=False, error=f"{type(e).__name__}: {e}"[-1500:])
+        with open(out, "w") as f:
+            json.dump(res, f)
+        sys.stdout.flush()
+        os._exit(0)                 # no teardown of a communicator in error: it may wait
+    initialize_distributed(f"127.0.0.1:{port}", world, rank, backend=backend)
+    tp = mode == "tp2"
+    mesh = make_mesh(*((1, 2) if tp else (2, 1)))
+    cfg, images, poses, focal = dist_setup(mesh.device)
+    state = shard_train_state(init_train_state(torch.Generator().manual_seed(TRAIN_SEED), cfg,
+                                               mesh.device), mesh, tp=tp)
+    step = make_sharded_train_step(cfg, DIST_HW, mesh, tp=tp)
+    g = torch.Generator(device=mesh.device).manual_seed(TRAIN_SEED)
+    reset_counts()
+    losses, secs = [], []
+    for k in range(TP_STEPS if tp else DIST_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, images[k % len(images)], poses[k % len(poses)], focal, g)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+        if k == 0 and not tp and rank == 0:
+            np.savez(out + ".npz", **leaf_arrays(state))
+    res.update(losses=losses, counts=read_counts(), coords=list(mesh.coords),
+               ms_per_step=float(np.median(secs[1:])) * 1e3)
+    # the step's collective alone, on a buffer of its size: the gradients
+    # and 3 losses over the data group, or the split leaves over the model
+    # group (the gather of the model axis)
+    split = [a for _, a in tree_leaves(tp_param_shardings(state.params, mesh))]
+    n = (sum(x.numel() * 2 for x, a in zip(state.leaves(), split) if a is not None) if tp
+         else sum(x.numel() for x in state.leaves()) + 3)
+    buf = torch.zeros(n, device=mesh.device)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf, group=mesh.model_group if tp else mesh.data_group)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    res.update(collective_bytes=4 * n, collective_ms=float(np.median(times[1:])) * 1e3)
+    if tp:
+        whole = gather_train_state(state, mesh, tp=True)
+        if rank == 0:
+            np.savez(out + ".npz", **leaf_arrays(whole))
+        # every trunk and bottleneck leaf, its mu and its nu: half the
+        # columns (the split axis) of the whole; the heads whole
+        opt, misshapen = state.optimizer, []
+        for (path, leaf), a, mu, nu, full in zip(tree_leaves(state.params), split, opt.mu,
+                                                 opt.nu, whole.leaves()):
+            want = list(full.shape)
+            if a is not None:
+                want[a] //= 2
+            if not all(list(t.shape) == want for t in (leaf, mu, nu)):
+                misshapen.append("/".join(map(str, path)))
+        i = [p for p, _ in tree_leaves(state.params)].index(("fine", "trunk", 1, "w"))
+        res.update(split_leaves=sum(a is not None for a in split), misshapen=misshapen,
+                   local_shapes={"w": list(state.leaves()[i].shape),
+                                 "mu": list(opt.mu[i].shape), "nu": list(opt.nu[i].shape)})
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def run_children(mode, backend, workdir, world=2):
+    """Start ``world`` ranks of ``mode`` as child processes of this script
+    (each under CHILD_TIMEOUT); returns (procs, out paths)."""
+    port = free_port()
+    outs = [os.path.join(workdir, f"{mode}_{backend}_rank{r}.json") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-child", mode,
+                               str(r), str(world), str(port), backend, outs[r]], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    return procs, outs
+
+
+def wait_children(name, procs, outs, timeout=CHILD_TIMEOUT, must_succeed=True):
+    """Wait for the children (killing all of them past ``timeout`` seconds,
+    which fails the run); returns their results. With ``must_succeed`` a
+    non-zero exit code or a missing result fails the run; without, a child
+    that wrote nothing gives ``{"ok": False, "error": <its output's tail>}``."""
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0])
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"chip_smoke FAILED: {name}: a child ran past {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    results = []
+    for p, out, log in zip(procs, outs, logs):
+        if must_succeed:
+            require(p.returncode == 0 and os.path.exists(out),
+                    f"{name}: a child exited {p.returncode}: {log[-3000:]}")
+        if os.path.exists(out):
+            with open(out) as f:
+                results.append(json.load(f))
+        else:
+            results.append({"ok": False, "returncode": p.returncode, "error": log[-1500:]})
+    return results
+
+
+def multi_gpu_phases(dev, smi, paths, run_cli, workdir):
+    """dist_world1, the backend probe, dist_dp2, dist_tp2, scale, cli_dist."""
+    import torch.distributed as dist
+
+    from nerf_tpu_torch.bench.scaling import _make_sharded_render, assemble_frame, scaling_report
+    from nerf_tpu_torch.config import default_config
+    from nerf_tpu_torch.models.nerf import params_from_numpy
+    from nerf_tpu_torch.parallel import make_mesh, make_sharded_train_step, shard_train_state
+    from nerf_tpu_torch.train.checkpoint import restore_bare_params
+    from nerf_tpu_torch.train.trainer import (default_train_apply_fn, init_train_state,
+                                              make_train_step)
+
+    t_dist = time.perf_counter()
+    # -- the probe: two ranks on this one card over NCCL -----------------------
+    probe = run_children("probe", "nccl", workdir)
+    probe_res = wait_children("nccl_probe", *probe, timeout=120, must_succeed=False)
+    nccl_two = all(r.get("ok") for r in probe_res)
+    emit("nccl_probe", world_size=2, device="cuda:0 for both ranks", ok=nccl_two,
+         results=probe_res, returncodes=[p.returncode for p in probe[0]])
+    backend = "nccl" if nccl_two else "gloo"
+
+    cfg, images, poses, focal = dist_setup(dev)
+    n_views = images.shape[0]
+
+    def steps(step, state, n, snapshots=()):
+        g = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+        losses, secs, snaps = [], [], {}
+        for k in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, images[k % n_views], poses[k % n_views], focal, g)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+            if k + 1 in snapshots:
+                snaps[k + 1] = leaf_arrays(state)
+        return losses, float(np.median(secs[5:])) * 1e3, snaps
+
+    def fresh():
+        return init_train_state(torch.Generator().manual_seed(TRAIN_SEED), cfg, dev)
+
+    # -- the reference: eager make_train_step on the kernels (K4 + K5), one process
+    ref_losses, ref_ms, ref = steps(make_train_step(cfg, DIST_HW, default_train_apply_fn(cfg, dev)),
+                                    fresh(), DIST_STEPS, (1, TP_STEPS, DIST_STEPS))
+
+    # -- dist_world1: a process group of one over NCCL, the sharded step -------
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh()
+        state = shard_train_state(fresh(), mesh)
+        step = make_sharded_train_step(cfg, DIST_HW, mesh)
+        reset_counts()
+        w1_losses, w1_ms, w1 = steps(step, state, DIST_STEPS, (DIST_STEPS,))
+        paths["dist_world1"] = counts = read_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, images[0], poses[0], focal, torch.Generator(device=dev).manual_seed(1))
+            torch.cuda.synchronize()
+        nccl_us, nccl_n, busy_us = {}, {}, 0.0
+        for name, t in device_events(prof):
+            busy_us += t
+            if "nccl" in name.lower():
+                nccl_us[name] = nccl_us.get(name, 0.0) + t
+                nccl_n[name] = nccl_n.get(name, 0) + 1
+        # the all-reduce alone, on the step's buffer (gradients and 3 losses)
+        flat = torch.zeros(sum(x.numel() for x in state.leaves()) + 3, device=dev)
+        allreduce_ms = call_ms(lambda: dist.all_reduce(flat), 20)
+    finally:
+        dist.destroy_process_group()
+    per_step = {"mlp_forward": 2, "bwd_rows": k5_passes(TRAIN_RAYS), "wgrad": k5_passes(TRAIN_RAYS)}
+    want = {k: v * DIST_STEPS for k, v in per_step.items()}
+    bit_equal = w1_losses == ref_losses and all(
+        np.array_equal(a, ref[DIST_STEPS][k]) for k, a in w1[DIST_STEPS].items())
+    emit("dist_world1", backend="nccl", world_size=1, mesh=[1, 1], steps=DIST_STEPS,
+         rays_per_step=TRAIN_RAYS, launches=counts, expected=want,
+         losses_bit_equal_to_make_train_step=w1_losses == ref_losses,
+         state_bit_equal_to_make_train_step=bit_equal, first_loss=w1_losses[0],
+         last_loss=w1_losses[-1], ms_per_step=w1_ms, make_train_step_ms_per_step=ref_ms,
+         nccl_kernels_device_ms={k: v / 1e3 for k, v in nccl_us.items()},
+         nccl_kernel_launches=nccl_n, allreduce_device_ms=sum(nccl_us.values()) / 1e3,
+         traced_step_device_busy_ms=busy_us / 1e3, allreduce_bytes=4 * flat.numel(),
+         allreduce_event_ms=allreduce_ms,
+         nvidia_smi=smi)
+    for k in set(counts) | set(want):
+        require(counts.get(k, 0) == want.get(k, 0),
+                f"dist_world1: {k} launched {counts.get(k, 0)} times, expected {want.get(k, 0)}")
+    require(bit_equal, "dist_world1: the sharded step through NCCL differs from make_train_step")
+    del state
+
+    # -- dist_dp2 and dist_tp2: two processes each, at the same time -----------
+    dp = run_children("dp2", backend, workdir)
+    tp = run_children("tp2", backend, workdir)
+    dp_res, tp_res = wait_children("dist_dp2", *dp), wait_children("dist_tp2", *tp)
+
+    half = {"mlp_forward": 2, "bwd_rows": k5_passes(TRAIN_RAYS // 2),
+            "wgrad": k5_passes(TRAIN_RAYS // 2)}
+    paths["dist_dp2"] = {k: sum(r["counts"].get(k, 0) for r in dp_res) for k in dp_res[0]["counts"]}
+    same_each_step = dp_res[0]["losses"] == dp_res[1]["losses"]
+    loss1_rel = abs(dp_res[0]["losses"][0] - ref_losses[0]) / abs(ref_losses[0])
+    with np.load(dp[1][0] + ".npz") as f:
+        dp_params = {k: f[k] for k in f.files if k.startswith("param")}
+    worst, beyond = 0.0, 0
+    for k, a in dp_params.items():
+        b = ref[1][k]
+        excess = np.abs(a - b) - (DP_PARAM_ATOL + DP_PARAM_RTOL * np.abs(b))
+        worst = max(worst, float(np.abs(a - b).max()))
+        beyond += int((excess > 0).sum())
+    loss20_rel = max(abs(a - b) / abs(b) for a, b in zip(dp_res[0]["losses"], ref_losses))
+    emit("dist_dp2", backend=backend, world_size=2, mesh=[2, 1], steps=DIST_STEPS,
+         rays_per_rank=TRAIN_RAYS // 2, launches_by_rank=[r["counts"] for r in dp_res],
+         expected_per_rank={k: v * DIST_STEPS for k, v in half.items()},
+         ranks_same_loss_each_step=same_each_step, step1_loss=dp_res[0]["losses"][0],
+         step1_loss_single_process=ref_losses[0], step1_loss_rel_diff=loss1_rel,
+         loss_rtol=DP_LOSS_RTOL, step1_params_max_abs_diff=worst,
+         step1_params_beyond_tolerance=beyond, param_rtol=DP_PARAM_RTOL,
+         param_atol=DP_PARAM_ATOL, max_rel_loss_diff_over_steps=loss20_rel,
+         ms_per_step_by_rank=[r["ms_per_step"] for r in dp_res],
+         gradient_allreduce_ms_by_rank=[r["collective_ms"] for r in dp_res],
+         gradient_allreduce_bytes=dp_res[0]["collective_bytes"], nvidia_smi=smi)
+    for r in dp_res:
+        for k in set(r["counts"]) | set(half):
+            require(r["counts"].get(k, 0) == half.get(k, 0) * DIST_STEPS,
+                    f"dist_dp2: rank {r['rank']} launched {k} {r['counts'].get(k, 0)} times")
+    require(same_each_step, "dist_dp2: the ranks' losses differ")
+    require(loss1_rel <= DP_LOSS_RTOL, f"dist_dp2: step 1 loss {loss1_rel} from one process's")
+    require(beyond == 0, f"dist_dp2: {beyond} params beyond rtol {DP_PARAM_RTOL} / atol "
+            f"{DP_PARAM_ATOL} after step 1 (largest difference {worst})")
+
+    whole = {"mlp_forward": 2, "bwd_rows": k5_passes(TRAIN_RAYS), "wgrad": k5_passes(TRAIN_RAYS)}
+    paths["dist_tp2"] = {k: sum(r["counts"].get(k, 0) for r in tp_res) for k in tp_res[0]["counts"]}
+    with np.load(tp[1][0] + ".npz") as f:
+        tp_state = {k: f[k] for k in f.files}
+    tp_bit_equal = all(np.array_equal(a, ref[TP_STEPS][k]) for k, a in tp_state.items())
+    tp_losses_equal = all(r["losses"] == ref_losses[:TP_STEPS] for r in tp_res)
+    halves = all(r["local_shapes"] == {k: [256, 128] for k in ("w", "mu", "nu")}
+                 and not r["misshapen"] and r["split_leaves"] == 32 for r in tp_res)
+    emit("dist_tp2", backend=backend, world_size=2, mesh=[1, 2], steps=TP_STEPS,
+         launches_by_rank=[r["counts"] for r in tp_res],
+         expected_per_rank={k: v * TP_STEPS for k, v in whole.items()},
+         local_shapes_fine_trunk_1=[r["local_shapes"] for r in tp_res],
+         split_leaves_by_rank=[r["split_leaves"] for r in tp_res],
+         leaves_not_halved=[r["misshapen"] for r in tp_res],
+         losses_bit_equal=tp_losses_equal, gathered_state_bit_equal=tp_bit_equal,
+         ms_per_step_by_rank=[r["ms_per_step"] for r in tp_res],
+         weight_gather_allreduce_ms_by_rank=[r["collective_ms"] for r in tp_res],
+         weight_gather_bytes=tp_res[0]["collective_bytes"], nvidia_smi=smi)
+    for r in tp_res:
+        for k in set(r["counts"]) | set(whole):
+            require(r["counts"].get(k, 0) == whole.get(k, 0) * TP_STEPS,
+                    f"dist_tp2: rank {r['rank']} launched {k} {r['counts'].get(k, 0)} times")
+    require(halves, "dist_tp2: a rank holds other than half the columns of a trunk leaf, its "
+            "mu or its nu")
+    require(tp_losses_equal and tp_bit_equal, "dist_tp2: differs from the single process")
+
+    # -- scale: the command line at its defaults, then the report over one card
+    #    named 2 and 4 times (one shard each: no scaling number)
+    scale_dir = os.path.join(workdir, "scale")
+    spp, (sw, sh), n_frames = 64, (400, 300), 2
+    lines, secs = run_cli("scale", ["scale", "--device", "cuda", "--checkpoint", PARAMS,
+                                    "--output_dir", scale_dir], {"mlp_forward": 1 + n_frames})
+    with open(os.path.join(scale_dir, "scaling_report.json")) as f:
+        cli_rows = json.load(f)
+    png = decode_png(os.path.join(scale_dir, "scaling_frame.png"))
+    scfg = default_config()
+    fine = params_from_numpy(restore_bare_params(PARAMS)["fine"], dev)
+    from nerf_tpu_torch.utils.cameras import generate_rays
+
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = 4.0
+    ro, rd = (t.reshape(-1, 3) for t in generate_rays(pose, sw, sh, 800.0, dev))
+    frames, frame_err = {}, {}
+    for nd in (1, 2, 4):
+        pad = (-ro.shape[0]) % nd
+        render = _make_sharded_render(fine, scfg, [dev] * nd, spp)
+        frames[nd] = assemble_frame(*render(torch.cat([ro, ro.new_zeros(pad, 3)]),
+                                            torch.cat([rd, rd.new_ones(pad, 3)])),
+                                    sw * sh, (sw, sh))
+        frame_err[nd] = max(float(np.abs(frames[nd][0] - frames[1][0]).max()),
+                            float(np.abs(frames[nd][1] - frames[1][1]).max()))
+    png_equal = np.array_equal(png, (np.clip(frames[1][0], 0, 1) * 255).astype(np.uint8))
+    reports = {}
+    for k in (2, 4):
+        reset_counts()
+        rows = scaling_report(fine, scfg, resolution=(sw, sh), spp=spp, focal=800.0,
+                              devices=[dev] * k, n_frames=n_frames, log=lambda m: None)
+        torch.cuda.synchronize()
+        paths[f"scale_x{k}"] = read_counts()
+        reports[k] = [r.__dict__ for r in rows]
+        want = sum((1 + n_frames) * nd for nd in (1, 2, 4) if nd <= k)   # a shard a launch
+        require(paths[f"scale_x{k}"]["mlp_forward"] == want,
+                f"scale: K4 launched {paths[f'scale_x{k}']['mlp_forward']} times over devices "
+                f"x{k}, expected {want}")
+    emit("scale", argv=f"scale --checkpoint final_params.npz (--resolution {sw}x{sh} --samples "
+         f"{spp}: the defaults)", cli_rows=cli_rows, cli_launches=paths["scale"],
+         cli_png_equal_one_shard_frame=png_equal, frame_max_abs_diff_vs_one_shard=frame_err,
+         tol=SCALE_TOL, reports=reports, launches={k: paths[f"scale_x{k}"] for k in (2, 4)},
+         note="one card named 2 and 4 times, one shard each: not a scaling number",
+         seconds=secs, nvidia_smi=smi)
+    require(png_equal, "scale: the command line's PNG differs from the one-shard frame")
+    require(all(e <= SCALE_TOL for e in frame_err.values()), f"scale: frames differ {frame_err}")
+    require(all(r["distinct_devices"] is (r["n_devices"] == 1) for rows in reports.values()
+                for r in rows), f"scale: rows {reports}")
+
+    # -- cli_dist: train --num_processes 2 on this card (NCCL, the command
+    #    line's backend on a CUDA device), where the probe found NCCL takes
+    #    two ranks on one device
+    if not nccl_two:
+        emit("cli_dist", ran=False, reason="NCCL refused two ranks on one device (nccl_probe); "
+             "the command line's distributed train runs over gloo only with --device cpu, in "
+             "tests/test_torch_parallel.py", probe_errors=[r.get("error") for r in probe_res])
+    else:
+        port = free_port()
+        ckpt_dir = os.path.join(workdir, "cli_dist")
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "nerf_tpu_torch.cli", "train", "--device", "cuda",
+             "--data_dir", os.path.join(workdir, "no_blender_dataset"), "--image_size", "200",
+             "--streaming_steps", "20", "--checkpoint_dir", ckpt_dir,
+             "--output_dir", ckpt_dir, "--coordinator_address", f"127.0.0.1:{port}",
+             "--num_processes", "2", "--process_id", str(r)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=CHILD_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        finals = [ln for log in logs for ln in log.splitlines() if "FINAL LOSS" in ln]
+        emit("cli_dist", ran=True, returncodes=[p.returncode for p in procs], final_lines=finals,
+             checkpoint=os.path.exists(os.path.join(ckpt_dir, "final_model.npz")))
+        require(all(p.returncode == 0 for p in procs) and len(finals) == 2
+                and len({ln.split()[-1] for ln in finals}) == 1,
+                f"cli_dist: {[log[-1500:] for log in logs]}")
+    emit("dist", seconds=time.perf_counter() - t_dist, nvidia_smi=smi)
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    from nerf_tpu_torch.ops import composite_kernel, mlp_kernel, quant, render_kernel, train_kernel
+
+    for k in render_kernel.launches:
+        render_kernel.launches[k] = 0
+    for k in quant.launches:
+        quant.launches[k] = 0
+    composite_kernel.launches = composite_kernel.planar_launches = 0
+    composite_kernel.bf16_launches = 0
+    mlp_kernel.launches = mlp_kernel.wmma_launches = 0
+    for k in train_kernel.launches:
+        train_kernel.launches[k] = 0
+
+
+def read_counts():
+    """Every kernel wrapper's launch count, by counter."""
+    from nerf_tpu_torch.ops import composite_kernel, mlp_kernel, quant, render_kernel, train_kernel
+
+    return {**render_kernel.launches, **quant.launches,
+            "composite": composite_kernel.launches,
+            "composite_bf16": composite_kernel.bf16_launches,
+            "composite_planar": composite_kernel.planar_launches,
+            "mlp_forward": mlp_kernel.launches, "mlp_forward_wmma": mlp_kernel.wmma_launches,
+            **train_kernel.launches}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
@@ -584,25 +1052,6 @@ def main():
             and k5_build["stream_chunks"] == len(ray_wgmma.bwd_chunk_schedule(default_config().model))
             and k5_lib.wgrad_job_ints() == train_kernel.jobs_tensor(default_config().model).shape[1],
             f"K5's layout differs between the kernels and ops/train_kernel.py ({k5_build})")
-
-    def reset_counts():
-        for k in render_kernel.launches:
-            render_kernel.launches[k] = 0
-        for k in quant.launches:
-            quant.launches[k] = 0
-        composite_kernel.launches = composite_kernel.planar_launches = 0
-        composite_kernel.bf16_launches = 0
-        mlp_kernel.launches = mlp_kernel.wmma_launches = 0
-        for k in train_kernel.launches:
-            train_kernel.launches[k] = 0
-
-    def read_counts():
-        return {**render_kernel.launches, **quant.launches,
-                "composite": composite_kernel.launches,
-                "composite_bf16": composite_kernel.bf16_launches,
-                "composite_planar": composite_kernel.planar_launches,
-                "mlp_forward": mlp_kernel.launches, "mlp_forward_wmma": mlp_kernel.wmma_launches,
-                **train_kernel.launches}
 
     white = lambda c: dataclasses.replace(
         c, render=dataclasses.replace(c.render, white_background=True))
@@ -2237,7 +2686,11 @@ def main():
     # the same 20 replays again under the profiler, untimed by the table: their
     # launches by kernel name, the device's share of them. One trace a
     # replay: a trace of all 20 (58,000 kernels) dropped 3 of 1,600 K5a and
-    # K5b records on the H100
+    # K5b records on the H100, and a trace of one replay has dropped a K5a
+    # and a K5b record there too. A replay launches the same kernels
+    # every time (its graph is fixed), so a trace that holds fewer is
+    # reported and the replay traced again, at most RETRACES times: a graph
+    # that lacks a launch still fails below
     def fenced_replay(im_c, po_c):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2245,9 +2698,16 @@ def main():
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    prof_calls_ms, us_g, n_g, graph_traced = [], {}, {}, {}
-    for im_c, po_c in chunks:
-        ms, us, n, by_counter = traced(lambda: fenced_replay(im_c, po_c))
+    prof_calls_ms, us_g, n_g, graph_traced, short_traces = [], {}, {}, {}, []
+    for i, (im_c, po_c) in enumerate(chunks):
+        for attempt in range(1 + RETRACES):
+            ms, us, n, by_counter = traced(lambda: fenced_replay(im_c, po_c))
+            if by_counter == steps_of(GRAPH_STEPS) or attempt == RETRACES:
+                break
+            short_traces.append({"replay": i, "traced": by_counter})
+            emit("profiler_note", replay=i, traced=by_counter, expected=steps_of(GRAPH_STEPS),
+                 note="a trace of one replay holds fewer kernel records than the graph "
+                      "launches; the replay is traced again")
         prof_calls_ms.append(ms)
         for total, part in ((us_g, us), (n_g, n), (graph_traced, by_counter)):
             for k, v in part.items():
@@ -2264,6 +2724,7 @@ def main():
         device_idle_share=1.0 - busy_g / sum(prof_calls_ms),
         device_kernels_per_step=sum(n_g.values()) / traced_steps,
         launches=graph_traced, launches_per_step=per_step_launches,
+        short_traces_traced_again=short_traces,
         device_ms_per_step_by_kernel={k: v / 1e3 / traced_steps for k, v in top_g[:12]},
         device_ms_per_step_other=sum(v for _, v in top_g[12:]) / 1e3 / traced_steps)
     torch.cuda.synchronize()
@@ -2327,7 +2788,8 @@ def main():
                    "the second epoch of 8 (traced)")
     require(all(e["steps"] == len(ds) and np.isfinite(e["loss"]) for e in epochs)
             # the traced replays took as many steps again
-            and looped.state.step == n_graph_steps + traced_steps + 2 * len(ds)
+            and looped.state.step == (n_graph_steps + traced_steps + 2 * len(ds)
+                                      + GRAPH_STEPS * len(short_traces))
             and all(np.isfinite(graph_losses)),
             f"train_graphed: step count {looped.state.step} or a non-finite loss")
     require(g_last10 <= LOSS_DROP * g_first10,
@@ -2828,6 +3290,9 @@ def main():
             f"cli_smoke: exit code {proc.returncode}: {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
     emit("cli", seconds=time.perf_counter() - t_cli, nvidia_smi=smi)
 
+    # -- paths 17-22: multi-GPU on torch.distributed, on this one card ----------
+    multi_gpu_phases(dev, smi, paths, run_cli, cli_root)
+
     # -- summary -------------------------------------------------------------
     no_library = "no single PyTorch call computes this function"
     mlp = "sample generation + encoding + the 10-layer MLP"
@@ -3062,4 +3527,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-child"]:
+        child_main(sys.argv[2:])
+    else:
+        main()

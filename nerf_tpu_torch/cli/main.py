@@ -13,6 +13,7 @@ the CPU). Run it as ``python -m nerf_tpu_torch.cli`` or ``nerf-tpu-torch``:
     nerf-tpu-torch compare    --checkpoint C [--size 128]
     nerf-tpu-torch export     --checkpoint C --out M.pth
     nerf-tpu-torch smoke
+    nerf-tpu-torch scale      --checkpoint C [--resolution 400x300] [--devices 1 2]
     nerf-tpu-torch pipeline   --data_dir D --epochs N     # train then benchmark
 
 The engines keep the registry's names (``render/engines.py``): ``torch``
@@ -22,9 +23,12 @@ drawn only where it is installed (``importlib.util.find_spec``), and
 ``compare`` writes its grid as one image with ``bench/suite.write_png``: an
 RGB row over a min-max-normalized depth row, one tile per engine.
 
-Not here: the ``scale`` subcommand, the multi-host flags
-(``--coordinator_address``, ``--num_processes``, ``--process_id``) and the
-distributed train loop, which wait for the multi-GPU slice; and the JAX
+``train`` and ``scale`` take the multi-host flags (``--coordinator_address``,
+``--num_processes``, ``--process_id``): with ``--num_processes`` above 1
+every process joins one ``torch.distributed`` group (NCCL on the card, gloo
+with ``--device cpu``; ``parallel/train.initialize_distributed``), ``train``
+runs the sharded step (``parallel/``) and rank 0 writes the checkpoint, and
+``scale`` splits each frame's shards over the ranks. Not here: the JAX
 package's ``NERF_TPU_PLATFORM`` override and compilation cache, which are
 JAX's own and have no counterpart.
 """
@@ -78,7 +82,39 @@ def _depth_to_uint8(d: np.ndarray) -> np.ndarray:
     return (dn * 255).astype(np.uint8)
 
 
+def _maybe_init_distributed(args) -> bool:
+    """Join the process group of the multi-host flags before any other work
+    on the device; True if this call made it (the caller then closes it).
+    A no-op for one process."""
+    if getattr(args, "num_processes", 0) and args.num_processes > 1:
+        from nerf_tpu_torch.parallel.train import initialize_distributed
+
+        initialize_distributed(
+            coordinator_address=args.coordinator_address,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+            device=args.device,
+        )
+        return True
+    return False
+
+
+def _close_distributed(owned: bool) -> None:
+    if owned:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
 def cmd_train(args) -> int:
+    owned = _maybe_init_distributed(args)
+    try:
+        return _train(args)
+    finally:
+        _close_distributed(owned)
+
+
+def _train(args) -> int:
     from nerf_tpu_torch.config import default_config
     from nerf_tpu_torch.data.blender import load_blender_data
     from nerf_tpu_torch.data.synthetic import make_procedural_dataset
@@ -107,6 +143,9 @@ def cmd_train(args) -> int:
         val_ds = make_procedural_dataset(n_views=4, img_wh=(w, h), seed=1,
                                          split="val")
 
+    if getattr(args, "num_processes", 0) and args.num_processes > 1:
+        return _train_distributed(args, cfg, train_ds, (h, w))
+
     trainer = NeRFTrainer(cfg, (h, w), device=args.device)
     if args.streaming_steps:
         if not args.no_resume:
@@ -121,6 +160,60 @@ def cmd_train(args) -> int:
     else:
         print("matplotlib is not installed: no loss plot")
     print(f"final checkpoint: {path}")
+    return 0
+
+
+def _train_distributed(args, cfg, train_ds, img_hw) -> int:
+    """The multi-process train loop: every rank runs this same program on
+    the mesh of ``cfg.mesh`` (default: every rank on the data axis), with
+    the same replicated inputs (params from seed 0, the steps' draws from
+    seed 1); rank 0 logs and writes the checkpoint, in the JAX package's
+    format."""
+    import torch
+    import torch.distributed as dist
+
+    from nerf_tpu_torch.parallel import make_mesh, make_sharded_train_step, shard_train_state
+    from nerf_tpu_torch.parallel.train import gather_train_state
+    from nerf_tpu_torch.train.checkpoint import save_checkpoint
+    from nerf_tpu_torch.train.trainer import checkpoint_state, init_train_state
+
+    h, w = img_hw
+    pid, world = dist.get_rank(), dist.get_world_size()
+    print(f"[proc {pid}/{world}] global devices: {world}")
+
+    n_data = None if cfg.mesh.data_axis < 0 else cfg.mesh.data_axis
+    tp = cfg.mesh.model_axis > 1
+    mesh = make_mesh(n_data=n_data, n_model=cfg.mesh.model_axis, device=args.device)
+    state = shard_train_state(init_train_state(torch.Generator().manual_seed(0), cfg,
+                                               mesh.device), mesh, tp=tp)
+    step = make_sharded_train_step(cfg, (h, w), mesh, tp=tp)
+
+    n_views = train_ds.images.shape[0]
+    n_steps = args.streaming_steps or args.epochs * n_views
+    if n_steps <= 0:
+        raise SystemExit("distributed training needs n_steps > 0 "
+                         "(set --epochs or --streaming_steps)")
+    generator = torch.Generator(device=mesh.device).manual_seed(1)   # the same on every rank
+    images = torch.as_tensor(np.asarray(train_ds.images, np.float32), device=mesh.device)
+    poses = torch.as_tensor(np.asarray(train_ds.poses, np.float32), device=mesh.device)
+    focal = float(train_ds.focal)
+    loss = float("nan")
+    for i in range(n_steps):
+        v = i % n_views
+        metrics = step(state, images[v], poses[v], focal, generator)
+        if pid == 0 and ((i + 1) % 100 == 0 or i + 1 == n_steps):
+            loss = float(metrics["loss"])
+            print(f"step {i + 1}/{n_steps} loss={loss:.6f}", flush=True)
+    if loss != loss:
+        loss = float(metrics["loss"])
+    print(f"PROC {pid} FINAL LOSS {loss:.8f}", flush=True)
+    whole = gather_train_state(state, mesh, tp)        # every rank takes part
+    if pid == 0:
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        path = os.path.join(args.checkpoint_dir, "final_model.npz")
+        save_checkpoint(path, checkpoint_state(whole),
+                        {"config": cfg.to_dict(), "distributed": True})
+        print(f"final checkpoint: {path}")
     return 0
 
 
@@ -322,6 +415,47 @@ def cmd_smoke(args) -> int:
     return 0
 
 
+def cmd_scale(args) -> int:
+    """Scaling report: rays/s and parallel efficiency over 1..N devices."""
+    owned = _maybe_init_distributed(args)
+    try:
+        return _scale(args)
+    finally:
+        _close_distributed(owned)
+
+
+def _scale(args) -> int:
+    import json
+
+    import torch.distributed as dist
+
+    from nerf_tpu_torch.bench.scaling import scaling_report
+    from nerf_tpu_torch.render.engines import SharedModel
+
+    ckpt = args.checkpoint
+    if ckpt == "bmild":
+        ckpt = BMILD_DEFAULT
+    cfg = _config_for(ckpt)
+    rank, world = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+    shared = SharedModel(cfg, args.device).load(ckpt)
+    w, h = _parse_resolutions([args.resolution])[0]
+    print(f"devices available: {world}")
+    os.makedirs(args.output_dir, exist_ok=True)
+    rows = scaling_report(
+        shared.params["fine"], cfg, resolution=(w, h), spp=args.samples,
+        focal=args.focal,
+        device_counts=[int(d) for d in args.devices] if args.devices else None,
+        frame_path=os.path.join(args.output_dir, "scaling_frame.png"),
+        device=args.device,
+    )
+    if rank == 0:
+        out = os.path.join(args.output_dir, "scaling_report.json")
+        with open(out, "w") as f:
+            json.dump([r.__dict__ for r in rows], f, indent=2)
+        print(f"wrote {out}")
+    return 0
+
+
 def cmd_pipeline(args) -> int:
     """Train (unless skipped), then benchmark the checkpoint."""
     if not args.benchmark_only and not args.skip_training:
@@ -349,6 +483,18 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--output_dir", default="outputs")
         sp.add_argument("--checkpoint_dir", default="checkpoints")
 
+    def distributed(sp):
+        """The multi-host flags (one torch.distributed process group);
+        single-process when omitted."""
+        sp.add_argument("--coordinator_address", default=None,
+                        help="host:port of process 0 (all hosts pass the "
+                             "same value)")
+        sp.add_argument("--num_processes", type=int, default=0,
+                        help="total hosts in the pod slice (0 = "
+                             "single-process)")
+        sp.add_argument("--process_id", type=int, default=None,
+                        help="this host's index in [0, num_processes)")
+
     t = sub.add_parser("train", help="train a NeRF")
     common(t)
     t.add_argument("--data_dir", default="data/nerf_synthetic/lego")
@@ -360,6 +506,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of the per-image epoch loop")
     t.add_argument("--n_rays", type=int, default=0,
                    help="rays per train step (0 = config default, 2048)")
+    distributed(t)
     device(t)
     t.set_defaults(fn=cmd_train)
 
@@ -414,6 +561,17 @@ def build_parser() -> argparse.ArgumentParser:
     ex.add_argument("--out", required=True)
     device(ex)
     ex.set_defaults(fn=cmd_export)
+
+    s = sub.add_parser("scale", help="multi-device scaling report")
+    s.add_argument("--checkpoint", default="bmild")
+    s.add_argument("--resolution", default="400x300")
+    s.add_argument("--samples", type=int, default=64)
+    s.add_argument("--focal", type=float, default=800.0)
+    s.add_argument("--devices", nargs="+", default=None)
+    s.add_argument("--output_dir", default="outputs")
+    distributed(s)
+    device(s)
+    s.set_defaults(fn=cmd_scale)
 
     pl = sub.add_parser("pipeline", help="train then benchmark (reference main.py)")
     common(pl)

@@ -3,12 +3,12 @@
 The port's own copy of what rendering and training need from
 ``nerf_tpu/config.py``: the model architecture, the sampling schedule and
 compositing constants, the optimization schedule, the run's directories
-(the dataset's ``data_dir`` among them) and the occupancy-grid engine's
-scene constants, all with the same names and defaults, so one config dict
-(a checkpoint's ``meta["config"]``) describes the same run to both
-packages: ``to_dict`` has the JAX package's keys but ``mesh``, which
-arrives with the multi-GPU slice; ``from_dict`` ignores it in a dict
-written by the JAX package.
+(the dataset's ``data_dir`` among them), the device mesh of sharded
+training (``parallel/``) and the occupancy-grid engine's scene constants,
+all with the same names and defaults, so one config dict (a checkpoint's
+``meta["config"]``) describes the same run to both packages: ``to_dict``
+has every key of the JAX package's, and ``from_dict`` reads either
+package's dict.
 """
 
 from __future__ import annotations
@@ -97,10 +97,21 @@ class AccelConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout for sharded training and rendering
+    (``parallel/``): one rank of a process group per device."""
+
+    data_axis: int = -1               # -1: every rank on the data (ray) axis
+    model_axis: int = 1               # ranks sharing the trunk's hidden columns
+    axis_names: Tuple[str, str] = ("data", "model")
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     accel: AccelConfig = field(default_factory=AccelConfig)
     data_dir: str = "data/nerf_synthetic/lego"
     checkpoint_dir: str = "checkpoints"
@@ -123,9 +134,11 @@ class Config:
         if "img_wh" in d:
             top["img_wh"] = tuple(d["img_wh"])
         accel = build(AccelConfig, d.get("accel"))
+        mesh = build(MeshConfig, d.get("mesh"))
         return Config(model=build(ModelConfig, d.get("model")),
                       render=build(RenderConfig, d.get("render")),
                       train=build(TrainConfig, d.get("train")),
+                      mesh=dataclasses.replace(mesh, axis_names=tuple(mesh.axis_names)),
                       accel=dataclasses.replace(accel, aabb=tuple(accel.aabb)), **top)
 
 

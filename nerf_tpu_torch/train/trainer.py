@@ -16,7 +16,10 @@ plain PyTorch under autograd. PyTorch idiom where the JAX package is
 functional: a ``TrainState`` is updated in place, and a step takes a
 ``torch.Generator`` (on the training device) where JAX takes a key. One
 generator serves a step's draws in this order: ray selection, then
-``render_rays``' (jitter, importance draws, density noise).
+``render_rays``' (jitter, importance draws, density noise). A rank of the
+sharded step (``parallel/train.py``) makes the same draws for the whole
+batch and keeps its rows (``select_rays`` and ``loss_fn`` with a
+``RayShard``).
 
 The optimizer is optax's chain of the JAX trainer, written out: clip by
 global norm (scale by ``max_norm / norm`` only when ``norm >= max_norm``;
@@ -51,6 +54,7 @@ from nerf_tpu_torch.utils.cameras import generate_rays
 from nerf_tpu_torch.utils.device import resolve_device, torch_dtype
 from nerf_tpu_torch.utils.graph import GraphedCall, HostCounters
 from nerf_tpu_torch.utils.metrics import psnr_from_mse
+from nerf_tpu_torch.utils.rendering import RayShard
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
 
@@ -95,11 +99,25 @@ class Optimizer:
     @torch.no_grad()
     def update(self, leaves: List[torch.Tensor], grads: List[torch.Tensor]) -> None:
         """One update of ``leaves`` from ``grads`` (which it overwrites)."""
+        self.apply(leaves, grads, self.clip_scale(grads))
+
+    @torch.no_grad()
+    def clip_scale(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global-norm clip's factor of ``grads`` (every leaf's whole
+        gradient): 1, or ``max_norm / norm`` where ``norm >= max_norm``."""
+        max_norm = self.tcfg.grad_clip_norm
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        return torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+
+    @torch.no_grad()
+    def apply(self, leaves: List[torch.Tensor], grads: List[torch.Tensor],
+              scale: torch.Tensor) -> None:
+        """The update after the clip's norm: ``grads`` (overwritten) scaled by
+        ``scale``, the decay, Adam and the schedule, elementwise, so a slice
+        of the leaves, their moments and their gradients (``parallel/``'s
+        model axis) updates exactly as the same slice of the whole would."""
         t = self.tcfg
         step_size, bias2 = self._scalars()
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        scale = torch.where(norm < t.grad_clip_norm, torch.ones_like(norm),
-                            t.grad_clip_norm / norm)
         torch._foreach_mul_(grads, scale)
         torch._foreach_add_(grads, leaves, alpha=t.weight_decay)
         torch._foreach_mul_(self.mu, self.b1)
@@ -126,6 +144,20 @@ class TrainState:
         return [leaf for _, leaf in tree_leaves(self.params)]
 
 
+def checkpoint_state(state: TrainState) -> Dict[str, Any]:
+    """A train state as ``train/checkpoint.save_checkpoint`` takes it: params
+    and Adam moments as nested numpy arrays, the update count, the step."""
+    paths = [p for p, _ in tree_leaves(state.params)]
+    opt = state.optimizer
+    return {
+        "params": params_to_numpy(state.params),
+        "mu": params_to_numpy(tree_from_leaves(paths, opt.mu)),
+        "nu": params_to_numpy(tree_from_leaves(paths, opt.nu)),
+        "count": opt.count,
+        "step": state.step,
+    }
+
+
 def make_optimizer(cfg: Config, params) -> Optimizer:
     """One optimizer over both networks' params."""
     return Optimizer(cfg, [leaf for _, leaf in tree_leaves(params)])
@@ -142,15 +174,18 @@ def init_train_state(generator: torch.Generator, cfg: Config, device="cuda") -> 
     return TrainState(params=params, optimizer=make_optimizer(cfg, params), step=0)
 
 
-def loss_fn(params, cfg: Config, rays_o, rays_d, target, generator=None, apply_fn=apply_nerf):
+def loss_fn(params, cfg: Config, rays_o, rays_d, target, generator=None, apply_fn=apply_nerf,
+            shard: Optional[RayShard] = None):
     """``(loss, (loss_coarse, loss_fine))`` of one ray batch: the MSE of the
     coarse and of the fine render against ``target [R, 3]``, summed. With a
     generator the render is the training one (jitter if ``cfg.render.perturb``,
-    random importance draws); without, it is deterministic."""
+    random importance draws); without, it is deterministic. With a
+    ``shard`` the rays are that shard of the step's batch (``render_rays``)."""
     result = render_rays(params["coarse"], params["fine"], rays_o, rays_d,
                          cfg.model, cfg.render, generator=generator,
                          perturb=cfg.render.perturb and generator is not None,
-                         compute_dtype=torch_dtype(cfg.train.compute_dtype), apply_fn=apply_fn)
+                         compute_dtype=torch_dtype(cfg.train.compute_dtype), apply_fn=apply_fn,
+                         shard=shard)
     loss_c = torch.mean((result.coarse.rgb - target) ** 2)
     loss_f = torch.mean((result.fine.rgb - target) ** 2)
     return loss_c + loss_f, (loss_c, loss_f)
@@ -181,28 +216,41 @@ def make_ray_train_step(cfg: Config, apply_fn=apply_nerf):
     return step_fn
 
 
+def select_rays(image, pose, focal, generator, img_hw: Tuple[int, int], n_rays: int,
+                shard: Optional[RayShard] = None):
+    """A step's random ray batch of one image: ``(rays_o, rays_d, target)``,
+    each ``[n_rays, 3]`` (with a ``shard``, its ``n_rays / count`` rows of
+    the batch: the pixel ids are drawn for the whole batch).
+
+    O(n_rays): draw pixel ids (with replacement), then evaluate the camera
+    model closed-form for just those pixels, instead of building the H*W ray
+    grid and permuting it every step."""
+    H, W = img_hw
+    idx = torch.randint(0, H * W, (n_rays,), device=image.device, generator=generator)
+    if shard is not None:
+        if n_rays % shard.count:
+            raise ValueError(f"{n_rays} rays do not split into {shard.count} equal shards")
+        idx = idx[shard.rows(n_rays // shard.count)]
+    i = (idx % W).float()
+    j = torch.div(idx, W, rounding_mode="floor").float()
+    dirs_cam = torch.stack([(i - W * 0.5) / focal, -(j - H * 0.5) / focal,
+                            -torch.ones_like(i)], dim=-1)
+    # written out per output axis (no matmul, so no TF32 question)
+    rays_d = (dirs_cam[:, None, :] * pose[:3, :3]).sum(-1)
+    rays_o = pose[:3, -1].expand(rays_d.shape)
+    target = image.reshape(-1, 3).index_select(0, idx)
+    return rays_o, rays_d, target
+
+
 def make_train_step(cfg: Config, img_hw: Tuple[int, int], apply_fn=apply_nerf):
     """Train step for a fixed image shape: ``step_fn(state, image [H, W, 3],
     pose [4, 4], focal, generator) -> metrics``, all tensors on the state's
-    device; the state is updated in place.
-
-    Ray selection is O(n_rays): draw pixel ids (with replacement), then
-    evaluate the camera model closed-form for just those pixels, instead of
-    building the H*W ray grid and permuting it every step."""
-    H, W = img_hw
+    device; the state is updated in place. Its rays: ``select_rays``."""
     ray_step = make_ray_train_step(cfg, apply_fn)
 
     def step_fn(state: TrainState, image, pose, focal, generator):
-        idx = torch.randint(0, H * W, (cfg.train.n_rays,), device=image.device,
-                            generator=generator)
-        i = (idx % W).float()
-        j = torch.div(idx, W, rounding_mode="floor").float()
-        dirs_cam = torch.stack([(i - W * 0.5) / focal, -(j - H * 0.5) / focal,
-                                -torch.ones_like(i)], dim=-1)
-        # written out per output axis (no matmul, so no TF32 question)
-        rays_d = (dirs_cam[:, None, :] * pose[:3, :3]).sum(-1)
-        rays_o = pose[:3, -1].expand(rays_d.shape)
-        target = image.reshape(-1, 3).index_select(0, idx)
+        rays_o, rays_d, target = select_rays(image, pose, focal, generator, img_hw,
+                                             cfg.train.n_rays)
         return ray_step(state, rays_o, rays_d, target, generator)
 
     return step_fn
@@ -353,15 +401,7 @@ class NeRFTrainer:
         path = os.path.join(self.cfg.checkpoint_dir, name)
         if not path.endswith(".npz"):
             path += ".npz"
-        paths = [p for p, _ in tree_leaves(self.state.params)]
-        opt = self.state.optimizer
-        state = {
-            "params": params_to_numpy(self.state.params),
-            "mu": params_to_numpy(tree_from_leaves(paths, opt.mu)),
-            "nu": params_to_numpy(tree_from_leaves(paths, opt.nu)),
-            "count": opt.count,
-            "step": self.state.step,
-        }
+        state = checkpoint_state(self.state)
         meta = {
             "config": self.cfg.to_dict(),
             "train_losses": self.train_losses,

@@ -7,6 +7,12 @@ the compositor with a 1e10 sentinel last distance scaled by ``||d||``,
 ``alpha = 1 - exp(-relu(sigma) * dist)`` and exclusive cumulative-product
 transmittance with a ``+1e-10`` epsilon, with optional density noise during
 training; ``normalized_depth`` divides a map's depth by its opacity.
+
+A ``RayShard`` names one of ``count`` equal, contiguous row blocks of a
+batch of rays (``parallel/``: a rank's share of the data axis). The
+stochastic functions take one: they draw for the whole batch from the
+generator every rank holds alike, and keep the shard's rows, so the
+shards of one step together draw exactly what the unsharded step draws.
 """
 
 from __future__ import annotations
@@ -16,6 +22,28 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from nerf_tpu_torch.config import RenderConfig
+
+
+class RayShard(NamedTuple):
+    index: int     # which block of rows
+    count: int     # of how many equal blocks
+
+    def rows(self, n_local: int) -> slice:
+        """This shard's rows of the whole batch, ``n_local`` rows a shard."""
+        return slice(self.index * n_local, (self.index + 1) * n_local)
+
+
+def draw(shape, generator: torch.Generator, dtype=torch.float32, device=None,
+         shard: Optional[RayShard] = None, normal: bool = False) -> torch.Tensor:
+    """``torch.rand`` (``torch.randn`` if ``normal``) of ``shape``; with a
+    ``shard``, ``shape`` is the shard's and the draw is the whole batch's
+    (``shape[0] * count`` rows), of which the shard's rows are kept."""
+    fn = torch.randn if normal else torch.rand
+    if shard is None:
+        return fn(shape, dtype=dtype, device=device, generator=generator)
+    full = fn((shape[0] * shard.count, *shape[1:]), dtype=dtype, device=device,
+              generator=generator)
+    return full[shard.rows(shape[0])]
 
 
 class RenderOutputs(NamedTuple):
@@ -33,10 +61,12 @@ def sample_points_on_rays(
     n_samples: int,
     perturb: bool = False,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[RayShard] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(points [N, S, 3], z_vals [N, S])``. With ``perturb`` each
     depth is jittered uniformly within its stratum; the draws come from
-    ``generator`` (which must live on the rays' device)."""
+    ``generator`` (which must live on the rays' device), the whole batch's
+    where the rays are a ``shard`` of it."""
     n_rays = rays_o.shape[0]
     t = torch.linspace(0.0, 1.0, n_samples, dtype=rays_o.dtype,
                        device=rays_o.device)
@@ -47,18 +77,17 @@ def sample_points_on_rays(
         mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
         lower = torch.cat([z_vals[..., :1], mids], dim=-1)
-        t_rand = torch.rand(z_vals.shape, dtype=z_vals.dtype,
-                            device=z_vals.device, generator=generator)
+        t_rand = draw(z_vals.shape, generator, z_vals.dtype, z_vals.device, shard)
         z_vals = lower + (upper - lower) * t_rand
     points = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
     return points, z_vals
 
 
 def draw_uniforms(z_vals: torch.Tensor, n_importance: int,
-                  generator: torch.Generator) -> torch.Tensor:
-    """``sample_pdf``'s random draws ``[N, n_importance]`` in [0, 1)."""
-    return torch.rand((z_vals.shape[0], n_importance), dtype=z_vals.dtype,
-                      device=z_vals.device, generator=generator)
+                  generator: torch.Generator, shard: Optional[RayShard] = None) -> torch.Tensor:
+    """``sample_pdf``'s random draws ``[N, n_importance]`` in [0, 1) (the
+    shard's rows of the whole batch's draws)."""
+    return draw((z_vals.shape[0], n_importance), generator, z_vals.dtype, z_vals.device, shard)
 
 
 def sample_pdf(
@@ -163,13 +192,15 @@ def volume_render(
     rays_d: torch.Tensor,
     cfg: RenderConfig = RenderConfig(),
     noise_generator: Optional[torch.Generator] = None,
+    shard: Optional[RayShard] = None,
 ) -> RenderOutputs:
     """Alpha-composite ``(sigma [N, S], rgb [N, S, 3])`` into per-ray maps.
     With a ``noise_generator`` and ``cfg.raw_noise_std > 0`` Gaussian noise
-    of that deviation is added to the density first (training only)."""
+    of that deviation is added to the density first (training only; the
+    shard's rows of the whole batch's noise)."""
     if noise_generator is not None and cfg.raw_noise_std > 0.0:
-        sigma = sigma + cfg.raw_noise_std * torch.randn(
-            sigma.shape, dtype=sigma.dtype, device=sigma.device, generator=noise_generator)
+        sigma = sigma + cfg.raw_noise_std * draw(
+            sigma.shape, noise_generator, sigma.dtype, sigma.device, shard, normal=True)
     dists = z_vals[..., 1:] - z_vals[..., :-1]
     dists = torch.cat([dists, torch.full_like(dists[..., :1], cfg.dist_sentinel)],
                       dim=-1)

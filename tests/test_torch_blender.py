@@ -81,11 +81,11 @@ def test_use_native_names_a_decoder(blender_dir, tmp_path):
         png_size(str(tmp_path / "x.png"))
 
 
-def test_config_keeps_data_dir_and_has_the_jax_keys_but_mesh():
+def test_config_keeps_data_dir_and_has_the_jax_keys():
     jcfg = JConfig(data_dir="some/scene")
     got = Config.from_dict(json.loads(json.dumps(jcfg.to_dict())))
     assert got.data_dir == "some/scene"
-    assert list(default_config().to_dict()) == [k for k in JConfig().to_dict() if k != "mesh"]
+    assert list(default_config().to_dict()) == list(JConfig().to_dict())
     assert Config().data_dir == JConfig().data_dir
     cfg = dataclasses.replace(default_config(), data_dir="d")
     assert Config.from_dict(cfg.to_dict()) == cfg

@@ -27,7 +27,6 @@ from nerf_tpu_torch.utils.cameras import focal_from_angle, spherical_pose
 from test_torch_blender import write_blender_dir
 
 ROOT = Path(__file__).resolve().parents[1]
-MULTI_HOST = {"coordinator_address", "num_processes", "process_id"}   # the multi-GPU slice's
 ENGINE_NAMES = {"xla": "torch", "pallas": "cuda"}
 
 
@@ -53,15 +52,10 @@ def one_torch_thread():
 @pytest.mark.parametrize("command", sorted(_subparsers(jcli.build_parser())))
 def test_parser_has_the_jax_surface(command):
     port = _subparsers(cli.build_parser())
-    if command == "scale":            # waits for the multi-GPU slice, with the multi-host flags
-        assert command not in port
-        return
     jopts, opts = _options(_subparsers(jcli.build_parser())[command]), _options(port[command])
-    assert set(jopts) - MULTI_HOST == set(opts) - {"device"}
+    assert set(jopts) == set(opts) - {"device"}
     assert opts["device"].default == "cuda"
     for dest, j in jopts.items():
-        if dest in MULTI_HOST:
-            continue
         o = opts[dest]
         assert o.option_strings == j.option_strings and o.nargs == j.nargs, dest
         assert o.required == j.required and o.type == j.type, dest
