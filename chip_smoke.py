@@ -39,6 +39,15 @@ unless every kernel of the path ran its expected number of times:
   ``CompressedEngine(bits=16)``;
 - ``mode_frames``: ``CudaEngine(raw_dtype="bfloat16")`` and
   ``CudaEngine(planar=True)`` in the hierarchical mode;
+- ``render_zvals``: ``render_kernel.fused_render_zvals`` (K3 in its plain
+  output form, differentiable in the weights) forward and backward at
+  4,096 rays x 192 depths from a coarse pass + ``sample_pdf``: K3 forward,
+  K5 backward for the reference network (autograd of ``apply_nerf`` for
+  bmild, which K5 does not compute), int8 weights forward only, one depth
+  per ray (K4 forward, K5 backward); held against K3's and K5's plain
+  versions and float32 autograd, the rays' and depths' cotangents zero,
+  fenced with ``monitor.sync``; one forward + backward timed beside bf16
+  autograd of ``apply_nerf`` at the same points;
 - ``accel_frames``: ``AccelEngine`` in the benchmark mode at 16, 32 and 64
   samples per ray (the occupancy grid, baked through K4 in the first frame's
   warm frame, places the depths: K3 -> K2; ``accel_bake`` and
@@ -900,6 +909,198 @@ def multi_gpu_phases(dev, smi, paths, run_cli, workdir):
                 and len({ln.split()[-1] for ln in finals}) == 1,
                 f"cli_dist: {[log[-1500:] for log in logs]}")
     emit("dist", seconds=time.perf_counter() - t_dist, nvidia_smi=smi)
+
+
+# ---------------------------------------------------------------------------
+# fused_render_zvals: K3 in its plain output form, differentiable in the weights
+
+ZV_RAYS = 4096                # rays of the render_zvals phase, at S3 depths each
+ZV_REPS = 5                   # timed calls of a forward + backward
+
+
+def render_zvals_phase(dev, smi, paths, poses, focal, cfg_ref, fine, coarse):
+    """``render_kernel.fused_render_zvals`` forward and backward at full width,
+    ``ZV_RAYS`` rays x ``S3`` depths from a coarse pass + ``sample_pdf``:
+    K3 forward; backward K5 for the reference network (its two kernels in
+    passes of 65,536 samples), autograd of ``apply_nerf`` for bmild, which
+    K5 does not compute; int8 weights (dequantized in K3) forward only, as
+    in the JAX package; one depth per ray (K4 forward, K5 backward). The
+    launches are counted over these calls alone. Held: sigma and rgb
+    against K3's plain version (K1_TOL, the route's QUANT_TOL), the weight
+    gradients against the plain backward (K5's plain version, or bf16
+    autograd for bmild; K5_PLAIN_TOL) and against float32 autograd (under
+    max(2 x bf16 autograd's, K5_MIN_TOL)), the rays' and depths' cotangents
+    zero. Then one forward + backward timed beside bf16 autograd of
+    ``apply_nerf`` at the same points, and profiled by kernel."""
+    from nerf_tpu_torch.config import bmild_config
+    from nerf_tpu_torch.models.nerf import apply_nerf, init_nerf_params
+    from nerf_tpu_torch.ops import composite_kernel, render_kernel, train_kernel
+    from nerf_tpu_torch.ops.mlp_kernel import pack_params
+    from nerf_tpu_torch.ops.quant import quantize_model
+    from nerf_tpu_torch.utils.monitor import sync
+    from nerf_tpu_torch.utils.rendering import sample_pdf
+    from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
+
+    t0 = time.perf_counter()
+    rcfg = cfg_ref.render
+    cfg_bm = bmild_config().model
+    seeded_bm = init_nerf_params(torch.Generator().manual_seed(1), cfg_bm, dev)
+    ro, rd = camera_rays(poses[2], focal, dev, ZV_RAYS, seed=16)
+    g = torch.Generator(device=dev).manual_seed(16)
+    n = ZV_RAYS * S3
+    nets = {}
+    for vname, mcfg, p_coarse, p_fine in (("reference", cfg_ref.model, coarse, fine),
+                                          ("bmild", cfg_bm, seeded_bm, seeded_bm)):
+        z = hier_depths(render_kernel, composite_kernel, sample_pdf,
+                        pack_params(p_coarse, mcfg, torch.bfloat16), ro, rd, mcfg, rcfg)
+        ds = torch.randn(ZV_RAYS, S3, device=dev, generator=g) / n
+        dr = torch.randn(ZV_RAYS, S3, 3, device=dev, generator=g) / n
+        nets[vname] = (mcfg, p_fine, z, ds, dr)
+    q8 = quantize_model({"fine": fine}, cfg_ref.model, bits=8, prune_fraction=0.1)[0]["fine"]
+
+    def leaves_of(params):
+        paths_, leaves = zip(*tree_leaves(params))
+        leaves = [leaf.detach().clone().requires_grad_() for leaf in leaves]
+        return paths_, leaves, tree_from_leaves(paths_, leaves)
+
+    def points(z):
+        pts = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(-1, 3)
+        return pts, rd.repeat_interleave(z.shape[1], dim=0)
+
+    def autograd_grads(params, mcfg, z, ds, dr, dtype):
+        paths_, leaves, tree = leaves_of(params)
+        pts, dirs = points(z)
+        out = apply_nerf(tree, pts, dirs, mcfg, compute_dtype=dtype)
+        return dict(zip(paths_, torch.autograd.grad(out, leaves, (ds.reshape(-1),
+                                                                  dr.reshape(-1, 3)))))
+
+    def fwd_bwd(params, mcfg, z, ds, dr, rays_grad=False):
+        paths_, leaves, tree = leaves_of(params)
+        o, d, zz = ((t.detach().clone().requires_grad_() for t in (ro, rd, z)) if rays_grad
+                    else (ro, rd, z))
+        sigma, rgb = render_kernel.fused_render_zvals(tree, o, d, zz, mcfg)
+        inputs = leaves + ([o, d, zz] if rays_grad else [])
+        grads = torch.autograd.grad((sigma, rgb), inputs, (ds, dr))
+        return sigma, rgb, dict(zip(paths_, grads[:len(leaves)])), grads[len(leaves):]
+
+    # -- the calls whose launches are counted
+    reset_counts()
+    runs = {v: fwd_bwd(params, mcfg, z, ds, dr, rays_grad=True)
+            for v, (mcfg, params, z, ds, dr) in nets.items()}
+    sigma_q, rgb_q = render_kernel.fused_render_zvals(q8, ro, rd, nets["reference"][2],
+                                                      cfg_ref.model)
+    mref, _, z_ref, ds_ref, dr_ref = nets["reference"]
+    one = fwd_bwd(fine, mref, z_ref[:, :1], ds_ref[:, :1], dr_ref[:, :1])
+    sync((runs, sigma_q, rgb_q, one))
+    counts = paths["render_zvals"] = read_counts()
+    passes = len(train_kernel.pass_bounds(n)) + 1
+    expect = {"render_zvals": 3, "wgmma_zvals": 3, "dequant": 1, "mlp_forward": 1,
+              "bwd_rows": passes, "wgrad": passes}
+    require({k: v for k, v in counts.items() if v} == expect,
+            f"render_zvals: launches {counts}, expected {expect}")
+
+    # -- held against the plain versions and autograd
+    res = {}
+    for vname, (mcfg, params, z, ds, dr) in nets.items():
+        sigma, rgb, grads, ray_grads = runs[vname]
+        packed = pack_params(params, mcfg, torch.bfloat16)
+        raw_k = torch.cat([sigma[..., None], rgb], -1).reshape(ZV_RAYS, 4 * S3)
+        raw_p = render_kernel.fused_render_zvals_plain(packed, ro, rd, z, mcfg)
+        rgb_err, sig_err, sig_scale = rgb_sigma_err(raw_k, raw_p)
+        g_f32 = autograd_grads(params, mcfg, z, ds, dr, torch.float32)
+        g_bf16 = autograd_grads(params, mcfg, z, ds, dr, torch.bfloat16)
+        if vname == "reference":
+            pts, dirs = points(z)
+            g_plain = dict(tree_leaves(train_kernel.unpack_grads(train_kernel.packed_grads_plain(
+                packed, pts, dirs, ds.reshape(-1), dr.reshape(-1, 3), mcfg), mcfg)))
+            del pts, dirs
+        else:
+            g_plain = g_bf16
+        vs_plain, _ = worst_rel(grads, g_plain)
+        noise, per_leaf = worst_rel(grads, g_f32)
+        bf16_noise, _ = worst_rel(g_bf16, g_f32)
+        limit = max(2.0 * bf16_noise, K5_MIN_TOL)
+        rays_zero = all(bool((t == 0).all()) for t in ray_grads)
+        res[vname] = dict(rays=ZV_RAYS, samples=S3, rgb_max_abs_err=rgb_err,
+                          sigma_max_rel_err=sig_err, max_abs_sigma=sig_scale, tol=K1_TOL,
+                          backward="K5 (bwd_rows + wgrad)" if vname == "reference"
+                          else "autograd of apply_nerf, bf16 (K5 computes the reference variant)",
+                          worst_leaf_vs_plain_backward=vs_plain, plain_tol=K5_PLAIN_TOL,
+                          worst_leaf_vs_f32_autograd=noise, rel_err_vs_f32_by_leaf=per_leaf,
+                          bf16_autograd_worst_leaf_vs_f32=bf16_noise, limit=limit,
+                          ray_and_depth_cotangents_zero=rays_zero)
+        require(bool(torch.isfinite(raw_k).all()) and all(
+            bool(torch.isfinite(v).all()) for v in grads.values()),
+                f"render_zvals {vname}: non-finite output or gradient")
+        require(rgb_err <= K1_TOL and sig_err <= K1_TOL,
+                f"render_zvals {vname}: rgb err {rgb_err}, sigma rel err {sig_err} > {K1_TOL}")
+        require(vs_plain <= K5_PLAIN_TOL,
+                f"render_zvals {vname}: gradient {vs_plain} from the plain backward")
+        require(noise < limit, f"render_zvals {vname}: gradient {noise} from float32 autograd, "
+                               f"bf16 autograd's {bf16_noise}")
+        require(rays_zero, f"render_zvals {vname}: a ray or depth cotangent is not zero")
+        del g_f32, g_bf16, g_plain, raw_p
+        torch.cuda.empty_cache()
+    raw_q = torch.cat([sigma_q[..., None], rgb_q], -1).reshape(ZV_RAYS, 4 * S3)
+    e_q = rgb_sigma_err(raw_q, render_kernel.fused_render_zvals_plain(q8, ro, rd, z_ref, mref))[:2]
+    res["int8"] = dict(rgb_max_abs_err=e_q[0], sigma_max_rel_err=e_q[1], tol=QUANT_TOL,
+                       forward_only=not (sigma_q.requires_grad or rgb_q.requires_grad))
+    require(max(e_q) <= QUANT_TOL and res["int8"]["forward_only"],
+            f"render_zvals int8: errors {e_q} > {QUANT_TOL}, or a gradient on int8 weights")
+    sigma1, rgb1, grads1, _ = one
+    raw1 = torch.cat([sigma1[..., None], rgb1], -1).reshape(ZV_RAYS, 4)
+    pk = pack_params(fine, mref, torch.bfloat16)
+    e1 = rgb_sigma_err(raw1, render_kernel.fused_render_zvals_plain(pk, ro, rd, z_ref[:, :1],
+                                                                    mref))[:2]
+    pts1, dirs1 = points(z_ref[:, :1])
+    g1_plain = dict(tree_leaves(train_kernel.unpack_grads(train_kernel.packed_grads_plain(
+        pk, pts1, dirs1, ds_ref[:, :1].reshape(-1), dr_ref[:, :1].reshape(-1, 3), mref), mref)))
+    e1_grad, _ = worst_rel(grads1, g1_plain)
+    res["one_depth"] = dict(rays=ZV_RAYS, samples=1, rgb_max_abs_err=e1[0],
+                            sigma_max_rel_err=e1[1], tol=K1_TOL,
+                            worst_leaf_vs_plain_backward=e1_grad, plain_tol=K5_PLAIN_TOL)
+    require(max(e1) <= K1_TOL and e1_grad <= K5_PLAIN_TOL,
+            f"render_zvals at one depth per ray: errors {e1}, gradient {e1_grad}")
+
+    # -- one forward + backward, timed beside bf16 autograd of apply_nerf at
+    #    the same points (the JAX backward's recompute, and a forward), and
+    #    profiled by kernel
+    for vname, (mcfg, params, z, ds, dr) in nets.items():
+        _, leaves, tree = leaves_of(params)
+        pk = pack_params(params, mcfg, torch.bfloat16)
+        fused = lambda: torch.autograd.grad(render_kernel.fused_render_zvals(
+            tree, ro, rd, z, mcfg), leaves, (ds, dr))
+
+        def plain():
+            pts, dirs = points(z)
+            out = apply_nerf(tree, pts, dirs, mcfg, compute_dtype=torch.bfloat16)
+            return torch.autograd.grad(out, leaves, (ds.reshape(-1), dr.reshape(-1, 3)))
+
+        def forward():
+            with torch.no_grad():
+                return render_kernel.fused_render_zvals(tree, ro, rd, z, mcfg)
+
+        turns = [call_ms(plain, ZV_REPS), call_ms(fused, ZV_REPS), call_ms(fused, ZV_REPS),
+                 call_ms(plain, ZV_REPS)]
+        _, us, launched = profile_frame(lambda: sync(fused()))
+        macs = mlp_macs(mcfg), mlp_macs(mcfg, with_dgrad_only=True)
+        bound = bound_ms(2 * (2 * macs[0] + macs[1]) * n, 0,
+                         nbytes(ro, rd, z, ds, dr, *pk) + 16 * n
+                         + 4 * sum(leaf.numel() for leaf in leaves))
+        kernels_us = {k: us[k] for k in (WGMMA["render_zvals"], *K5_KERNELS) if k in us}
+        res[vname].update(
+            fwd_bwd_ms=(turns[1] + turns[2]) / 2, plain_autograd_fwd_bwd_ms=(turns[0] + turns[3]) / 2,
+            call_ms_turns_plain_fused_fused_plain=turns,
+            forward_ms=call_ms(forward, ZV_REPS), bound_ms=bound[0], bound_by=bound[1],
+            device_busy_ms=sum(us.values()) / 1e3, device_kernels=sum(launched.values()),
+            device_ms_by_kernel={k: v / 1e3 for k, v in kernels_us.items()})
+        del tree, leaves
+        torch.cuda.empty_cache()
+    emit("render_zvals", launches={k: v for k, v in counts.items() if v}, **res,
+         timing="call ms by CUDA events over ZV_REPS calls, in turns (plain, fused, fused, "
+                "plain); plain: bf16 autograd of apply_nerf at the materialized points",
+         seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    return res
 
 
 def reset_counts():
@@ -2292,6 +2493,9 @@ def main():
             f"{mode_res['planar']['max_abs_err_vs_cuda_engine']}")
     emit("mode_frames", min_db=PSNR_MIN, psnr_resolution=[qw, qh], **mode_res)
 
+    # -- path: fused_render_zvals, K3 differentiable in the weights
+    zv_res = render_zvals_phase(dev, smi, paths, poses, focal, cfg_ref, fine, coarse)
+
     # -- path 7: the accel engine (benchmark mode: the occupancy grid, baked
     #    once through K4 in the first frame's untimed warm frame, places the
     #    depths; K3 -> K2, or the composited K3), and beside it the uniform
@@ -3377,6 +3581,14 @@ def main():
                            "routes": ["bf16", *(r for r, _, _ in ROUTES)],
                            "forms": ["raw", "bf16 raw", "planar", "composited"],
                            "max_abs_err": c1_err})
+    kernels[2]["differentiable"] = {
+        "function": "render_kernel.fused_render_zvals: forward K3; backward K5 (reference "
+                    "variant) or autograd of apply_nerf (bmild)",
+        "path": "render_zvals", "rays_x_samples": f"{ZV_RAYS} x {S3}",
+        "launches": {k: paths["render_zvals"][k] for k in ("render_zvals", "bwd_rows", "wgrad")},
+        **{v: {k: zv_res[v][k] for k in ("fwd_bwd_ms", "plain_autograd_fwd_bwd_ms", "forward_ms",
+                                         "bound_ms", "device_busy_ms", "device_ms_by_kernel")}
+           for v in ("reference", "bmild")}}
     # the kernels of the training slice, at the train step's fine pass
     # (393,216 samples) and at a 16,384 x 128 chunk of the uniform fine pass
     new_summary = (

@@ -5,8 +5,9 @@ Counterpart of ``nerf_tpu/bench/scaling.py``. A frame's rays are split into
 single-device code (``sample_points_on_rays`` -> the MLP -> ``volume_render``;
 the MLP is K4, ``ops/mlp_kernel``, on a CUDA device at the architecture it
 serves, ``apply_nerf`` elsewhere). Every shard is launched before one
-synchronisation per device, and the frame is stitched on the host from the
-shards by ``runtime.assemble_tiles``, outside the timed window. In a process
+synchronisation of each device that holds a shard (``monitor.sync``), and
+the frame is stitched on the host from the shards by
+``runtime.assemble_tiles``, outside the timed window. In a process
 group each rank renders the shards it owns (shard ``i``: rank ``i % world``)
 and rank 0 gathers the tiles and stitches them.
 
@@ -33,6 +34,7 @@ from nerf_tpu_torch.models.nerf import apply_nerf
 from nerf_tpu_torch.parallel.mesh import rank_device
 from nerf_tpu_torch.utils.cameras import generate_rays
 from nerf_tpu_torch.utils.device import torch_dtype
+from nerf_tpu_torch.utils.monitor import sync
 from nerf_tpu_torch.utils.rendering import sample_points_on_rays, volume_render
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
@@ -135,12 +137,6 @@ def _make_sharded_render(params, cfg: Config, devices: Sequence, spp: int, apply
     return render
 
 
-def _synchronize(devices: Sequence) -> None:
-    for dev in {torch.device(d) for d in devices}:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-
 def scaling_report(
     params,
     cfg: Config,
@@ -188,13 +184,13 @@ def scaling_report(
         render = _make_sharded_render(params, cfg, shards, spp, apply_fn)
 
         out = render(ro, rd)    # warm: builds the kernels, fills the caches
-        _synchronize(shards)
+        sync(out)
         if world > 1:
             dist.barrier()
         t0 = time.perf_counter()
         for _ in range(n_frames):
             out = render(ro, rd)
-        _synchronize(shards)
+        sync(out)
         t = (time.perf_counter() - t0) / n_frames
         if world > 1:              # the frame takes as long as its slowest rank
             slowest = torch.tensor([t], dtype=torch.float64, device=own)

@@ -17,6 +17,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Tuple
 
+from nerf_tpu_torch.models.encoding import encoded_dim
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -38,11 +40,11 @@ class ModelConfig:
 
     @property
     def pos_dim(self) -> int:
-        return 3 + 6 * self.pos_freqs
+        return encoded_dim(3, self.pos_freqs)
 
     @property
     def dir_dim(self) -> int:
-        return 3 + 6 * self.dir_freqs
+        return encoded_dim(3, self.dir_freqs)
 
 
 @dataclass(frozen=True)

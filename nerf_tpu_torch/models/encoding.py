@@ -31,7 +31,7 @@ def _bands(num_freqs: int, include_pi: bool, dtype: torch.dtype,
 
 def positional_encoding(x: torch.Tensor, num_freqs: int,
                         include_pi: bool = True) -> torch.Tensor:
-    """Encode ``x [..., D] -> [..., D * (1 + 2 * num_freqs)]``."""
+    """Encode ``x [..., D] -> [..., encoded_dim(D, num_freqs)]``."""
     if num_freqs == 0:
         return x
     freqs = _bands(num_freqs, include_pi, x.dtype, x.device)
@@ -39,3 +39,8 @@ def positional_encoding(x: torch.Tensor, num_freqs: int,
     enc = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-2)
     enc = enc.reshape(*x.shape[:-1], 2 * num_freqs * x.shape[-1])
     return torch.cat([x, enc], dim=-1)
+
+
+def encoded_dim(in_dim: int, num_freqs: int) -> int:
+    """Width of ``positional_encoding``'s output for ``in_dim`` inputs."""
+    return in_dim * (1 + 2 * num_freqs)

@@ -5,7 +5,10 @@ Counterparts of ``nerf_tpu/ops/render_kernel.py``:
 - ``fused_render_samples`` (K1, the Pallas kernel ``_ray_kernel``) places
   ``S`` uniform depths ``z = near + (far - near) * s / (S - 1)`` per ray;
 - ``fused_render_zvals_raw`` (K3, ``_ray_z_kernel``) reads per-ray depths
-  ``z_vals [R, S]`` (the hierarchical fine pass).
+  ``z_vals [R, S]`` (the hierarchical fine pass); ``fused_render_zvals`` is
+  K3 in its plain output form, ``(sigma [R, S], rgb [R, S, 3])``, and
+  differentiable in the weights (the backward is the network's at the
+  points ``o + d z``: K5 on the card for the reference variant).
 
 Both form ``pos = o + d * z``, encode it, run the whole MLP (8 x 256 trunk
 with the skip, density head, color branch with the per-ray direction
@@ -70,7 +73,8 @@ from typing import Optional, Tuple, Union
 import torch
 
 from nerf_tpu_torch.config import ModelConfig, RenderConfig
-from nerf_tpu_torch.ops import _ext, composite_kernel, mlp_kernel, quant, ray_wgmma
+from nerf_tpu_torch.models.nerf import apply_nerf
+from nerf_tpu_torch.ops import _ext, composite_kernel, mlp_kernel, quant, ray_wgmma, train_kernel
 from nerf_tpu_torch.ops.composite_kernel import fused_volume_render_interleaved_plain
 from nerf_tpu_torch.ops.mlp_kernel import (
     PackedWeights,
@@ -80,6 +84,7 @@ from nerf_tpu_torch.ops.mlp_kernel import (
     pack_params,
 )
 from nerf_tpu_torch.utils.rendering import RenderOutputs
+from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
 # Launches of each CUDA kernel (not of the plain versions), and of the
 # routes through them: a launch adds one to its function's count (K1 or K3,
@@ -394,6 +399,80 @@ def fused_render_zvals_raw(
                                         dtype).to(raw_dtype)
     return _launch(packed, rays_o, rays_d, 0.0, 0.0, z_vals.shape[1], cfg,
                    z_vals=z_vals, raw_dtype=raw_dtype, dtype=dtype)
+
+
+def _zvals_split(packed, rays_o, rays_d, z_vals, cfg: ModelConfig, dtype):
+    """K3 (its plain version on CPU tensors) as ``(sigma [R, S], rgb [R, S,
+    3])``, views of the raw ``[R, 4S]`` output."""
+    R, S = z_vals.shape
+    out = fused_render_zvals_raw(packed, rays_o, rays_d, z_vals, cfg, dtype).reshape(R, S, 4)
+    return out[..., 0], out[..., 1:4]
+
+
+class _ZvalsApply(torch.autograd.Function):
+    """Forward: K3. Backward: the network's at the points ``o + d z``,
+    recomputed from the saved rays and depths (the JAX package's
+    ``_zvals_bwd``): for the reference variant K5 on the card and its plain
+    version on the CPU (``train_kernel.packed_grads`` on the forward's
+    packed weights), for bmild, which K5 does not compute, autograd of
+    ``apply_nerf`` in the compute dtype (the JAX backward itself). The rays
+    and depths are data: their cotangents are zeros. ``spec = (cfg, dtype,
+    paths)``; the parameter leaves come flat, in ``tree_leaves``' order."""
+
+    @staticmethod
+    def forward(ctx, rays_o, rays_d, z_vals, spec, *leaves):
+        cfg, dtype, paths = spec
+        ctx.spec = spec
+        ctx.save_for_backward(rays_o, rays_d, z_vals, *leaves)
+        ctx.packed = pack_params(tree_from_leaves(paths, leaves), cfg, dtype)
+        return _zvals_split(ctx.packed, rays_o, rays_d, z_vals, cfg, dtype)
+
+    @staticmethod
+    def backward(ctx, d_sigma, d_rgb):
+        cfg, dtype, paths = ctx.spec
+        rays_o, rays_d, z_vals, *leaves = ctx.saved_tensors
+        o, d, z = rays_o.float(), rays_d.float(), z_vals.float()
+        pos = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+        dirs = d.repeat_interleave(z.shape[1], dim=0)
+        if cfg.variant == "reference":
+            g = train_kernel.packed_grads(ctx.packed, pos, dirs,
+                                          d_sigma.reshape(-1).float().contiguous(),
+                                          d_rgb.reshape(-1, 3).float().contiguous(), cfg)
+            by_path = dict(tree_leaves(train_kernel.unpack_grads(g, cfg)))
+            grads = [by_path[p] for p in paths]
+        else:
+            with torch.enable_grad():
+                leaves = [leaf.detach().requires_grad_() for leaf in leaves]
+                out = apply_nerf(tree_from_leaves(paths, leaves), pos, dirs, cfg,
+                                 compute_dtype=dtype)
+                grads = torch.autograd.grad(out, leaves, (d_sigma.reshape(-1),
+                                                          d_rgb.reshape(-1, 3)),
+                                            allow_unused=True)
+        zeros = [torch.zeros_like(t) if need else None
+                 for t, need in zip((rays_o, rays_d, z_vals), ctx.needs_input_grad)]
+        return (*zeros, None, *grads)
+
+
+def fused_render_zvals(
+    params: Union[dict, PackedWeights],
+    rays_o: torch.Tensor,     # [R, 3]
+    rays_d: torch.Tensor,     # [R, 3]
+    z_vals: torch.Tensor,     # [R, S]
+    cfg: ModelConfig,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Evaluate the network at per-ray depths (K3): ``(sigma [R, S], rgb [R,
+    S, 3])``, views of one ``[R, 4S]`` buffer. A params dict is packed here,
+    in ``dtype``, and is differentiable: gradients reach the params, and the
+    cotangents of ``rays_o``, ``rays_d`` and ``z_vals`` are zeros, as in the
+    JAX package (importance depths are data). ``PackedWeights`` and the
+    quantized weights of ``ops/quant.py`` are forward-only: the JAX
+    backward differentiates ``apply_nerf`` in a params dict, which they are
+    not."""
+    if isinstance(params, PackedWeights) or quant.is_quantized(params):
+        return _zvals_split(params, rays_o, rays_d, z_vals, cfg, dtype)
+    paths, leaves = zip(*tree_leaves(params))
+    return _ZvalsApply.apply(rays_o, rays_d, z_vals, (cfg, dtype, paths), *leaves)
 
 
 def fused_render_zvals_planar(

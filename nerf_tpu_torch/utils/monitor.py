@@ -10,17 +10,20 @@ a daemon thread at the JAX package's 10 ms cadence, read from
 the window, so a window shorter than the cadence still reads its own peak
 and never the process's lifetime peak. ``device_info_string`` labels
 benchmark rows; ``profile_trace`` writes a ``torch.profiler`` Chrome trace
-and, unlike the JAX helper, raises where tracing fails.
+and, unlike the JAX helper, raises where tracing fails. ``sync`` fences on a
+result: it synchronizes the CUDA devices its tensors lie on, and copies
+nothing to the host.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import threading
 import time
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Any, Iterator, Optional, Set
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -86,6 +89,33 @@ class PerformanceMonitor:
         return PerfStats(wall_time_s=wall, peak_host_rss_mb=self._peak_rss,
                          peak_device_mb=device_peak_memory_mb(self.device),
                          device_kind=device_kind(self.device))
+
+
+def _cuda_devices(result: Any, found: Set[torch.device]) -> None:
+    if isinstance(result, torch.Tensor):
+        if result.is_cuda:
+            found.add(result.device)
+    elif isinstance(result, dict):
+        for v in result.values():
+            _cuda_devices(v, found)
+    elif isinstance(result, (list, tuple)):
+        for v in result:
+            _cuda_devices(v, found)
+    elif dataclasses.is_dataclass(result) and not isinstance(result, type):
+        for f in dataclasses.fields(result):
+            _cuda_devices(getattr(result, f.name), found)
+
+
+def sync(result: Any) -> None:
+    """Fence on a computation's completion: ``torch.cuda.synchronize`` once
+    for each CUDA device that holds a tensor of ``result`` (tensors, nested
+    in tuples, lists, dicts and dataclasses), which waits for every kernel
+    queued there, the result's among them. CPU tensors need no fence, and
+    nothing is copied to the host."""
+    found: Set[torch.device] = set()
+    _cuda_devices(result, found)
+    for dev in sorted(found, key=lambda d: d.index):
+        torch.cuda.synchronize(dev)
 
 
 def device_peak_memory_mb(device="cuda") -> Optional[float]:

@@ -1,5 +1,6 @@
 """Rules of the port: no JAX in it, nothing the card's machine lacks, no CPU
-fallback in the chip smoke or the headline benchmark."""
+fallback in the chip smoke or the headline benchmark, and a counterpart for
+every public name of the JAX package."""
 
 import ast
 import shutil
@@ -203,3 +204,94 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch):
                                          raw_dtype=torch.bfloat16)
     render_kernel.fused_render_zvals_planar(q, meta, meta, torch.empty(4, 8, device="meta"), None)
     assert calls == ["mlp_quant", "torch.bfloat16", "planar", "torch.bfloat16", "planar"]
+
+
+# -- every public name of the JAX package has a counterpart ------------------
+
+JAX_ROOT = ROOT / "nerf_tpu"
+JAX_MODULES = sorted(p.relative_to(JAX_ROOT).as_posix() for p in JAX_ROOT.rglob("*.py"))
+# (module, name or Class.member) of the JAX package -> its name in the port
+RENAMED = {
+    ("render/engines.py", "PallasEngine"): "CudaEngine",
+    ("render/engines.py", "XLAEngine"): "TorchEngine",
+    ("ops/mlp_kernel.py", "make_pallas_apply_fn"): "make_cuda_apply_fn",
+    ("train/trainer.py", "TrainState.opt_state"): "TrainState.optimizer",
+}
+_TPU_LAYOUT = ("the TPU kernels' weight layout (a fused head, frequency rows); pack_params "
+               "lays the weights out for the CUDA kernels: heads split, bands evaluated inside")
+_OPERANDS = ("the Pallas kernels' operand lists and in-kernel weight views; the CUDA kernels "
+             "take the weights as they are and a weight stream (ops/ray_wgmma.py)")
+_HOOKS = ("a hook that the JAX Engine's jitted render_chunk composes; the port's engines "
+          "override render_chunk")
+# (module, name or Class.member) of the JAX package -> why the port has none
+NOT_PORTED = {
+    **{("ops/mlp_kernel.py", f"PackedWeights.{f}"): _TPU_LAYOUT
+       for f in ("bhead", "f_dir", "f_pos", "whead")},
+    **{("ops/quant.py", f"{c}.{f}"): _TPU_LAYOUT
+       for c in ("QuantizedPackedWeights", "Int8PackedWeights")
+       for f in ("bhead", "f_dir", "f_pos", "whead_q", "whead_s")},
+    **{("ops/mlp_kernel.py", n): _OPERANDS for n in ("packed_weight_arrays", "packed_w_dict")},
+    **{("ops/quant.py", n): _OPERANDS for n in ("quant_weight_arrays", "quant_w_dict",
+                                                "int8_weight_arrays", "int8_w_dict",
+                                                "quant_reprs")},
+    **{("render/engines.py", f"{c}.{h}"): _HOOKS
+       for c in ("Engine", "PallasEngine")
+       for h in ("apply_fn", "composite_fn", "composited_sample_eval_fn",
+                 "composited_zvals_eval_fn", "raw_composite_fn", "raw_sample_eval_fn",
+                 "raw_zvals_eval_fn", "sample_eval_fn", "zvals_eval_fn")},
+    **{("render/engines.py", n): _HOOKS
+       for n in ("Engine.z_sampler", "AccelEngine.z_sampler", "XLAEngine.apply_fn",
+                 "CompressedEngine.apply_fn")},
+    **{("render/engines.py", f"{c}.is_available"): (
+        "available_engines probes an engine by constructing it") for c in ("Engine", "PallasEngine")},
+    ("bench/suite.py", "UnifiedBenchmarkSuite.to_dataframe"): (
+        "pandas, which the card's machine lacks; summarize computes its aggregates"),
+    ("utils/cache.py", "enable_compilation_cache"): (
+        "the JAX compile cache; the port caches its libraries under build/nerf_tpu_torch, "
+        "named by a hash of their sources"),
+}
+
+
+def _public_names(path):
+    """Public names a module defines (functions, classes, assignments; an
+    import defines none) and, for a class, ``Class.member`` for each public
+    method and class-level attribute or field. ``__version__`` counts."""
+    names = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, ast.ClassDef):
+            names.add(node.name)
+            for member in node.body:
+                if isinstance(member, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    names.add(f"{node.name}.{member.name}")
+                targets = (member.targets if isinstance(member, ast.Assign)
+                           else [member.target] if isinstance(member, ast.AnnAssign) else [])
+                names.update(f"{node.name}.{t.id}" for t in targets if isinstance(t, ast.Name))
+        elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            names.update(n.id for t in targets for n in ast.walk(t) if isinstance(n, ast.Name))
+    return {n for n in names
+            if n == "__version__" or not any(part.startswith("_") for part in n.split("."))}
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_every_public_name_of_the_jax_package_has_a_counterpart(module):
+    # the port's module of the same path defines each public name of the JAX
+    # module, under the same name or the one RENAMED gives (a renamed class's
+    # members under the new class); the names it lacks are exactly those
+    # NOT_PORTED lists for the module, so neither a missing name nor a stale
+    # entry goes unnoticed
+    port = ROOT / "nerf_tpu_torch" / module
+    theirs = _public_names(JAX_ROOT / module)
+    ours = _public_names(port) if port.exists() else set()
+    renamed = {old: new for (m, old), new in RENAMED.items() if m == module}
+
+    def in_the_port(name):
+        cls, _, member = name.rpartition(".")
+        return renamed.get(name, f"{renamed.get(cls, cls)}.{member}" if cls else name)
+
+    missing = {n for n in theirs if in_the_port(n) not in ours}
+    listed = {n for m, n in NOT_PORTED if m == module}
+    assert missing == listed, (f"nerf_tpu/{module}: no counterpart for {sorted(missing - listed)}; "
+                               f"listed but not missing: {sorted(listed - missing)}")
