@@ -100,10 +100,10 @@ unless every kernel of the path ran its expected number of times:
   one JSON line on stdout with its four keys and a positive value, its
   stderr's bmild frame, and its ratio to the ``frame`` phase's rays/s.
 - the command line (``nerf_tpu_torch/cli``), called in this process through
-  ``cli.main`` with ``--device cuda``; the card's machine has no libpng
-  headers, so the port's PNG decoder is not built and training reads the
-  procedural scene (the command line's stand-in for a missing Blender
-  directory): ``cli_pipeline`` (``pipeline``: 2 epochs at full width, then
+  ``cli.main`` with ``--device cuda``; ``cli_pipeline`` and
+  ``cli_streaming`` train on the procedural scene (the command line's
+  stand-in for a missing Blender directory): ``cli_pipeline``
+  (``pipeline``: 2 epochs at full width, then
   the benchmark of cuda, compressed, int8 and accel at 800x600@64, 2 views:
   the exact launches of the train loop's eager first chunk and of the
   suite's rule, the epochs' loss must fall, every row successful, each
@@ -117,7 +117,32 @@ unless every kernel of the path ran its expected number of times:
   engine's frame, no black image); ``cli_streaming`` (``train
   --streaming_steps 200``: 2 K4, 8 K5a, 8 K5b a step, the loss must fall);
   ``cli_smoke`` (``python3 -m nerf_tpu_torch.cli smoke`` in a child
-  process: exit code 0).
+  process: exit code 0); ``cli_decode`` (first a ``probe`` line: Pillow,
+  matplotlib, pandas, psutil, the libpng and zlib headers, ``ldconfig``'s
+  libpng and libz, g++; then the port's PNG decoder, ``runtime/png.cpp``,
+  built here with g++ and linking nothing, on 10 RGBA PNGs at 200x200 and
+  100 at 800x800 that this script writes with ``zlib``, a random alpha, row
+  i under filter i % 5, the first of each set Adam7: bit-equal to the numpy
+  composite ``rgb a + (1 - a)``, images/s and MB/s on one thread and on all,
+  beside the CPU count: host work, no kernel); ``cli_blender`` (the
+  procedural views, 40 train and 8 val at 400x400, written as a Blender
+  directory of RGBA PNGs with a transparent background, then ``train
+  --data_dir D --image_size 400 --epochs 2``: the native decoder reads
+  both splits with Pillow unimportable, the loaded images equal the numpy
+  composite, the train loop's eager first chunk launches K4 20, K5a 80, K5b
+  80 and nothing else, the epochs' loss falls, ``final_model.npz`` is
+  written).
+- ``convergence``: ``tools/convergence_run.run(steps=2000)``, the recipe
+  of the convergence run (procedural scene, 400x400, 40 views, 2,048 rays,
+  64 + 128 with importance sampling, seed ``TRAIN_SEED``): val PSNR >= 20
+  dB at step 2,000, the last tenth of the epochs' mean loss <= 0.5 x the
+  first tenth's, its four validations bit-equal to the first four of the
+  committed 24,000-step run (``results/convergence_torch``), its files with
+  their keys (the params' keys those of
+  ``results/convergence/final_params.npz``), and the exact launches: K5a
+  and K5b 80 each (the eager first chunk), K4 20 + 80 for each view its
+  four validations and its final render draw (chunks of 4,096 rays, coarse
+  and fine), nothing else.
 - multi-GPU on ``torch.distributed`` (``nerf_tpu_torch/parallel``,
   ``bench/scaling.py``) on this one card, at the training phases' config
   (seed ``TRAIN_SEED``, 2,048 rays, 64 + 128, bf16, jitter): ``nccl_probe``
@@ -1101,6 +1126,302 @@ def render_zvals_phase(dev, smi, paths, poses, focal, cfg_ref, fine, coarse):
                 "plain); plain: bf16 autograd of apply_nerf at the materialized points",
          seconds=time.perf_counter() - t0, nvidia_smi=smi)
     return res
+
+
+# -- the real-data path and the convergence run (cli_decode, cli_blender,
+#    convergence) ------------------------------------------------------------
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+DECODE_SETS = ((10, 200), (100, 800))    # (PNGs, side): a small set, and lego's 800 x 800
+BLENDER_VIEWS = (40, 8)                  # train, val: the convergence run's scene
+BLENDER_SIDE = 400
+EVAL_CHUNK = 4096                        # rays per chunk of NeRFTrainer.render_image
+CONVERGENCE_IMG = 400                    # the recipe's (tools/convergence_run.recipe)
+CONVERGENCE_STEPS = 2000
+CONVERGENCE_DB = 20.0                    # val PSNR at step 2,000 (the JAX run: 20.6 at 1,000)
+CONVERGENCE_DROP = 0.5                   # last tenth's mean loss <= this x the first tenth's
+COMMITTED_RUN = os.path.join(ROOT, "results", "convergence_torch", "trajectory.json")
+
+
+def rgba_png(rgba, interlace=False, level=6):
+    """An RGBA8 ``[H, W, 4]`` uint8 image as PNG bytes, written here with
+    ``zlib``: row i of the image stream under filter type i % 5 (None, Sub,
+    Up, Average, Paeth), Adam7 where ``interlace``."""
+    h, w, _ = rgba.shape
+    parts, row = [], 0
+    for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = rgba[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue                                     # an empty pass has no rows
+        raw = sub.reshape(sub.shape[0], -1).astype(np.int32)
+        n = raw.shape[1]
+        prev = np.vstack([np.zeros((1, n), np.int32), raw[:-1]])
+        types = (np.arange(raw.shape[0]) + row) % 5
+        rows = np.empty((raw.shape[0], 1 + n), np.uint8)
+        rows[:, 0] = types
+        for t in range(5):                               # each filter on its own rows
+            x, b = raw[types == t], prev[types == t]
+            a = np.pad(x, ((0, 0), (4, 0)))[:, :n]
+            c = np.pad(b, ((0, 0), (4, 0)))[:, :n]
+            if t == 4:
+                p = a + b - c
+                pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+                pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+            else:
+                pred = (0, a, b, (a + b) // 2)[t]
+            rows[types == t, 1:] = (x - pred) & 0xFF
+        parts.append(rows.tobytes())
+        row += raw.shape[0]
+
+    def chunk(kind, data):
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I",
+                                                                        zlib.crc32(kind + data))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, int(interlace)))
+            + chunk(b"IDAT", zlib.compress(b"".join(parts), level)) + chunk(b"IEND", b""))
+
+
+def composite(rgba):
+    """The float32 white-background composite ``rgb a + (1 - a)`` of RGBA8
+    bytes, as the decoder computes it at the PNG's own size."""
+    f = rgba.astype(np.float32) / np.float32(255)
+    return f[..., :3] * f[..., 3:] + (np.float32(1) - f[..., 3:])
+
+
+def probe_machine():
+    """What the machine offers the host runtime: Pillow, matplotlib,
+    pandas, psutil; the libpng and zlib headers; the shared libraries
+    ``ldconfig`` knows; g++."""
+    import importlib.util
+
+    ld = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True)
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True)
+    return {
+        "modules": {m: importlib.util.find_spec(m) is not None
+                    for m in ("PIL", "matplotlib", "pandas", "psutil")},
+        "headers": {h: os.path.exists(h) for h in ("/usr/include/png.h", "/usr/include/zlib.h")},
+        "ldconfig_libpng_libz": [ln.strip() for ln in ld.stdout.splitlines()
+                                 if "libpng" in ln or "libz." in ln],
+        "gxx": gxx.stdout.splitlines()[0] if gxx.returncode == 0 else None,
+        "cpu_count": os.cpu_count(), "cpus_usable": len(os.sched_getaffinity(0)),
+    }
+
+
+def decode_phase(smi, workdir):
+    """cli_decode: the port's PNG decoder (``runtime/png.cpp``, built here
+    with g++, no library) on RGBA PNGs this script writes: each set bit-equal
+    to the numpy composite, and its rate on one thread and on all of them.
+    Host work on the card's machine: no kernel runs."""
+    from nerf_tpu_torch import runtime
+
+    t_phase = time.perf_counter()
+    emit("probe", **probe_machine())
+    # built here from its source: a library some other machine built into
+    # a copied build/ is removed first
+    so = runtime.library_path("nerf_png")
+    prebuilt = so.exists()
+    so.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    runtime.load_png_library()
+    build_s = time.perf_counter() - t0
+    require(so.exists(), f"cli_decode: {so} was not built here")
+    rng = np.random.default_rng(17)
+    sets = {}
+    for n, side in DECODE_SETS:
+        d = os.path.join(workdir, f"decode_{side}")
+        os.makedirs(d, exist_ok=True)
+        base = (np.indices((side, side)).sum(0) * 255 // (2 * side)).astype(np.uint8)[..., None]
+        tint = np.asarray([0, 60, 120], np.uint8)
+        paths, want, file_bytes = [], [], 0
+        t0 = time.perf_counter()
+        for i in range(n):
+            rgba = np.empty((side, side, 4), np.uint8)
+            rgba[..., :3] = np.roll(base, 7 * i, axis=1) + tint   # wraps: uint8
+            rgba[..., 3] = rng.integers(0, 256, (side, side), dtype=np.uint8)
+            data = rgba_png(rgba, interlace=i == 0, level=1 if side > 200 else 6)
+            path = os.path.join(d, f"r_{i}.png")
+            with open(path, "wb") as f:
+                f.write(data)
+            paths.append(path)
+            want.append(composite(rgba))
+            file_bytes += len(data)
+        write_s = time.perf_counter() - t0
+        runs = {}
+        for label, threads in (("1_thread", 1), ("all_threads", 0)):
+            t0 = time.perf_counter()
+            got = runtime.decode_png_batch(paths, (side, side), n_threads=threads)
+            secs = time.perf_counter() - t0
+            require(np.array_equal(got, np.stack(want)),
+                    f"cli_decode: {n} PNGs at {side}x{side} on {label} differ from the composite")
+            runs[label] = {"seconds": secs, "images_per_s": n / secs,
+                           "file_mb_per_s": file_bytes / secs / 1e6,
+                           "rgba_mb_per_s": n * side * side * 4 / secs / 1e6}
+        sets[f"{n}x{side}x{side}"] = {"file_mb": file_bytes / 1e6, "write_s": write_s,
+                                      "interlaced": 1, "bit_equal_composite": True, **runs}
+        del want
+    emit("cli_decode", decoder="nerf_tpu_torch/runtime/png.cpp (g++, links nothing)",
+         library=so.name, build_s=build_s, prebuilt_removed=prebuilt, sets=sets,
+         cpu_count=os.cpu_count(), cpus_usable=len(os.sched_getaffinity(0)),
+         filters="row i under type i % 5; file 0 of each set Adam7",
+         what="host work on the card's machine (no kernel)",
+         seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+
+
+def blender_phase(smi, paths, run_cli, workdir, expect):
+    """cli_blender: the procedural views written as a Blender directory of
+    RGBA PNGs, trained through ``train --data_dir`` at the PNGs' own size:
+    the native decoder reads it with Pillow unimportable, the loaded images
+    equal the numpy composite, the exact launches of the train loop's eager
+    first chunk (``expect``), the loss falls, ``final_model.npz`` is
+    written."""
+    from nerf_tpu_torch import runtime
+    from nerf_tpu_torch.data import blender
+    from nerf_tpu_torch.data.synthetic import make_procedural_dataset
+    from nerf_tpu_torch.train.checkpoint import restore_checkpoint
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "blender_scene")
+    rng = np.random.default_rng(23)
+    want, file_bytes = {}, 0
+    for split, n, seed in (("train", BLENDER_VIEWS[0], 0), ("val", BLENDER_VIEWS[1], 123)):
+        ds = make_procedural_dataset(n, (BLENDER_SIDE, BLENDER_SIDE), seed=seed, split=split)
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames, images = [], []
+        for i in range(n):
+            rgba = np.empty((BLENDER_SIDE, BLENDER_SIDE, 4), np.uint8)
+            rgba[..., :3] = np.round(ds.images[i] * 255).astype(np.uint8)
+            background = (ds.images[i] == 1.0).all(-1)
+            # the background transparent over random colours, the sphere
+            # opaque, a tenth of the pixels at a random alpha
+            rgba[background, :3] = rng.integers(0, 256, (int(background.sum()), 3))
+            rgba[..., 3] = np.where(background, 0, 255)
+            partial = rng.random(background.shape) < 0.1
+            rgba[partial, 3] = rng.integers(1, 255, int(partial.sum()))
+            data = rgba_png(rgba, interlace=i == 0)
+            with open(os.path.join(root, split, f"r_{i}.png"), "wb") as f:
+                f.write(data)
+            file_bytes += len(data)
+            images.append(composite(rgba))
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": ds.poses[i].tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": CAMERA_ANGLE_X, "frames": frames}, f)
+        want[split] = np.stack(images)
+
+    # the loader runs with Pillow unimportable (sys.modules[...] = None), and
+    # every decode it makes through the native decoder is recorded
+    decoded, loaded = [], []
+    decode, load_split = runtime.decode_png_batch, blender.load_blender_split
+
+    def counted_decode(png_paths, img_wh, *a, **k):
+        decoded.append(len(png_paths))
+        return decode(png_paths, img_wh, *a, **k)
+
+    def load_without_pil(*a, **k):
+        saved = {m: sys.modules.get(m, False) for m in ("PIL", "PIL.Image")}
+        sys.modules.update({m: None for m in saved})
+        try:
+            ds = load_split(*a, **k)
+        finally:
+            for m, mod in saved.items():
+                if mod is False:
+                    sys.modules.pop(m, None)
+                else:
+                    sys.modules[m] = mod
+        loaded.append((ds.split, ds.images))
+        return ds
+
+    ckpt = os.path.join(workdir, "blender_ckpt")
+    runtime.decode_png_batch, blender.load_blender_split = counted_decode, load_without_pil
+    try:
+        lines, secs = run_cli("cli_blender", [
+            "train", "--device", "cuda", "--data_dir", root, "--image_size", str(BLENDER_SIDE),
+            "--epochs", "2", "--no_resume", "--checkpoint_dir", ckpt, "--output_dir", ckpt],
+            expect)
+    finally:
+        runtime.decode_png_batch, blender.load_blender_split = decode, load_split
+    final_npz = os.path.join(ckpt, "final_model.npz")
+    require(os.path.exists(final_npz), f"cli_blender: no {final_npz}")
+    state, meta = restore_checkpoint(final_npz)
+    losses = meta["train_losses"]
+    emit("cli_blender", argv=f"train --data_dir (RGBA PNGs) --image_size {BLENDER_SIDE} "
+         "--epochs 2 --no_resume", views=list(BLENDER_VIEWS), png_mb=file_bytes / 1e6,
+         native_decodes=decoded, splits_loaded_without_pil=[s for s, _ in loaded],
+         launches=paths["cli_blender"], expected=expect, epoch_losses=losses,
+         step=state["step"], stdout_tail=lines[-4:], seconds=secs,
+         phase_seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+    require(decoded == list(BLENDER_VIEWS) and [split for split, _ in loaded] == ["train", "val"],
+            f"cli_blender: the native decoder read {decoded} PNGs for "
+            f"{[split for split, _ in loaded]}")
+    require(all(np.array_equal(images, want[split]) for split, images in loaded),
+            "cli_blender: the loaded images differ from the numpy composite")
+    require(not any("procedural" in ln for ln in lines), "cli_blender: no Blender directory read")
+    require(state["step"] == 2 * BLENDER_VIEWS[0] and len(losses) == 2
+            and all(np.isfinite(losses)), f"cli_blender: step {state['step']}, losses {losses}")
+    require(losses[1] < losses[0], f"cli_blender: the loss did not fall: {losses}")
+
+
+def convergence_phase(smi, paths, workdir, train_chunk):
+    """convergence: ``tools/convergence_run.run(steps=2000)`` at the recipe:
+    val PSNR at step 2,000, the last tenth's loss against the first tenth's,
+    its validations against the committed run's, its files and their keys,
+    the exact launches of the eager first chunk of its train loop and of its
+    validations' K4 (every other kernel 0)."""
+    from nerf_tpu_torch import runtime
+    from nerf_tpu_torch.tools import convergence_run
+
+    out = os.path.join(workdir, "convergence")
+    views = 40
+    val_steps = convergence_run.validation_steps(CONVERGENCE_STEPS, views, 500)
+    val_views = 5                                       # TrainConfig.max_val_images
+    per_view = 2 * math.ceil(CONVERGENCE_IMG ** 2 / EVAL_CHUNK)   # coarse + fine K4 a chunk
+    # the validations' views, then the final render of one held-out view
+    views_rendered = len(val_steps) * val_views + 1
+    expect = {"mlp_forward": 2 * train_chunk + views_rendered * per_view,
+              "bwd_rows": K5_PASSES * train_chunk, "wgrad": K5_PASSES * train_chunk}
+    lines = []
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = convergence_run.run(steps=CONVERGENCE_STEPS, out=out, log=lines.append)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = paths["convergence"] = read_counts()
+    traj, losses = result["trajectory"], result["train_losses"]
+    tenth = len(losses) // 10
+    first, last = float(np.mean(losses[:tenth])), float(np.mean(losses[-tenth:]))
+    with open(os.path.join(out, "trajectory.json")) as f:
+        written = json.load(f)
+    with np.load(os.path.join(out, "final_params.npz")) as a, np.load(PARAMS) as b:
+        keys_equal = sorted(a.files) == sorted(b.files)
+    # the schedule does not depend on the run's length, and the steps are
+    # deterministic: these validations are the committed 24,000-step run's first
+    with open(COMMITTED_RUN) as f:
+        committed = json.load(f)["trajectory"][:len(val_steps)]
+    pngs = runtime.decode_png_batch([os.path.join(out, f"{n}.png") for n in
+                                     ("final_rgb", "ground_truth", "final_depth")],
+                                    (CONVERGENCE_IMG, CONVERGENCE_IMG))
+    emit("convergence", steps=CONVERGENCE_STEPS, trajectory=traj, timing=result["timing"],
+         wall_time_s=result["wall_time_s"], loss_first_tenth=first, loss_last_tenth=last,
+         launches=counts, expected=expect, views_rendered=views_rendered,
+         params_keys_equal_jax_run=keys_equal, equals_committed_run=traj == committed,
+         files=sorted(os.listdir(out)), psnr_min_db=CONVERGENCE_DB, seed=result["config"]["seed"],
+         stdout=lines, seconds=secs, nvidia_smi=smi)
+    for k in set(counts) | set(expect):
+        require(counts.get(k, 0) == expect.get(k, 0),
+                f"convergence: {k} launched {counts.get(k, 0)} times, expected {expect.get(k, 0)}")
+    require([t["step"] for t in traj] == val_steps, f"convergence: validated at {traj}")
+    require(traj == committed, f"convergence: {traj} differs from {COMMITTED_RUN}'s {committed}")
+    require(traj[-1]["val_psnr_db"] >= CONVERGENCE_DB,
+            f"convergence: {traj[-1]['val_psnr_db']} dB at step {CONVERGENCE_STEPS}")
+    require(last <= CONVERGENCE_DROP * first, f"convergence: loss {first} -> {last}")
+    require(set(written) >= {"config", "trajectory", "wall_time_s"}
+            and written["config"]["seed"] == TRAIN_SEED and keys_equal,
+            f"convergence: trajectory.json keys {list(written)}, params keys equal {keys_equal}")
+    require(np.isfinite(pngs).all() and pngs[0].std() > 0.05,
+            "convergence: the final render is degenerate")
 
 
 def reset_counts():
@@ -3249,12 +3570,13 @@ def main():
          ratio_to_frame_phase=line["value"] / frame_res["rays_per_s"],
          seconds=time.perf_counter() - t_bench, nvidia_smi=smi)
 
-    # -- paths 11-16: the command line (python -m nerf_tpu_torch.cli), in this
+    # -- paths 11-18: the command line (python -m nerf_tpu_torch.cli), in this
     #    process through cli.main, each with the launch counts set to 0 just
-    #    before and read just after. The card's machine has no libpng headers,
-    #    so the PNG decoder (runtime/png.cpp) is not built here and training
-    #    reads the procedural scene, the command line's own stand-in for a
-    #    missing Blender directory
+    #    before and read just after. cli_pipeline and cli_streaming train on
+    #    the procedural scene (the command line's own stand-in for a missing
+    #    Blender directory); cli_blender trains on a Blender directory of RGBA
+    #    PNGs, read by the PNG decoder (runtime/png.cpp) that cli_decode
+    #    builds and checks here
     from nerf_tpu_torch.cli import main as cli
 
     t_cli = time.perf_counter()
@@ -3492,9 +3814,19 @@ def main():
          seconds=time.perf_counter() - t_smoke)
     require(proc.returncode == 0 and "smoke test passed" in proc.stdout,
             f"cli_smoke: exit code {proc.returncode}: {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+
+    # -- cli_decode, cli_blender: the real-data path, the PNG decoder built
+    #    here from its source, then a Blender directory trained at its size
+    decode_phase(smi, cli_root)
+    blender_phase(smi, paths, run_cli, cli_root,
+                  {"mlp_forward": 2 * train_chunk, "bwd_rows": K5_PASSES * train_chunk,
+                   "wgrad": K5_PASSES * train_chunk})
     emit("cli", seconds=time.perf_counter() - t_cli, nvidia_smi=smi)
 
-    # -- paths 17-22: multi-GPU on torch.distributed, on this one card ----------
+    # -- path 19: convergence, 2,000 steps of the convergence run's recipe ------
+    convergence_phase(smi, paths, cli_root, train_chunk)
+
+    # -- paths 20-25: multi-GPU on torch.distributed, on this one card ----------
     multi_gpu_phases(dev, smi, paths, run_cli, cli_root)
 
     # -- summary -------------------------------------------------------------

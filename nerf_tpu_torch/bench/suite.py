@@ -7,7 +7,7 @@ Counterpart of ``nerf_tpu/bench/suite.py`` (``UnifiedBenchmarkSuite``) on
 the port's engines, with an explicit ``device``: the probed registry, orbit
 poses at ``BENCHMARK_FOCAL``, one row per view with per-view fault
 isolation, rays/s = W * H / wall time, and the same report keys. It needs
-neither pandas nor Pillow, which the card's machine lacks: ``summarize``
+neither pandas nor Pillow, and the card's machine has no matplotlib: ``summarize``
 computes pandas' ``groupby`` aggregates of the JAX report (the standard
 deviation with ddof = 1), ``write_png`` writes 8-bit PNGs with ``zlib`` and
 ``struct``, and the chart, which only matplotlib draws, is drawn when

@@ -6,11 +6,11 @@ decodes the PNGs, composites RGBA onto a white background, and returns
 images + poses + focal as contiguous numpy arrays on the host; the trainer
 uploads them once. Two decoders, chosen by ``use_native`` as in the JAX
 package: the port's threaded C++ decoder (``runtime.decode_png_batch``,
-libpng; it resizes bilinearly), and PIL with LANCZOS resampling, the
-reference's. ``"auto"`` takes the native one where no resampling is needed,
-the PNG's size (read from its IHDR, without PIL) already being ``img_wh``;
-PIL is imported only where it decodes, and a machine without it reads a
-dataset at its PNGs' own size.
+self-contained: it links no library, and it resizes bilinearly), and PIL
+with LANCZOS resampling, the reference's. ``"auto"`` takes the native one
+where no resampling is needed, the PNG's size (read from its IHDR, without
+PIL) already being ``img_wh``; PIL is imported only where it decodes, and a
+machine without it reads a dataset at its PNGs' own size.
 """
 
 from __future__ import annotations

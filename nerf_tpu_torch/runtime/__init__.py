@@ -4,10 +4,11 @@ Counterpart of ``nerf_tpu/runtime/__init__.py``. ``runtime.cpp`` holds
 ``RayBatchSampler``, a background C++ producer of shuffled training ray
 batches (the streaming trainer's input), and ``assemble_tiles``, which
 stitches ray tiles into a frame; ``png.cpp`` holds ``decode_png_batch``,
-the threaded PNG decoder (libpng) that ``data/blender.py`` reads a dataset
-with. The same C interfaces and arithmetic as the JAX package's library, so
-one seed gives the same batches, and one file the same floats, bit for bit.
-The decoder is a library of its own, so the ray producer needs no libpng.
+the threaded PNG decoder that ``data/blender.py`` reads a dataset with. The
+decoder is self-contained (its own inflate, unfiltering, Adam7 and pixel
+expansion) and links no library, so both build wherever ``g++`` runs. The
+same C interfaces and arithmetic as the JAX package's library, so one seed
+gives the same batches, and one file the same floats, bit for bit.
 
 Each library is built at first use with ``g++`` into
 ``build/nerf_tpu_torch/`` beside the package, named by a hash of its source
@@ -16,7 +17,7 @@ temporary file and ``os.replace``; the compiler's output is kept in
 ``runtime.log`` / ``png.log`` there. Nothing falls back: a failed build or
 load raises (the JAX module's numpy fallback would draw other batches from
 the same seed), and so does a PNG that fails to decode (the JAX module
-decodes it with PIL instead, which the card's machine lacks), naming it.
+decodes it with PIL instead), naming it.
 """
 
 from __future__ import annotations
@@ -38,11 +39,12 @@ PNG_SOURCE = SOURCE.with_name("png.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_tpu_torch"
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared")
-# library -> (source, its own compiler flags, what it links). The decoder's
-# products and sums stay as written on any target (no contraction to FMA)
+# library -> (source, its own compiler flags, what it links: nothing). The
+# decoder's products and sums stay as written on any target (no contraction
+# to FMA)
 LIBRARIES = {
     "nerf_runtime": (SOURCE, (), ()),
-    "nerf_png": (PNG_SOURCE, ("-ffp-contract=off",), ("-lpng", "-lz")),
+    "nerf_png": (PNG_SOURCE, ("-ffp-contract=off",), ()),
 }
 
 _lib: Optional[ctypes.CDLL] = None        # libnerf_runtime, bound at first use
@@ -117,7 +119,7 @@ def load_library() -> ctypes.CDLL:
 
 
 def load_png_library() -> ctypes.CDLL:
-    """The bound PNG decoder, built at first use (needs libpng's headers)."""
+    """The bound PNG decoder, built at first use."""
     global _png_lib
     with _lib_lock:
         if _png_lib is None:

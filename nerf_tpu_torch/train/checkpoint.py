@@ -4,7 +4,7 @@ Counterpart of ``nerf_tpu/train/checkpoint.py``. Two kinds of ``.npz``:
 
 - params-only archives keyed by ``jax.tree_util.keystr`` paths such as
   ``['fine']['trunk'][4]['w']`` (``results/convergence/final_params.npz``),
-  read by ``restore_bare_params``;
+  read by ``restore_bare_params`` and written by ``save_bare_params``;
 - trainer checkpoints: one self-contained file holding both networks'
   params, the optimizer state, and a JSON header (config, loss history,
   step) under ``__meta__``, named ``checkpoint_epoch_{N}.npz``; resume picks
@@ -67,6 +67,19 @@ def restore_bare_params(path: str) -> Dict[str, Any]:
     """Load a keystr ``.npz`` as nested dicts/lists of numpy arrays."""
     with np.load(path) as data:
         return unflatten_keystr({k: data[k] for k in data.files})
+
+
+def keystr(path: tuple) -> str:
+    """``('fine', 'trunk', 4, 'w')`` -> ``"['fine']['trunk'][4]['w']"``, as
+    ``jax.tree_util.keystr`` writes a path of dict keys and list indices."""
+    return "".join(f"[{p!r}]" if isinstance(p, str) else f"[{p}]" for p in path)
+
+
+def save_bare_params(path: str, params) -> None:
+    """A params tree (leaves array-like on the host) as a compressed keystr
+    ``.npz``, the format of ``results/convergence/final_params.npz``."""
+    np.savez_compressed(path, **{keystr(tpath): np.asarray(leaf)
+                                 for tpath, leaf in tree_leaves(params)})
 
 
 def _path_key(path: tuple) -> str:

@@ -73,6 +73,30 @@ def test_auto_at_the_pngs_size_needs_no_pil(blender_dir, monkeypatch):
         load_blender_split(str(blender_dir), "train", (W, H), use_native="never")
 
 
+def test_rgba_pngs_written_with_zlib_load_natively_without_pil(tmp_path, monkeypatch):
+    # the self-contained decoder reads a directory no PNG library wrote, at
+    # its own size, with PIL unimportable: each pixel the composite of its bytes
+    from test_torch_png import png_bytes
+
+    rng = np.random.default_rng(7)
+    root, frames, want = tmp_path / "scene", [], []
+    (root / "train").mkdir(parents=True)
+    for i in range(3):
+        rgba = rng.integers(0, 256, (H, W, 4))
+        rgba[..., 3] = np.where(rng.random((H, W)) < 0.3, 0, rgba[..., 3])
+        (root / "train" / f"r_{i}.png").write_bytes(
+            png_bytes(rgba, 6, 8, filters="mixed", interlace=i == 2))
+        f = rgba.astype(np.float32) / np.float32(255)
+        want.append(f[..., :3] * f[..., 3:] + (np.float32(1) - f[..., 3:]))
+        frames.append({"file_path": f"./train/r_{i}", "transform_matrix": np.eye(4).tolist()})
+    (root / "transforms_train.json").write_text(
+        json.dumps({"camera_angle_x": CAMERA_ANGLE_X, "frames": frames}))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    got = load_blender_split(str(root), "train", (W, H), use_native="auto")
+    np.testing.assert_array_equal(got.images, np.stack(want))
+
+
 def test_use_native_names_a_decoder(blender_dir, tmp_path):
     with pytest.raises(ValueError, match="use_native"):
         load_blender_split(str(blender_dir), "train", (W, H), use_native="sometimes")

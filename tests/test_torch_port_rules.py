@@ -17,7 +17,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "nerf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                  ROOT / "bench_cuda.py"]
 FORBIDDEN = ("jax", "jaxlib", "nerf_tpu")
-ABSENT_ON_THE_CARD = ("pandas", "PIL", "psutil", "matplotlib")   # the card's machine lacks them
+# the port needs none of them: the card's machine has no matplotlib, and the
+# others (present there when probed) are not to be relied on
+ABSENT_ON_THE_CARD = ("pandas", "PIL", "psutil", "matplotlib")
 BENCH_FILES = sorted((ROOT / "nerf_tpu_torch" / "bench").rglob("*.py")) + [ROOT / "bench_cuda.py"]
 CLI_FILES = sorted((ROOT / "nerf_tpu_torch" / "cli").rglob("*.py"))
 
@@ -123,6 +125,40 @@ def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
     changed = {n for n in _ext.LIBRARIES if _ext.library_path(n).name != before[n]}
     assert changed == {"render_samples", *(n for n, (s, _) in _ext.VARIANTS.items()
                                            if s == "render_samples")}
+
+
+# public functions whose `device` is the device of what they make, given
+# by every caller: None is torch's own default there, not a choice of the CPU
+DEVICE_OF_THE_CALLER = {("utils/rendering.py", "draw")}
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_every_entry_point_defaults_to_the_card(path):
+    # a parameter named device or devices: no default, "cuda", or None where
+    # a "cuda" device parameter beside it decides (scaling_report)
+    rel = str(path.relative_to(ROOT / "nerf_tpu_torch")) if "nerf_tpu_torch" in path.parts \
+        else path.name
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) or \
+                node.name.startswith("_") and node.name != "__init__":
+            continue
+        a = node.args
+        params = a.posonlyargs + a.args + a.kwonlyargs
+        defaults = ([None] * (len(a.posonlyargs + a.args) - len(a.defaults)) + list(a.defaults)
+                    + list(a.kw_defaults))
+        named = {p.arg: d for p, d in zip(params, defaults)}
+        for name, default in named.items():
+            if name not in ("device", "devices") or default is None:
+                continue
+            value = ast.literal_eval(default)
+            if value == "cuda" or (value is None and named.get("device") is not None
+                                   and ast.literal_eval(named["device"]) == "cuda"
+                                   and name != "device"):
+                continue
+            if (rel, node.name) not in DEVICE_OF_THE_CALLER:
+                bad.append(f"{node.name}({name}={value!r}) at line {node.lineno}")
+    assert not bad, f"{path.name}: {bad}"
 
 
 def test_default_train_apply_fn_follows_device_and_config_only():
@@ -245,7 +281,8 @@ NOT_PORTED = {
     **{("render/engines.py", f"{c}.is_available"): (
         "available_engines probes an engine by constructing it") for c in ("Engine", "PallasEngine")},
     ("bench/suite.py", "UnifiedBenchmarkSuite.to_dataframe"): (
-        "pandas, which the card's machine lacks; summarize computes its aggregates"),
+        "pandas, which the port does not depend on; summarize computes its "
+        "aggregates"),
     ("utils/cache.py", "enable_compilation_cache"): (
         "the JAX compile cache; the port caches its libraries under build/nerf_tpu_torch, "
         "named by a hash of their sources"),
