@@ -20,7 +20,16 @@ quantized route, timed against ``csrc/mlp_quant.cu``), the ray kernels on
 quantized weights (dequantized in the kernel), the int8-compute route (K8)
 in K7, K1 and K3, the bf16 and planar raw outputs of K1 and K3 (B10), and
 K3 at one depth per ray on every route (``c1_check``: the per-sample kernel
-of the route's build, then K2). Then it drives each path of the port,
+of the route's build, then K2, with and without its weights). K2
+(``composite_rays_kernel`` of ``csrc/composite.cu``) is held against its
+plain version at S = 1, 16, 32, 45, 64, 128, 192, 200 and 300 (the chunked
+body) on float32 and bfloat16 raws, broadcast and per-ray depths and 1,
+1,001 and 16,384 rays (``k2_check``; without weights bit-equal to with
+them), its schedule
+against ``ops/composite_kernel.py``'s (``k2_build``), and timed against
+the first K2 (``composite_kernel``, on no path) in turns at every case at
+16,384 rays beside an empty kernel, the launch floor (``kernel_times``
+float32, ``kernel_times_quant`` bfloat16). Then it drives each path of the port,
 with every launch count set to 0 just before and read just after, and fails
 unless every kernel of the path ran its expected number of times:
 
@@ -175,11 +184,13 @@ it has no CPU path.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
 import math
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -202,6 +213,21 @@ PEAK_BYTES = 3.35e12          # H100 SXM HBM3 rate
 K1_TOL = 2e-2                 # rgb abs; sigma relative to max|sigma|
 K2_TOL = 1e-5                 # rgb/acc abs; depth relative to max|depth|
 B9_TOL = 1e-5                 # composited vs plain on the kernel's own raw: rgb/acc/w abs
+K2_KERNEL = "composite_rays_kernel"   # K2 (csrc/composite.cu)
+K2_OLD_KERNEL = "composite_kernel"   # the first K2: timed in turns with it, on no path
+K2_RAYS = (1, 1001, 16384)    # k2_check's ray counts
+K2_BODIES = 2 * (6 + 6 + 3 + 6 + 1)   # K2's instantiations: raw type x (run 1 at six
+                              # segment widths, runs 2-7 at 32, EVEN runs 2, 4, 6, runs of 4
+                              # at 4, 8, 16 lanes EVEN or not, chunked run 7)
+K2_CHUNKED_S = 300            # k2_check's sample count past one chunk (224): 224 + 3 x 32
+K2_DESIGN = ("a lane a contiguous run of ceil(S / P) samples (at most 7; past S = 224 chunks "
+             "with the transmittance carried), every load of the run (16 bytes: one fp32 "
+             "sample, two bf16) issued before any arithmetic, the run scanned serially in "
+             "registers, one segmented shuffle scan of the run totals, the five sums a "
+             "reduce-scatter; P = S / 4 for a power-of-two S >= 16 (runs of 4), else the "
+             "smallest power of two >= S, at most 32, so a warp takes 32 / P rays; the "
+             "weights only where asked, stored as contiguous rows; persistent blocks "
+             "(occupancy x SMs) walking groups of rays")
 PSNR_MIN = 40.0
 PSNR_FLOOR = {"benchmark": 57.4, "hierarchical": 61.3}   # the bf16 CudaEngine against the
                               # float32 engine: 0.5 dB under the WMMA kernels' 57.9 / 61.8 dB
@@ -363,6 +389,33 @@ def bound_ms(bf16_flops, f32_flops, nbytes_, int8_ops=0):
              + f32_flops / PEAK_F32_FLOPS)
     t_bytes = nbytes_ / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def composite_ptxas(log):
+    """ptxas's report of csrc/composite.cu by kernel: registers, stack and
+    spill bytes; K2's bodies named by their run, segment, raw type, EVEN and
+    CHUNKED."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for")[1].strip()
+            m = re.search(r"(composite_rays_kernel)ILi(\d+)ELi(\d+)E(f|13__nv_bfloat16)Lb([01])E"
+                          r"Lb([01])E", name)
+            if m:
+                entry = (f"{m[1]}<{m[2]}, {m[3]}, {'float' if m[4] == 'f' else 'bf16'}, "
+                         f"{m[5] == '1'}, {m[6] == '1'}>")
+            else:
+                m = re.search(r"(composite_kernel|composite_planar_kernel|empty_kernel)", name)
+                entry = (m[1] + ("<bf16>" if "nv_bfloat16" in name else "<float>"
+                                 if "kernelI" in name else "")) if m else name
+        elif entry and "spill" in ln:
+            nums = [int(t) for t in ln.replace(",", " ").split() if t.isdigit()]
+            out[entry] = dict(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                              spill_load_bytes=nums[2])
+        elif entry and "Used" in ln and "registers" in ln and entry in out:
+            out[entry]["registers"] = int(ln.split("Used")[1].split()[0])
+            entry = None
+    return out
 
 
 def camera_rays(pose, focal, dev, n, seed):
@@ -1433,7 +1486,8 @@ def reset_counts():
     for k in quant.launches:
         quant.launches[k] = 0
     composite_kernel.launches = composite_kernel.planar_launches = 0
-    composite_kernel.bf16_launches = 0
+    composite_kernel.bf16_launches = composite_kernel.weightless_launches = 0
+    composite_kernel.old_launches = 0
     mlp_kernel.launches = mlp_kernel.wmma_launches = 0
     for k in train_kernel.launches:
         train_kernel.launches[k] = 0
@@ -1447,6 +1501,7 @@ def read_counts():
             "composite": composite_kernel.launches,
             "composite_bf16": composite_kernel.bf16_launches,
             "composite_planar": composite_kernel.planar_launches,
+            "composite_old": composite_kernel.old_launches,
             "mlp_forward": mlp_kernel.launches, "mlp_forward_wmma": mlp_kernel.wmma_launches,
             **train_kernel.launches}
 
@@ -1473,7 +1528,10 @@ def main():
                                               orbit_poses, spherical_pose)
     from nerf_tpu_torch.utils.monitor import profile_trace
     from nerf_tpu_torch.utils.rendering import sample_pdf
+    from nerf_tpu_torch.tools import composite_ab as k2_ab
 
+    require(K2_KERNEL == composite_kernel.KERNEL and K2_OLD_KERNEL == composite_kernel.OLD_KERNEL,
+            "K2's kernel names differ from ops/composite_kernel.py's")
     dev = torch.device("cuda")
     smi = nvidia_smi()
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
@@ -1574,6 +1632,47 @@ def main():
             and k5_build["stream_chunks"] == len(ray_wgmma.bwd_chunk_schedule(default_config().model))
             and k5_lib.wgrad_job_ints() == train_kernel.jobs_tensor(default_config().model).shape[1],
             f"K5's layout differs between the kernels and ops/train_kernel.py ({k5_build})")
+
+    # K2 (csrc/composite.cu): registers and spills of every body (none may
+    # spill), and its schedule: the library's against ops/composite_kernel.py
+    comp_lib = _ext.load("composite")
+    comp_lib.composite_rays_grid.restype = ctypes.c_longlong
+    comp_lib.composite_rays_grid.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 3
+    k2_ptxas = composite_ptxas(_ext.build_log("composite"))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    k2_sched = {}
+    for S in (*k2_ab.SAMPLE_COUNTS, K2_CHUNKED_S):
+        P, k = composite_kernel.segment_lanes(S), composite_kernel.run_length(S)
+        require(comp_lib.composite_rays_segment(S) == P and comp_lib.composite_rays_run(S) == k,
+                f"K2 at S = {S}: the library's segment / run {comp_lib.composite_rays_segment(S)}"
+                f" / {comp_lib.composite_rays_run(S)} differ from ops/composite_kernel.py's "
+                f"{P} / {k}")
+        for bf16 in (0, 1):
+            for even in (0, 1) if k % 2 == 0 and S % 2 == 0 else (0,):
+                bps = comp_lib.composite_rays_blocks_per_sm(S, bf16, even)
+                grids = {n: comp_lib.composite_rays_grid(n, S, bf16, even)
+                         for n in (*K2_RAYS, 2 * n_sm * 8 * 32 + 5)}
+                require(bps >= 1 and all(g == composite_kernel.rays_grid(n, S, n_sm, bps)
+                                         for n, g in grids.items()),
+                        f"K2 at S = {S}, bf16 {bf16}, even {even}: the library's grid {grids} "
+                        f"({bps} blocks an SM) differs from ops/composite_kernel.py's")
+                k2_sched[f"S={S} {'bf16' if bf16 else 'f32'}{' even' if even else ''}"] = dict(
+                    segment_lanes=P, rays_per_warp=32 // P, run=k, blocks_per_sm=bps,
+                    grid=grids)
+    require(comp_lib.composite_rays_max_run() == composite_kernel.MAX_RUN
+            and comp_lib.composite_rays_threads() == composite_kernel.RAYS_THREADS,
+            "K2's bodies differ from ops/composite_kernel.py's MAX_RUN / RAYS_THREADS")
+    emit("k2_build", ptxas=k2_ptxas, schedule=k2_sched, sms=n_sm,
+         schedule_equals_python=True)
+    # the bodies of the paths' sample counts (runs up to 6: S <= 192) may not
+    # spill; the others are reported
+    path_bodies = {k: r for k, r in k2_ptxas.items()
+                   if not k.startswith(f"{K2_KERNEL}<7")}
+    require(all(r["spill_store_bytes"] == 0 and r["spill_load_bytes"] == 0
+                for r in path_bodies.values())
+            and sum(k.startswith(K2_KERNEL) for k in k2_ptxas) == K2_BODIES,
+            f"ptxas: a body of csrc/composite.cu on a path spills, or one is missing "
+            f"({k2_ptxas})")
 
     white = lambda c: dataclasses.replace(
         c, render=dataclasses.replace(c.render, white_background=True))
@@ -1693,33 +1792,41 @@ def main():
                 require(e_rgb_acc <= B9_TOL and e_depth <= B9_TOL and e_w <= B9_TOL,
                         f"{kname} {name} S={S}: errors {e_rgb_acc}, {e_depth}, {e_w} > {B9_TOL}")
 
-        # -- K2: kernel vs plain, at both passes' sample counts ------------------
-        g = torch.Generator(device=dev).manual_seed(2)
-        n2 = CHUNK
-        k2_err = 0.0
-        for S2 in (SPP, SPP + N_FINE):
-            sigma = torch.rand(n2, S2, device=dev, generator=g) * 50.0
-            sigma[:, ::7] = 0.0
-            sigma[::5, S2 // 2] = 1e6                                   # opaque samples
-            rgb = torch.rand(n2, S2, 3, device=dev, generator=g)
-            raw2 = torch.cat([sigma[..., None], rgb], -1).reshape(n2, 4 * S2).contiguous()
-            z2 = torch.sort(2.0 + 4.0 * torch.rand(n2, S2, device=dev, generator=g), dim=-1).values
-            d2 = torch.randn(n2, 3, device=dev, generator=g)
-            zs = (z2,) if S2 != SPP else (z2, torch.linspace(2.0, 6.0, SPP, device=dev).expand(n2, SPP))
-            for zz in zs:
-                out_k, w_k = composite_kernel._launch(raw2, zz, d2, rcfg.dist_sentinel,
-                                                      rcfg.transmittance_eps)
-                out_p, w_p = composite_kernel.fused_volume_render_interleaved_plain(
-                    raw2, zz, d2, rcfg.dist_sentinel, rcfg.transmittance_eps)
-                torch.cuda.synchronize()
-                e_rgb_acc, e_depth, e_w = composited_err(out_k, w_k, out_p, w_p)
-                k2_err = max(k2_err, e_rgb_acc)
-                emit("k2_check", rays=n2, samples=S2,
-                     z="broadcast" if zz.stride(0) == 0 else "per-ray",
-                     rgb_acc_max_abs_err=e_rgb_acc, depth_max_rel_err=e_depth, w_max_abs_err=e_w,
-                     tol=K2_TOL)
-                require(e_rgb_acc <= K2_TOL and e_depth <= K2_TOL and e_w <= K2_TOL,
-                        f"K2: errors {e_rgb_acc}, {e_depth}, {e_w} > {K2_TOL}")
+        # -- K2: kernel vs plain at every sample count (the paths' 1, 16, 32, 64,
+        #    128, 192; 45 and 200: masked runs; 300: the chunked body), both raw
+        #    types, broadcast and per-ray depths, 1, 1,001 and 16,384 rays, with
+        #    zero-sigma and opaque samples; without the weights the outputs must
+        #    equal those with them bit for bit
+        k2_err, k2_cases = 0.0, {}
+        sent, eps = rcfg.dist_sentinel, rcfg.transmittance_eps
+        for i, (S2, dt, per_ray, n2) in enumerate(
+                (S2, dt, per_ray, n2) for S2 in (*k2_ab.SAMPLE_COUNTS, K2_CHUNKED_S)
+                for dt in (torch.float32, torch.bfloat16) for per_ray in (False, True)
+                for n2 in K2_RAYS):
+            raw2, zz, d2 = k2_ab.inputs(n2, S2, dt, per_ray, dev, seed=100 + i)
+            before = composite_kernel.launches, composite_kernel.weightless_launches
+            out_k, w_k = composite_kernel._launch(raw2, zz, d2, sent, eps)
+            out_0, w_0 = composite_kernel._launch(raw2, zz, d2, sent, eps, with_weights=False)
+            require((composite_kernel.launches - before[0],
+                     composite_kernel.weightless_launches - before[1]) == (2, 1),
+                    "k2_check: two launches of K2, one without weights, were not counted")
+            out_p, w_p = composite_kernel.fused_volume_render_interleaved_plain(
+                raw2, zz, d2, sent, eps)
+            torch.cuda.synchronize()
+            e = composited_err(out_k, w_k, out_p, w_p)
+            same = w_0 is None and torch.equal(out_0, out_k)
+            k2_err = max(k2_err, e[0], e[2])
+            k2_cases[f"S={S2} {str(dt).split('.')[-1]} {'per-ray' if per_ray else 'broadcast'}"
+                     f" z N={n2}"] = dict(errors=e, without_weights_bit_equal=same)
+            require(bool(torch.isfinite(out_k).all() and torch.isfinite(w_k).all()),
+                    f"K2 S={S2} {dt} N={n2}: non-finite output")
+            require(max(e) <= K2_TOL, f"K2 S={S2} {dt} per-ray z {per_ray} N={n2}: errors {e} "
+                    f"> {K2_TOL}")
+            require(same, f"K2 S={S2} {dt} per-ray z {per_ray} N={n2}: the output without "
+                    "weights differs from the output with them")
+        emit("k2_check", kernel=K2_KERNEL, cases=k2_cases, tol=K2_TOL,
+             error_kinds=["rgb/acc max abs", "depth max rel", "w max abs"],
+             worst=max(max(c["errors"]) for c in k2_cases.values()))
         return k1_err, k3_err, b9_err, k2_err
 
     k1_err, k3_err, b9_err, k2_err = check_kernels()
@@ -1884,6 +1991,45 @@ def main():
     k4_err, k5_err, k6_err = check_new_kernels()
     torch.cuda.empty_cache()
 
+    def time_k2(raw_dtype):
+        """K2 against the first K2 in turns (old, new, new, old; device ms per
+        launch by the profiler) at every case of a raw type at the chunk: S
+        in k2_ab.SAMPLE_COUNTS, broadcast and per-ray depths, with and without
+        the weights (the first K2 always writes them); each with its bound
+        (the new body's bytes: no weights where none are written; the old
+        body's with them). Returns {case: times}."""
+        res = {}
+        sent, eps = rcfg.dist_sentinel, rcfg.transmittance_eps
+        out8 = torch.empty(CHUNK, 8, device=dev)
+        for i, (S2, dt, per_ray, with_w) in enumerate(k2_ab.cases((raw_dtype,))):
+            raw2, zz, d2 = k2_ab.inputs(CHUNK, S2, dt, per_ray, dev, seed=200 + i)
+            new = lambda: composite_kernel._launch(raw2, zz, d2, sent, eps, with_w)
+            old = lambda: composite_kernel._launch(raw2, zz, d2, sent, eps,
+                                                   kernel=K2_OLD_KERNEL)
+            turns = k2_ab.device_ms_in_turns([("old", old, (K2_OLD_KERNEL,)),
+                                              ("new", new, (K2_KERNEL,)),
+                                              ("new", new, (K2_KERNEL,)),
+                                              ("old", old, (K2_OLD_KERNEL,))],
+                                             tries=1 + RETRACES)
+            require(turns is not None,
+                    f"K2 S={S2} {dt}: {1 + RETRACES} traces lost kernel records")
+            w_out = torch.empty(CHUNK, S2, device=dev)
+            b_new = bound_ms(0, 20 * CHUNK * S2, nbytes(raw2, zz, d2, out8, w_out if with_w
+                                                        else None))
+            b_old = bound_ms(0, 20 * CHUNK * S2, nbytes(raw2, zz, d2, out8, w_out))
+            ms_new, ms_old = float(np.mean(turns["new"])), float(np.mean(turns["old"]))
+            res[f"S={S2} {'per-ray' if per_ray else 'broadcast'} z "
+                f"{'with' if with_w else 'without'} w"] = dict(
+                samples=S2, per_ray_z=per_ray, with_weights=with_w,
+                chunks=len(composite_kernel.ray_chunks(S2)),
+                ms=ms_new, old_ms=ms_old, turns_old_new_new_old=[
+                    turns["old"][0], *turns["new"], turns["old"][1]],
+                new_over_old=ms_new / ms_old, bound_ms=b_new[0], bound_by=b_new[1],
+                bound_share=b_new[0] / ms_new, old_bound_ms=b_old[0],
+                old_bound_share=b_old[0] / ms_old)
+            del raw2, zz, d2, w_out
+        return res
+
     def time_kernels():
         """Each kernel and its plain version at a chunk of the main paths:
         times, bound, and the kernel's output held against its reference
@@ -1912,12 +2058,14 @@ def main():
             "render_samples": (
                 lambda: render_kernel._launch(packed, ro, rd, 2.0, 6.0, SPP, mcfg),
                 k1_plain, 10, 3, k1_plain, K1_TOL),
+            # K2 without its weights, as the benchmark frame and the fine pass
+            # call it
             "composite": (
-                lambda: composite_kernel._launch(raw, z, rd, sent, eps),
+                lambda: composite_kernel._launch(raw, z, rd, sent, eps, with_weights=False),
                 lambda: plain_composite(raw, z, rd, sent, eps),
                 30, 10, lambda: plain_composite(raw, z, rd, sent, eps), K2_TOL),
             "composite_192": (
-                lambda: composite_kernel._launch(raw3, z3, rd, sent, eps),
+                lambda: composite_kernel._launch(raw3, z3, rd, sent, eps, with_weights=False),
                 lambda: plain_composite(raw3, z3, rd, sent, eps),
                 30, 10, lambda: plain_composite(raw3, z3, rd, sent, eps), K2_TOL),
             "render_zvals": (
@@ -1991,8 +2139,8 @@ def main():
         bounds = {
             "render_samples": bound_ms(k1_flops(mcfg, CHUNK, SPP), 0,
                                        nbytes(ro, rd) + weights_bytes + CHUNK * SPP * 16),
-            "composite": bound_ms(0, comp_ops * CHUNK * SPP, nbytes(raw, z, rd, out8, w64)),
-            "composite_192": bound_ms(0, comp_ops * CHUNK * S3, nbytes(raw3, z3, rd, out8, w192)),
+            "composite": bound_ms(0, comp_ops * CHUNK * SPP, nbytes(raw, z, rd, out8)),
+            "composite_192": bound_ms(0, comp_ops * CHUNK * S3, nbytes(raw3, z3, rd, out8)),
             "render_zvals": bound_ms(k1_flops(mcfg, CHUNK, S3), 0,
                                      nbytes(ro, rd, z3) + weights_bytes + CHUNK * S3 * 16),
             "render_samples_composited": bound_ms(k1_flops(mcfg, CHUNK, SPP),
@@ -2030,6 +2178,22 @@ def main():
                                              for k in WGMMA},
                   at_bound_bytes_per_s={k: tiles[k] * stream_bytes / (bounds[k][0] * 1e-3)
                                         for k in WGMMA})
+        # K2 against the first K2 in turns at every case on a float32 raw,
+        # the launch floor (an empty kernel's device time), and K6 again
+        k2_turns = time_k2(torch.float32)
+        floor_ms = k2_ab.launch_floor_ms()
+        g6 = torch.Generator(device=dev).manual_seed(8)
+        sig6 = torch.rand(CHUNK, N_FINE, device=dev, generator=g6) * 50.0
+        rgb6 = torch.rand(CHUNK, N_FINE, 3, device=dev, generator=g6)
+        z6 = torch.sort(2.0 + 4.0 * torch.rand(CHUNK, N_FINE, device=dev, generator=g6),
+                        -1).values
+        d6 = torch.randn(CHUNK, 3, device=dev, generator=g6)
+        k6 = lambda: composite_kernel._launch_planar(sig6, rgb6.unbind(-1), z6, d6, sent, eps)
+        k6_turns = k2_ab.device_ms_in_turns([("k6", k6, ("composite_planar_kernel",))] * 2)
+        k6_times = dict(ms=None if k6_turns is None else float(np.mean(k6_turns["k6"])),
+                        turns=k6_turns, bound=bound_ms(0, 20 * CHUNK * N_FINE, nbytes(
+                            sig6, rgb6, z6, d6) + CHUNK * 8 * 4 + CHUNK * N_FINE * 4))
+        del sig6, rgb6, z6, d6
         emit("kernel_times", rays=CHUNK, samples={"render_samples": SPP, "composite": SPP,
                                                   "composite_192": S3, "render_zvals": S3,
                                                   "render_samples_composited": SPP,
@@ -2040,12 +2204,16 @@ def main():
              wgmma_vs_wmma_call_ms={k: {"wmma_ms": v["wmma"], "wgmma_ms": v["wgmma"],
                                         "order": "wmma, wgmma, wgmma, wmma"}
                                     for k, v in ab.items()},
-             l2_probe=l2, nvidia_smi=smi)
-        return t_call, t_plain, bounds, chunk_abs, wmma_ms, l2
+             l2_probe=l2, k2_vs_first_k2_f32=k2_turns, launch_floor_ms=floor_ms,
+             k6_at_16384x128={"ms": k6_times["ms"], "turns": k6_times["turns"],
+                              "bound_ms": k6_times["bound"][0]},
+             nvidia_smi=smi)
+        return t_call, t_plain, bounds, chunk_abs, wmma_ms, l2, k2_turns, floor_ms, k6_times
 
     # each phase's tensors are freed before the frames, so a frame's peak
     # device memory is the weights and the frame's own
-    t_call, t_plain, bounds, chunk_abs, wmma_ms, l2_probe = time_kernels()
+    (t_call, t_plain, bounds, chunk_abs, wmma_ms, l2_probe, k2_f32, k2_floor,
+     k6_times) = time_kernels()
     torch.cuda.empty_cache()
 
     def time_new_kernels():
@@ -2377,14 +2545,21 @@ def main():
                 sg, pl = render_kernel.fused_render_zvals_planar(w, ro, rd, z, mcfg)
                 out, wts = render_kernel.fused_render_zvals_composited(
                     w, ro, rd, z, mcfg, with_weights=True, sentinel=sent, eps=eps)
+                weightless = composite_kernel.weightless_launches
+                out0 = render_kernel.fused_render_zvals_composited(
+                    w, ro, rd, z, mcfg, with_weights=False, sentinel=sent, eps=eps)
+                weightless = composite_kernel.weightless_launches - weightless
                 torch.cuda.synchronize()
                 moved = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
                 entry = "mlp_forward" if bits is None else "mlp_quant"
-                require(moved.get(entry) == 4 and moved.get("composite") == 1
+                require(torch.equal(out0, out) and weightless == 1,
+                        f"c1_check {route} {vname}: without weights, K2 gave another output or "
+                        f"was not asked for none ({weightless} launches without)")
+                require(moved.get(entry) == 5 and moved.get("composite") == 2
                         and not any(moved.get(k) for k in WGMMA) and not any(
                             moved.get(k) for k in ("wgmma_zvals", "render_zvals_composited")),
-                        f"c1_check {route} {vname}: launches {moved}, expected 4 of {entry} "
-                        "and 1 of composite, no ray kernel")
+                        f"c1_check {route} {vname}: launches {moved}, expected 5 of {entry} "
+                        "and 2 of composite, no ray kernel")
                 require(all(bool(torch.isfinite(t).all()) for t in (raw, out, wts)),
                         f"c1_check {route} {vname}: non-finite output")
                 plain = render_kernel.fused_render_zvals_plain(w, ro, rd, z, mcfg)
@@ -2532,19 +2707,23 @@ def main():
                 lambda: render_kernel._launch(packed, ro, rd, 0.0, 0.0, S3, mcfg, z_vals=z3, **kw),
                 WGMMA["render_zvals"], 3, res["render_zvals bf16"]["plain_ms"],
                 ray_bound("bf16", S3, nbytes(ro, rd, z3), CHUNK * S3 * out_bytes))
-        for name, raw, zz, S in (("composite raw_bf16 x64", raw_b, z, SPP),
-                                 ("composite raw_bf16 x192", raw3_b, z3, S3)):
-            w_out = torch.empty(CHUNK, S, device=dev)
+        # K2 on a bf16 raw as the bf16-raw frames call it: with the weights at
+        # 64 (the coarse pass), without at 192 (the fine pass)
+        for name, raw, zz, S, with_w in (("composite raw_bf16 x64", raw_b, z, SPP, True),
+                                         ("composite raw_bf16 x192", raw3_b, z3, S3, False)):
+            w_out = torch.empty(CHUNK, S, device=dev) if with_w else None
             raw_f = raw.float()
             res[name] = timed(
-                lambda: composite_kernel._launch(raw, zz, rd, sent, eps), "composite_kernel", 20,
+                lambda: composite_kernel._launch(raw, zz, rd, sent, eps, with_w), K2_KERNEL, 20,
                 lambda: composite_kernel.fused_volume_render_interleaved_plain(raw, zz, rd, sent,
                                                                                eps),
                 bound_ms(0, 20 * CHUNK * S, nbytes(raw, zz, rd, out8, w_out)),
+                with_weights=with_w,
                 f32_raw_device_ms=profiled_ms(lambda: composite_kernel._launch(
-                    raw_f, zz, rd, sent, eps), "composite_kernel", 20),
-                f32_raw_call_ms=call_ms(lambda: composite_kernel._launch(raw_f, zz, rd, sent, eps),
-                                        20))
+                    raw_f, zz, rd, sent, eps, with_w), K2_KERNEL, 20),
+                f32_raw_call_ms=call_ms(lambda: composite_kernel._launch(raw_f, zz, rd, sent, eps,
+                                                                         with_w), 20))
+        k2_bf16 = time_k2(torch.bfloat16)
         emit("kernel_times_quant", rays=CHUNK, samples={"render_samples": SPP, "render_zvals": S3,
                                                         "render_samples_composited": SPP,
                                                         "render_zvals_composited": S3,
@@ -2554,10 +2733,11 @@ def main():
                         "bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
                     for k, v in res.items()},
              int8_peak="1,979 TOP/s for the trunk products of the int8_compute rows, "
-                       "989 TFLOP/s bf16 for the rest", nvidia_smi=smi)
-        return res
+                       "989 TFLOP/s bf16 for the rest", k2_vs_first_k2_bf16=k2_bf16,
+             launch_floor_ms=k2_ab.launch_floor_ms(), nvidia_smi=smi)
+        return res, k2_bf16
 
-    quant_times = time_quant_kernels()
+    quant_times, k2_bf16 = time_quant_kernels()
     torch.cuda.empty_cache()
 
     per_frame = math.ceil(W * H / CHUNK)
@@ -2567,10 +2747,11 @@ def main():
     qfocal = focal_from_angle(qw, CAMERA_ANGLE_X)
     paths = {}            # path -> launches by kernel over its timed frames
 
-    def drive(engine, mode, name, expect, views=3, spp=SPP):
+    def drive(engine, mode, name, expect, views=3, spp=SPP, weightless=None):
         """One warm frame, then the path: counts set to 0, ``views`` views,
         counts read. Requires ``expect[kernel]`` launches per chunk of every
-        kernel (0 for the kernels the path must not run)."""
+        kernel (0 for the kernels the path must not run), and, where
+        ``weightless`` is given, that many of K2's per chunk without weights."""
         engine.render_image(poses[0], (W, H), spp, focal=focal, mode=mode, monitor=True)
         reset_counts()
         frames = [engine.render_image(p, (W, H), spp, focal=focal, mode=mode, monitor=True)
@@ -2581,6 +2762,10 @@ def main():
             want = expect.get(k, 0) * per_frame * len(frames)
             require(n == want, f"{name}: {k} launched {n} times, expected {want} "
                     f"({expect.get(k, 0) * per_frame} per frame x {len(frames)} frames)")
+        if weightless is not None:
+            n = composite_kernel.weightless_launches
+            want = weightless * per_frame * len(frames)
+            require(n == want, f"{name}: K2 launched {n} times without weights, expected {want}")
         wall = float(np.median([f.stats.wall_time_s for f in frames]))
         img = frames[0].rgb
         corners = np.stack([img[0, 0], img[0, -1], img[-1, 0], img[-1, -1]])
@@ -2621,13 +2806,13 @@ def main():
     # -- path 1: the benchmark frame (K1 -> K2) -------------------------------
     engine = CudaEngine(shared, chunk_rays=CHUNK)
     frame_res = drive(engine, "benchmark", "benchmark",
-                      {"render_samples": 1, "wgmma_samples": 1, "composite": 1})
+                      {"render_samples": 1, "wgmma_samples": 1, "composite": 1}, weightless=1)
     emit("frame", mode="benchmark", samples=SPP, **frame_res)
     per_launch, prof = frame_profile(engine, "benchmark",
-                                     {WGMMA["render_samples"]: 1, "composite_kernel": 1})
+                                     {WGMMA["render_samples"]: 1, K2_KERNEL: 1})
     emit("frame_profile", mode="benchmark", **prof)
     device_ms["render_samples"] = per_launch.get(WGMMA["render_samples"])
-    device_ms["composite"] = per_launch.get("composite_kernel")
+    device_ms["composite"] = per_launch.get(K2_KERNEL)
     ref_bench = ref_engine.render_image(poses[1], (qw, qh), SPP, focal=qfocal,
                                         monitor=False).rgb
     p_db, p_err = against_torch(engine, "benchmark", ref_bench)
@@ -2640,9 +2825,9 @@ def main():
     emit("hier_frame", mode="hierarchical", samples=[SPP, N_FINE], **drive(
         engine, "hierarchical", "hierarchical",
         {"render_samples": 1, "composite": 2, "render_zvals": 1, "wgmma_samples": 1,
-         "wgmma_zvals": 1}))
+         "wgmma_zvals": 1}, weightless=1))
     per_launch, prof = frame_profile(engine, "hierarchical",
-                                     {WGMMA["render_samples"]: 1, "composite_kernel": 2,
+                                     {WGMMA["render_samples"]: 1, K2_KERNEL: 2,
                                       WGMMA["render_zvals"]: 1})
     emit("hier_frame_profile", mode="hierarchical", **prof)
     device_ms["render_zvals"] = per_launch.get(WGMMA["render_zvals"])
@@ -2756,7 +2941,7 @@ def main():
             if path == "hierarchical":
                 per_launch, r["profile"] = frame_profile(
                     eng, mode, {WGMMA["render_samples"]: 1, WGMMA["render_zvals"]: 1,
-                                "composite_kernel": 2})
+                                K2_KERNEL: 2})
                 for k, v in per_launch.items():
                     device_ms[f"{phase} {k}"] = v
             elif path == "fused_hierarchical":
@@ -2919,11 +3104,12 @@ def main():
     accel_res, accel_small = {}, {}
     for spp in ACCEL_SPP:
         r = drive(acc, "benchmark", f"accel_{spp}",
-                  {"render_zvals": 1, "wgmma_zvals": 1, "composite": 1}, spp=spp)
+                  {"render_zvals": 1, "wgmma_zvals": 1, "composite": 1}, spp=spp,
+                  weightless=1)
         per_launch, prof = frame_profile(acc, "benchmark",
-                                         {WGMMA["render_zvals"]: 1, "composite_kernel": 1}, spp)
+                                         {WGMMA["render_zvals"]: 1, K2_KERNEL: 1}, spp)
         glue = {k: v for k, v in prof["device_ms_by_kernel"].items()
-                if k not in (WGMMA["render_zvals"], "composite_kernel")}
+                if k not in (WGMMA["render_zvals"], K2_KERNEL)}
         r.update(profile=prof, k3_device_ms_per_launch=per_launch.get(WGMMA["render_zvals"]),
                  glue_device_ms=sum(glue.values()), glue_device_ms_by_kernel=glue)
         device_ms[f"accel_{spp} render_zvals"] = per_launch.get(WGMMA["render_zvals"])
@@ -3895,6 +4081,18 @@ def main():
     kernels[1]["at_192"] = {"call_ms": t_call["composite_192"],
                             "plain_ms": t_plain["composite_192"],
                             "bound_ms": bounds["composite_192"][0]}
+    # K2's bodies, and every case timed against the first K2 in turns
+    k2_summary = lambda res: {k: {f: v[f] for f in ("ms", "old_ms", "new_over_old", "bound_ms",
+                                                    "bound_share", "chunks")}
+                              for k, v in res.items()}
+    kernels[1].update(
+        cuda_kernel=K2_KERNEL, design=K2_DESIGN,
+        shape=f"{CHUNK} rays x {SPP} samples, f32, without weights (the benchmark frame)",
+        old_kernel=K2_OLD_KERNEL, launch_floor_ms=k2_floor,
+        vs_first_k2={"f32": k2_summary(k2_f32), "bf16": k2_summary(k2_bf16),
+                     "order": "old, new, new, old; device ms by the profiler"},
+        launches_old_kernel=sum(c.get("composite_old", 0) for c in paths.values()))
+    require(kernels[1]["launches_old_kernel"] == 0, "a path launched the first K2")
     # the accel engine's paths (its K3 at the accel frames' sample counts,
     # K2 after it, K4 in its bake), and K3 at one depth per ray
     accel_paths = lambda counter: {p: c[counter] for p, c in paths.items()
@@ -3909,7 +4107,7 @@ def main():
         at_accel={spp: {"samples": spp, "ms": device_ms.get(f"accel_{spp} render_zvals"),
                         "ms_from": "profiler, in the accel frame", "bound_ms": k3_bounds[spp],
                         "launches": paths[f"accel_{spp}"]["render_zvals"]} for spp in ACCEL_SPP},
-        one_depth_per_ray={"entry": f"{K4_KERNEL} of the route's build, then composite_kernel",
+        one_depth_per_ray={"entry": f"{K4_KERNEL} of the route's build, then {K2_KERNEL}",
                            "routes": ["bf16", *(r for r, _, _ in ROUTES)],
                            "forms": ["raw", "bf16 raw", "planar", "composited"],
                            "max_abs_err": c1_err})
@@ -3957,6 +4155,10 @@ def main():
                                      "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
                                      **({"library_ms": c["library_ms"]} if "library_ms" in c
                                         else {})}
+        if name == "composite_planar":
+            row["retimed_beside_k2"] = {"ms": k6_times["ms"], "turns": k6_times["turns"],
+                                        "bound_ms": k6_times["bound"][0],
+                                        "from": "kernel_times, the profiler in one trace"}
         if name == "mlp_forward":
             c = new_times[name][N_COARSE_TRAIN]
             row["at_coarse_pass"]["wmma_ms"] = c["wmma_ms"]

@@ -25,16 +25,28 @@ transmittance that contributes.
 
 On CUDA tensors the wrappers launch ``csrc/composite.cu`` and count the
 launch (``launches`` for K2, of which ``bf16_launches`` read a bfloat16
-``raw``; ``planar_launches`` for K6); on CPU tensors
-both run ``fused_volume_render_interleaved_plain`` (the planar wrapper
-stacks its input for it).
+``raw`` and ``weightless_launches`` wrote no weights; ``planar_launches``
+for K6); on CPU tensors both run ``fused_volume_render_interleaved_plain``
+(the planar wrapper stacks its input for it).
+
+K2 is ``composite_rays_kernel``. Its launch, ``_launch(raw, z_vals, rays_d,
+sentinel, eps, with_weights=True, kernel=KERNEL)``, writes the weights
+``w [N, S]`` only with ``with_weights``, and returns ``(out [N, 8], w or
+None)``; ``composite_rays(raw, z_vals, rays_d, cfg, with_weights)`` is the
+engines' entry, ``fused_volume_render_interleaved`` the same with the
+weights. ``kernel=OLD_KERNEL`` launches the first K2 (``composite_kernel``,
+one warp a ray, 32 samples a step, always writing ``w``), a timed
+comparison that no path asks for (``old_launches``). The schedule of the
+new body (``segment_lanes``, ``run_length``, ``rays_per_warp``,
+``rays_grid``, ``rays_schedule``) is the one the library exports.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from nerf_tpu_torch.config import RenderConfig
@@ -45,7 +57,86 @@ from nerf_tpu_torch.utils.rendering import RenderOutputs, volume_render
 # into a CUDA graph is not one (_ext.ran).
 launches = 0          # K2, interleaved
 bf16_launches = 0     # those of K2's launches that read a bfloat16 raw
+weightless_launches = 0   # those of K2's launches that wrote no weights
+old_launches = 0      # the first K2 (OLD_KERNEL), a timed comparison only
 planar_launches = 0   # K6, planar
+
+KERNEL = "composite_rays_kernel"            # K2
+OLD_KERNEL = "composite_kernel"             # the first K2: timed comparisons only
+
+
+# -- K2's schedule (csrc/composite.cu segment_lanes, run_length, rays_grid) ----
+
+RAYS_THREADS = 256    # a block: 8 warps
+RAYS_WARPS = RAYS_THREADS // 32
+MAX_RUN = 7           # samples a lane a chunk at most; one chunk up to S = 32 * MAX_RUN
+
+
+def segment_lanes(n_samples: int) -> int:
+    """Lanes a ray takes: S / 4 (runs of 4) for a power-of-two S >= 16, at
+    most 32; else the smallest power of two >= S, at most 32."""
+    if n_samples >= 16 and n_samples & (n_samples - 1) == 0:
+        return min(n_samples // 4, 32)
+    p = 1
+    while p < n_samples and p < 32:
+        p <<= 1
+    return p
+
+
+def run_length(n_samples: int) -> int:
+    """Samples a lane owns, a contiguous run: ceil(S / segment_lanes(S)),
+    at most MAX_RUN."""
+    return min(-(-n_samples // segment_lanes(n_samples)), MAX_RUN)
+
+
+def ray_chunks(n_samples: int) -> List[Tuple[int, int]]:
+    """``(first sample, run length)`` of each chunk a ray is walked in: one
+    up to S = 32 * MAX_RUN; past it, as many chunks of 32 * MAX_RUN as the
+    ray holds, then the rest 32 samples a chunk, one a lane (S = 300: 224 in
+    runs of 7, then 32, 32 and 12 in runs of 1)."""
+    k = run_length(n_samples)
+    if n_samples <= 32 * k:
+        return [(0, k)]
+    full = n_samples // (32 * k)
+    return ([(c * 32 * k, k) for c in range(full)]
+            + [(c0, 1) for c0 in range(full * 32 * k, n_samples, 32)])
+
+
+def rays_per_warp(n_samples: int) -> int:
+    return 32 // segment_lanes(n_samples)
+
+
+def rays_grid(n_rays: int, n_samples: int, sms: int, blocks_per_sm: int) -> int:
+    """Blocks of a launch: enough for every warp's group of rays, but no
+    more than are resident at once (persistent blocks)."""
+    groups = -(-n_rays // rays_per_warp(n_samples))
+    return min(-(-groups // RAYS_WARPS), blocks_per_sm * sms)
+
+
+def rays_schedule(n_rays: int, n_samples: int, grid: int):
+    """What every lane of a launch of ``grid`` blocks takes, as flat numpy
+    arrays over (block, warp, step, lane) for the lanes that own samples:
+    ``(block, warp, step, ray, first, stop)``, samples ``[first, stop)`` of
+    ``ray``. Warp ``g = block * RAYS_WARPS + warp`` takes the groups ``g,
+    g + warps, ...`` of ``rays_per_warp`` consecutive rays; lane ``l``
+    serves ray ``group * rays_per_warp + l // P`` and owns, in each chunk
+    of ``ray_chunks`` (first sample ``c0``, runs of ``k``), the samples
+    ``c0 + (l % P) k ..`` the next ``k - 1`` below S."""
+    P, rpw = segment_lanes(n_samples), rays_per_warp(n_samples)
+    warps = grid * RAYS_WARPS
+    groups = -(-n_rays // rpw)
+    chunks = np.array(ray_chunks(n_samples))
+    n_c = len(chunks)
+    g = np.repeat(np.arange(groups), 32 * n_c)
+    l = np.tile(np.repeat(np.arange(32), n_c), groups)
+    c0, k = (np.tile(chunks[:, i], 32 * groups) for i in (0, 1))
+    ray = g * rpw + l // P
+    first = c0 + (l % P) * k
+    stop = np.minimum(first + k, np.minimum(c0 + 32 * k, n_samples))
+    own = (ray < n_rays) & (first < stop)
+    gw = g % warps
+    return (gw[own] // RAYS_WARPS, gw[own] % RAYS_WARPS, g[own] // warps, ray[own],
+            first[own], stop[own])
 
 
 def fused_volume_render_interleaved_plain(
@@ -79,8 +170,13 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, 
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
-def _launch(raw, z_vals, rays_d, sentinel, eps):
-    global launches, bf16_launches
+def _launch(raw, z_vals, rays_d, sentinel, eps, with_weights=True, kernel=KERNEL):
+    """Launch K2 on CUDA tensors: ``(out [N, 8], w [N, S] or None)``, the
+    weights written only ``with_weights``. ``kernel=OLD_KERNEL`` launches
+    the first K2 instead (a timed comparison: it always writes them)."""
+    global launches, bf16_launches, weightless_launches, old_launches
+    if kernel not in (KERNEL, OLD_KERNEL):
+        raise ValueError(f"K2 is {KERNEL} (or {OLD_KERNEL}), not {kernel}")
     n, s4 = raw.shape
     s = s4 // 4
     dev = raw.device
@@ -93,23 +189,31 @@ def _launch(raw, z_vals, rays_d, sentinel, eps):
             or rays_d.shape != (n, 3)):
         raise ValueError("raw must be contiguous [N, 4S], z_vals [N, S] with unit "
                          "sample stride and rays_d [N, 3]")
+    raw_bf16 = raw.dtype == torch.bfloat16
+    if raw.data_ptr() % (8 if raw_bf16 else 16):
+        raise ValueError("raw must start on a sample's boundary: 16-byte aligned for "
+                         "float32, 8-byte for bfloat16")
     rays_d = rays_d.contiguous()
     out = torch.empty(n, 8, dtype=torch.float32, device=dev)
-    w = torch.empty(n, s, dtype=torch.float32, device=dev)
+    w = (torch.empty(n, s, dtype=torch.float32, device=dev)
+         if with_weights or kernel == OLD_KERNEL else None)
     if n == 0:
-        return out, w
+        return out, (w if with_weights else None)
     lib = _ext.load("composite")
-    fn = lib.composite
+    fn = lib.composite_rays if kernel == KERNEL else lib.composite
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    raw_bf16 = raw.dtype == torch.bfloat16
     err = fn(_ext.ptr(raw), int(raw_bf16), _ext.ptr(z_vals), z_vals.stride(0), _ext.ptr(rays_d),
-             n, s, float(sentinel), float(eps), _ext.ptr(out), _ext.ptr(w),
-             _ext.stream_ptr(dev))
-    _ext.check(lib, err, "composite launch")
+             n, s, float(sentinel), float(eps), _ext.ptr(out),
+             None if w is None else _ext.ptr(w), _ext.stream_ptr(dev))
+    _ext.check(lib, err, f"{kernel} launch")
     ran = _ext.ran()
+    if kernel == OLD_KERNEL:
+        old_launches += ran
+        return out, (w if with_weights else None)
     launches += ran
     bf16_launches += ran * int(raw_bf16)
+    weightless_launches += ran * int(not with_weights)
     return out, w
 
 
@@ -128,14 +232,23 @@ def fused_volume_render_interleaved(
     rays_d: torch.Tensor,     # [N, 3]
     cfg: RenderConfig = RenderConfig(),
 ) -> RenderOutputs:
+    return composite_rays(raw, z_vals, rays_d, cfg, with_weights=True)
+
+
+def composite_rays(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
+                   cfg: RenderConfig = RenderConfig(),
+                   with_weights: bool = True) -> RenderOutputs:
+    """``fused_volume_render_interleaved`` whose ``weights`` are None
+    unless ``with_weights``: on the card K2 then writes none."""
     if raw.shape[1] % 4:
         raise ValueError(f"raw must be [N, 4S], got {tuple(raw.shape)}")
     if raw.device.type == "cpu":
         out, w = fused_volume_render_interleaved_plain(
             raw, z_vals, rays_d, cfg.dist_sentinel, cfg.transmittance_eps)
+        w = w if with_weights else None
     else:
         out, w = _launch(raw, z_vals, rays_d, cfg.dist_sentinel,
-                         cfg.transmittance_eps)
+                         cfg.transmittance_eps, with_weights)
     return _outputs(out, w, cfg)
 
 

@@ -323,8 +323,7 @@ def _one_depth(packed, rays_o, rays_d, z_vals, cfg, composited, with_weights, se
     else:
         raw = mlp_kernel._launch(packed, pos, rays_d, cfg)
     if composited:
-        out, w = composite_kernel._launch(raw, z_vals, rays_d, sentinel, eps)
-        return out, (w if with_weights else None)
+        return composite_kernel._launch(raw, z_vals, rays_d, sentinel, eps, with_weights)
     return planes_of(raw) if planar else raw.to(raw_dtype)
 
 

@@ -12,7 +12,8 @@ at the merged, sorted ``n_coarse + n_fine`` depths):
 - ``cuda`` (``CudaEngine``, the ``PallasEngine`` counterpart): the fused
   ray kernels (``ops/render_kernel.py``: K1 at uniform depths, K3 at per-ray
   depths) write interleaved per-sample ``(sigma, r, g, b)`` and the
-  compositor kernel (``ops/composite_kernel.py``, K2) reduces it per ray;
+  compositor kernel (``ops/composite_kernel.py``, K2) reduces it per ray,
+  writing its weights only where the coarse pass reads them;
   with ``fuse_composite=True`` the ray kernels composite in the same pass.
   ``sample_pdf``, the merge and the sort between the passes are plain
   PyTorch. The hierarchical mode with ``use_importance=False`` (a uniform
@@ -61,10 +62,7 @@ from nerf_tpu_torch.models.nerf import (
     params_from_numpy,
     params_from_torch_state_dict,
 )
-from nerf_tpu_torch.ops.composite_kernel import (
-    fused_volume_render,
-    fused_volume_render_interleaved,
-)
+from nerf_tpu_torch.ops.composite_kernel import composite_rays, fused_volume_render
 from nerf_tpu_torch.ops.mlp_kernel import make_cuda_apply_fn, pack_params
 from nerf_tpu_torch.ops.occupancy import (
     OccupancyGrid,
@@ -296,7 +294,7 @@ class CudaEngine(Engine):
             return fused_volume_render(sigma, planes, z, rd, rcfg), z
         raw, z = fused_render_samples(packed, ro, rd, rcfg.near, rcfg.far, spp, mcfg,
                                       raw=True, dtype=dt, raw_dtype=self.raw_dtype)
-        return fused_volume_render_interleaved(raw, z, rd, rcfg), z
+        return composite_rays(raw, z, rd, rcfg, with_weights), z
 
     def render_chunk(self, packed, ro, rd, spp, rcfg, mode):
         if mode == "benchmark":
@@ -326,7 +324,7 @@ class CudaEngine(Engine):
         else:
             raw = fused_render_zvals_raw(packed, ro, rd, z, mcfg, dtype=dt,
                                          raw_dtype=self.raw_dtype)
-            out = fused_volume_render_interleaved(raw, z, rd, rcfg)
+            out = composite_rays(raw, z, rd, rcfg, with_weights=False)
         return out.rgb, out.depth
 
 

@@ -187,7 +187,7 @@ class _Lib:
         self.ray_wgmma_render.argtypes = ray_wgmma.ARGTYPES     # what ray_wgmma.load sets
         self.mlp_wgmma_forward = _Fn(f"{name}.mlp_wgmma_forward", calls)
         self.mlp_wgmma_forward.argtypes = ray_wgmma.SAMPLE_ARGTYPES
-        self.composite = _Fn(f"{name}.composite", calls)
+        self.composite_rays = _Fn(f"{name}.composite_rays", calls)
 
 
 def _weights_of_route(route, variant="reference", seed=0):
@@ -257,7 +257,7 @@ def test_one_depth_per_ray_takes_the_per_sample_entry(monkeypatch, form, route):
     out = render_kernel._launch(weights, torch.zeros(R, 3), torch.ones(R, 3), 0.0, 0.0, 1, tc,
                                 z_vals=z, **kw)
     want = [f"{ray_wgmma.LIBRARIES[route]}.mlp_wgmma_forward"]
-    assert calls == want + (["composite.composite"] if form == "composited" else [])
+    assert calls == want + (["composite.composite_rays"] if form == "composited" else [])
     moved = {k: v - before[k] for k, v in _per_sample_counts().items() if v != before[k]}
     counted = ({"mlp_forward": 1} if route == 0 else
                {"mlp_quant": 1, "mlp_quant_int8": 1} if route == quant.ROUTE_INT8_COMPUTE else
@@ -280,8 +280,11 @@ def test_one_depth_per_ray_is_the_plain_k3(monkeypatch, form, route):
                         mlp_kernel.fused_nerf_apply_plain(p, pos, d, cfg))
     monkeypatch.setattr(quant, "_launch", lambda q, pos, d, cfg, dt:
                         quant.quantized_nerf_apply_plain(q, pos, d, cfg, dt))
-    monkeypatch.setattr(composite_kernel, "_launch", lambda raw, z, d, s, e:
-                        composite_kernel.fused_volume_render_interleaved_plain(raw, z, d, s, e))
+    def plain_k2(raw, z, d, s, e, with_weights=True):
+        out, w = composite_kernel.fused_volume_render_interleaved_plain(raw, z, d, s, e)
+        return out, (w if with_weights else None)
+
+    monkeypatch.setattr(composite_kernel, "_launch", plain_k2)
     weights, tc = _weights_of_route(route, seed=4)
     g = np.random.default_rng(4)
     R = 37
