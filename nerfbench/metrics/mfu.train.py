@@ -1,0 +1,12 @@
+"""The whole step's share of the H100's bf16 peak, in %: the model's operations of
+the traced steps (``flops.py``) over the traced window's seconds."""
+
+from nerfbench.flops import PEAK_BF16_FLOPS
+
+LAYER = "model step"
+UNIT = "%"
+MOVES = "train_step_ms"
+
+
+def read(traced):
+    return 100.0 * traced.units * traced.flops["total"] / (traced.trace.window_s * PEAK_BF16_FLOPS)
