@@ -27,7 +27,9 @@ On CUDA tensors the wrappers launch ``csrc/composite.cu`` and count the
 launch (``launches`` for K2, of which ``bf16_launches`` read a bfloat16
 ``raw`` and ``weightless_launches`` wrote no weights; ``planar_launches``
 for K6); on CPU tensors both run ``fused_volume_render_interleaved_plain``
-(the planar wrapper stacks its input for it).
+(the planar wrapper stacks its input for it). Under a profiler each call
+records one span, ``kernel.k2`` or ``kernel.k6`` (``utils/monitor.span``),
+from that choice until the launch is enqueued.
 
 K2 is ``composite_rays_kernel``. Its launch, ``_launch(raw, z_vals, rays_d,
 sentinel, eps, with_weights=True, kernel=KERNEL)``, writes the weights
@@ -51,6 +53,7 @@ import torch
 
 from nerf_tpu_torch.config import RenderConfig
 from nerf_tpu_torch.ops import _ext
+from nerf_tpu_torch.utils.monitor import span
 from nerf_tpu_torch.utils.rendering import RenderOutputs, volume_render
 
 # Launches of the CUDA kernels (not of the plain version); a launch recorded
@@ -242,13 +245,14 @@ def composite_rays(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor
     unless ``with_weights``: on the card K2 then writes none."""
     if raw.shape[1] % 4:
         raise ValueError(f"raw must be [N, 4S], got {tuple(raw.shape)}")
-    if raw.device.type == "cpu":
-        out, w = fused_volume_render_interleaved_plain(
-            raw, z_vals, rays_d, cfg.dist_sentinel, cfg.transmittance_eps)
-        w = w if with_weights else None
-    else:
-        out, w = _launch(raw, z_vals, rays_d, cfg.dist_sentinel,
-                         cfg.transmittance_eps, with_weights)
+    with span("kernel.k2"):
+        if raw.device.type == "cpu":
+            out, w = fused_volume_render_interleaved_plain(
+                raw, z_vals, rays_d, cfg.dist_sentinel, cfg.transmittance_eps)
+            w = w if with_weights else None
+        else:
+            out, w = _launch(raw, z_vals, rays_d, cfg.dist_sentinel,
+                             cfg.transmittance_eps, with_weights)
     return _outputs(out, w, cfg)
 
 
@@ -310,9 +314,11 @@ class _FusedVolumeRender(torch.autograd.Function):
     def forward(ctx, cfg, sigma, z_vals, rays_d, *planes):
         ctx.cfg = cfg
         ctx.save_for_backward(sigma, z_vals, rays_d, *planes)
-        launch = fused_volume_render_plain if sigma.device.type == "cpu" else _launch_planar
-        out, w = launch(sigma, planes, z_vals, rays_d, cfg.dist_sentinel,
-                        cfg.transmittance_eps)
+        with span("kernel.k6"):
+            launch = (fused_volume_render_plain if sigma.device.type == "cpu"
+                      else _launch_planar)
+            out, w = launch(sigma, planes, z_vals, rays_d, cfg.dist_sentinel,
+                            cfg.transmittance_eps)
         return tuple(_outputs(out, w, cfg))
 
     @staticmethod

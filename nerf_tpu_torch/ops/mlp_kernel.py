@@ -10,7 +10,9 @@ Counterpart of ``nerf_tpu/ops/mlp_kernel.py``:
   blocks; its weight stream from ``ops/ray_wgmma.py``) and counts the launch
   in ``launches``; on a CPU tensor it runs ``fused_nerf_apply_plain``, the
   same arithmetic in plain PyTorch. Nothing falls back: a CUDA launch either
-  runs or raises. The WMMA build it replaced (``csrc/mlp_forward.cu``) is
+  runs or raises. Under a profiler each ``mlp_forward`` call records one
+  span ``kernel.k4`` (``utils/monitor.span``), from that choice until the
+  launch is enqueued. The WMMA build it replaced (``csrc/mlp_forward.cu``) is
   reached only through ``_launch(..., library=WMMA_LIBRARY)``, a timed
   comparison, and counted in ``wmma_launches``. Its gradient, as in the JAX
   package, is a recompute through ``apply_nerf`` under autograd; gradients
@@ -52,6 +54,7 @@ from nerf_tpu_torch.models.encoding import positional_encoding
 from nerf_tpu_torch.models.nerf import apply_nerf
 from nerf_tpu_torch.ops import _ext
 from nerf_tpu_torch.utils.device import disable_tf32
+from nerf_tpu_torch.utils.monitor import span
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
 # Launches of the CUDA kernel (not of the plain version), and of the WMMA
@@ -280,9 +283,10 @@ def mlp_forward(packed: PackedWeights, positions: torch.Tensor, directions: torc
     """``[N, 4]`` from flat float32 ``[N, 3]`` inputs: the kernel on CUDA
     tensors (reading ``stream``, as ``_launch`` does), the plain version on
     CPU tensors."""
-    if positions.device.type == "cpu":
-        return fused_nerf_apply_plain(packed, positions, directions, cfg)
-    return _launch(packed, positions, directions, cfg, stream)
+    with span("kernel.k4"):
+        if positions.device.type == "cpu":
+            return fused_nerf_apply_plain(packed, positions, directions, cfg)
+        return _launch(packed, positions, directions, cfg, stream)
 
 
 def flat_inputs(positions: torch.Tensor, directions: Optional[torch.Tensor]):

@@ -20,6 +20,8 @@ Counterpart of ``nerf_tpu/ops/quant.py``:
   the kernel. The WMMA build it replaced (``csrc/mlp_quant.cu``) is reached
   only through ``_launch(..., library=WMMA_LIBRARY)``, a timed comparison.
   On a CPU tensor it runs ``quantized_nerf_apply_plain``. Inference only.
+  Under a profiler each call records one span ``kernel.k7``
+  (``utils/monitor.span``), from that choice until the launch is enqueued.
 - the int8-compute route (the ``_int8_mm`` hook of ``_nerf_math``), taken
   for ``Int8PackedWeights`` by this kernel and by the ray kernels of
   ``ops/render_kernel.py``: layer 0, trunk layers 1..7 and the skip product
@@ -55,6 +57,7 @@ from nerf_tpu_torch.ops.mlp_kernel import (
     net_args,
     pack_params,
 )
+from nerf_tpu_torch.utils.monitor import span
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
 # Launches of the CUDA kernel (not of the plain version): every launch of
@@ -476,10 +479,11 @@ def quantized_nerf_apply(
     version on CPU tensors."""
     lead = positions.shape[:-1]
     pos, dirs = flat_inputs(positions, directions)
-    if pos.device.type == "cpu":
-        out = quantized_nerf_apply_plain(q, pos, dirs, cfg, dtype)
-    else:
-        out = _launch(q, pos, dirs, cfg, dtype)
+    with span("kernel.k7"):
+        if pos.device.type == "cpu":
+            out = quantized_nerf_apply_plain(q, pos, dirs, cfg, dtype)
+        else:
+            out = _launch(q, pos, dirs, cfg, dtype)
     return out[:, 0].reshape(lead), out[:, 1:4].reshape(*lead, 3)
 
 

@@ -37,7 +37,9 @@ of each CUDA source.
 On a CUDA tensor each wrapper launches its CUDA kernel and counts the launch
 in ``launches[name]``; on a CPU tensor it runs its ``*_plain`` twin, the same
 arithmetic in plain PyTorch. Nothing falls back: a CUDA launch either runs
-or raises. Which kernel (``kernel_library``): every form and mode, on every
+or raises. Under a profiler each call records one span, ``kernel.k1`` or
+``kernel.k3`` (``utils/monitor.span``), from that choice until the launch
+is enqueued. Which kernel (``kernel_library``): every form and mode, on every
 weight route, goes to the Hopper kernels of ``csrc/ray_wgmma.cu`` (warpgroup
 ``wgmma``, weights streamed by a producer warpgroup, persistent blocks; the
 weight stream is laid out once per set of weights, and the composited
@@ -83,6 +85,7 @@ from nerf_tpu_torch.ops.mlp_kernel import (
     net_args,
     pack_params,
 )
+from nerf_tpu_torch.utils.monitor import span
 from nerf_tpu_torch.utils.rendering import RenderOutputs
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
@@ -362,12 +365,14 @@ def fused_render_samples(
     S = n_samples
     assert S >= 2, "need at least 2 samples for the linspace"
     packed = _packed(params, cfg, dtype)
-    if rays_o.device.type == "cpu":
-        out = fused_render_samples_plain(packed, rays_o, rays_d, near, far, S, cfg, dtype)
-        out = planes_of(out) if planar else out.to(raw_dtype if raw else torch.float32)
-    else:
-        out = _launch(packed, rays_o, rays_d, near, far, S, cfg, dtype=dtype, planar=planar,
-                      raw_dtype=raw_dtype if raw and not planar else torch.float32)
+    with span("kernel.k1"):
+        if rays_o.device.type == "cpu":
+            out = fused_render_samples_plain(packed, rays_o, rays_d, near, far, S, cfg, dtype)
+            out = planes_of(out) if planar else out.to(raw_dtype if raw else torch.float32)
+        else:
+            out = _launch(packed, rays_o, rays_d, near, far, S, cfg, dtype=dtype,
+                          planar=planar,
+                          raw_dtype=raw_dtype if raw and not planar else torch.float32)
     R = rays_o.shape[0]
     t = torch.linspace(0.0, 1.0, S, dtype=torch.float32, device=rays_o.device)
     z_vals = (near + (far - near) * t).expand(R, S)
@@ -393,11 +398,12 @@ def fused_render_zvals_raw(
     ``fused_volume_render_interleaved``, in ``raw_dtype`` (float32 or
     bfloat16)."""
     packed = _packed(params, cfg, dtype)
-    if rays_o.device.type == "cpu":
-        return fused_render_zvals_plain(packed, rays_o, rays_d, z_vals, cfg,
-                                        dtype).to(raw_dtype)
-    return _launch(packed, rays_o, rays_d, 0.0, 0.0, z_vals.shape[1], cfg,
-                   z_vals=z_vals, raw_dtype=raw_dtype, dtype=dtype)
+    with span("kernel.k3"):
+        if rays_o.device.type == "cpu":
+            return fused_render_zvals_plain(packed, rays_o, rays_d, z_vals, cfg,
+                                            dtype).to(raw_dtype)
+        return _launch(packed, rays_o, rays_d, 0.0, 0.0, z_vals.shape[1], cfg,
+                       z_vals=z_vals, raw_dtype=raw_dtype, dtype=dtype)
 
 
 def _zvals_split(packed, rays_o, rays_d, z_vals, cfg: ModelConfig, dtype):
@@ -485,10 +491,12 @@ def fused_render_zvals_planar(
     """K3 with planar output: ``(sigma [R, S], (r, g, b))``, three ``[R, S]``
     planes written by the kernel, the planar compositor's input."""
     packed = _packed(params, cfg, dtype)
-    if rays_o.device.type == "cpu":
-        return planes_of(fused_render_zvals_plain(packed, rays_o, rays_d, z_vals, cfg, dtype))
-    return _launch(packed, rays_o, rays_d, 0.0, 0.0, z_vals.shape[1], cfg,
-                   z_vals=z_vals, planar=True, dtype=dtype)
+    with span("kernel.k3"):
+        if rays_o.device.type == "cpu":
+            return planes_of(fused_render_zvals_plain(packed, rays_o, rays_d, z_vals, cfg,
+                                                      dtype))
+        return _launch(packed, rays_o, rays_d, 0.0, 0.0, z_vals.shape[1], cfg,
+                       z_vals=z_vals, planar=True, dtype=dtype)
 
 
 def fused_render_samples_composited(
@@ -513,13 +521,14 @@ def fused_render_samples_composited(
     if S < 2:
         raise ValueError("need at least 2 samples for uniform depths")
     packed = _packed(params, cfg, dtype)
-    if rays_o.device.type == "cpu":
-        out, w = fused_render_samples_composited_plain(packed, rays_o, rays_d, near,
-                                                       far, S, cfg, sentinel, eps, dtype)
-    else:
-        out, w = _launch(packed, rays_o, rays_d, near, far, S, cfg, composited=True,
-                         with_weights=with_weights, sentinel=sentinel, eps=eps,
-                         dtype=dtype)
+    with span("kernel.k1"):
+        if rays_o.device.type == "cpu":
+            out, w = fused_render_samples_composited_plain(packed, rays_o, rays_d, near,
+                                                           far, S, cfg, sentinel, eps, dtype)
+        else:
+            out, w = _launch(packed, rays_o, rays_d, near, far, S, cfg, composited=True,
+                             with_weights=with_weights, sentinel=sentinel, eps=eps,
+                             dtype=dtype)
     z_vals = _uniform_z(near, far, S, rays_o.device).expand(rays_o.shape[0], S)
     return (out, w, z_vals) if with_weights else (out, z_vals)
 
@@ -538,13 +547,14 @@ def fused_render_zvals_composited(
     """Per-ray-depth render with in-kernel volume rendering (K3
     composited). Returns ``out [R, 8]`` or ``(out, weights [R, S])``."""
     packed = _packed(params, cfg, dtype)
-    if rays_o.device.type == "cpu":
-        out, w = fused_render_zvals_composited_plain(packed, rays_o, rays_d, z_vals,
-                                                     cfg, sentinel, eps, dtype)
-    else:
-        out, w = _launch(packed, rays_o, rays_d, 0.0, 0.0, z_vals.shape[1], cfg,
-                         z_vals=z_vals, composited=True, with_weights=with_weights,
-                         sentinel=sentinel, eps=eps, dtype=dtype)
+    with span("kernel.k3"):
+        if rays_o.device.type == "cpu":
+            out, w = fused_render_zvals_composited_plain(packed, rays_o, rays_d, z_vals,
+                                                         cfg, sentinel, eps, dtype)
+        else:
+            out, w = _launch(packed, rays_o, rays_d, 0.0, 0.0, z_vals.shape[1], cfg,
+                             z_vals=z_vals, composited=True, with_weights=with_weights,
+                             sentinel=sentinel, eps=eps, dtype=dtype)
     return (out, w) if with_weights else out
 
 

@@ -40,7 +40,11 @@ named as the JAX package's (``torch`` and ``cuda`` for ``xla`` and
 ``pallas``); each says in ``description`` which kernels it runs on the card,
 and ``device_info()`` labels its benchmark rows. A frame is cut into chunks
 of ``chunk_rays`` rays; the last chunk is padded with rays of zero origin
-and direction ``(1, 1, 1)`` so every chunk has one shape.
+and direction ``(1, 1, 1)`` so every chunk has one shape. Under a profiler
+a frame records the spans ``engine.rays`` (the rays and the padding), one
+``engine.chunk`` a chunk, ``engine.assemble`` (the image from the chunks)
+and ``engine.to_host`` (``utils/monitor.span``); the accel engine's chunk
+records ``occupancy.z_vals`` around its depth placement.
 """
 
 from __future__ import annotations
@@ -87,7 +91,12 @@ from nerf_tpu_torch.train.checkpoint import (
 )
 from nerf_tpu_torch.utils.cameras import BENCHMARK_FOCAL, generate_rays
 from nerf_tpu_torch.utils.device import resolve_device, torch_dtype
-from nerf_tpu_torch.utils.monitor import PerformanceMonitor, PerfStats, device_info_string
+from nerf_tpu_torch.utils.monitor import (
+    PerformanceMonitor,
+    PerfStats,
+    device_info_string,
+    span,
+)
 from nerf_tpu_torch.utils.rendering import sample_pdf, sample_points_on_rays, volume_render
 
 
@@ -176,16 +185,20 @@ class Engine:
     def _render(self, params, pose, width, height, focal, spp, chunk, rcfg, mode):
         n = width * height
         n_pad = -(-n // chunk) * chunk
-        ro, rd = generate_rays(pose, width, height, focal, self.device)
-        ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
-        if n_pad != n:
-            ro = torch.cat([ro, ro.new_zeros(n_pad - n, 3)])
-            rd = torch.cat([rd, rd.new_ones(n_pad - n, 3)])
-        outs = [self.render_chunk(params, ro[i:i + chunk], rd[i:i + chunk], spp, rcfg,
-                                  mode)
-                for i in range(0, n_pad, chunk)]
-        rgb = torch.cat([o[0] for o in outs])[:n].reshape(height, width, 3)
-        depth = torch.cat([o[1] for o in outs])[:n].reshape(height, width)
+        with span("engine.rays"):
+            ro, rd = generate_rays(pose, width, height, focal, self.device)
+            ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+            if n_pad != n:
+                ro = torch.cat([ro, ro.new_zeros(n_pad - n, 3)])
+                rd = torch.cat([rd, rd.new_ones(n_pad - n, 3)])
+        outs = []
+        for i in range(0, n_pad, chunk):
+            with span("engine.chunk"):
+                outs.append(self.render_chunk(params, ro[i:i + chunk], rd[i:i + chunk], spp,
+                                              rcfg, mode))
+        with span("engine.assemble"):
+            rgb = torch.cat([o[0] for o in outs])[:n].reshape(height, width, 3)
+            depth = torch.cat([o[1] for o in outs])[:n].reshape(height, width)
         return rgb, depth
 
     def render_image(
@@ -218,8 +231,9 @@ class Engine:
             mon.start()
         rgb, depth = self._render(*args)
         stats = mon.stop() if mon else PerfStats()
-        return RenderResult(rgb=rgb.cpu().numpy(), depth=depth.cpu().numpy(),
-                            stats=stats)
+        with span("engine.to_host"):
+            rgb, depth = rgb.cpu().numpy(), depth.cpu().numpy()
+        return RenderResult(rgb=rgb, depth=depth, stats=stats)
 
 
 class TorchEngine(Engine):
@@ -435,9 +449,11 @@ class AccelEngine(CudaEngine):
     def render_chunk(self, packed, ro, rd, spp, rcfg, mode):
         if mode != "benchmark":
             return super().render_chunk(packed, ro, rd, spp, rcfg, mode)
-        z = grid_guided_z_vals(self.occupancy_grid(), ro, rd, rcfg.near, rcfg.far, spp,
-                               n_probe=self.n_probe, ray_stride=self.probe_ray_stride,
-                               weight_mode=self.weight_mode)
+        grid = self.occupancy_grid()
+        with span("occupancy.z_vals"):
+            z = grid_guided_z_vals(grid, ro, rd, rcfg.near, rcfg.far, spp,
+                                   n_probe=self.n_probe, ray_stride=self.probe_ray_stride,
+                                   weight_mode=self.weight_mode)
         return self._at_depths(packed["fine"], ro, rd, z, rcfg)
 
 

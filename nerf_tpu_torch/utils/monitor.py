@@ -13,6 +13,13 @@ benchmark rows; ``profile_trace`` writes a ``torch.profiler`` Chrome trace
 and, unlike the JAX helper, raises where tracing fails. ``sync`` fences on a
 result: it synchronizes the CUDA devices its tensors lie on, and copies
 nothing to the host.
+
+``span(name)`` names a stretch of host work in a profiler trace: while a
+``torch.profiler`` is recording it is ``record_function(name)``, on the
+profiler's clock beside the device's kernels (the trace keeps it in memory
+and writes it out with the rest); otherwise it is one shared
+``nullcontext`` and costs a check of the profiler's state. A span recorded
+into a CUDA graph's capture does not replay.
 """
 
 from __future__ import annotations
@@ -26,10 +33,17 @@ from dataclasses import dataclass
 from typing import Any, Iterator, Optional, Set
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 _PAGE_BYTES = os.sysconf("SC_PAGE_SIZE")
 _POLL_S = 0.01        # the JAX package's cadence
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span(name): ...``: a ``record_function`` span while a
+    profiler records, a shared ``nullcontext`` otherwise."""
+    return record_function(name) if torch.autograd._profiler_enabled() else _NO_SPAN
 
 
 @dataclass
