@@ -7,17 +7,21 @@ Builds the CUDA kernels from ``nerf_tpu_torch/csrc`` (into ``build/``) and
 holds each kernel against its plain PyTorch version at the main paths'
 shapes: K1 uniform ray kernel, K2 compositor, K3 per-ray-depth ray kernel
 (K1 and K3 with raw output and in their composited modes (B9), on every
-weight route: the Hopper kernels of ``csrc/ray_wgmma.cu``, one build per
-route, each also timed against the WMMA build of ``csrc/render_samples.cu``
-it replaced), K4 per-sample MLP forward (the per-sample Hopper kernel of
+weight route: the Hopper kernels of ``csrc/ray_wgmma.cu``, the bf16 build
+for bf16, int8 and int16 weights and one for int8 compute, each route also
+timed against the WMMA build of ``csrc/render_samples.cu`` it replaced), the
+dequantize prologue ``dequant_stream`` (``csrc/dequant_stream.cu``: the intN
+stream and resident parameters to bf16 once a call, bit for bit against its
+plain version on int8 and int16 weights, ``dequant_check``), K4 per-sample
+MLP forward (the per-sample Hopper kernel of
 ``csrc/ray_wgmma.cu``, timed against the WMMA build ``csrc/mlp_forward.cu``
 it replaced), K5 MLP backward (the Hopper row pass and weight-gradient pass
 of ``csrc/mlp_backward_wgmma.cu``, each against its plain version, the pair
 against float32 and bf16 autograd, run twice for bit equality, and timed
 against the WMMA build it replaced), K6 planar compositor, K7 per-sample MLP
-on int8 and int16 weights (the same Hopper kernel in the build of each
-quantized route, timed against ``csrc/mlp_quant.cu``), the ray kernels on
-quantized weights (dequantized in the kernel), the int8-compute route (K8)
+on int8 and int16 weights (the same Hopper kernel, on the prologue's bf16
+stream, timed against ``csrc/mlp_quant.cu``), the ray kernels on quantized
+weights (dequantized once a call), the int8-compute route (K8)
 in K7, K1 and K3, the bf16 and planar raw outputs of K1 and K3 (B10), and
 K3 at one depth per ray on every route (``c1_check``: the per-sample kernel
 of the route's build, then K2, with and without its weights). K2
@@ -42,7 +46,7 @@ unless every kernel of the path ran its expected number of times:
   ``use_importance=False`` (``render_rays`` on K4 + K6);
 - ``compressed_frames`` / ``int8_frames``: ``CompressedEngine`` and
   ``Int8ComputeEngine`` in both modes (the ray kernels on int8 weights,
-  dequantized in the kernel or multiplied as s8 x s8 -> s32), both modes
+  dequantized once a call or multiplied as s8 x s8 -> s32), both modes
   again with ``fuse_composite=True`` (the composited K1/K3 on that route),
   in the uniform hierarchical mode (K7 + K6), and
   ``CompressedEngine(bits=16)``;
@@ -244,6 +248,7 @@ B9_DESIGN = ("the raw kernels' Hopper body; each consumer warpgroup a lane of wh
              "warps run the segmented exclusive log-transmittance scan by shuffles, one warp a "
              "ray segment, carrying each lane's state from step to step")
 K4_KERNEL = "mlp_wgmma_kernel"   # K4 and K7: the per-sample kernel of csrc/ray_wgmma.cu
+DEQUANT_KERNEL = "dequant_stream_kernel"   # the dequantize routes' prologue (csrc/dequant_stream.cu)
 K4_DESIGN = ("the ray kernels' body (warpgroup wgmma m64n256k16 / m64n128k16, activations in "
              "registers, a producer warp streaming the weights by cp.async.bulk into an "
              "mbarrier ring, persistent blocks) with per-row positions and directions; the "
@@ -306,11 +311,12 @@ SUITE_VIEWS = 2
 # 16,384 rays a sample count: one warm frame per (mode, spp, chunk), and the
 # chunk is 16,384 at both sizes, so only 200 x 150 warms (2 chunks), then 2
 # views x 2 chunks at 200 x 150 and 2 views x 30 at 800 x 600; 132 over
-# both counts. K1 on cuda, compressed (dequantize route) and int8 (int8
-# compute); K3 on accel; K2 after each of the four; K4 the accel bake, once
-# (128^3 points, 262,144 a launch)
-SUITE_LAUNCHES = {"render_samples": 396, "wgmma_samples": 396, "dequant": 132, "int8": 132,
-                  "render_zvals": 132, "wgmma_zvals": 132, "composite": 528, "mlp_forward": 8}
+# both counts. K1 on cuda, compressed (dequantize route, each call after
+# dequant_stream) and int8 (int8 compute); K3 on accel; K2 after each of the
+# four; K4 the accel bake, once (128^3 points, 262,144 a launch)
+SUITE_LAUNCHES = {"render_samples": 396, "wgmma_samples": 396, "dequant": 132,
+                  "dequant_stream": 132, "int8": 132, "render_zvals": 132, "wgmma_zvals": 132,
+                  "composite": 528, "mlp_forward": 8}
 SUITE_DB = {"cuda": 40.0, "compressed": 40.0, "int8": 30.0}   # quality_report, every
                               # informative cell against the torch engine (PERF.md section 2)
 
@@ -1072,7 +1078,8 @@ def render_zvals_phase(dev, smi, paths, poses, focal, cfg_ref, fine, coarse):
     sync((runs, sigma_q, rgb_q, one))
     counts = paths["render_zvals"] = read_counts()
     passes = len(train_kernel.pass_bounds(n)) + 1
-    expect = {"render_zvals": 3, "wgmma_zvals": 3, "dequant": 1, "mlp_forward": 1,
+    expect = {"render_zvals": 3, "wgmma_zvals": 3, "dequant": 1, "dequant_stream": 1,
+              "mlp_forward": 1,
               "bwd_rows": passes, "wgrad": passes}
     require({k: v for k, v in counts.items() if v} == expect,
             f"render_zvals: launches {counts}, expected {expect}")
@@ -1479,7 +1486,8 @@ def convergence_phase(smi, paths, workdir, train_chunk):
 
 def reset_counts():
     """Every kernel wrapper's launch count set to 0."""
-    from nerf_tpu_torch.ops import composite_kernel, mlp_kernel, quant, render_kernel, train_kernel
+    from nerf_tpu_torch.ops import (composite_kernel, dequant_stream, mlp_kernel, quant,
+                                    render_kernel, train_kernel)
 
     for k in render_kernel.launches:
         render_kernel.launches[k] = 0
@@ -1489,15 +1497,17 @@ def reset_counts():
     composite_kernel.bf16_launches = composite_kernel.weightless_launches = 0
     composite_kernel.old_launches = 0
     mlp_kernel.launches = mlp_kernel.wmma_launches = 0
+    dequant_stream.launches = 0
     for k in train_kernel.launches:
         train_kernel.launches[k] = 0
 
 
 def read_counts():
     """Every kernel wrapper's launch count, by counter."""
-    from nerf_tpu_torch.ops import composite_kernel, mlp_kernel, quant, render_kernel, train_kernel
+    from nerf_tpu_torch.ops import (composite_kernel, dequant_stream, mlp_kernel, quant,
+                                    render_kernel, train_kernel)
 
-    return {**render_kernel.launches, **quant.launches,
+    return {**render_kernel.launches, **quant.launches, "dequant_stream": dequant_stream.launches,
             "composite": composite_kernel.launches,
             "composite_bf16": composite_kernel.bf16_launches,
             "composite_planar": composite_kernel.planar_launches,
@@ -1512,8 +1522,8 @@ def main():
     from nerf_tpu_torch.config import default_config, bmild_config
     from nerf_tpu_torch.data.synthetic import make_procedural_dataset
     from nerf_tpu_torch.models.nerf import apply_nerf, init_nerf_params, params_from_numpy
-    from nerf_tpu_torch.ops import (_ext, composite_kernel, mlp_kernel, occupancy, quant,
-                                    ray_wgmma, render_kernel, train_kernel)
+    from nerf_tpu_torch.ops import (_ext, composite_kernel, dequant_stream, mlp_kernel, occupancy,
+                                    quant, ray_wgmma, render_kernel, train_kernel)
     from nerf_tpu_torch.ops.mlp_kernel import pack_params
     from nerf_tpu_torch.ops.quant import prune_params, quantize_model
     from nerf_tpu_torch.bench.suite import UnifiedBenchmarkSuite, summarize
@@ -1564,11 +1574,13 @@ def main():
                  "C7519_arrive_inserted": sum("C7519" in ln for ln in log)}
         return out, notes
 
-    # the Hopper ray kernels, each build (weight route) of ray_wgmma.cu:
-    # registers, stack and spills per kernel, ptxas's notes on the wgmma
-    # pipeline, shared memory, ring stages and landing slots
+    # the Hopper ray kernels, each build of ray_wgmma.cu (the bf16 build
+    # serves the bf16 and the dequantize routes): registers, stack and spills
+    # per kernel, ptxas's notes on the wgmma pipeline, shared memory, ring
+    # stages and landing slots
     wgmma_builds = {}
-    for route, name in ray_wgmma.LIBRARIES.items():
+    for name in dict.fromkeys(ray_wgmma.LIBRARIES.values()):
+        route = min(r for r, n in ray_wgmma.LIBRARIES.items() if n == name)
         kernels, notes = kernel_ptxas(name, ("ray_z_wgmma_kernel", "ray_wgmma_kernel",
                                              *WGMMA_COMPOSITED.values(), K4_KERNEL,
                                              "l2_probe_kernel"))
@@ -1605,25 +1617,33 @@ def main():
         wgrad_dynamic_smem_bytes=k5_lib.wgrad_smem_bytes(),
         scratch_features=k5_lib.bwd_scratch_features(), stream_chunks=k5_lib.bwd_stream_chunks(),
         wgrad_jobs=len(train_kernel.wgrad_jobs(default_config().model)))
+    dq_ptxas, _ = kernel_ptxas(dequant_stream.LIBRARY, (DEQUANT_KERNEL,))
     emit("build", seconds=secs, sources=list(_ext.SOURCES),
          variants={k: list(v) for k, v in _ext.VARIANTS.items()}, ptxas=ptxas,
+         dequant_stream={"ptxas": dq_ptxas},
          mlp_backward_wmma_dynamic_smem_bytes=backward_lib.mlp_backward_smem_bytes(),
          ray_wgmma=wgmma_builds, mlp_backward_wgmma=k5_build)
     for k in WGMMA.values():         # the bf16 route: no spill (the quantized builds: reported)
         r = wgmma_builds[ray_wgmma.LIBRARY]["ptxas"].get(k, {})
         require(r.get("spill_store_bytes") == 0 and r.get("spill_load_bytes") == 0,
                 f"ptxas: {k} spills ({r})")
-    for route, name in ray_wgmma.LIBRARIES.items():   # B9: no spill but on int8 compute
+    for name, build in wgmma_builds.items():   # B9: no spill but on int8 compute
+        route = build["route"]
         for k in WGMMA_COMPOSITED.values():
             r = wgmma_builds[name]["ptxas"].get(k, {})
             require(route == quant.ROUTE_INT8_COMPUTE or (r.get("spill_store_bytes") == 0
                                                           and r.get("spill_load_bytes") == 0),
                     f"ptxas: {k} in {name} spills ({r})")
-    for route, name in ray_wgmma.LIBRARIES.items():   # K4 and K7's dequantize routes: no spill
-        r = wgmma_builds[name]["ptxas"].get(K4_KERNEL, {})
-        require(route == quant.ROUTE_INT8_COMPUTE or (r.get("spill_store_bytes") == 0
-                                                      and r.get("spill_load_bytes") == 0),
+    for name, build in wgmma_builds.items():   # K4 and K7's bf16 build: no spill
+        r = build["ptxas"].get(K4_KERNEL, {})
+        require(build["route"] == quant.ROUTE_INT8_COMPUTE or (r.get("spill_store_bytes") == 0
+                                                               and r.get("spill_load_bytes") == 0),
                 f"ptxas: {K4_KERNEL} in {name} spills ({r})")
+    require(dequant_stream.load().dequant_stream_resident() == dequant_stream.RESIDENT_VALUES,
+            "dequant_stream: the resident parameters differ from ops/dequant_stream.py")
+    for k, r in dq_ptxas.items():
+        require(r.get("spill_store_bytes") == 0 and r.get("spill_load_bytes") == 0,
+                f"ptxas: {k} spills ({r})")
     for k in K5_KERNELS:
         r = k5_ptxas.get(k, {})
         require(r.get("spill_store_bytes") == 0 and r.get("spill_load_bytes") == 0,
@@ -2346,6 +2366,25 @@ def main():
                 q = quantized(params, mcfg, bits, act_bits)
                 k8 = act_bits is not None
                 tol = K8_TOL if k8 else QUANT_TOL
+                # -- dequant_check: the dequantize routes' prologue against its
+                #    plain version on the CPU, bit for bit, on both streams
+                q_cpu = None if k8 else type(q)(*[None if t is None else t.cpu() for t in q])
+                for per_sample in () if k8 else (False, True):
+                    q_stream = (ray_wgmma.sample_stream_for if per_sample
+                                else ray_wgmma.stream_for)(q, mcfg)
+                    before = dequant_stream.launches
+                    got = dequant_stream.dequant_stream(q, q_stream, mcfg, per_sample)
+                    want = dequant_stream.dequant_stream_plain(q_cpu, q_stream.cpu(), mcfg,
+                                                               per_sample)
+                    equal = [torch.equal(a.cpu().view(torch.int16), b.view(torch.int16))
+                             for a, b in zip(got, want)]
+                    emit("dequant_check", route=route, variant=vname, per_sample=per_sample,
+                         kernel=DEQUANT_KERNEL, stream_values=got.stream.numel(),
+                         resident_values=got.resident.numel(), stream_bit_equal=equal[0],
+                         resident_bit_equal=equal[1])
+                    require(all(equal) and dequant_stream.launches == before + 1,
+                            f"dequant_check {route} {vname} per_sample={per_sample}: "
+                            f"bit-equal {equal}, launches {dequant_stream.launches - before}")
                 # -- K7 (k7_check; on the int8-compute route: k8_check) at a ragged
                 #    count and at the uniform hierarchical frame's two chunks
                 shapes = ((n_check, S3), (CHUNK, SPP), (CHUNK, N_FINE))
@@ -2555,11 +2594,13 @@ def main():
                 require(torch.equal(out0, out) and weightless == 1,
                         f"c1_check {route} {vname}: without weights, K2 gave another output or "
                         f"was not asked for none ({weightless} launches without)")
+                prologues = 5 if route in ("int8", "int16") else 0
                 require(moved.get(entry) == 5 and moved.get("composite") == 2
+                        and moved.get("dequant_stream", 0) == prologues
                         and not any(moved.get(k) for k in WGMMA) and not any(
                             moved.get(k) for k in ("wgmma_zvals", "render_zvals_composited")),
                         f"c1_check {route} {vname}: launches {moved}, expected 5 of {entry} "
-                        "and 2 of composite, no ray kernel")
+                        f"and 2 of composite, {prologues} of dequant_stream, no ray kernel")
                 require(all(bool(torch.isfinite(t).all()) for t in (raw, out, wts)),
                         f"c1_check {route} {vname}: non-finite output")
                 plain = render_kernel.fused_render_zvals_plain(w, ro, rd, z, mcfg)
@@ -2663,6 +2704,10 @@ def main():
                     wmma_library=render_kernel._LIBRARY[wr],
                     wmma_call_ms=turns["wmma"], wgmma_call_ms=turns["wgmma"],
                     order="wmma, wgmma, wgmma, wmma")
+                if wr in ray_wgmma.DEQUANTIZED:     # the call's prologue, beside the kernel
+                    res[f"{name} {route}"]["prologue_device_ms"] = profiled_ms(
+                        lambda: render_kernel._launch(w, ro, rd, S=S, cfg=mcfg, **kw),
+                        DEQUANT_KERNEL, reps)
             torch.cuda.empty_cache()
         # K4 and K7 at the uniform hierarchical frame's two chunks: the Hopper
         # kernel in the build of each route and, in turns (old, new, new,
@@ -2689,8 +2734,23 @@ def main():
                                  wmma_call_ms=[turns[0], turns[3]],
                                  wgmma_call_ms=[turns[1], turns[2]], order="wmma, wgmma, wgmma, wmma")
                 res[key]["wgmma_over_wmma"] = (turns[1] + turns[2]) / (turns[0] + turns[3])
+                if route in ("int8", "int16"):
+                    res[key]["prologue_device_ms"] = profiled_ms(run, DEQUANT_KERNEL, 3)
             del pos, dirs
             torch.cuda.empty_cache()
+        # the dequantize routes' prologue alone, on the ray stream (bytes)
+        for route in ("int8", "int16"):
+            w = weights[route]
+            s_q = ray_wgmma.stream_for(w, mcfg)
+            q_cpu = type(w)(*[None if t is None else t.cpu() for t in w])
+            one = dequant_stream.dequant_stream(w, s_q, mcfg)
+            res[f"dequant_stream {route}"] = timed(
+                lambda: dequant_stream.dequant_stream(w, s_q, mcfg), DEQUANT_KERNEL, 50,
+                lambda: dequant_stream.dequant_stream_plain(q_cpu, s_q.cpu(), mcfg),
+                bound_ms(0, 0, nbytes(s_q, *one, *[getattr(w, f"{n}_{x}") for n in
+                                                    ("wsig", "wc1", "wdir") for x in "qs"])),
+                launch_floor_ms=k2_ab.launch_floor_ms())
+            del one
         # the raw output forms of K1/K3 on bf16 weights, and K2 on a bf16 raw
         raw_b, z = render_kernel.fused_render_samples(packed, ro, rd, 2.0, 6.0, SPP, mcfg, raw=True,
                                                       raw_dtype=torch.bfloat16)
@@ -2910,22 +2970,26 @@ def main():
         """Drive one quantized engine class through its modes."""
         res = {}
         k7_int8 = {"mlp_quant_int8": 2} if route_key == "int8" else {}
+        # on the dequantize route every K1/K3/K7 call runs dequant_stream first
+        prologue = lambda n: {"dequant_stream": n} if route_key == "dequant" else {}
         # every K1/K3 launch, raw or composited, on the Hopper kernels
         # (wgmma_samples, wgmma_zvals)
         for path, eng, mode, expect, views in (
                 ("benchmark", cls(shared, chunk_rays=CHUNK, **kw), "benchmark",
-                 {"render_samples": 1, "composite": 1, route_key: 1, "wgmma_samples": 1}, 3),
+                 {"render_samples": 1, "composite": 1, route_key: 1, "wgmma_samples": 1,
+                  **prologue(1)}, 3),
                 ("hierarchical", cls(shared, chunk_rays=CHUNK, **kw), "hierarchical",
                  {"render_samples": 1, "render_zvals": 1, "composite": 2, route_key: 2,
-                  "wgmma_samples": 1, "wgmma_zvals": 1}, 3),
+                  "wgmma_samples": 1, "wgmma_zvals": 1, **prologue(2)}, 3),
                 ("fused_benchmark", cls(shared, chunk_rays=CHUNK, fuse_composite=True, **kw),
-                 "benchmark", {"render_samples_composited": 1, route_key: 1, "wgmma_samples": 1},
-                 2),
+                 "benchmark", {"render_samples_composited": 1, route_key: 1, "wgmma_samples": 1,
+                               **prologue(1)}, 2),
                 ("fused_hierarchical", cls(shared, chunk_rays=CHUNK, fuse_composite=True, **kw),
                  "hierarchical", {"render_samples_composited": 1, "render_zvals_composited": 1,
-                                  route_key: 2, "wgmma_samples": 1, "wgmma_zvals": 1}, 2),
+                                  route_key: 2, "wgmma_samples": 1, "wgmma_zvals": 1,
+                                  **prologue(2)}, 2),
                 ("uniform_hierarchical", cls(shared_u, chunk_rays=CHUNK, **kw), "hierarchical",
-                 {"mlp_quant": 2, "composite_planar": 2, **k7_int8}, 2)):
+                 {"mlp_quant": 2, "composite_planar": 2, **k7_int8, **prologue(2)}, 2)):
             r = drive(eng, mode, f"{phase}_{path}", expect, views)
             small = eng.render_image(poses[1], (qw, qh), SPP, focal=qfocal, mode=mode,
                                      monitor=False).rgb
@@ -2941,7 +3005,7 @@ def main():
             if path == "hierarchical":
                 per_launch, r["profile"] = frame_profile(
                     eng, mode, {WGMMA["render_samples"]: 1, WGMMA["render_zvals"]: 1,
-                                K2_KERNEL: 2})
+                                K2_KERNEL: 2, **({DEQUANT_KERNEL: 2} if prologue(1) else {})})
                 for k, v in per_launch.items():
                     device_ms[f"{phase} {k}"] = v
             elif path == "fused_hierarchical":
@@ -2966,7 +3030,8 @@ def main():
     quant_frames("int8_frames", Int8ComputeEngine, "int8", PSNR_MIN_INT8)
     eng16 = CompressedEngine(shared, chunk_rays=CHUNK, bits=16)
     res16 = drive(eng16, "benchmark", "compressed16_benchmark",
-                  {"render_samples": 1, "composite": 1, "dequant": 1, "wgmma_samples": 1}, 2)
+                  {"render_samples": 1, "composite": 1, "dequant": 1, "dequant_stream": 1,
+                   "wgmma_samples": 1}, 2)
     res16["psnr_db_vs_torch_f32"], res16["max_abs_err_vs_torch_f32"] = against_torch(
         eng16, "benchmark", ref_bench)
     emit("compressed16_frame", min_db=PSNR_MIN, psnr_resolution=[qw, qh],
@@ -3822,6 +3887,7 @@ def main():
     # captured and replayed (not counted); the suite's rule as in `suite`
     pipeline_expect = {"render_samples": 3 * per_engine_frames,
                        "wgmma_samples": 3 * per_engine_frames, "dequant": per_engine_frames,
+                       "dequant_stream": per_engine_frames,
                        "int8": per_engine_frames, "render_zvals": per_engine_frames,
                        "wgmma_zvals": per_engine_frames, "composite": 4 * per_engine_frames,
                        "mlp_forward": bake + 2 * train_chunk, "bwd_rows": K5_PASSES * train_chunk,
@@ -3940,6 +4006,7 @@ def main():
     cmp_dir = os.path.join(cli_root, "compare")
     one = math.ceil(cmp_size * cmp_size / CHUNK)            # chunks a frame (1)
     cmp_expect = {"render_samples": 6 * one, "wgmma_samples": 6 * one, "dequant": 2 * one,
+                  "dequant_stream": 2 * one,
                   "int8": 2 * one, "render_zvals": 2 * one, "wgmma_zvals": 2 * one,
                   "composite": 8 * one, "mlp_forward": bake}
     lines, secs = run_cli("cli_compare", [
@@ -4201,22 +4268,25 @@ def main():
         ("mlp_quant", rw, "nerf_tpu/ops/quant.py:420",
          "compressed_frames_uniform_hierarchical", "mlp_quant", quant_err["mlp_quant"],
          f"mlp_quant int8 x{N_FINE}", f"{CHUNK} x {N_FINE} samples, int8 weights dequantized "
-         "in the kernel, bf16 compute"),
+         "once a call (dequant_stream), bf16 compute"),
         ("int8_mm", rw, "nerf_tpu/ops/quant.py:339",
          "int8_frames_hierarchical", "int8", quant_err["int8"], "render_samples int8_compute",
          f"the s8 x s8 -> s32 trunk inside K1 at {CHUNK} rays x {SPP} samples (also in K3, "
          f"and in K7: at_k7)"),
         ("render_samples_int8_weights", rw, "nerf_tpu/ops/render_kernel.py:50",
          "compressed_frames_hierarchical", "render_samples", quant_err["ray_dequant"],
-         "render_samples int8", f"{CHUNK} rays x {SPP} samples, int8 weights dequantized in "
-         "the kernel"),
+         "render_samples int8", f"{CHUNK} rays x {SPP} samples, int8 weights dequantized once "
+         "a call (dequant_stream)"),
         ("render_zvals_int8_weights", rw, "nerf_tpu/ops/render_kernel.py:50",
          "compressed_frames_hierarchical", "render_zvals", quant_err["ray_dequant"],
          "render_zvals int8", f"{CHUNK} rays x {S3} per-ray depths, int8 weights dequantized "
-         "in the kernel"),
+         "once a call (dequant_stream)"),
         ("render_samples_int16_weights", rw, "nerf_tpu/ops/render_kernel.py:50",
          "compressed16_benchmark", "dequant", quant_err["ray_dequant"], "render_samples int16",
-         f"{CHUNK} rays x {SPP} samples, int16 weights dequantized in the kernel"),
+         f"{CHUNK} rays x {SPP} samples, int16 weights dequantized once a call"),
+        ("dequant_stream", "nerf_tpu_torch/csrc/dequant_stream.cu", "nerf_tpu/ops/quant.py:273",
+         "compressed_frames_hierarchical", "dequant_stream", 0.0, "dequant_stream int8",
+         "the reference network's int8 ray stream to bf16, and wsig, wc1, wdir (bit-equal)"),
         ("render_planar", rw, "nerf_tpu/ops/render_kernel.py:74", "planar_hierarchical",
          "planar", quant_err["planar"], "render_zvals planar",
          f"{CHUNK} rays x {S3} per-ray depths, four [R, S] planes out (K1 too)"),
@@ -4240,7 +4310,8 @@ def main():
             "call_ms": t["call_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": None, "library_note": f"{no_library} (the transmittance scan)"
             if "composite" in name else f"{no_library} (encoding + the 10-layer MLP per sample)"
-            if name == "mlp_quant" else f"{no_library} ({mlp})",
+            if name == "mlp_quant" else f"{no_library} (a chunked image and its scales)"
+            if name == "dequant_stream" else f"{no_library} ({mlp})",
             "shape": shape, "times_key": key})
         if "wmma_call_ms" in t:
             kernels[-1].update(cuda_kernel=t["cuda_kernel"], library=t["library"],

@@ -4,9 +4,10 @@ Each ``nerf_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface and loaded
 with ``ctypes``. No PyTorch headers are included, so a source builds in
 seconds. ``VARIANTS`` are further libraries built from one of the sources
-with a preprocessor definition: the ray kernels once per weight route of
-the shared MLP body. The libraries go to ``build/nerf_tpu_torch/`` beside
-the package, named by a hash of the source, the shared headers
+with a preprocessor definition: the ray kernels on the weight routes of the
+shared MLP body that need a build of their own. The libraries go to
+``build/nerf_tpu_torch/`` beside the package, named by a hash of the
+source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
 unchanged one is reused. ``build`` starts one ``nvcc`` per missing library,
 all at once, and waits for every one of them.
@@ -35,13 +36,15 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_tpu_torch"
 SOURCES = ("render_samples", "composite", "mlp_forward", "mlp_backward", "mlp_quant", "ray_wgmma",
-           "mlp_backward_wgmma")
-# library -> (source, definition): the ray kernels on int8 and int16 weights
-# dequantized in the kernel, and on the int8-compute route
+           "mlp_backward_wgmma", "dequant_stream")
+# library -> (source, definition): the WMMA ray kernels on int8 and int16
+# weights dequantized in the kernel, and the WMMA and Hopper ray kernels on
+# the int8-compute route (the Hopper kernels take int8 and int16 weights in
+# their bf16 build, after dequant_stream)
 VARIANTS = {
-    f"{source}_{suffix}": (source, f"-DNERF_WQ={route}")
-    for source in ("render_samples", "ray_wgmma")
-    for route, suffix in ((1, "q8"), (2, "q16"), (3, "i8"))
+    **{f"render_samples_{suffix}": ("render_samples", f"-DNERF_WQ={route}")
+       for route, suffix in ((1, "q8"), (2, "q16"), (3, "i8"))},
+    "ray_wgmma_i8": ("ray_wgmma", "-DNERF_WQ=3"),
 }
 LIBRARIES = SOURCES + tuple(VARIANTS)
 # no --use_fast_math: the positional encoding takes sinf/cosf of phases up

@@ -14,12 +14,13 @@ Counterpart of ``nerf_tpu/ops/quant.py``:
   per-sample network on intN weights, same contract as
   ``fused_nerf_apply``. On a CUDA tensor it launches the per-sample kernel
   of ``csrc/ray_wgmma.cu`` in the build of the weights' route
-  (``ray_wgmma.LIBRARIES``), whose producer warpgroup copies intN chunks of
-  the weight stream into shared memory and writes ``bf16(f32(q) * s[col])``
-  into the operand ring: no bf16 copy of a quantized matrix exists outside
-  the kernel. The WMMA build it replaced (``csrc/mlp_quant.cu``) is reached
-  only through ``_launch(..., library=WMMA_LIBRARY)``, a timed comparison.
-  On a CPU tensor it runs ``quantized_nerf_apply_plain``. Inference only.
+  (``ray_wgmma.LIBRARIES``): on int8 and int16 weights the bf16 build, on
+  the bf16 stream that ``dequant_stream`` writes from the intN one once a
+  call, into scratch that goes with the call (``ops/dequant_stream.py``);
+  on the int8-compute route its own build. The WMMA build it replaced
+  (``csrc/mlp_quant.cu``) is reached only through ``_launch(...,
+  library=WMMA_LIBRARY)``, a timed comparison. On a CPU tensor it runs
+  ``quantized_nerf_apply_plain``. Inference only.
   Under a profiler each call records one span ``kernel.k7``
   (``utils/monitor.span``), from that choice until the launch is enqueued.
 - the int8-compute route (the ``_int8_mm`` hook of ``_nerf_math``), taken
@@ -427,8 +428,10 @@ def _launch(q: Quantized, positions: torch.Tensor, directions: torch.Tensor,
             library: Optional[str] = None) -> torch.Tensor:
     """Launch K7 on float32 ``[N, 3]`` CUDA tensors: ``[N, 4]``, by default
     in the build of ``csrc/ray_wgmma.cu`` for the weights' route, on their
-    cached per-sample stream. ``library=WMMA_LIBRARY`` launches the WMMA
-    build instead (a timed comparison: no path of the port asks for it)."""
+    cached per-sample stream (on int8 and int16 weights, on what
+    ``dequant_stream`` makes of it). ``library=WMMA_LIBRARY`` launches the
+    WMMA build instead (a timed comparison: no path of the port asks for
+    it)."""
     from nerf_tpu_torch.ops import ray_wgmma      # it imports this module
 
     route = route_of(q)

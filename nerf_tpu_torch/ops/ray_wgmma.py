@@ -3,14 +3,15 @@ the schedule of its composited modes.
 
 K1 and K3 in their raw output forms and their composited modes, and the
 per-sample forward K4 (K7 on quantized weights), run on
-``csrc/ray_wgmma.cu``, built once per weight route
-(``LIBRARIES``): bf16 weights (``PackedWeights``), int8 or int16 weights
-dequantized in the kernel (``QuantizedPackedWeights``), and int8 compute
-(``Int8PackedWeights``). A producer warpgroup copies the network into shared
-memory one chunk at a time (``cp.async.bulk``, one contiguous copy a chunk)
-and two consumer warpgroups multiply each chunk with ``wgmma``. This module
-lays the weights out for that stream, once per set of weights (cached beside
-them):
+``csrc/ray_wgmma.cu``: its bf16 build for bf16 weights (``PackedWeights``)
+and for int8 or int16 weights (``QuantizedPackedWeights``), whose intN
+stream the ``dequant_stream`` prologue turns into the bf16 stream once a
+call (``ops/dequant_stream.py``, ``launch_operands``), and its int8-compute
+build for ``Int8PackedWeights`` (``LIBRARIES``). A producer warpgroup copies
+the network into shared memory one chunk at a time (``cp.async.bulk``, one
+contiguous copy a chunk) and two consumer warpgroups multiply each chunk
+with ``wgmma``. This module lays the weights out for that stream, once per
+set of weights (cached beside them):
 
 - a chunk is a slab of one matrix, all its ``N`` columns (256, or 128 for
   ``wc0``), in the order the consumers multiply them (``chunk_schedule``):
@@ -25,7 +26,8 @@ them):
 - dequantize routes (int8, int16): the same chunks, each the bf16 chunk's
   image element for element in intN, followed by the matrix's ``N`` float32
   scales. An image row is one output column, so a scale covers one 128-byte
-  row of the bf16 image the producer writes, ``bf16(f32(q) * s[col])``;
+  row of the bf16 image, ``bf16(f32(q) * s[col])``, which ``dequant_stream``
+  writes;
 - int8 compute: ``w0``, ``wt`` and ``wskip`` are s8 operands. A 128-byte
   image row holds 128 of their K values, so a chunk is a 128-row slab
   (32 KB), copied as it is: a trunk layer is two chunks, and ``w0`` and
@@ -81,8 +83,12 @@ from nerf_tpu_torch.ops import _ext, quant
 from nerf_tpu_torch.ops.mlp_kernel import HID, POS_ROWS, PackedWeights, net_args, skip_position
 
 LIBRARY = "ray_wgmma"
-# the build of csrc/ray_wgmma.cu for each weight route (0: bf16 weights)
-LIBRARIES = {0: LIBRARY, quant.ROUTE_INT8: "ray_wgmma_q8", quant.ROUTE_INT16: "ray_wgmma_q16",
+# the weight routes whose intN stream dequant_stream turns into the bf16
+# stream, once a call, for the bf16 build
+DEQUANTIZED = (quant.ROUTE_INT8, quant.ROUTE_INT16)
+# the build of csrc/ray_wgmma.cu a launch on each weight route goes to (0:
+# bf16 weights)
+LIBRARIES = {0: LIBRARY, **{route: LIBRARY for route in DEQUANTIZED},
              quant.ROUTE_INT8_COMPUTE: "ray_wgmma_i8"}
 CHUNK_K = 64          # weight rows per bf16 or dequantize chunk
 S8_K = 128            # weight rows per s8 chunk
@@ -453,14 +459,33 @@ def sample_stream_bytes(cfg: ModelConfig, route: int = 0) -> int:
     return sum(c.nbytes for c in sample_chunk_schedule(cfg, route))
 
 
+def launch_operands(weights, cfg: ModelConfig, stream: torch.Tensor, per_sample: bool):
+    """What a launch of the route's build takes beside the rays: ``(stream,
+    weights' pointer array, scales' pointer array or None, scratch)``. On
+    the dequantize routes it launches ``dequant_stream`` on the weights'
+    intN ``stream`` first and hands on its bf16 stream and resident
+    parameters; the caller keeps ``scratch`` until its launch is enqueued,
+    and no longer."""
+    route = route_of(weights)
+    if route in DEQUANTIZED:
+        from nerf_tpu_torch.ops import dequant_stream   # it imports this module
+        scratch = dequant_stream._launch(weights, stream, cfg, per_sample)
+        return (scratch.stream, _ext.pointer_array(dequant_stream.launch_weights(weights, scratch)),
+                None, scratch)
+    if route:
+        return (stream, *quant.weight_pointers(weights), None)
+    return stream, _ext.pointer_array(weights), None, None
+
+
 def forward_samples(library: str, weights, positions: torch.Tensor, directions: torch.Tensor,
                     cfg: ModelConfig, stream: torch.Tensor, out: torch.Tensor) -> None:
     """Launch the per-sample kernel of ``library`` (the build of the
-    weights' route) on float32 ``[N, 3]`` positions and directions into
-    float32 ``out [N, 4]``, all contiguous on one card. ``stream``: the
-    weights' per-sample stream, or a stream that begins with it (K5's, whose
-    prefix it is for the reference variant). The caller has checked the
-    weights (``check_packed``, ``quant.check_quantized``)."""
+    weights' route; on the dequantize routes after ``dequant_stream``) on
+    float32 ``[N, 3]`` positions and directions into float32 ``out [N, 4]``,
+    all contiguous on one card. ``stream``: the weights' per-sample stream,
+    or a stream that begins with it (K5's, whose prefix it is for the
+    reference variant). The caller has checked the weights
+    (``check_packed``, ``quant.check_quantized``)."""
     route = route_of(weights)
     if LIBRARIES.get(route) != library:
         raise ValueError(f"{library} is not the Hopper build for weight route {route}")
@@ -470,15 +495,13 @@ def forward_samples(library: str, weights, positions: torch.Tensor, directions: 
             or stream.numel() * stream.element_size() < need):
         raise ValueError(f"the weight stream must be a contiguous 1-D tensor of at least "
                          f"{need} bytes on {dev}")
-    if route:
-        weights_ptrs, scales = quant.weight_pointers(weights)
-    else:
-        weights_ptrs, scales = _ext.pointer_array(weights), None
+    stream, weights_ptrs, scales, scratch = launch_operands(weights, cfg, stream, True)
     lib = load(library)
     err = lib.mlp_wgmma_forward(_ext.ptr(positions), _ext.ptr(directions), n, _ext.ptr(stream),
                                 weights_ptrs, scales, *net_args(cfg), _ext.ptr(out),
                                 _ext.stream_ptr(dev))
     _ext.check(lib, err, f"mlp_wgmma_forward launch ({library})")
+    del scratch
 
 
 def l2_probe(buf: torch.Tensor, reps: int, blocks: int) -> None:

@@ -29,10 +29,10 @@ bit-identical to the de-interleaved raw output.
 
 Every function takes the weights as a params dict, ``PackedWeights`` or the
 quantized representations of ``ops/quant.py`` (the TPU kernels'
-``_weights_for``): ``QuantizedPackedWeights`` are dequantized inside the
-kernel as it stages each weight chunk, ``Int8PackedWeights`` run the trunk
-as s8 x s8 -> s32 tensor-core products. Each weight route is its own build
-of each CUDA source.
+``_weights_for``): ``QuantizedPackedWeights`` are dequantized on chip once a
+call, into scratch the bf16 kernels then read (``ops/dequant_stream.py``),
+``Int8PackedWeights`` run the trunk as s8 x s8 -> s32 tensor-core products
+in a build of their own.
 
 On a CUDA tensor each wrapper launches its CUDA kernel and counts the launch
 in ``launches[name]``; on a CPU tensor it runs its ``*_plain`` twin, the same
@@ -44,11 +44,13 @@ weight route, goes to the Hopper kernels of ``csrc/ray_wgmma.cu`` (warpgroup
 ``wgmma``, weights streamed by a producer warpgroup, persistent blocks; the
 weight stream is laid out once per set of weights, and the composited
 modes' schedule of whole rays per consumer is written out, by
-``ops/ray_wgmma.py``), built for the weights' route; K3 at one depth per
-ray runs each ray as one row of the per-sample kernel of that build
-(``mlp_wgmma_kernel``), composited by K2. The WMMA builds of
-``csrc/render_samples.cu`` they replaced are reached only through
-``library=``, to time them beside the Hopper kernels.
+``ops/ray_wgmma.py``), in the build of the weights' route: the bf16 build
+for bf16 weights and, after the ``dequant_stream`` prologue, for int8 and
+int16 ones; the int8-compute build. K3 at one depth per ray runs each ray
+as one row of the per-sample kernel of that build (``mlp_wgmma_kernel``),
+composited by K2. The WMMA builds of ``csrc/render_samples.cu`` they
+replaced are reached only through ``library=``, to time them beside the
+Hopper kernels.
 
 Arithmetic shared by both versions, and the tolerances it sets:
 
@@ -92,7 +94,7 @@ from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 # Launches of each CUDA kernel (not of the plain versions), and of the
 # routes through them: a launch adds one to its function's count (K1 or K3,
 # raw or composited), to each route it takes (planar or bfloat16 raw output;
-# intN weights dequantized in the kernel; int8 compute) and, on the Hopper
+# intN weights dequantized on chip; int8 compute) and, on the Hopper
 # kernels of csrc/ray_wgmma.cu (raw or composited), to wgmma_samples (K1) or
 # wgmma_zvals (K3). A launch recorded into a CUDA graph is not one
 # (_ext.ran).
@@ -113,7 +115,8 @@ _OUT_F32, _OUT_BF16, _OUT_PLANAR = 0, 1, 2
 
 def kernel_library(route: int, composited: bool) -> str:
     """The library a CUDA launch on a weight route goes to: the route's
-    build of ``csrc/ray_wgmma.cu``, for the raw forms (float32, bfloat16,
+    build of ``csrc/ray_wgmma.cu`` (the bf16 build on the dequantize
+    routes, after ``dequant_stream``), for the raw forms (float32, bfloat16,
     planar) and the composited modes alike."""
     return ray_wgmma.LIBRARIES[route]
 
@@ -225,10 +228,8 @@ def _launch(packed, rays_o, rays_d, near, far, S,
     if quant.is_quantized(packed):
         quant.check_quantized(packed, cfg, dev, dtype)
         route = quant.route_of(packed)
-        weights, scales = quant.weight_pointers(packed)
     else:
         check_packed(packed, cfg, dev)
-        weights, scales = _ext.pointer_array(packed), None
     if raw_dtype not in (torch.float32, torch.bfloat16) or (
             raw_dtype != torch.float32 and (composited or planar)):
         raise ValueError(f"raw_dtype {raw_dtype}: the raw output is float32 or bfloat16, "
@@ -245,13 +246,11 @@ def _launch(packed, rays_o, rays_d, near, far, S,
         z_stride = z_vals.stride(0)
     elif S < 2:
         raise ValueError("need at least 2 samples for uniform depths")
+    hopper = library in (None, kernel_library(route, composited))
     library = library or kernel_library(route, composited)
-    hopper = library in ray_wgmma.LIBRARIES.values()
-    lib_route = next((r for r, n in (*ray_wgmma.LIBRARIES.items(), *_LIBRARY.items())
-                      if n == library), None)
-    if lib_route != route:
-        raise ValueError(f"{library} computes on {_WEIGHTS.get(lib_route, 'unknown')} weights, "
-                         f"not on {_WEIGHTS[route]} ones")
+    if not hopper and library != _LIBRARY[route]:
+        raise ValueError(f"{library} is no build for {_WEIGHTS[route]} weights: "
+                         f"{kernel_library(route, composited)} or {_LIBRARY[route]}")
     if hopper and z_vals is not None and S == 1:
         return _one_depth(packed, rays_o, rays_d, z_vals, cfg, composited, with_weights,
                           sentinel, eps, raw_dtype, planar, dtype)
@@ -277,14 +276,18 @@ def _launch(packed, rays_o, rays_d, near, far, S,
     w_arg = None if w is None else _ext.ptr(w)
     dz = (far - near) / (S - 1) if z_vals is None else 0.0
     if hopper:
-        stream = ray_wgmma.stream_for(packed, cfg)
+        stream, weights, scales, scratch = ray_wgmma.launch_operands(
+            packed, cfg, ray_wgmma.stream_for(packed, cfg), False)
         lib = ray_wgmma.load(library)
         err = lib.ray_wgmma_render(_ext.ptr(rays_o), _ext.ptr(rays_d), z_arg, z_stride, R, S,
                                    float(near), float(far - near), _ext.ptr(stream), weights,
                                    scales, *net_args(cfg), out_mode, int(composited), float(dz),
                                    float(sentinel), float(eps), _ext.ptr(out), w_arg,
                                    _ext.stream_ptr(dev))
+        del scratch
     else:
+        weights, scales = (quant.weight_pointers(packed) if route
+                           else (_ext.pointer_array(packed), None))
         lib = _ext.load(library)
         fn = lib.ray_render
         fn.argtypes = _ARGTYPES

@@ -25,9 +25,10 @@ at the merged, sorted ``n_coarse + n_fine`` depths):
   (tests) the kernels run their plain versions; on the card they launch the
   CUDA kernels;
 - ``compressed`` (``CompressedEngine``): the cuda engine's paths on pruned,
-  int8- or int16-quantized weights (``ops/quant.quantize_model``), which the
-  ray kernels dequantize on chip; its per-sample ``apply_fn`` is the
-  dequantize-in-kernel MLP (``quantized_nerf_apply``, K7);
+  int8- or int16-quantized weights (``ops/quant.quantize_model``), which each
+  kernel call dequantizes on chip once (``ops/dequant_stream.py``) for the
+  bf16 ray kernels; its per-sample ``apply_fn`` is ``quantized_nerf_apply``
+  (K7), dequantized the same way;
 - ``int8`` (``Int8ComputeEngine``): the compressed engine with ``act_bits=8``:
   the trunk's products run as s8 x s8 -> s32 on the tensor cores (K8);
 - ``accel`` (``AccelEngine``): the cuda engine whose benchmark mode places
@@ -343,14 +344,17 @@ class CudaEngine(Engine):
 
 
 class CompressedEngine(CudaEngine):
-    """The cuda engine on pruned, intN-quantized weights. The ray kernels
-    take the quantized weights as they are and dequantize them on chip
-    (int8 weights are a quarter, int16 half of float32's bytes); the
+    """The cuda engine on pruned, intN-quantized weights. The quantized
+    weights are the engine's only resident copy of its networks (int8
+    weights are a quarter, int16 half of float32's bytes): each kernel call
+    dequantizes them on chip once, into scratch that goes with the call
+    (``ops/dequant_stream.py``), and the bf16 ray kernels read it; the
     per-sample path (``use_importance=False``) runs ``quantized_nerf_apply``
-    (K7)."""
+    (K7) the same way."""
 
     name = "compressed"
-    description = "pruned intN weights dequantized inside K1/K3 (K7 per sample) -> K2"
+    description = ("pruned intN weights dequantized on chip once a call -> bf16 K1/K3 "
+                   "(K7 per sample) -> K2")
 
     def __init__(self, shared: Optional[SharedModel] = None, chunk_rays: int = 16384,
                  bits: int = 8, prune_fraction: float = 0.1,

@@ -25,7 +25,7 @@ from nerf_tpu.ops import quant as jquant
 from nerf_tpu.ops.mlp_kernel import fused_nerf_apply as jfused_nerf_apply
 from nerf_tpu_torch.config import ModelConfig
 from nerf_tpu_torch.models.nerf import init_nerf_params, params_from_numpy
-from nerf_tpu_torch.ops import _ext, mlp_kernel, quant, ray_wgmma, train_kernel
+from nerf_tpu_torch.ops import _ext, dequant_stream, mlp_kernel, quant, ray_wgmma, train_kernel
 from nerf_tpu_torch.ops.mlp_kernel import fused_nerf_apply_plain, pack_params
 from nerf_tpu_torch.ops.quant import quantized_from_numpy, quantized_nerf_apply_plain
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
@@ -246,7 +246,7 @@ class _Fn:
 
 class _Lib:
     def __init__(self, name, calls):
-        for fn in ("mlp_wgmma_forward", "mlp_forward", "mlp_quant"):
+        for fn in ("mlp_wgmma_forward", "mlp_forward", "mlp_quant", "dequant_stream"):
             setattr(self, fn, _Fn(f"{name}.{fn}", calls))
 
 
@@ -268,27 +268,35 @@ def _launch(weights, tc, *args, **kw):
 
 def _counts():
     return {"mlp_forward": mlp_kernel.launches, "mlp_forward_wmma": mlp_kernel.wmma_launches,
-            **quant.launches}
+            "dequant_stream": dequant_stream.launches, **quant.launches}
 
 
 @pytest.mark.parametrize("route", ROUTES)
 def test_launch_reaches_the_hopper_build_of_the_route(recorded, route):
     # every CUDA launch of K4 and K7 goes to the per-sample entry of the
-    # route's build of ray_wgmma.cu, on the weights' cached per-sample stream,
-    # and counts under the counter chip_smoke.py reads
+    # route's build of ray_wgmma.cu, on the weights' cached per-sample stream
+    # (on the dequantize routes: dequant_stream turns it into scratch, which
+    # the bf16 build reads, without the scales), and counts under the
+    # counter chip_smoke.py reads
     _, tc, _, w = _carried("reference", route, seed=9)
     before = _counts()
     _launch(w, tc)
-    ((name, args),) = recorded
-    assert name == f"{ray_wgmma.LIBRARIES[route]}.mlp_wgmma_forward"
-    assert args[2] == 300 and args[3].value == ray_wgmma.sample_stream_for(w, tc).data_ptr()
+    cached = ray_wgmma.sample_stream_for(w, tc).data_ptr()
+    if route in (quant.ROUTE_INT8, quant.ROUTE_INT16):
+        (prologue, dq_args), (name, args) = recorded
+        assert prologue == "dequant_stream.dequant_stream" and dq_args[0].value == cached
+        assert args[3].value == dq_args[5].value != cached and args[5] is None
+    else:
+        ((name, args),) = recorded
+        assert args[3].value == cached
+    assert name == f"{ray_wgmma.LIBRARIES[route]}.mlp_wgmma_forward" and args[2] == 300
     moved = {k: v - before[k] for k, v in _counts().items() if v != before[k]}
     if route == 0:
         assert moved == {"mlp_forward": 1}
     elif route == quant.ROUTE_INT8_COMPUTE:
         assert moved == {"mlp_quant": 1, "mlp_quant_int8": 1}
     else:
-        assert moved == {"mlp_quant": 1}
+        assert moved == {"mlp_quant": 1, "dequant_stream": 1}
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -301,7 +309,7 @@ def test_wmma_build_only_when_asked(recorded, route):
     moved = {k: v - before[k] for k, v in _counts().items() if v != before[k]}
     assert moved == {"mlp_quant_wmma" if route else "mlp_forward_wmma": 1}
     # another route's build, or another source, is refused before any call
-    other = ray_wgmma.LIBRARIES[(route + 1) % 4]
+    other = next(n for n in ray_wgmma.LIBRARIES.values() if n != ray_wgmma.LIBRARIES[route])
     with pytest.raises(ValueError, match="built as"):
         _launch(w, tc, library=other)
     with pytest.raises(ValueError, match="built as"):

@@ -76,16 +76,17 @@ def test_kernels_build_for_hopper_without_fast_math():
     for name in _ext.SOURCES:
         assert (_ext.CSRC / f"{name}.cu").exists()
         assert _ext.library_path(name).parent == ROOT / "build" / "nerf_tpu_torch"
-    # the variants: one more library per quantized weight route of each
-    # source of the ray kernels (the WMMA body's and the Hopper kernels'),
+    # the variants: one more library per quantized weight route of the WMMA
+    # body's source, and the int8-compute route's of the Hopper kernels' (they
+    # take int8 and int16 weights in their bf16 build, after dequant_stream),
     # from the same source with a definition, each under its own name
     assert _ext.LIBRARIES == _ext.SOURCES + tuple(_ext.VARIANTS)
-    for source in ("render_samples", "ray_wgmma"):
+    for source, routes in (("render_samples", (1, 2, 3)), ("ray_wgmma", (3,))):
         assert sorted(d for s, d in _ext.VARIANTS.values() if s == source) == [
-            f"-DNERF_WQ={i}" for i in (1, 2, 3)]
+            f"-DNERF_WQ={i}" for i in routes]
     assert {s for s, _ in _ext.VARIANTS.values()} == {"render_samples", "ray_wgmma"}
     paths = {_ext.library_path(n) for n in _ext.LIBRARIES}
-    assert len(paths) == len(_ext.LIBRARIES) == 13
+    assert len(paths) == len(_ext.LIBRARIES) == 12
 
 
 def _run_smoke(cwd):

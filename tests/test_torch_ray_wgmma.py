@@ -27,7 +27,8 @@ from nerf_tpu.ops import quant as jquant
 from nerf_tpu.ops.render_kernel import fused_render_samples as jfrs
 from nerf_tpu_torch.config import ModelConfig, default_config
 from nerf_tpu_torch.models.nerf import params_from_numpy
-from nerf_tpu_torch.ops import _ext, composite_kernel, mlp_kernel, quant, ray_wgmma, render_kernel
+from nerf_tpu_torch.ops import (_ext, composite_kernel, dequant_stream, mlp_kernel, quant,
+                                ray_wgmma, render_kernel)
 from nerf_tpu_torch.ops.mlp_kernel import PackedWeights, pack_params, skip_position
 from nerf_tpu_torch.ops.render_kernel import fused_render_samples_plain
 from nerf_tpu_torch.train.checkpoint import restore_bare_params
@@ -160,11 +161,13 @@ ROUTES = [0, quant.ROUTE_INT8, quant.ROUTE_INT16, quant.ROUTE_INT8_COMPUTE]
 @pytest.mark.parametrize("route", ROUTES)
 def test_kernel_library_by_route_and_form(route, form):
     # every form and mode on every weight route goes to that route's build
-    # of ray_wgmma.cu; the WMMA builds of render_samples.cu stay built
+    # of ray_wgmma.cu: the bf16 build on the dequantize routes too (after
+    # dequant_stream); the WMMA builds of render_samples.cu stay built
     lib = render_kernel.kernel_library(route, form == "composited")
     assert lib == ray_wgmma.LIBRARIES[route] and lib.startswith("ray_wgmma")
     assert lib in _ext.LIBRARIES and render_kernel._LIBRARY[route] in _ext.LIBRARIES
     assert ray_wgmma.LIBRARIES[0] == ray_wgmma.LIBRARY == "ray_wgmma"
+    assert (lib == ray_wgmma.LIBRARY) == (route != quant.ROUTE_INT8_COMPUTE)
 
 
 class _Fn:
@@ -188,6 +191,7 @@ class _Lib:
         self.mlp_wgmma_forward = _Fn(f"{name}.mlp_wgmma_forward", calls)
         self.mlp_wgmma_forward.argtypes = ray_wgmma.SAMPLE_ARGTYPES
         self.composite_rays = _Fn(f"{name}.composite_rays", calls)
+        self.dequant_stream = _Fn(f"{name}.dequant_stream", calls)
 
 
 def _weights_of_route(route, variant="reference", seed=0):
@@ -207,7 +211,8 @@ def _weights_of_route(route, variant="reference", seed=0):
 def test_launch_reaches_the_library_of_the_rule(monkeypatch, form, depths, route):
     # _launch on each weight route, with the libraries replaced by
     # recorders: every form and mode calls the route's Hopper entry (and
-    # counts wgmma_*); nothing else is called
+    # counts wgmma_*); on the dequantize routes dequant_stream runs first
+    # and the bf16 build reads its scratch; nothing else is called
     calls = []
     monkeypatch.setattr(_ext, "load", lambda name: _Lib(name, calls))
     monkeypatch.setattr(ray_wgmma, "load", lambda name=ray_wgmma.LIBRARY: _Lib(name, calls))
@@ -218,10 +223,13 @@ def test_launch_reaches_the_library_of_the_rule(monkeypatch, form, depths, route
     z = torch.linspace(2.0, 6.0, S).expand(R, S).contiguous() if depths == "per_ray" else None
     kw = {"raw_f32": {}, "raw_bf16": {"raw_dtype": torch.bfloat16}, "planar": {"planar": True},
           "composited": {"composited": True}}[form]
-    before = dict(render_kernel.launches)
+    before, prologues = dict(render_kernel.launches), dequant_stream.launches
     render_kernel._launch(weights, ro, rd, 2.0, 6.0, S, tc, z_vals=z, **kw)
     fn = "render_samples" if z is None else "render_zvals"
-    assert calls == [f"{ray_wgmma.LIBRARIES[route]}.ray_wgmma_render"]
+    dequantized = route in (quant.ROUTE_INT8, quant.ROUTE_INT16)
+    assert calls == ["dequant_stream.dequant_stream"] * dequantized + [
+        f"{ray_wgmma.LIBRARIES[route]}.ray_wgmma_render"]
+    assert dequant_stream.launches == prologues + dequantized
     counted = {f"{fn}_composited" if form == "composited" else fn,
                "wgmma_samples" if z is None else "wgmma_zvals"}
     counted |= {"raw_bf16"} if form == "raw_bf16" else {"planar"} if form == "planar" else set()
@@ -232,7 +240,8 @@ def test_launch_reaches_the_library_of_the_rule(monkeypatch, form, depths, route
 
 def _per_sample_counts():
     return {"mlp_forward": mlp_kernel.launches, "composite": composite_kernel.launches,
-            **quant.launches, **render_kernel.launches}
+            "dequant_stream": dequant_stream.launches, **quant.launches,
+            **render_kernel.launches}
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -242,8 +251,9 @@ def test_one_depth_per_ray_takes_the_per_sample_entry(monkeypatch, form, route):
     # rays a consumer, which leaves the int16 and int8-compute builds too few
     # ring stages (ray_wgmma_render refuses the launch). On every route each
     # ray is one row of the per-sample entry of the route's build (K4, K7 or
-    # K8), and the composited mode composites it with K2: no route calls
-    # ray_wgmma_render, and the launches count where those kernels count them
+    # K8; K7 after dequant_stream), and the composited mode composites it
+    # with K2: no route calls ray_wgmma_render, and the launches count where
+    # those kernels count them
     calls = []
     monkeypatch.setattr(_ext, "load", lambda name: _Lib(name, calls))
     monkeypatch.setattr(ray_wgmma, "load", lambda name=ray_wgmma.LIBRARY: _Lib(name, calls))
@@ -257,11 +267,13 @@ def test_one_depth_per_ray_takes_the_per_sample_entry(monkeypatch, form, route):
     out = render_kernel._launch(weights, torch.zeros(R, 3), torch.ones(R, 3), 0.0, 0.0, 1, tc,
                                 z_vals=z, **kw)
     want = [f"{ray_wgmma.LIBRARIES[route]}.mlp_wgmma_forward"]
+    if route in (quant.ROUTE_INT8, quant.ROUTE_INT16):
+        want = ["dequant_stream.dequant_stream"] + want
     assert calls == want + (["composite.composite_rays"] if form == "composited" else [])
     moved = {k: v - before[k] for k, v in _per_sample_counts().items() if v != before[k]}
     counted = ({"mlp_forward": 1} if route == 0 else
                {"mlp_quant": 1, "mlp_quant_int8": 1} if route == quant.ROUTE_INT8_COMPUTE else
-               {"mlp_quant": 1})
+               {"mlp_quant": 1, "dequant_stream": 1})
     assert moved == {**counted, **({"composite": 1} if form == "composited" else {})}
     shapes = {"raw_f32": [(R, 4)], "raw_bf16": [(R, 4)], "planar": [(R, 1)] * 4,
               "composited": [(R, 8), (R, 1)]}[form]
@@ -339,9 +351,14 @@ def test_hopper_library_refuses_what_it_does_not_compute(monkeypatch):
     with pytest.raises(ValueError, match="planar"):
         render_kernel._launch(packed, ro, rd, 2.0, 6.0, 8, tc, composited=True, planar=True,
                               library=ray_wgmma.LIBRARY)
+    # int8 weights reach the bf16 build only through dequant_stream, never
+    # the int8-compute build, and bf16 weights never the int8-compute build
     q = quant.quantize_packed(packed, 8)
-    with pytest.raises(ValueError, match="bf16 weights"):
-        render_kernel._launch(q, ro, rd, 2.0, 6.0, 8, tc, library=ray_wgmma.LIBRARY)
+    i8 = ray_wgmma.LIBRARIES[quant.ROUTE_INT8_COMPUTE]
+    with pytest.raises(ValueError, match="no build for int8 weights"):
+        render_kernel._launch(q, ro, rd, 2.0, 6.0, 8, tc, library=i8)
+    with pytest.raises(ValueError, match="no build for bf16 weights"):
+        render_kernel._launch(packed, ro, rd, 2.0, 6.0, 8, tc, library=i8)
 
 
 # -- the streamed weights against the JAX kernel -----------------------------
