@@ -1484,6 +1484,169 @@ def convergence_phase(smi, paths, workdir, train_chunk):
             "convergence: the final render is degenerate")
 
 
+MIP_KERNELS = ("ray_z_mip_wgmma_kernel", "ray_mip_wgmma_kernel")
+MIP_ONLY = sys.argv[1:2] == ["--mip-only"]   # the build and mip_check alone
+MIP_RAYS = 16384              # mip_check: one chunk of the engine
+MIP_S = 128                   # the mip configuration's intervals a pass
+MIP_SIDE = 800                # Blender's frames: 800 x 800
+MIP_TOL = 1e-3                # the mip kernels' float32 raw vs their plain versions: rgb abs,
+                              # density relative to max|density| (bf16 activations summed in
+                              # another order: 9.8e-5 and 1.5e-4 read on seeded weights, whose
+                              # density spans only 4% of its max, so a kernel that dropped
+                              # the density product reads 3e-2)
+MIP_TOL_BF16 = 2 ** -7        # their bfloat16 raw: the same, where the two may round a value
+                              # to neighbouring bf16 numbers (one step: 2^-8 for rgb in
+                              # [0.5, 1), 2^-9 for the density)
+MIP_PSNR_MIN = 40.0           # the bf16 mip frame against the float32 torch engine
+
+
+def mip_phase(dev, smi):
+    """``mip_check``: the mip kernels (K1-mip ``ray_mip_wgmma_kernel``, K3-mip
+    ``ray_z_mip_wgmma_kernel``) against their plain versions at 16,384 rays
+    x 128 intervals on seeded weights (float32 and bf16 raw; K3-mip at the
+    intervals ``mip_resample`` draws from K1-mip's K2 weights), K2's edges
+    form against its plain version (1e-5; broadcast and per-ray edges,
+    float32 and bf16 raw, with and without weights, 1, 1,001 and 16,384 rays),
+    then ``mip_frame``: ``CudaEngine`` on the mip configuration in the
+    hierarchical mode at 800 x 800, counting 40 + 40 mip launches and 80 of
+    K2's edges form a frame and nothing else, and its PSNR against the
+    float32 ``TorchEngine`` at 200 x 200."""
+    import dataclasses
+
+    from nerf_tpu_torch.config import mip_config
+    from nerf_tpu_torch.models.nerf import init_nerf_params
+    from nerf_tpu_torch.ops import composite_kernel, ray_wgmma, render_kernel
+    from nerf_tpu_torch.ops.mlp_kernel import pack_params
+    from nerf_tpu_torch.render.engines import CudaEngine, SharedModel, TorchEngine
+    from nerf_tpu_torch.utils.cameras import focal_from_angle, pixel_radius, spherical_pose
+    from nerf_tpu_torch.utils.rendering import mip_resample, uniform_edges
+
+    cfg = mip_config()
+    mcfg, rcfg = cfg.model, cfg.render
+    g = torch.Generator().manual_seed(5)
+    net = init_nerf_params(g, mcfg, dev)
+    packed = pack_params(net, mcfg, torch.bfloat16)
+    focal = focal_from_angle(MIP_SIDE, CAMERA_ANGLE_X)
+    radius = pixel_radius(focal)
+    pose = spherical_pose(40.0, -30.0, 4.0)
+    lib = ray_wgmma.load()
+    emit("mip_build", kernels=["ray_mip_wgmma_kernel", "ray_z_mip_wgmma_kernel"],
+         dynamic_smem_bytes=lib.ray_mip_wgmma_smem_bytes(MIP_S),
+         ring_stages=lib.ray_mip_wgmma_stages(MIP_S),
+         stream_chunks=len(ray_wgmma.chunk_schedule(mcfg)))
+    from nerf_tpu_torch.utils.cameras import generate_rays
+
+    ro, rd = generate_rays(pose, MIP_SIDE, MIP_SIDE, focal, dev)
+    idx = torch.randperm(MIP_SIDE * MIP_SIDE, generator=torch.Generator().manual_seed(2))
+    idx = idx[:MIP_RAYS].to(dev)
+    ro, rd = ro.reshape(-1, 3)[idx].contiguous(), rd.reshape(-1, 3)[idx].contiguous()
+    edges_c = uniform_edges(rcfg.near, rcfg.far, MIP_S + 1, dev).expand(MIP_RAYS, -1)
+    errs = {}
+    for raw_dtype in (torch.float32, torch.bfloat16):
+        tol = MIP_TOL if raw_dtype == torch.float32 else MIP_TOL_BF16
+        n1 = render_kernel.launches["render_mip"]
+        raw_k = render_kernel.fused_render_mip_raw(packed, ro, rd, radius, rcfg.near, rcfg.far,
+                                                   MIP_S, mcfg, raw_dtype=raw_dtype)
+        require(render_kernel.launches["render_mip"] == n1 + 1,
+                "K1-mip did not reach csrc/ray_wgmma.cu")
+        raw_p = render_kernel.fused_render_mip_plain(packed, ro, rd, radius, rcfg.near,
+                                                     rcfg.far, MIP_S, mcfg)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(raw_k.float()).all()), "K1-mip: non-finite output")
+        rgb_err, sig_err, sig_scale = rgb_sigma_err(raw_k.float(), raw_p.to(raw_dtype).float())
+        name = f"k1_mip {str(raw_dtype)[6:]}"
+        errs[name] = (rgb_err, sig_err)
+        emit("mip_check", kernel="ray_mip_wgmma_kernel", raw=str(raw_dtype)[6:], rays=MIP_RAYS,
+             intervals=MIP_S, rgb_max_abs_err=rgb_err, density_max_rel_err=sig_err,
+             max_abs_density=sig_scale, tol=tol, **agreement(raw_k, raw_p.to(raw_dtype)))
+        require(rgb_err <= tol and sig_err <= tol,
+                f"K1-mip ({raw_dtype}): rgb err {rgb_err}, density rel err {sig_err} > {tol}")
+    raw_c = render_kernel.fused_render_mip_raw(packed, ro, rd, radius, rcfg.near, rcfg.far,
+                                               MIP_S, mcfg)
+    out_c = composite_kernel.composite_edges(raw_c, edges_c, rd, rcfg, with_weights=True)
+    edges_f = mip_resample(edges_c, out_c.weights, rcfg.resample_padding)
+    require(bool(torch.isfinite(edges_f).all()) and bool((edges_f[:, 1:] >= edges_f[:, :-1]).all()),
+            "mip_resample: fine edges not finite and sorted")
+    for raw_dtype in (torch.float32, torch.bfloat16):
+        tol = MIP_TOL if raw_dtype == torch.float32 else MIP_TOL_BF16
+        n3 = render_kernel.launches["render_edges_mip"]
+        raw_k = render_kernel.fused_render_edges_mip_raw(packed, ro, rd, radius, edges_f, mcfg,
+                                                         raw_dtype=raw_dtype)
+        require(render_kernel.launches["render_edges_mip"] == n3 + 1,
+                "K3-mip did not reach csrc/ray_wgmma.cu")
+        raw_p = render_kernel.fused_render_edges_mip_plain(packed, ro, rd, radius, edges_f, mcfg)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(raw_k.float()).all()), "K3-mip: non-finite output")
+        rgb_err, sig_err, sig_scale = rgb_sigma_err(raw_k.float(), raw_p.to(raw_dtype).float())
+        errs[f"k3_mip {str(raw_dtype)[6:]}"] = (rgb_err, sig_err)
+        emit("mip_check", kernel="ray_z_mip_wgmma_kernel", raw=str(raw_dtype)[6:],
+             rays=MIP_RAYS, intervals=MIP_S, edges="K1-mip + K2 edges + mip_resample",
+             rgb_max_abs_err=rgb_err, density_max_rel_err=sig_err, max_abs_density=sig_scale,
+             tol=tol, **agreement(raw_k, raw_p.to(raw_dtype)))
+        require(rgb_err <= tol and sig_err <= tol,
+                f"K3-mip ({raw_dtype}): rgb err {rgb_err}, density rel err {sig_err} > {tol}")
+    # K2's edges form against its plain version, on K3-mip's raw
+    raw_f = render_kernel.fused_render_edges_mip_raw(packed, ro, rd, radius, edges_f, mcfg)
+    for n in (1, 1001, MIP_RAYS):
+        for raw_dtype in (torch.float32, torch.bfloat16):
+            for name, e in (("broadcast", edges_c), ("per ray", edges_f)):
+                raw = raw_f[:n].to(raw_dtype).contiguous()
+                ne = composite_kernel.edges_launches
+                out_k, w_k = composite_kernel._launch_edges(raw, e[:n], rd[:n], True)
+                out_n, w_n = composite_kernel._launch_edges(raw, e[:n], rd[:n], False)
+                require(composite_kernel.edges_launches == ne + 2,
+                        "K2's edges form did not reach csrc/composite.cu")
+                out_p, w_p = composite_kernel.composite_edges_plain(raw, e[:n], rd[:n])
+                torch.cuda.synchronize()
+                e_rgb, e_depth, e_w = composited_err(out_k, w_k, out_p, w_p)
+                emit("mip_check", kernel=composite_kernel.EDGES_KERNEL, rays=n, intervals=MIP_S,
+                     raw=str(raw_dtype)[6:], edges=name, rgb_acc_max_abs_err=e_rgb,
+                     depth_max_rel_err=e_depth, w_max_abs_err=e_w, tol=K2_TOL,
+                     weightless_equal=bool(torch.equal(out_k, out_n)))
+                require(max(e_rgb, e_depth, e_w) <= K2_TOL and torch.equal(out_k, out_n),
+                        f"K2 edges ({n}, {raw_dtype}, {name}): errors {e_rgb}, {e_depth}, {e_w}")
+
+    # mip_frame: the engine's hierarchical path, launches counted
+    shared = SharedModel(cfg, device=dev)
+    shared.params = {"coarse": net, "fine": net}
+    engine = CudaEngine(shared, chunk_rays=MIP_RAYS)
+    engine.render_image(pose, (MIP_SIDE, MIP_SIDE), SPP, focal=focal, mode="hierarchical",
+                        monitor=True)
+    reset_counts()
+    frames = [engine.render_image(spherical_pose(40.0 + 30.0 * k, -30.0, 4.0),
+                                  (MIP_SIDE, MIP_SIDE), SPP, focal=focal, mode="hierarchical",
+                                  monitor=True) for k in range(2)]
+    counts = read_counts()
+    per_frame = -(-MIP_SIDE * MIP_SIDE // MIP_RAYS)
+    expect = {"render_mip": per_frame, "render_edges_mip": per_frame,
+              "composite_edges": 2 * per_frame}
+    for k, n in counts.items():
+        want = expect.get(k, 0) * len(frames)
+        require(n == want, f"mip_frame: {k} launched {n} times, expected {want}")
+    require(all(np.isfinite(f.rgb).all() and np.isfinite(f.depth).all() for f in frames),
+            "mip_frame: non-finite frame")
+    q = 200
+    qfocal = focal_from_angle(q, CAMERA_ANGLE_X)
+    cfg32 = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="float32"))
+    shared32 = SharedModel(cfg32, device=dev)
+    shared32.params = shared.params
+    truth = TorchEngine(shared32).render_image(pose, (q, q), SPP, focal=qfocal,
+                                               mode="hierarchical", monitor=False).rgb
+    got = engine.render_image(pose, (q, q), SPP, focal=qfocal, mode="hierarchical",
+                              monitor=False).rgb
+    db = psnr(got, truth)
+    wall = float(np.median([f.stats.wall_time_s for f in frames]))
+    emit("mip_frame", resolution=[MIP_SIDE, MIP_SIDE], intervals=[MIP_S, MIP_S],
+         ms_per_frame=wall * 1e3, rays_per_s=MIP_SIDE * MIP_SIDE / wall,
+         peak_device_mb=max(f.stats.peak_device_mb for f in frames), launches=counts,
+         expected_per_frame=expect, rgb_mean=float(frames[0].rgb.mean()),
+         rgb_std=float(frames[0].rgb.std()), psnr_vs_torch_f32_db=db, min_db=MIP_PSNR_MIN,
+         nvidia_smi=smi)
+    require(db >= MIP_PSNR_MIN, f"mip_frame: {db} dB against the float32 torch engine")
+    reset_counts()
+    return errs
+
+
 def reset_counts():
     """Every kernel wrapper's launch count set to 0."""
     from nerf_tpu_torch.ops import (composite_kernel, dequant_stream, mlp_kernel, quant,
@@ -1495,7 +1658,7 @@ def reset_counts():
         quant.launches[k] = 0
     composite_kernel.launches = composite_kernel.planar_launches = 0
     composite_kernel.bf16_launches = composite_kernel.weightless_launches = 0
-    composite_kernel.old_launches = 0
+    composite_kernel.old_launches = composite_kernel.edges_launches = 0
     mlp_kernel.launches = mlp_kernel.wmma_launches = 0
     dequant_stream.launches = 0
     for k in train_kernel.launches:
@@ -1512,6 +1675,7 @@ def read_counts():
             "composite_bf16": composite_kernel.bf16_launches,
             "composite_planar": composite_kernel.planar_launches,
             "composite_old": composite_kernel.old_launches,
+            "composite_edges": composite_kernel.edges_launches,
             "mlp_forward": mlp_kernel.launches, "mlp_forward_wmma": mlp_kernel.wmma_launches,
             **train_kernel.launches}
 
@@ -1652,6 +1816,19 @@ def main():
             and k5_build["stream_chunks"] == len(ray_wgmma.bwd_chunk_schedule(default_config().model))
             and k5_lib.wgrad_job_ints() == train_kernel.jobs_tensor(default_config().model).shape[1],
             f"K5's layout differs between the kernels and ops/train_kernel.py ({k5_build})")
+
+    # the mip kernels: no spill; then mip_check and mip_frame
+    mip_ptxas, mip_notes = kernel_ptxas(ray_wgmma.LIBRARY, MIP_KERNELS)
+    emit("mip_ptxas", ptxas=mip_ptxas, notes=mip_notes)
+    for k in MIP_KERNELS:
+        r = mip_ptxas.get(k, {})
+        require(r.get("spill_store_bytes") == 0 and r.get("spill_load_bytes") == 0,
+                f"ptxas: {k} spills ({r})")
+    if MIP_ONLY:
+        mip_phase(dev, smi)
+        print(json.dumps({"mip_only": True, "device": torch.cuda.get_device_name(0)}), flush=True)
+        return
+    mip_phase(dev, smi)
 
     # K2 (csrc/composite.cu): registers and spills of every body (none may
     # spill), and its schedule: the library's against ops/composite_kernel.py

@@ -28,6 +28,11 @@ class ModelConfig:
     #   [h, posenc] before trunk layer ``skip_layer``, ReLU on density.
     # "bmild": original-NeRF layout (alpha + bottleneck heads, skip concat
     #   [posenc, h] after trunk layer ``skip_layer``, raw density).
+    # "mip": Mip-NeRF (models/mip.py): bmild's layer layout on the integrated
+    #   positional encoding of conical frustums (degrees ipe_min_deg ..
+    #   ipe_max_deg - 1, no identity), skip concat [h, enc],
+    #   density softplus(raw + density_bias), rgb padded by rgb_padding;
+    #   one network serves the coarse and the fine pass.
     variant: str = "reference"
     pos_freqs: int = 10          # L for position encoding -> 3 + 6L = 63 dims
     dir_freqs: int = 4           # L for direction encoding -> 27 dims
@@ -37,9 +42,15 @@ class ModelConfig:
     color_hidden_dim: int = 128
     posenc_pi: bool = True       # bands 2^i * pi (reference) or 2^i (bmild)
     normalize_dirs: bool = False
+    ipe_min_deg: int = 0         # mip: the IPE's degrees, min_deg .. max_deg - 1
+    ipe_max_deg: int = 16
+    density_bias: float = 0.0    # mip: added to the raw density before the softplus
+    rgb_padding: float = 0.0     # mip: rgb = sigmoid * (1 + 2 pad) - pad
 
     @property
     def pos_dim(self) -> int:
+        if self.variant == "mip":
+            return 6 * (self.ipe_max_deg - self.ipe_min_deg)
         return encoded_dim(3, self.pos_freqs)
 
     @property
@@ -61,6 +72,7 @@ class RenderConfig:
     raw_noise_std: float = 0.0        # density noise during training
     dist_sentinel: float = 1e10       # distance after the last sample
     transmittance_eps: float = 1e-10
+    resample_padding: float = 0.01    # mip: added to the blurred coarse weights
 
 
 @dataclass(frozen=True)
@@ -156,6 +168,22 @@ def reference_compat_config() -> Config:
         cfg,
         render=dataclasses.replace(cfg.render, use_importance=False, perturb=False),
         train=dataclasses.replace(cfg.train, compute_dtype="float32"),
+    )
+
+
+def mip_config() -> Config:
+    """Mip-NeRF's Blender configuration (google/mipnerf, configs/blender.gin):
+    IPE degrees 0..15, view directions at 4 degrees, unit view directions,
+    skip ``[h, enc]`` after layer 4, density bias -1, rgb padding 0.001,
+    128 + 128 intervals resampled with padding 0.01, white background."""
+    cfg = default_config()
+    return dataclasses.replace(
+        cfg,
+        model=dataclasses.replace(
+            cfg.model, variant="mip", posenc_pi=False, normalize_dirs=True,
+            density_bias=-1.0, rgb_padding=0.001),
+        render=dataclasses.replace(cfg.render, n_coarse=128, n_fine=128,
+                                   white_background=True),
     )
 
 

@@ -141,6 +141,30 @@
 //   sums stay below 2^22 (256 * 127 * 127), which the exact int-to-float
 //   construction needs.
 //
+// The mip kernels (ray_mip_wgmma_kernel: K1-mip, uniform intervals;
+// ray_z_mip_wgmma_kernel: K3-mip, per-ray edges [R, S + 1]) replace no TPU
+// kernel: they run Mip-NeRF (models/mip.py, the `mip` variant) on the same
+// body, with the encoder and heads a compile-time parameter of it (ENC_MIP),
+// bf16 weights only. What changes, and only there:
+// - a row is the interval [t_s, t_s+1] of its ray's cone (base radius
+//   p.radius): the consumer's two threads of the row each work out the
+//   frustum's Gaussian (mean and diagonal covariance) in fp32 without FMA,
+//   in google/mipnerf's order, and write half of its integrated positional
+//   encoding, 96 features (degrees 0..15 x 3 coordinates, the sines
+//   exp(-y_var / 2) sin(y), then exp(-y_var / 2) sin(y + pi / 2); sinf at
+//   full range reduction, the feature 0 without its sine where the fp32
+//   attenuation is 0): K 0..63 into the encoding tile, K 64..95 into a
+//   second swizzled tile of the consumer's (p.enc2_off);
+// - layer 0 and the skip product take K = 96: a 64-row chunk over the first
+//   tile and one whose rows 96..127 are zero, of which only K 64..95 (two
+//   k-steps) are multiplied, over the second; the stream carries w0 and
+//   wskip as two chunks each (ops/ray_wgmma.chunk_schedule);
+// - the accumulators are zeroed before layer 0, so that none is kept alive
+//   through the encoding;
+// - the direction branch encodes [d, sin(2^l d), sin(2^l d + pi / 2)];
+// - the heads: softplus(sigma + density_bias) and sigmoid * rgb_scale -
+//   rgb_padding. The output is the raw form (fp32 or bf16).
+//
 // Arithmetic contract (the WMMA body's, ops/render_kernel.py; the
 // compositing's is csrc/render_samples.cu composite_tile's: ||d|| in fp32
 // without FMA, expf/logf without fast math): pos = o + d z
@@ -182,6 +206,10 @@ constexpr int OUT_F32 = 0, OUT_BF16 = 1, OUT_PLANAR = 2;
 // what a block evaluates: K1's uniform depths, K3's per-ray depths, or K4's
 // per-sample positions and directions
 constexpr int RAYS_UNIFORM = 0, RAYS_Z = 1, SAMPLES = 2;
+// the encoder and heads: a point's encoding, or Mip-NeRF's interval
+constexpr int ENC_POINT = 0, ENC_MIP = 1;
+constexpr float HALF_PI_F = 1.5707963705062866f;   // fp32(pi / 2)
+constexpr float C4_15 = float(4.0 / 15.0), C5_12 = float(5.0 / 12.0);
 constexpr int N_SMALL_RAYS = 4, N_SMALL_SAMPLES = 5;   // the 128-wide chunks at a stream's end
 // a dequantize chunk in the stream: the intN image of a 64-row slab of N
 // columns, then its N scales; a landing slot holds the largest (N = 256)
@@ -250,6 +278,10 @@ struct RwParams {
   int land_off;          // the landing slots (quantized routes)
   float near, span;
   float dz, sentinel, eps;   // composited: K1's step, the last distance, 1 - alpha's floor
+  // the mip kernels: the second encoding tiles' byte offset, the far plane
+  // (K1-mip's edges), the cones' base radius, the heads' constants
+  int enc2_off;
+  float far, radius, density_bias, rgb_scale, rgb_padding;
 };
 
 // The composited modes' schedule (ops/ray_wgmma.lane_rays, lane_steps): the
@@ -626,13 +658,108 @@ __device__ __forceinline__ void composite_step(const RwParams& p, const float* f
   }
 }
 
+// ---- the mip encoder (ENC_MIP) ----------------------------------------------
+
+// K1-mip's edge k of S intervals: near (1 - u) + far u, u = k / S
+__device__ __forceinline__ float mip_edge(const RwParams& p, int k) {
+  const float u = __fdiv_rn(float(k), float(p.S));
+  return __fadd_rn(__fmul_rn(p.near, __fsub_rn(1.f, u)), __fmul_rn(p.far, u));
+}
+
+// The Gaussian of the frustum of a ray between t0 and t1: its mean m and
+// diagonal covariance v (google/mipnerf conical_frustum_to_gaussian, stable,
+// and lift_gaussian), fp32 without FMA in the published order
+__device__ __forceinline__ void mip_gaussian(const float* o, const float* d, float t0, float t1,
+                                             float radius, float (&m)[3], float (&v)[3]) {
+  const float mu = __fmul_rn(__fadd_rn(t0, t1), 0.5f), hw = __fmul_rn(__fsub_rn(t1, t0), 0.5f);
+  const float mu2 = __fmul_rn(mu, mu), hw2 = __fmul_rn(hw, hw), hw4 = __fmul_rn(hw2, hw2);
+  const float den = __fadd_rn(__fmul_rn(3.f, mu2), hw2);
+  const float t_mean = __fadd_rn(mu, __fdiv_rn(__fmul_rn(__fmul_rn(2.f, mu), hw2), den));
+  const float t_var = __fsub_rn(
+      __fdiv_rn(hw2, 3.f),
+      __fmul_rn(C4_15, __fdiv_rn(__fmul_rn(hw4, __fsub_rn(__fmul_rn(12.f, mu2), hw2)),
+                                 __fmul_rn(den, den))));
+  const float r_var = __fmul_rn(
+      __fmul_rn(radius, radius),
+      __fsub_rn(__fadd_rn(__fmul_rn(mu2, 0.25f), __fmul_rn(C5_12, hw2)),
+                __fdiv_rn(__fmul_rn(C4_15, hw4), den)));
+  float d2[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) d2[c] = __fmul_rn(d[c], d[c]);
+  const float dmag = fmaxf(__fadd_rn(__fadd_rn(d2[0], d2[1]), d2[2]), 1e-10f);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    m[c] = __fadd_rn(__fmul_rn(d[c], t_mean), o[c]);
+    v[c] = __fadd_rn(__fmul_rn(t_var, d2[c]), __fmul_rn(r_var, __fsub_rn(1.f, __fdiv_rn(d2[c], dmag))));
+  }
+}
+
+// Feature f (0..47: degree f / 3, coordinate f % 3, known only at run time)
+// of a half of the IPE: exp(-4^l v / 2) sin(2^l m (+ pi / 2 for the second
+// half)); 0 where the attenuation is 0 or the row is padding. The powers of
+// two are built from their bits, exactly
+__device__ __forceinline__ float ipe_feature(const float (&m)[3], const float (&v)[3], int f,
+                                             int half, bool valid) {
+  const int l = f / 3, c = f % 3;
+  const float mc = c == 0 ? m[0] : (c == 1 ? m[1] : m[2]), vc = c == 0 ? v[0] : (c == 1 ? v[1] : v[2]);
+  const float y = __fmul_rn(mc, __int_as_float((127 + l) << 23));                 // 2^l mc
+  const float att = expf(__fmul_rn(-0.5f, __fmul_rn(vc, __int_as_float((127 + 2 * l) << 23))));
+  if (!valid || att == 0.f) return 0.f;
+  return __fmul_rn(att, sinf(half ? __fadd_rn(y, HALF_PI_F) : y));
+}
+
+// The published pos_enc of a view direction, column k: [d, sin(2^l d),
+// sin(2^l d + pi / 2)], degree-major, L degrees; 0 past 3 + 6 L
+__device__ __forceinline__ float mip_dir_xyz(float x0, float x1, float x2, int k, int L) {
+  if (k < 3) return k == 0 ? x0 : (k == 1 ? x1 : x2);
+  const int j = k - 3;
+  if (j >= 6 * L) return 0.f;
+  const int i = j % (3 * L), band = i / 3, c = i % 3;
+  float ph = __fmul_rn(c == 0 ? x0 : (c == 1 ? x1 : x2), ldexpf(1.f, band));
+  if (j >= 3 * L) ph = __fadd_rn(ph, HALF_PI_F);
+  return sinf(ph);
+}
+
+__device__ __forceinline__ float softplus(float x) {
+  return __fadd_rn(fmaxf(x, 0.f), log1pf(expf(-fabsf(x))));
+}
+
+// The mip skip product: acc += enc @ wskip over K = 96, two chunks (the
+// second's rows 96..127 are zero and not multiplied)
+template <typename RingT_>
+__device__ __forceinline__ void mip_skip(float (&acc)[128], RingT_& ring, bool leader,
+                                         uint64_t enc_desc, uint64_t enc2_desc) {
+  fence_regs(acc);
+  wgmma_fence();
+  {
+    const uint64_t b = sw128_desc(ring.acquire());
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss_n256(acc, enc_desc + 2 * kk, b + 2 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    ring.release(leader);
+  }
+  {
+    const uint64_t b = sw128_desc(ring.acquire());
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) wgmma_ss_n256(acc, enc2_desc + 2 * kk, b + 2 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    ring.release(leader);
+  }
+  fence_regs(acc);
+}
+
 // One consumer warpgroup (c = 0, 1). The raw forms and the per-sample
 // kernel: rows n0 .. n0 + 63 of every tile of this block. The composited
 // modes (COMP): the rows of its lane of rays, 64 at a time, in order.
-template <int MODE, bool COMP>
+template <int MODE, bool COMP, int ENC = ENC_POINT>
 __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, int c) {
   constexpr bool RAYS = MODE != SAMPLES;
+  constexpr bool MIP = ENC == ENC_MIP;
   static_assert(RAYS || !COMP, "the per-sample kernel has no composited mode");
+  static_assert(!MIP || (RAYS && !COMP && WQ == WQ_BF16),
+                "the mip kernels are ray kernels, raw form, bf16 weights");
   const int t = threadIdx.x - 128 * (c + 1);
   const int warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
   const bool leader = t == 0;
@@ -679,8 +806,11 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
         const long long r = r_lo + sl;
         float d[3] = {p.rays_d[r * 3], p.rays_d[r * 3 + 1], p.rays_d[r * 3 + 2]};
         if (net.normalize_dirs) normalize_dir(d);
-        denc[e] = __bfloat162float(
-            __float2bfloat16_rn(encode_xyz(d[0], d[1], d[2], k, net.Ld, net.band_scale)));
+        if constexpr (MIP)
+          denc[e] = __bfloat162float(__float2bfloat16_rn(mip_dir_xyz(d[0], d[1], d[2], k, net.Ld)));
+        else
+          denc[e] = __bfloat162float(
+              __float2bfloat16_rn(encode_xyz(d[0], d[1], d[2], k, net.Ld, net.band_scale)));
       }
       named_sync(bar_id);
       for (int e = t; e < nr * CH; e += 128) {
@@ -697,8 +827,46 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
     //    fma; per sample: read) and its encoding: thread t takes row t % 64
     //    and half t / 64 of its columns (whole warps per half, so the column
     //    pattern is known when compiled); per sample, half 0 also encodes the
-    //    row's direction into its bf16 tile
-    {
+    //    row's direction into its bf16 tile. The mip kernels: the row's
+    //    interval, its Gaussian and the half of its IPE the thread writes
+    //    (half 0 the sines, K 0..47; half 1 the shifted sines, K 48..95:
+    //    pieces 6, 7 of the encoding tile and 0..3 of the second tile)
+    if constexpr (MIP) {
+      const int row = t & (RW_ROWS - 1);
+      const long long n = n0 + row;
+      const bool valid = n < n_end;
+      float m[3] = {0.f, 0.f, 0.f}, v[3] = {0.f, 0.f, 0.f};
+      if (valid) {
+        const long long r = n / p.S;
+        const int s = int(n - r * p.S);
+        float t0, t1;
+        if (MODE == RAYS_Z) {
+          t0 = p.z[r * p.z_stride + s];
+          t1 = p.z[r * p.z_stride + s + 1];
+        } else {
+          t0 = mip_edge(p, s);
+          t1 = mip_edge(p, s + 1);
+        }
+        mip_gaussian(p.rays_o + r * 3, p.rays_d + r * 3, t0, t1, p.radius, m, v);
+      }
+      const int half = t / RW_ROWS;
+      unsigned char* dst = enc + (row >> 3) * 1024 + (row & 7) * 128;
+      unsigned char* dst2 = sm + p.enc2_off + c * ENC_TILE + (row >> 3) * 1024 + (row & 7) * 128;
+      // the pieces one at a time: unrolled, the 48 sines' full range
+      // reductions made the kernel 16% slower (19,900 lines of SASS against
+      // 11,100), with the same values
+#pragma unroll 1
+      for (int pc = 0; pc < 6; ++pc) {
+        uint32_t w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          w[j] = pack_bf16(ipe_feature(m, v, 8 * pc + 2 * j, half, valid),
+                           ipe_feature(m, v, 8 * pc + 2 * j + 1, half, valid));
+        const int ck = 6 * half + pc;   // 16-byte piece of K 8 ck .. 8 ck + 7
+        *reinterpret_cast<uint4*>((ck < 8 ? dst : dst2) + (((ck & 7) ^ (row & 7)) << 4)) =
+            make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    } else {
       const int row = t & (RW_ROWS - 1);
       const long long n = n0 + row;
       const bool valid = n < n_end;
@@ -791,8 +959,8 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
       }
     } else {
       // 3. layer 0 from the encoding, one chunk (per sample, the
-      //    accumulators are set only here, as above)
-      if constexpr (MODE == SAMPLES) {
+      //    accumulators are set only here, as above; mip: two chunks, K 96)
+      if constexpr (MODE == SAMPLES || MIP) {
 #pragma unroll
         for (int i = 0; i < 128; ++i) acc[i] = 0.f;
       }
@@ -806,12 +974,27 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
         wgmma_wait<0>();
         ring.release(leader);
       }
+      if constexpr (MIP) {
+        const uint64_t enc2_desc = sw128_desc(smem_u32(sm + p.enc2_off + c * ENC_TILE));
+        const uint64_t b = sw128_desc(ring.acquire());
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) wgmma_ss_n256(acc, enc2_desc + 2 * kk, b + 2 * kk, 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        ring.release(leader);
+      }
       fence_regs(acc);
       epilogue_to_a(acc, a, par + P_B0, q, true);
 
       // 4. trunk layers 1..7, the skip product accumulated at skip_pos
       for (int i = 1; i < 8; ++i) {
-        hidden_layer(acc, a, ring, leader, i == net.skip_pos, enc_desc);
+        if constexpr (MIP) {
+          hidden_layer(acc, a, ring, leader, false, enc_desc);
+          if (i == net.skip_pos)
+            mip_skip(acc, ring, leader, enc_desc, sw128_desc(smem_u32(sm + p.enc2_off + c * ENC_TILE)));
+        } else {
+          hidden_layer(acc, a, ring, leader, i == net.skip_pos, enc_desc);
+        }
         epilogue_to_a(acc, a, par + P_BT + (i - 1) * HID, q, true);
       }
     }
@@ -835,6 +1018,10 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
     if (net.relu_sigma) {
       sg0 = fmaxf(sg0, 0.f);
       sg1 = fmaxf(sg1, 0.f);
+    }
+    if constexpr (MIP) {
+      sg0 = softplus(__fadd_rn(sg0, p.density_bias));
+      sg1 = softplus(__fadd_rn(sg1, p.density_bias));
     }
 
     // 6. bmild bottleneck (no activation)
@@ -908,6 +1095,10 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
       c1[k] += __shfl_xor_sync(FULL, c1[k], 2);
       c0[k] = 1.f / (1.f + expf(-(c0[k] + par[P_BC1 + k])));
       c1[k] = 1.f / (1.f + expf(-(c1[k] + par[P_BC1 + k])));
+      if constexpr (MIP) {
+        c0[k] = __fsub_rn(__fmul_rn(c0[k], p.rgb_scale), p.rgb_padding);
+        c1[k] = __fsub_rn(__fmul_rn(c1[k], p.rgb_scale), p.rgb_padding);
+      }
     }
 
     // 9. lane q = 0 of the quad writes row g, q = 1 row g + 8: to the
@@ -1093,7 +1284,7 @@ __device__ __forceinline__ void producer_q(const RwParams& p, unsigned char* sm)
   }
 }
 
-template <int MODE, bool COMP = false>
+template <int MODE, bool COMP = false, int ENC = ENC_POINT>
 __device__ __forceinline__ void ray_wgmma_body(const RwParams& p, unsigned char* smem_raw) {
   unsigned char* sm = aligned_smem(smem_raw);
   const Net& net = p.net;
@@ -1128,7 +1319,7 @@ __device__ __forceinline__ void ray_wgmma_body(const RwParams& p, unsigned char*
       producer(p, sm);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    consumer<MODE, COMP>(p, sm, threadIdx.x / 128 - 1);
+    consumer<MODE, COMP, ENC>(p, sm, threadIdx.x / 128 - 1);
   }
 }
 
@@ -1158,6 +1349,18 @@ __global__ void __launch_bounds__(RW_THREADS, 1) mlp_wgmma_kernel(const __grid_c
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   ray_wgmma_body<SAMPLES>(p, smem_raw);
 }
+
+#if NERF_WQ == 0
+__global__ void __launch_bounds__(RW_THREADS, 1) ray_mip_wgmma_kernel(const __grid_constant__ RwParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  ray_wgmma_body<RAYS_UNIFORM, false, ENC_MIP>(p, smem_raw);
+}
+
+__global__ void __launch_bounds__(RW_THREADS, 1) ray_z_mip_wgmma_kernel(const __grid_constant__ RwParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  ray_wgmma_body<RAYS_Z, false, ENC_MIP>(p, smem_raw);
+}
+#endif
 
 // The L2 probe: every block streams a buffer of 32 KB chunks `reps` times
 // through the same ring, the producer's way (bulk copies, full/empty
@@ -1224,6 +1427,21 @@ int composited_grid(long long n_rays) {
 }
 int land_offset(int nr_max) { return ring_offset(nr_max) + ring_stages(nr_max) * CHUNK_BIG; }
 size_t rw_smem_bytes(int nr_max) { return 1024 + land_offset(nr_max) + size_t(LANDS) * LAND_BYTES; }
+
+// The mip kernels' map after the direction branch and the (unused)
+// composited state: the second encoding tiles of the two consumers,
+// 1024-aligned, then the ring
+int mip_enc2_offset(int nr_max) {
+  return (state_offset(nr_max) + 2 * 2 * STATE_FLOATS * int(sizeof(float)) + 1023) / 1024 * 1024;
+}
+int mip_ring_offset(int nr_max) { return mip_enc2_offset(nr_max) + 2 * ENC_TILE; }
+int mip_ring_stages(int nr_max) {
+  const int n = (SMEM_MAX - 1024 - mip_ring_offset(nr_max)) / CHUNK_BIG;
+  return n < STAGES_MAX ? n : STAGES_MAX;
+}
+size_t mip_smem_bytes(int nr_max) {
+  return 1024 + mip_ring_offset(nr_max) + size_t(mip_ring_stages(nr_max)) * CHUNK_BIG;
+}
 
 // Chunks of the weight stream (ops/ray_wgmma.chunk_schedule): w0, 7 trunk
 // layers of 4 slabs (2 on the int8-compute route), wskip, 4 bottleneck
@@ -1363,6 +1581,74 @@ int mlp_wgmma_forward(const float* pos, const float* dirs, long long n, const vo
   mlp_wgmma_kernel<<<unsigned(grid), RW_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return int(cudaGetLastError());
 }
+
+// The mip kernels (bf16 build only): K1-mip at S uniform intervals of
+// [near, far] (edges null) or K3-mip at the intervals of edges [R, S + 1]
+// (row stride edge_stride, 0 for one row shared); out [R * S, 4] fp32 or
+// bf16 (out_mode) per interval (density, r, g, b). The weights and their
+// stream as ray_wgmma_render's, with w0 and wskip of 128 rows (96 used).
+int ray_mip_wgmma_render(const float* rays_o, const float* rays_d, const float* edges,
+                         long long edge_stride, int n_rays, int n_intervals, float near, float far,
+                         float radius, const void* wstream, const void* const* weights, int Lp,
+                         int Ld, int skip_pos, int bmild, int relu_sigma, int normalize_dirs,
+                         float band_scale, float density_bias, float rgb_scale, float rgb_padding,
+                         int out_mode, void* out, void* stream) {
+#if NERF_WQ != 0
+  return int(cudaErrorInvalidValue);
+#else
+  RwParams p;
+  p.net = make_net(weights, nullptr, Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs,
+                   band_scale);
+  p.wstream = static_cast<const unsigned char*>(wstream);
+  p.rays_o = rays_o;
+  p.rays_d = rays_d;
+  p.z = edges;
+  p.z_stride = edge_stride;
+  p.pos = p.dirs = nullptr;
+  p.out = out;
+  p.w = nullptr;
+  p.total = (long long)n_rays * n_intervals;
+  p.tiles = (p.total + RW_TILE - 1) / RW_TILE;
+  p.n_rays = n_rays;
+  p.S = n_intervals;
+  p.nr_max = n_intervals > 0 ? (RW_ROWS - 1) / n_intervals + 2 : 2;
+  p.n_chunks = stream_chunks(bmild) + 2;   // w0 and wskip: two chunks each
+  p.n_small = N_SMALL_RAYS;
+  p.out_mode = out_mode;
+  p.composited = p.lanes = 0;
+  p.near = near;
+  p.span = far - near;
+  p.dz = p.sentinel = p.eps = 0.f;
+  p.enc2_off = mip_enc2_offset(p.nr_max);
+  p.far = far;
+  p.radius = radius;
+  p.density_bias = density_bias;
+  p.rgb_scale = rgb_scale;
+  p.rgb_padding = rgb_padding;
+  p.ring_off = mip_ring_offset(p.nr_max);
+  p.stages = mip_ring_stages(p.nr_max);
+  p.land_off = p.ring_off + p.stages * CHUNK_BIG;
+  if (n_intervals < 1 || p.stages < 2 || !net_fits(p.net) ||
+      (out_mode != OUT_F32 && out_mode != OUT_BF16) || n_rays < 0 || !wstream || !bmild ||
+      !p.net.wbn || !p.net.bbn || relu_sigma || skip_pos < 1 || skip_pos > 7)
+    return int(cudaErrorInvalidValue);
+  if (p.total == 0) return int(cudaSuccess);
+  if (p.tiles > 0x7fffffff) return int(cudaErrorInvalidValue);
+  void (*kernel)(const RwParams) = edges ? ray_z_mip_wgmma_kernel : ray_mip_wgmma_kernel;
+  const size_t smem = mip_smem_bytes(p.nr_max);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const long long grid = p.tiles < sm_count() ? p.tiles : sm_count();
+  kernel<<<unsigned(grid), RW_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return int(cudaGetLastError());
+#endif
+}
+// the mip kernels' dynamic shared memory and ring stages at S intervals
+long long ray_mip_wgmma_smem_bytes(int n_intervals) {
+  return (long long)mip_smem_bytes((RW_ROWS - 1) / n_intervals + 2);
+}
+int ray_mip_wgmma_stages(int n_intervals) { return mip_ring_stages((RW_ROWS - 1) / n_intervals + 2); }
 
 // `blocks` blocks each stream `bytes` (a multiple of 32 KB) `reps` times.
 int l2_stream_probe(const void* buf, long long bytes, int reps, int blocks, void* stream) {

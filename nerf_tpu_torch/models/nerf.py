@@ -59,7 +59,7 @@ def init_nerf_params(generator: torch.Generator, cfg: ModelConfig,
         "color0": _linear_init(generator, h + dir_dim, cfg.color_hidden_dim),
         "color1": _linear_init(generator, cfg.color_hidden_dim, 3),
     }
-    if cfg.variant == "bmild":
+    if cfg.variant in ("bmild", "mip"):
         params["bottleneck"] = _linear_init(generator, h, h)
     return _to(params, dev)
 

@@ -31,6 +31,13 @@ for K6); on CPU tensors both run ``fused_volume_render_interleaved_plain``
 records one span, ``kernel.k2`` or ``kernel.k6`` (``utils/monitor.span``),
 from that choice until the launch is enqueued.
 
+K2's edges form (``composite_edges``, ``composite_edges_kernel``; plain
+twin ``composite_edges_plain``, counted in ``edges_launches``, span
+``kernel.k2``) composites the mip variant's intervals: ``raw [N, 4S]``
+between edges ``[N, S + 1]``, ``utils/rendering.composite_intervals``'
+arithmetic (no sentinel, no ReLU, ``exp(-cumsum)`` transmittance, depth at
+the midpoints, normalized and clipped in the kernel).
+
 K2 is ``composite_rays_kernel``. Its launch, ``_launch(raw, z_vals, rays_d,
 sentinel, eps, with_weights=True, kernel=KERNEL)``, writes the weights
 ``w [N, S]`` only with ``with_weights``, and returns ``(out [N, 8], w or
@@ -54,7 +61,7 @@ import torch
 from nerf_tpu_torch.config import RenderConfig
 from nerf_tpu_torch.ops import _ext
 from nerf_tpu_torch.utils.monitor import span
-from nerf_tpu_torch.utils.rendering import RenderOutputs, volume_render
+from nerf_tpu_torch.utils.rendering import RenderOutputs, composite_intervals, volume_render
 
 # Launches of the CUDA kernels (not of the plain version); a launch recorded
 # into a CUDA graph is not one (_ext.ran).
@@ -63,9 +70,11 @@ bf16_launches = 0     # those of K2's launches that read a bfloat16 raw
 weightless_launches = 0   # those of K2's launches that wrote no weights
 old_launches = 0      # the first K2 (OLD_KERNEL), a timed comparison only
 planar_launches = 0   # K6, planar
+edges_launches = 0    # K2's edges form (EDGES_KERNEL), the mip variant's intervals
 
 KERNEL = "composite_rays_kernel"            # K2
 OLD_KERNEL = "composite_kernel"             # the first K2: timed comparisons only
+EDGES_KERNEL = "composite_edges_kernel"     # K2's edges form
 
 
 # -- K2's schedule (csrc/composite.cu segment_lanes, run_length, rays_grid) ----
@@ -253,6 +262,82 @@ def composite_rays(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor
         else:
             out, w = _launch(raw, z_vals, rays_d, cfg.dist_sentinel,
                              cfg.transmittance_eps, with_weights)
+    return _outputs(out, w, cfg)
+
+
+# -- K2's edges form: Mip-NeRF's intervals -------------------------------------
+
+def composite_edges_plain(raw: torch.Tensor, edges: torch.Tensor, rays_d: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-PyTorch version of ``composite_edges_kernel``: ``raw [N, 4S]``
+    (per interval ``(density, r, g, b)``, float32 or bfloat16) between
+    ``edges [N, S + 1]`` -> ``(out [N, 8], w [N, S])``, ``out = (r, g, b,
+    depth, acc, 0, 0, 0)``: ``utils/rendering.composite_intervals`` without
+    the background (the depth normalized and clipped there)."""
+    raw = raw.float()
+    n = raw.shape[0]
+    dens = raw[:, 0::4]
+    rgb = torch.stack([raw[:, 1::4], raw[:, 2::4], raw[:, 3::4]], dim=-1)
+    res = composite_intervals(dens, rgb, edges.float(), rays_d.float(), False)
+    zeros = torch.zeros(n, 3, dtype=torch.float32, device=raw.device)
+    out = torch.cat([res.rgb, res.depth[:, None], res.acc[:, None], zeros], dim=-1)
+    return out, res.weights
+
+
+_EDGES_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+
+
+def _launch_edges(raw, edges, rays_d, with_weights=True):
+    """Launch ``composite_edges_kernel`` on CUDA tensors: ``(out [N, 8], w
+    [N, S] or None)``."""
+    global edges_launches
+    n, s4 = raw.shape
+    s = s4 // 4
+    dev = raw.device
+    if raw.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"raw must be float32 or bfloat16, got {raw.dtype}")
+    for name, t in (("edges", edges), ("rays_d", rays_d)):
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"{name} must be float32 on {dev}")
+    if (not raw.is_contiguous() or edges.shape != (n, s + 1) or edges.stride(1) != 1
+            or rays_d.shape != (n, 3)):
+        raise ValueError("raw must be contiguous [N, 4S], edges [N, S + 1] with unit "
+                         "stride along the ray and rays_d [N, 3]")
+    raw_bf16 = raw.dtype == torch.bfloat16
+    if raw.data_ptr() % (8 if raw_bf16 else 16):
+        raise ValueError("raw must start on a sample's boundary")
+    rays_d = rays_d.contiguous()
+    out = torch.empty(n, 8, dtype=torch.float32, device=dev)
+    w = torch.empty(n, s, dtype=torch.float32, device=dev) if with_weights else None
+    if n == 0:
+        return out, w
+    lib = _ext.load("composite")
+    fn = lib.composite_edges
+    fn.argtypes = _EDGES_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(_ext.ptr(raw), int(raw_bf16), _ext.ptr(edges), edges.stride(0), _ext.ptr(rays_d),
+             n, s, _ext.ptr(out), None if w is None else _ext.ptr(w), _ext.stream_ptr(dev))
+    _ext.check(lib, err, f"{EDGES_KERNEL} launch")
+    edges_launches += _ext.ran()
+    return out, w
+
+
+def composite_edges(raw: torch.Tensor, edges: torch.Tensor, rays_d: torch.Tensor,
+                    cfg: RenderConfig = RenderConfig(),
+                    with_weights: bool = True) -> RenderOutputs:
+    """K2's edges form: the mip variant's ``raw [N, 4S]`` composited over
+    the intervals ``edges [N, S + 1]`` (``composite_intervals``), the white
+    background added here; ``weights`` None unless ``with_weights``."""
+    if raw.shape[1] % 4:
+        raise ValueError(f"raw must be [N, 4S], got {tuple(raw.shape)}")
+    with span("kernel.k2"):
+        if raw.device.type == "cpu":
+            out, w = composite_edges_plain(raw, edges, rays_d)
+            w = w if with_weights else None
+        else:
+            out, w = _launch_edges(raw, edges, rays_d, with_weights)
     return _outputs(out, w, cfg)
 
 

@@ -66,19 +66,20 @@ WMMA_LIBRARY = "mlp_forward"
 
 HID = 256
 POS_ROWS = 64   # padded position-encoding width (3 + 6 * 10 = 63)
+MIP_ROWS = 128  # padded IPE width of the mip variant (6 * 16 = 96)
 DIR_ROWS = 32   # padded direction-encoding width (3 + 6 * 4 = 27)
 
 
 class PackedWeights(NamedTuple):
-    w0: torch.Tensor              # [POS_ROWS, 256] trunk layer 0
+    w0: torch.Tensor              # [POS_ROWS, 256] trunk layer 0 (mip: [MIP_ROWS, 256])
     b0: torch.Tensor              # [256] f32
     wt: torch.Tensor              # [7, 256, 256] trunk layers 1..7 (hidden rows)
     bt: torch.Tensor              # [7, 256] f32
-    wskip: torch.Tensor           # [POS_ROWS, 256] encoding rows of the skip layer
+    wskip: torch.Tensor           # [POS_ROWS, 256] encoding rows of the skip layer (mip: MIP_ROWS)
     wsig: torch.Tensor            # [256] density column
     bsig: torch.Tensor            # [1] f32
-    wbn: Optional[torch.Tensor]   # bmild: [256, 256] bottleneck
-    bbn: Optional[torch.Tensor]   # bmild: [256] f32
+    wbn: Optional[torch.Tensor]   # bmild, mip: [256, 256] bottleneck
+    bbn: Optional[torch.Tensor]   # bmild, mip: [256] f32
     wc0: torch.Tensor             # [256, 128] color layer, hidden/bottleneck rows
     bc0: torch.Tensor             # [128] f32
     wdir: torch.Tensor            # [DIR_ROWS, 128] color layer, direction rows
@@ -91,9 +92,26 @@ def skip_position(cfg: ModelConfig) -> int:
     concatenates before ``skip_layer``, bmild after it."""
     if cfg.variant == "reference":
         return cfg.skip_layer
-    if cfg.variant == "bmild":
+    if cfg.variant in ("bmild", "mip"):
         return cfg.skip_layer + 1
     raise ValueError(f"unknown variant {cfg.variant}")
+
+
+def has_bottleneck(cfg: ModelConfig) -> bool:
+    """bmild and mip put a linear bottleneck between the trunk and the color
+    layer."""
+    return cfg.variant in ("bmild", "mip")
+
+
+def pos_rows(cfg: ModelConfig) -> int:
+    """Rows of ``w0`` and ``wskip``: the encoding padded for the kernels."""
+    return MIP_ROWS if cfg.variant == "mip" else POS_ROWS
+
+
+def skip_h_first(cfg: ModelConfig) -> bool:
+    """Whether the skip layer's input is ``[h, enc]`` (else ``[enc, h]``), as
+    the variant fixes it."""
+    return cfg.variant in ("reference", "mip")
 
 
 def pack_params(params, cfg: ModelConfig, dtype=torch.bfloat16) -> PackedWeights:
@@ -102,8 +120,8 @@ def pack_params(params, cfg: ModelConfig, dtype=torch.bfloat16) -> PackedWeights
             and cfg.color_hidden_dim == 128):
         raise ValueError("the fused kernel specializes the reference architecture "
                          "(256x8 trunk, 128 color); use apply_nerf for other sizes")
-    if cfg.pos_dim > POS_ROWS or cfg.dir_dim > DIR_ROWS:
-        raise ValueError(f"encodings wider than {POS_ROWS}/{DIR_ROWS} columns")
+    if cfg.pos_dim > pos_rows(cfg) or cfg.dir_dim > DIR_ROWS:
+        raise ValueError(f"encodings wider than {pos_rows(cfg)}/{DIR_ROWS} columns")
     pos_dim = cfg.pos_dim
     skip_pos = skip_position(cfg)
     trunk = params["trunk"]
@@ -119,20 +137,21 @@ def pack_params(params, cfg: ModelConfig, dtype=torch.bfloat16) -> PackedWeights
         return b.to(f32).contiguous()
 
     wsk = trunk[skip_pos]["w"]
-    if cfg.variant == "reference":                 # [h, enc] rows
+    if skip_h_first(cfg):                          # [h, enc] rows
         wsk_h, wsk_e = wsk[:HID], wsk[HID:]
     else:                                          # [enc, h] rows
         wsk_e, wsk_h = wsk[:pos_dim], wsk[pos_dim:]
     wt = [wsk_h if i == skip_pos else trunk[i]["w"] for i in range(1, 8)]
 
     wc0 = params["color0"]["w"]                    # [256 + dir_dim, 128]
-    bmild = cfg.variant == "bmild"
+    bmild = has_bottleneck(cfg)
+    rows = pos_rows(cfg)
     return PackedWeights(
-        w0=mat(trunk[0]["w"], POS_ROWS),
+        w0=mat(trunk[0]["w"], rows),
         b0=vec(trunk[0]["b"]),
         wt=torch.stack([mat(w) for w in wt]),
         bt=torch.stack([vec(trunk[i]["b"]) for i in range(1, 8)]),
-        wskip=mat(wsk_e, POS_ROWS),
+        wskip=mat(wsk_e, rows),
         wsig=mat(params["density"]["w"])[:, 0].contiguous(),
         bsig=vec(params["density"]["b"]),
         wbn=mat(params["bottleneck"]["w"]) if bmild else None,
@@ -149,7 +168,8 @@ def check_packed(packed: PackedWeights, cfg: ModelConfig, dev: torch.device) -> 
     """Raise unless ``packed`` is what the CUDA kernels take: ``pack_params``'
     layout for ``cfg``'s variant, bfloat16 matrices and float32 biases,
     contiguous, on ``dev``."""
-    if (cfg.variant == "bmild") != (packed.wbn is not None):
+    if has_bottleneck(cfg) != (packed.wbn is not None) or (
+            packed.w0.shape[0] != pos_rows(cfg)):
         raise ValueError(f"packed weights do not match variant {cfg.variant}")
     if packed.wt.shape != (7, HID, HID) or packed.wc1.shape != (HID // 2, 3):
         raise ValueError("packed weights are not in pack_params' layout")
@@ -164,8 +184,8 @@ def check_packed(packed: PackedWeights, cfg: ModelConfig, dev: torch.device) -> 
 def net_args(cfg: ModelConfig) -> tuple:
     """The architecture arguments every C entry point takes after the
     weights: Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs, band scale."""
-    return (cfg.pos_freqs, cfg.dir_freqs, skip_position(cfg),
-            int(cfg.variant == "bmild"), int(cfg.variant == "reference"),
+    return (0 if cfg.variant == "mip" else cfg.pos_freqs, cfg.dir_freqs, skip_position(cfg),
+            int(has_bottleneck(cfg)), int(cfg.variant == "reference"),
             int(cfg.normalize_dirs),
             float(np.float32(np.pi)) if cfg.posenc_pi else 1.0)
 

@@ -16,8 +16,9 @@ set of weights (cached beside them):
 - a chunk is a slab of one matrix, all its ``N`` columns (256, or 128 for
   ``wc0``), in the order the consumers multiply them (``chunk_schedule``):
   ``w0``; the slabs of each trunk layer ``wt[0..6]``, with ``wskip`` after
-  the layer at ``skip_pos``; those of ``wbn`` (bmild); those of ``wc0``. The
-  producer walks it front to back;
+  the layer at ``skip_pos``; those of ``wbn`` (bmild, mip); those of
+  ``wc0``. The mip variant's ``w0`` and ``wskip`` have 128 rows (the IPE's
+  96 and zeros), two slabs each. The producer walks it front to back;
 - bf16 route: a 64-row slab ``W[k0:k0 + 64, :]`` in the exact shared-memory
   image that ``wgmma``'s B descriptor reads: the slab transposed to ``[N,
   64]`` (K-major: each output column's 64 weights contiguous, 128 bytes), in
@@ -80,7 +81,15 @@ import torch
 
 from nerf_tpu_torch.config import ModelConfig
 from nerf_tpu_torch.ops import _ext, quant
-from nerf_tpu_torch.ops.mlp_kernel import HID, POS_ROWS, PackedWeights, net_args, skip_position
+from nerf_tpu_torch.ops.mlp_kernel import (
+    HID,
+    POS_ROWS,
+    PackedWeights,
+    has_bottleneck,
+    net_args,
+    pos_rows,
+    skip_position,
+)
 
 LIBRARY = "ray_wgmma"
 # the weight routes whose intN stream dequant_stream turns into the bf16
@@ -145,13 +154,15 @@ def chunk_schedule(cfg: ModelConfig, route: int = 0) -> List[Chunk]:
     trunk, k = ("s8", S8_K) if route == quant.ROUTE_INT8_COMPUTE else (head, CHUNK_K)
     slabs = lambda name, layer=None, n=HID, fmt=head, k=CHUNK_K: [
         Chunk(name, layer, k0, n, fmt, k) for k0 in range(0, HID, k)]
-    out = [Chunk("w0", None, 0, HID, trunk, k)]
+    # the encoding's rows: one chunk, or the mip variant's IPE in two
+    enc = lambda name: [Chunk(name, None, k0, HID, trunk, k) for k0 in range(0, pos_rows(cfg), k)]
+    out = enc("w0")
     skip_pos = skip_position(cfg)
     for i in range(1, 8):
         out += slabs("wt", i - 1, fmt=trunk, k=k)
         if i == skip_pos:
-            out.append(Chunk("wskip", None, 0, HID, trunk, k))
-    if cfg.variant == "bmild":
+            out += enc("wskip")
+    if has_bottleneck(cfg):
         out += slabs("wbn")
     return out + slabs("wc0", n=CH)
 
@@ -206,8 +217,9 @@ def _pack(weights, sched: List[Chunk]) -> torch.Tensor:
     route = route_of(weights)
     suffix = "_q" if route else ""
     for name in ("w0", "wskip"):
-        if getattr(weights, name + suffix).shape[0] != POS_ROWS:
-            raise ValueError(f"{name} must have {POS_ROWS} rows")
+        rows = max(c.k0 for c in sched if c.name == name) + CHUNK_K
+        if getattr(weights, name + suffix).shape[0] != rows:
+            raise ValueError(f"{name} must have {rows} rows")
     if route == 0:
         return torch.cat([_swizzled(_matrix(weights, c)[c.k0:c.k0 + CHUNK_K])
                           for c in sched]).contiguous()
@@ -417,6 +429,19 @@ ARGTYPES = (
 )
 
 
+MIP_ARGTYPES = (
+    [ctypes.c_void_p] * 3                 # rays_o, rays_d, edges (NULL: uniform)
+    + [ctypes.c_longlong]                 # edges row stride
+    + [ctypes.c_int] * 2                  # n_rays, intervals a ray
+    + [ctypes.c_float] * 3                # near, far, base radius
+    + [ctypes.c_void_p] * 2               # weight stream, weights (PackedWeights order)
+    + [ctypes.c_int] * 6 + [ctypes.c_float]   # net_args
+    + [ctypes.c_float] * 3                # density bias, rgb scale (1 + 2 pad), rgb padding
+    + [ctypes.c_int]                      # raw output form
+    + [ctypes.c_void_p] * 2               # out, stream
+)
+
+
 SAMPLE_ARGTYPES = (
     [ctypes.c_void_p] * 2                 # positions, directions
     + [ctypes.c_longlong]                 # N
@@ -432,6 +457,12 @@ def load(library: str = LIBRARY) -> ctypes.CDLL:
     if lib.ray_wgmma_render.argtypes is None:
         lib.ray_wgmma_render.argtypes = ARGTYPES
         lib.ray_wgmma_render.restype = ctypes.c_int
+        lib.ray_mip_wgmma_render.argtypes = MIP_ARGTYPES
+        lib.ray_mip_wgmma_render.restype = ctypes.c_int
+        lib.ray_mip_wgmma_smem_bytes.argtypes = [ctypes.c_int]
+        lib.ray_mip_wgmma_smem_bytes.restype = ctypes.c_longlong
+        lib.ray_mip_wgmma_stages.argtypes = [ctypes.c_int]
+        lib.ray_mip_wgmma_stages.restype = ctypes.c_int
         lib.mlp_wgmma_forward.argtypes = SAMPLE_ARGTYPES
         lib.mlp_wgmma_forward.restype = ctypes.c_int
         lib.mlp_wgmma_smem_bytes.restype = ctypes.c_longlong

@@ -52,6 +52,16 @@ composited by K2. The WMMA builds of ``csrc/render_samples.cu`` they
 replaced are reached only through ``library=``, to time them beside the
 Hopper kernels.
 
+The mip variant (Mip-NeRF, ``models/mip.py``) has two ray kernels of its
+own on the same body (``csrc/ray_wgmma.cu``, bf16 weights, raw output
+only): ``fused_render_mip_raw`` (K1-mip, ``ray_mip_wgmma_kernel``) at
+uniform intervals between near and far, ``fused_render_edges_mip_raw``
+(K3-mip, ``ray_z_mip_wgmma_kernel``) at per-ray edges ``[R, S + 1]``; a row
+is an interval of its ray's cone, encoded by the integrated positional
+encoding of its Gaussian. Their plain twins ``fused_render_mip_plain`` and
+``fused_render_edges_mip_plain``; spans ``kernel.k1`` and ``kernel.k3``;
+launches ``render_mip`` and ``render_edges_mip``.
+
 Arithmetic shared by both versions, and the tolerances it sets:
 
 - positions and phases in float32, ``sin``/``cos`` at full range reduction;
@@ -77,18 +87,24 @@ from typing import Optional, Tuple, Union
 import torch
 
 from nerf_tpu_torch.config import ModelConfig, RenderConfig
+from nerf_tpu_torch.models.encoding import cast_intervals, integrated_pos_enc, mip_dir_encoding
+from nerf_tpu_torch.models.mip import softplus
 from nerf_tpu_torch.models.nerf import apply_nerf
 from nerf_tpu_torch.ops import _ext, composite_kernel, mlp_kernel, quant, ray_wgmma, train_kernel
 from nerf_tpu_torch.ops.composite_kernel import fused_volume_render_interleaved_plain
 from nerf_tpu_torch.ops.mlp_kernel import (
+    DIR_ROWS,
+    MIP_ROWS,
     PackedWeights,
     check_packed,
     fused_nerf_apply_plain,
     net_args,
     pack_params,
+    skip_position,
 )
+from nerf_tpu_torch.utils.device import disable_tf32
 from nerf_tpu_torch.utils.monitor import span
-from nerf_tpu_torch.utils.rendering import RenderOutputs
+from nerf_tpu_torch.utils.rendering import RenderOutputs, uniform_edges
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
 # Launches of each CUDA kernel (not of the plain versions), and of the
@@ -101,7 +117,8 @@ from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 launches = {"render_samples": 0, "render_zvals": 0,
             "render_samples_composited": 0, "render_zvals_composited": 0,
             "planar": 0, "raw_bf16": 0, "dequant": 0, "int8": 0,
-            "wgmma_samples": 0, "wgmma_zvals": 0}
+            "wgmma_samples": 0, "wgmma_zvals": 0,
+            "render_mip": 0, "render_edges_mip": 0}
 
 # the WMMA build of csrc/render_samples.cu for each weight route (0: bf16
 # weights), which the Hopper kernels replaced: reached only through library=
@@ -571,3 +588,145 @@ def composited_to_outputs(out8: torch.Tensor, weights: Optional[torch.Tensor],
     if rcfg.white_background:
         rgb = rgb + (1.0 - acc[:, None])
     return RenderOutputs(rgb, out8[:, 3], acc, weights)
+
+
+# -- the mip variant's ray kernels (K1-mip, K3-mip) ---------------------------
+
+def _mip_plain(packed: PackedWeights, rays_o, rays_d, radius: float, edges: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """The mip kernels' arithmetic on the intervals ``edges [R, S + 1]``:
+    ``raw [R, 4S]``, per interval ``(density, r, g, b)``. The frustum's
+    Gaussian and its IPE in float32 (``models/encoding.py``), rounded to the
+    compute dtype of the packed matrices only as a product's operand; the
+    trunk, the skip product, the bottleneck and the color layer as
+    ``fused_nerf_apply_plain`` computes them; the mip heads on the float32
+    sums; view directions ``d * rsqrt(|d|^2 + 1e-12)``."""
+    disable_tf32()
+    o, d = rays_o.float(), rays_d.float()
+    R, S = edges.shape[0], edges.shape[1] - 1
+    dt = packed.w0.dtype
+
+    def mm(a, w):
+        return a.to(dt).float() @ w.float()
+
+    r = torch.full((R,), radius, dtype=torch.float32, device=o.device)
+    mean, cov = cast_intervals(o, d, r, edges.float())
+    enc = integrated_pos_enc(mean, cov, cfg.ipe_min_deg, cfg.ipe_max_deg).reshape(R * S, -1)
+    enc = torch.nn.functional.pad(enc, (0, MIP_ROWS - enc.shape[1])).to(dt)
+    h = torch.relu(mm(enc, packed.w0) + packed.b0).to(dt)
+    skip_pos = skip_position(cfg)
+    for i in range(1, 8):
+        y = mm(h, packed.wt[i - 1])
+        if i == skip_pos:
+            y = y + mm(enc, packed.wskip)
+        h = torch.relu(y + packed.bt[i - 1]).to(dt)
+    sigma = softplus(mm(h, packed.wsig[:, None])[:, 0] + packed.bsig + cfg.density_bias)
+    dn = d * torch.rsqrt((d * d).sum(-1, keepdim=True) + 1e-12)
+    denc = torch.nn.functional.pad(mip_dir_encoding(dn, cfg.dir_freqs),
+                                   (0, DIR_ROWS - cfg.dir_dim)).to(dt)
+    feat = mm(h, packed.wbn) + packed.bbn
+    c_pre = mm(feat, packed.wc0) + mm(denc, packed.wdir).repeat_interleave(S, dim=0) + packed.bc0
+    c = torch.relu(c_pre).to(dt)
+    rgb = torch.sigmoid(mm(c, packed.wc1) + packed.bc1)
+    rgb = rgb * (1 + 2 * cfg.rgb_padding) - cfg.rgb_padding
+    return torch.cat([sigma[:, None], rgb], dim=-1).reshape(R, 4 * S)
+
+
+def fused_render_mip_plain(packed: PackedWeights, rays_o, rays_d, radius: float, near: float,
+                           far: float, n_intervals: int, cfg: ModelConfig) -> torch.Tensor:
+    """Plain-PyTorch version of K1-mip (``ray_mip_wgmma_kernel``): the
+    network at ``n_intervals`` uniform intervals between ``near`` and
+    ``far`` (``utils/rendering.uniform_edges``), ``raw [R, 4S]`` float32."""
+    edges = uniform_edges(near, far, n_intervals + 1, rays_o.device)
+    return _mip_plain(packed, rays_o, rays_d, radius,
+                      edges.expand(rays_o.shape[0], n_intervals + 1), cfg)
+
+
+def fused_render_edges_mip_plain(packed: PackedWeights, rays_o, rays_d, radius: float,
+                                 edges: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Plain-PyTorch version of K3-mip (``ray_z_mip_wgmma_kernel``): the
+    network at per-ray intervals ``edges [R, S + 1]``, ``raw [R, 4S]``."""
+    return _mip_plain(packed, rays_o, rays_d, radius, edges, cfg)
+
+
+def _launch_mip(packed, rays_o, rays_d, radius, near, far, S, cfg: ModelConfig,
+                edges: Optional[torch.Tensor] = None, raw_dtype: torch.dtype = torch.float32):
+    """Launch K1-mip (``edges`` None: ``S`` uniform intervals) or K3-mip
+    (``edges [R, S + 1]``, unit stride along the ray) on bf16
+    ``PackedWeights``: ``raw [R, 4S]`` in ``raw_dtype``."""
+    dev = rays_o.device
+    R = rays_o.shape[0]
+    if cfg.variant != "mip" or (cfg.ipe_min_deg, cfg.ipe_max_deg) != (0, 16):
+        raise ValueError("the mip kernels compute the mip variant at IPE degrees 0..15")
+    if not isinstance(packed, PackedWeights):
+        raise ValueError("the mip kernels take bf16 PackedWeights (no quantized route)")
+    for name, t in (("rays_o", rays_o), ("rays_d", rays_d)):
+        if t.dtype != torch.float32 or t.shape != (R, 3) or t.device != dev:
+            raise ValueError(f"{name} must be float32 [R, 3] on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    check_packed(packed, cfg, dev)
+    if raw_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"raw_dtype {raw_dtype}: the raw output is float32 or bfloat16")
+    stride = 0
+    if edges is not None:
+        if (edges.dtype != torch.float32 or edges.device != dev
+                or edges.shape != (R, S + 1) or edges.stride(1) != 1):
+            raise ValueError(f"edges must be float32 [R, S + 1] = {(R, S + 1)} with unit "
+                             f"stride along the ray on {dev}, got {edges.dtype} "
+                             f"{tuple(edges.shape)} on {edges.device}")
+        stride = edges.stride(0)
+    if S < 1:
+        raise ValueError("need at least one interval a ray")
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+    out = torch.empty(R * S, 4, dtype=raw_dtype, device=dev)
+    if R == 0:
+        return out.reshape(R, 4 * S)
+    lib = ray_wgmma.load()
+    stream = ray_wgmma.stream_for(packed, cfg)
+    err = lib.ray_mip_wgmma_render(
+        _ext.ptr(rays_o), _ext.ptr(rays_d), None if edges is None else _ext.ptr(edges), stride,
+        R, S, float(near), float(far), float(radius), _ext.ptr(stream),
+        _ext.pointer_array(packed), *net_args(cfg), float(cfg.density_bias),
+        float(1 + 2 * cfg.rgb_padding), float(cfg.rgb_padding),
+        _OUT_BF16 if raw_dtype == torch.bfloat16 else _OUT_F32, _ext.ptr(out),
+        _ext.stream_ptr(dev))
+    name = "render_mip" if edges is None else "render_edges_mip"
+    _ext.check(lib, err, f"{name} launch ({ray_wgmma.LIBRARY})")
+    ran = _ext.ran()
+    launches[name] += ran
+    if raw_dtype == torch.bfloat16:
+        launches["raw_bf16"] += ran
+    return out.reshape(R, 4 * S)
+
+
+def fused_render_mip_raw(params, rays_o: torch.Tensor, rays_d: torch.Tensor, radius: float,
+                         near: float, far: float, n_intervals: int, cfg: ModelConfig,
+                         dtype: torch.dtype = torch.bfloat16,
+                         raw_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The mip network at ``n_intervals`` uniform intervals between ``near``
+    and ``far`` of every ray's cone (K1-mip, ``ray_mip_wgmma_kernel``),
+    base radius ``radius``: ``raw [R, 4S]``, per interval ``(density, r, g,
+    b)``, in ``raw_dtype``. ``params``: a params dict (packed here, in
+    ``dtype``) or ``PackedWeights``."""
+    packed = _packed(params, cfg, dtype)
+    with span("kernel.k1"):
+        if rays_o.device.type == "cpu":
+            return fused_render_mip_plain(packed, rays_o, rays_d, radius, near, far,
+                                          n_intervals, cfg).to(raw_dtype)
+        return _launch_mip(packed, rays_o, rays_d, radius, near, far, n_intervals, cfg,
+                           raw_dtype=raw_dtype)
+
+
+def fused_render_edges_mip_raw(params, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                               radius: float, edges: torch.Tensor, cfg: ModelConfig,
+                               dtype: torch.dtype = torch.bfloat16,
+                               raw_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The mip network at per-ray intervals ``edges [R, S + 1]`` (K3-mip,
+    ``ray_z_mip_wgmma_kernel``): ``raw [R, 4S]`` in ``raw_dtype``."""
+    packed = _packed(params, cfg, dtype)
+    with span("kernel.k3"):
+        if rays_o.device.type == "cpu":
+            return fused_render_edges_mip_plain(packed, rays_o, rays_d, radius, edges,
+                                                cfg).to(raw_dtype)
+        return _launch_mip(packed, rays_o, rays_d, radius, 0.0, 0.0, edges.shape[1] - 1, cfg,
+                           edges=edges, raw_dtype=raw_dtype)

@@ -36,6 +36,15 @@ at the merged, sorted ``n_coarse + n_fine`` depths):
   through K4: ``grid_guided_z_vals`` -> K3 -> K2 (composited K3 with
   ``fuse_composite``).
 
+The mip variant (``cfg.model.variant == "mip"``, ``models/mip.py``) takes
+its own path by the variant alone, one network for both passes:
+``TorchEngine`` runs ``render_mip_rays``; ``CudaEngine`` K1-mip at the
+uniform intervals -> K2's edges form (with weights) -> ``mip_resample``
+(span ``mip.resample``) -> K3-mip at the fine intervals -> K2's edges form,
+at the frame's pixel radius (``utils/cameras.pixel_radius``, threaded from
+``_render``). The compressed, int8 and accel engines, and ``planar`` or
+``fuse_composite`` on the cuda engine, refuse it.
+
 ``ENGINE_CLASSES`` and ``available_engines`` are the registry of these five,
 named as the JAX package's (``torch`` and ``cuda`` for ``xla`` and
 ``pallas``); each says in ``description`` which kernels it runs on the card,
@@ -59,6 +68,7 @@ import numpy as np
 import torch
 
 from nerf_tpu_torch.config import Config, RenderConfig, default_config
+from nerf_tpu_torch.models.mip import render_mip_rays
 from nerf_tpu_torch.models.nerf import (
     NeRFParams,
     apply_nerf,
@@ -67,7 +77,11 @@ from nerf_tpu_torch.models.nerf import (
     params_from_numpy,
     params_from_torch_state_dict,
 )
-from nerf_tpu_torch.ops.composite_kernel import composite_rays, fused_volume_render
+from nerf_tpu_torch.ops.composite_kernel import (
+    composite_edges,
+    composite_rays,
+    fused_volume_render,
+)
 from nerf_tpu_torch.ops.mlp_kernel import make_cuda_apply_fn, pack_params
 from nerf_tpu_torch.ops.occupancy import (
     OccupancyGrid,
@@ -80,6 +94,8 @@ from nerf_tpu_torch.ops.render_kernel import (
     composited_to_outputs,
     fused_render_samples,
     fused_render_samples_composited,
+    fused_render_edges_mip_raw,
+    fused_render_mip_raw,
     fused_render_zvals_composited,
     fused_render_zvals_planar,
     fused_render_zvals_raw,
@@ -90,7 +106,7 @@ from nerf_tpu_torch.train.checkpoint import (
     restore_bare_params,
     restore_checkpoint,
 )
-from nerf_tpu_torch.utils.cameras import BENCHMARK_FOCAL, generate_rays
+from nerf_tpu_torch.utils.cameras import BENCHMARK_FOCAL, generate_rays, pixel_radius
 from nerf_tpu_torch.utils.device import resolve_device, torch_dtype
 from nerf_tpu_torch.utils.monitor import (
     PerformanceMonitor,
@@ -98,7 +114,13 @@ from nerf_tpu_torch.utils.monitor import (
     device_info_string,
     span,
 )
-from nerf_tpu_torch.utils.rendering import sample_pdf, sample_points_on_rays, volume_render
+from nerf_tpu_torch.utils.rendering import (
+    mip_resample,
+    sample_pdf,
+    sample_points_on_rays,
+    uniform_edges,
+    volume_render,
+)
 
 
 class SharedModel:
@@ -144,6 +166,8 @@ class SharedModel:
             g = torch.Generator().manual_seed(seed)
             self.params = {"coarse": init_nerf_params(g, cfg.model, dev),
                            "fine": init_nerf_params(g, cfg.model, dev)}
+        if cfg.model.variant == "mip":              # one network serves both passes
+            self.params["coarse"] = self.params["fine"]
         return self
 
 
@@ -179,12 +203,16 @@ class Engine:
         return self.shared.params
 
     def render_chunk(self, params, ro: torch.Tensor, rd: torch.Tensor, spp: int,
-                     rcfg: RenderConfig, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(rgb [N, 3], depth [N])`` for one chunk of rays."""
+                     rcfg: RenderConfig, mode: str, radius: Optional[float] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(rgb [N, 3], depth [N])`` for one chunk of rays; ``radius``: the
+        pixels' base radius (``utils/cameras.pixel_radius``), which the mip
+        variant's cones take."""
         raise NotImplementedError
 
     def _render(self, params, pose, width, height, focal, spp, chunk, rcfg, mode):
         n = width * height
+        radius = pixel_radius(focal)
         n_pad = -(-n // chunk) * chunk
         with span("engine.rays"):
             ro, rd = generate_rays(pose, width, height, focal, self.device)
@@ -196,7 +224,7 @@ class Engine:
         for i in range(0, n_pad, chunk):
             with span("engine.chunk"):
                 outs.append(self.render_chunk(params, ro[i:i + chunk], rd[i:i + chunk], spp,
-                                              rcfg, mode))
+                                              rcfg, mode, radius))
         with span("engine.assemble"):
             rgb = torch.cat([o[0] for o in outs])[:n].reshape(height, width, 3)
             depth = torch.cat([o[1] for o in outs])[:n].reshape(height, width)
@@ -233,15 +261,39 @@ class Engine:
         rgb, depth = self._render(*args)
         stats = mon.stop() if mon else PerfStats()
         with span("engine.to_host"):
-            rgb, depth = rgb.cpu().numpy(), depth.cpu().numpy()
+            rgb, depth = to_host(rgb), to_host(depth)
         return RenderResult(rgb=rgb, depth=depth, stats=stats)
+
+
+def to_host(x: torch.Tensor) -> np.ndarray:
+    """``x`` as a numpy array. From the card it is copied into page-locked
+    memory: one DMA transfer, which a loaded host does not slow as it slows
+    the staged copy into pageable memory (the caching host allocator hands
+    the buffer out again once the array is gone)."""
+    if x.device.type != "cuda":
+        return x.cpu().numpy()
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    out.copy_(x)
+    return out.numpy()
+
+
+def refuse_mip(cfg: Config, what: str) -> None:
+    """Raise for the mip variant, which ``what`` does not compute."""
+    if cfg.model.variant == "mip":
+        raise ValueError(f"{what} does not compute the mip variant (Mip-NeRF); "
+                         "render it with the torch or cuda engine")
 
 
 class TorchEngine(Engine):
     name = "torch"
     description = "plain PyTorch: apply_nerf and volume_render, no kernel of the port"
 
-    def render_chunk(self, params, ro, rd, spp, rcfg, mode):
+    def render_chunk(self, params, ro, rd, spp, rcfg, mode, radius=None):
+        if self.cfg.model.variant == "mip":
+            res = render_mip_rays(params["fine"], ro, rd, radius, self.cfg.model, rcfg,
+                                  self.compute_dtype, spp if mode == "benchmark" else None)
+            out = res.coarse if res.fine is None else res.fine
+            return out.rgb, out.depth
         if mode == "hierarchical":
             res = render_rays(params["coarse"], params["fine"], ro, rd, self.cfg.model,
                               rcfg, compute_dtype=self.compute_dtype)
@@ -273,6 +325,9 @@ class CudaEngine(Engine):
                  fuse_composite: bool = False, planar: bool = False,
                  raw_dtype: str = "float32"):
         super().__init__(shared, chunk_rays)
+        if self.cfg.model.variant == "mip" and (planar or fuse_composite):
+            raise ValueError("the mip variant's kernels write the raw form only "
+                             "(no planar or composited output)")
         self.planar = planar
         self.fuse_composite = fuse_composite and not planar
         self.raw_dtype = torch_dtype(raw_dtype)
@@ -311,7 +366,10 @@ class CudaEngine(Engine):
                                       raw=True, dtype=dt, raw_dtype=self.raw_dtype)
         return composite_rays(raw, z, rd, rcfg, with_weights), z
 
-    def render_chunk(self, packed, ro, rd, spp, rcfg, mode):
+    def render_chunk(self, packed, ro, rd, spp, rcfg, mode, radius=None):
+        if self.cfg.model.variant == "mip":
+            out, _, _ = self.mip_passes(packed["fine"], ro, rd, spp, rcfg, mode, radius)
+            return out.rgb, out.depth
         if mode == "benchmark":
             out, _ = self._uniform(packed["fine"], ro, rd, spp, rcfg, False)
             return out.rgb, out.depth
@@ -323,6 +381,31 @@ class CudaEngine(Engine):
         z_new = sample_pdf(z_c, out_c.weights, rcfg.n_fine, deterministic=True)
         z_f = torch.sort(torch.cat([z_c, z_new], dim=-1), dim=-1).values
         return self._at_depths(packed["fine"], ro, rd, z_f, rcfg)
+
+    def mip_passes(self, packed, ro, rd, spp, rcfg, mode, radius):
+        """The mip variant, one network: K1-mip at the uniform intervals ->
+        K2's edges form (with weights) and, in the hierarchical mode,
+        ``mip_resample`` (span ``mip.resample``) -> K3-mip at the fine
+        intervals -> K2's edges form. The benchmark mode is the first pass
+        alone at ``spp`` intervals. Returns ``(outputs, edges [N, S + 1], raw
+        [N, 4S])``: the last pass's composite, its edges and its raw
+        ``(density, r, g, b)`` an interval."""
+        mcfg, dt, raw_dt = self.cfg.model, self.compute_dtype, self.raw_dtype
+        n_c = spp if mode == "benchmark" else rcfg.n_coarse
+        if mode == "hierarchical" and rcfg.n_fine != n_c:
+            raise ValueError(f"Mip-NeRF resamples as many intervals as the coarse pass has: "
+                             f"n_fine {rcfg.n_fine} != n_coarse {n_c}")
+        edges = uniform_edges(rcfg.near, rcfg.far, n_c + 1, ro.device).expand(ro.shape[0], -1)
+        raw = fused_render_mip_raw(packed, ro, rd, radius, rcfg.near, rcfg.far, n_c, mcfg,
+                                   dtype=dt, raw_dtype=raw_dt)
+        out = composite_edges(raw, edges, rd, rcfg, with_weights=mode == "hierarchical")
+        if mode == "hierarchical":
+            with span("mip.resample"):
+                edges = mip_resample(edges, out.weights, rcfg.resample_padding)
+            raw = fused_render_edges_mip_raw(packed, ro, rd, radius, edges, mcfg, dtype=dt,
+                                             raw_dtype=raw_dt)
+            out = composite_edges(raw, edges, rd, rcfg, with_weights=False)
+        return out, edges, raw
 
     def _at_depths(self, packed, ro, rd, z, rcfg):
         """One network at per-ray depths ``z [N, S]`` (K3), composited:
@@ -360,6 +443,7 @@ class CompressedEngine(CudaEngine):
                  bits: int = 8, prune_fraction: float = 0.1,
                  act_bits: Optional[int] = None, pos_bound: float = 12.0, **kw):
         super().__init__(shared, chunk_rays, **kw)
+        refuse_mip(self.cfg, f"the {self.name} engine")
         self.bits = bits
         self.prune_fraction = prune_fraction
         self.act_bits = act_bits
@@ -420,6 +504,7 @@ class AccelEngine(CudaEngine):
                  grid_store: Optional[str] = None,
                  weight_mode: Optional[str] = None, **kw):
         super().__init__(shared, chunk_rays, **kw)
+        refuse_mip(self.cfg, "the accel engine")
         acfg = self.cfg.accel
         self.grid_resolution = grid_resolution or acfg.grid_resolution
         self.density_threshold = (acfg.density_threshold if density_threshold is None
@@ -450,9 +535,9 @@ class AccelEngine(CudaEngine):
             self._grid = grid
         return self._grid
 
-    def render_chunk(self, packed, ro, rd, spp, rcfg, mode):
+    def render_chunk(self, packed, ro, rd, spp, rcfg, mode, radius=None):
         if mode != "benchmark":
-            return super().render_chunk(packed, ro, rd, spp, rcfg, mode)
+            return super().render_chunk(packed, ro, rd, spp, rcfg, mode, radius)
         grid = self.occupancy_grid()
         with span("occupancy.z_vals"):
             z = grid_guided_z_vals(grid, ro, rd, rcfg.near, rcfg.far, spp,

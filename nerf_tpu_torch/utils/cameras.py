@@ -24,6 +24,14 @@ def focal_from_angle(width: int, camera_angle_x: float) -> float:
     return 0.5 * width / float(np.tan(0.5 * camera_angle_x))
 
 
+def pixel_radius(focal: float) -> float:
+    """Mip-NeRF's base radius of a pixel's cone, ``(2 / sqrt(12)) dx`` with
+    ``dx`` the distance between neighbouring rays' directions at depth 1:
+    ``1 / focal`` for these pinhole rays, in float32 (google/mipnerf,
+    internal/datasets.py ``_generate_rays``)."""
+    return float(np.float32(2.0 / np.sqrt(12.0) / float(focal)))
+
+
 def generate_rays(pose, width: int, height: int, focal: float,
                   device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-pixel rays for a camera-to-world ``pose [4, 4]`` (or [3, 4]).

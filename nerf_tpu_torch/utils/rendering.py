@@ -7,6 +7,9 @@ the compositor with a 1e10 sentinel last distance scaled by ``||d||``,
 ``alpha = 1 - exp(-relu(sigma) * dist)`` and exclusive cumulative-product
 transmittance with a ``+1e-10`` epsilon, with optional density noise during
 training; ``normalized_depth`` divides a map's depth by its opacity.
+Mip-NeRF's intervals (google/mipnerf, internal/mip.py): ``uniform_edges``,
+``composite_intervals`` (``volumetric_rendering``) and ``mip_resample``
+(``resample_along_rays`` over ``sorted_piecewise_constant_pdf``).
 
 A ``RayShard`` names one of ``count`` equal, contiguous row blocks of a
 batch of rays (``parallel/``: a rank's share of the data axis). The
@@ -229,3 +232,80 @@ def normalized_depth(out: RenderOutputs, eps: float = 1e-6) -> torch.Tensor:
     ``RenderOutputs.depth`` is the unnormalized ``sum(w z)`` its code
     computes (background pixels read near the far plane, not 0)."""
     return out.depth / torch.clamp(out.acc, min=eps)
+
+
+# -- Mip-NeRF's intervals -----------------------------------------------------
+
+_RESAMPLE_U = {}
+
+
+def uniform_edges(near: float, far: float, n_edges: int, device) -> torch.Tensor:
+    """``[n_edges]`` float32 depths ``near (1 - t) + far t`` at ``t = k /
+    (n_edges - 1)``: the coarse intervals' edges (not jittered)."""
+    # a division by a tensor: a CUDA division by a host scalar multiplies by its
+    # reciprocal, which can differ from the kernels' quotient in the last bit
+    t = torch.arange(n_edges, dtype=torch.float32, device=device) / torch.full(
+        (), n_edges - 1, dtype=torch.float32, device=device)
+    return near * (1 - t) + far * t
+
+
+def composite_intervals(density: torch.Tensor, rgb: torch.Tensor, edges: torch.Tensor,
+                        rays_d: torch.Tensor, white_background: bool) -> RenderOutputs:
+    """Interval compositing of ``(density [N, S], rgb [N, S, 3])`` between
+    ``edges [N, S + 1]``: ``delta = (t1 - t0) ||d||``, ``w = (1 - exp(-density
+    delta)) exp(-exclusive cumsum of density delta)``; depth is the weights'
+    mean of the midpoints, 0 / 0 read as 0, clipped to the first and last
+    edge."""
+    mids = 0.5 * (edges[:, :-1] + edges[:, 1:])
+    delta = (edges[:, 1:] - edges[:, :-1]) * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    sd = density * delta
+    alpha = 1 - torch.exp(-sd)
+    trans = torch.exp(-torch.cat([torch.zeros_like(sd[:, :1]),
+                                  torch.cumsum(sd[:, :-1], dim=-1)], dim=-1))
+    w = alpha * trans
+    rgb_map = (w[..., None] * rgb).sum(dim=-2)
+    acc = w.sum(dim=-1)
+    depth = torch.nan_to_num((w * mids).sum(dim=-1) / acc, nan=0.0)
+    depth = torch.minimum(torch.maximum(depth, edges[:, 0]), edges[:, -1])
+    if white_background:
+        rgb_map = rgb_map + (1 - acc[..., None])
+    return RenderOutputs(rgb_map, depth, acc, w)
+
+
+def _resample_u(n: int, device) -> torch.Tensor:
+    """``linspace(0, 1 - eps_f32, n)``, the draws of a serving-mode
+    resample, made on the host once per device (the same bits on every
+    device)."""
+    key = (n, torch.device(device))
+    if key not in _RESAMPLE_U:
+        eps = float(torch.finfo(torch.float32).eps)
+        _RESAMPLE_U[key] = torch.linspace(0.0, 1.0 - eps, n, dtype=torch.float32).to(device)
+    return _RESAMPLE_U[key]
+
+
+def mip_resample(edges: torch.Tensor, weights: torch.Tensor, padding: float) -> torch.Tensor:
+    """The fine edges ``[N, S + 1]`` from the coarse ``edges [N, S + 1]``
+    and weights ``[N, S]``: the weights max-pooled by 2 and averaged by 2
+    (over ``[w_0, w, w_{S-1}]``) plus ``padding``, a pdf padded to a sum of
+    at least 1e-5, its CDF from exactly 0 to exactly 1, and the inverse CDF
+    at ``linspace(0, 1 - eps, S + 1)``: sorted, no merge with the coarse
+    edges. The interval of a draw is found by ``searchsorted``, which picks
+    the published mask's last ``u >= cdf`` knot."""
+    n_edges = edges.shape[1]
+    wp = torch.cat([weights[:, :1], weights, weights[:, -1:]], dim=-1)
+    wmax = torch.maximum(wp[:, :-1], wp[:, 1:])
+    w = 0.5 * (wmax[:, :-1] + wmax[:, 1:]) + padding
+    wsum = w.sum(dim=-1, keepdim=True)
+    pad = torch.clamp(1e-5 - wsum, min=0)
+    w = w + pad / w.shape[-1]
+    wsum = wsum + pad
+    pdf = w / wsum
+    cdf = torch.clamp(torch.cumsum(pdf[:, :-1], dim=-1), max=1)
+    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf, torch.ones_like(cdf[:, :1])], dim=-1)
+    u = _resample_u(n_edges, edges.device).expand(edges.shape[0], n_edges).contiguous()
+    lo = torch.searchsorted(cdf, u, right=True) - 1
+    hi = lo + 1
+    cdf0, cdf1 = cdf.gather(1, lo), cdf.gather(1, hi)
+    e0, e1 = edges.gather(1, lo), edges.gather(1, hi)
+    t = torch.clamp(torch.nan_to_num((u - cdf0) / (cdf1 - cdf0), nan=0.0), 0, 1)
+    return e0 + t * (e1 - e0)

@@ -241,6 +241,25 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch):
                                          raw_dtype=torch.bfloat16)
     render_kernel.fused_render_zvals_planar(q, meta, meta, torch.empty(4, 8, device="meta"), None)
     assert calls == ["mlp_quant", "torch.bfloat16", "planar", "torch.bfloat16", "planar"]
+    # the mip variant's ray kernels (K1-mip, K3-mip) and K2's edges form
+    from nerf_tpu_torch.config import mip_config
+
+    packed = mlp_kernel.PackedWeights(*[None] * len(mlp_kernel.PackedWeights._fields))
+    monkeypatch.setattr(render_kernel, "fused_render_mip_plain", plain)
+    monkeypatch.setattr(render_kernel, "fused_render_edges_mip_plain", plain)
+    monkeypatch.setattr(composite_kernel, "composite_edges_plain", plain)
+    monkeypatch.setattr(render_kernel, "_launch_mip", lambda *a, **k: calls.append(
+        "edges" if k.get("edges") is not None else "uniform") or torch.empty(4, 32, device="meta"))
+    monkeypatch.setattr(composite_kernel, "_launch_edges", lambda *a: calls.append(
+        "composite_edges") or (torch.empty(4, 8, device="meta"), None))
+    del calls[:]
+    mip = mip_config()
+    render_kernel.fused_render_mip_raw(packed, meta, meta, 1e-3, 2.0, 6.0, 8, mip.model)
+    render_kernel.fused_render_edges_mip_raw(packed, meta, meta, 1e-3,
+                                             torch.empty(4, 9, device="meta"), mip.model)
+    composite_kernel.composite_edges(torch.empty(4, 32, device="meta"),
+                                     torch.empty(4, 9, device="meta"), meta, mip.render, False)
+    assert calls == ["uniform", "edges", "composite_edges"]
 
 
 # -- every public name of the JAX package has a counterpart ------------------

@@ -282,7 +282,11 @@ def test_about_half_of_all_seeds_start_a_network_dead_in_both_packages():
 
     cfg, jcfg = Config(), JConfig()
     assert cfg.train.seed == jcfg.train.seed == 0
-    assert dataclasses.asdict(cfg.model) == dataclasses.asdict(JModelConfig())
+    ours, theirs = dataclasses.asdict(cfg.model), dataclasses.asdict(JModelConfig())
+    assert {k: v for k, v in ours.items() if k in theirs} == theirs
+    # the port's own keys are the mip variant's, at values the other variants ignore
+    assert {k: v for k, v in ours.items() if k not in theirs} == {
+        "ipe_min_deg": 0, "ipe_max_deg": 16, "density_bias": 0.0, "rgb_padding": 0.0}
     n = 20
     ro, rd = generate_rays(spherical_pose(30.0, -30.0, 4.0), n, n,
                            focal_from_angle(n, 0.6911112070083618), "cpu")
