@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``nerf_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k5-reference DIGESTS.json]
 
 Builds the CUDA kernels from ``nerf_tpu_torch/csrc`` (into ``build/``) and
 holds each kernel against its plain PyTorch version at the main paths'
@@ -18,7 +18,10 @@ MLP forward (the per-sample Hopper kernel of
 it replaced), K5 MLP backward (the Hopper row pass and weight-gradient pass
 of ``csrc/mlp_backward_wgmma.cu``, each against its plain version, the pair
 against float32 and bf16 autograd, run twice for bit equality, and timed
-against the WMMA build it replaced), K6 planar compositor, K7 per-sample MLP
+against the WMMA build it replaced; the digests of the row pass's scratch
+image and of the partials at 131,072, 393,216 and 65,537 rows,
+``tools/k5_digest.py``, equal to those in ``--k5-reference``, a file
+another commit's ``k5_digest`` wrote, when one is given), K6 planar compositor, K7 per-sample MLP
 on int8 and int16 weights (the same Hopper kernel, on the prologue's bf16
 stream, timed against ``csrc/mlp_quant.cu``), the ray kernels on quantized
 weights (dequantized once a call), the int8-compute route (K8)
@@ -1486,6 +1489,9 @@ def convergence_phase(smi, paths, workdir, train_chunk):
 
 MIP_KERNELS = ("ray_z_mip_wgmma_kernel", "ray_mip_wgmma_kernel")
 MIP_ONLY = sys.argv[1:2] == ["--mip-only"]   # the build and mip_check alone
+# digests of K5's scratch and partials from another commit (tools/k5_digest.py)
+K5_REFERENCE = (sys.argv[sys.argv.index("--k5-reference") + 1]
+                if "--k5-reference" in sys.argv[:-1] else None)
 MIP_RAYS = 16384              # mip_check: one chunk of the engine
 MIP_S = 128                   # the mip configuration's intervals a pass
 MIP_SIDE = 800                # Blender's frames: 800 x 800
@@ -1703,6 +1709,7 @@ def main():
     from nerf_tpu_torch.utils.monitor import profile_trace
     from nerf_tpu_torch.utils.rendering import sample_pdf
     from nerf_tpu_torch.tools import composite_ab as k2_ab
+    from nerf_tpu_torch.tools import k5_ab, k5_digest
 
     require(K2_KERNEL == composite_kernel.KERNEL and K2_OLD_KERNEL == composite_kernel.OLD_KERNEL,
             "K2's kernel names differ from ops/composite_kernel.py's")
@@ -1778,6 +1785,9 @@ def main():
     k5_build = dict(
         ptxas=k5_ptxas, notes=k5_notes, row_pass_dynamic_smem_bytes=k5_lib.bwd_rows_smem_bytes(),
         row_pass_ring_stages=k5_lib.bwd_rows_stages(),
+        row_pass_staging={"piece_bytes": k5_lib.bwd_rows_staging(0),
+                          "slots_a_consumer": k5_lib.bwd_rows_staging(1)},
+        row_pass_sass_stores=k5_ab.sass_stores(_ext.library_path(train_kernel.LIBRARY)),
         wgrad_dynamic_smem_bytes=k5_lib.wgrad_smem_bytes(),
         scratch_features=k5_lib.bwd_scratch_features(), stream_chunks=k5_lib.bwd_stream_chunks(),
         wgrad_jobs=len(train_kernel.wgrad_jobs(default_config().model)))
@@ -1816,6 +1826,16 @@ def main():
             and k5_build["stream_chunks"] == len(ray_wgmma.bwd_chunk_schedule(default_config().model))
             and k5_lib.wgrad_job_ints() == train_kernel.jobs_tensor(default_config().model).shape[1],
             f"K5's layout differs between the kernels and ops/train_kernel.py ({k5_build})")
+    # K5a's stores of the scratch: the staging the kernel reports is
+    # ops/train_kernel.py's, and the scratch leaves by bulk copies alone
+    require([k5_lib.bwd_rows_staging(i) for i in (0, 1)] == [train_kernel.STAGE_PIECE,
+                                                          train_kernel.STAGE_DEPTH]
+            and k5_lib.bwd_rows_stages() == train_kernel.ROW_STAGES
+            and k5_lib.bwd_rows_smem_bytes() == train_kernel.ROWS_SMEM_BYTES,
+            f"K5a's staging differs from ops/train_kernel.py ({k5_build})")
+    sass = k5_build["row_pass_sass_stores"]
+    require(sass["STG"] == 0 and sass["ST"] == 0 and sass["UBLKCP"] > 0,
+            f"{K5_KERNELS[0]} stores the scratch other than by bulk copies ({sass})")
 
     # the mip kernels: no spill; then mip_check and mip_frame
     mip_ptxas, mip_notes = kernel_ptxas(ray_wgmma.LIBRARY, MIP_KERNELS)
@@ -2152,6 +2172,19 @@ def main():
                         f"bf16 autograd's {bf16_noise}")
                 del g_k, g_k2, g_p, g_f32, g_bf16
                 torch.cuda.empty_cache()
+
+        # the bytes K5 writes, against another commit's (--k5-reference)
+        digests = k5_digest.digests()
+        same = None
+        if K5_REFERENCE is not None:
+            with open(K5_REFERENCE) as f:
+                ref = json.load(f)["digests"]
+            same = {n: [a == b for a, b in zip(d["passes"], ref[n]["passes"])]
+                    + [d["grads"] == ref[n]["grads"]] for n, d in digests.items()}
+        emit("k5_digest", passes={n: len(d["passes"]) for n, d in digests.items()},
+             reference=K5_REFERENCE, passes_and_grads_equal_to_reference=same, digests=digests)
+        require(same is None or all(all(v) for v in same.values()),
+                f"K5's scratch or partials differ from {K5_REFERENCE}: {same}")
 
         # -- K6: both sample counts of the uniform render, three input forms ------
         g = torch.Generator(device=dev).manual_seed(6)

@@ -20,7 +20,16 @@
 //    encodings, h0..h7, every rounded cotangent) once to a scratch, and the
 //    weight-gradient pass K5b reads them back once per output tile: ~9 KB a
 //    sample each way, in passes of at most 65,536 rows (the wrapper), so the
-//    scratch stays ~0.59 GB whatever N is.
+//    scratch stays ~0.59 GB whatever N is. That write (4.7 GB a train step)
+//    leaves by asynchronous bulk copies, not by the consumers' stores: a
+//    consumer writes each quantity's bf16 pairs into a slot in shared memory
+//    in the bytes of the image (pieces of STAGE_FEATS rows of 128 bytes,
+//    already swizzled), one A fragment between each two products of the next
+//    layer, which reads the quantity; a storer thread of the producer
+//    warpgroup sends each filled slot on by cp.async.bulk and frees it once
+//    the copy has read it (wait_group.read). The copies ask L2 to evict the
+//    scratch first: K5b reads it only after the pass, and under L2's default
+//    policy it pushed out the weight stream that every tile reads again.
 // 2. Every product runs on wgmma. K5a is the ray kernels' body
 //    (wgmma_common.cuh): one block per SM walking 128-row tiles, a producer
 //    warpgroup streaming the network chunk by chunk by cp.async.bulk into an
@@ -82,9 +91,23 @@ constexpr int P_B0 = 0, P_BT = P_B0 + HID, P_BC0 = P_BT + 7 * HID, P_WSIG = P_BC
               P_WC1 = P_WSIG + HID, P_BSIG = P_WC1 + CH * 3, P_BC1 = P_BSIG + 1,
               P_FLOATS = (P_BC1 + 3 + 7) / 8 * 8;
 
+// K5a's stores of the scratch (ops/train_kernel.STAGE_FEATS, STAGE_DEPTH): a
+// consumer writes each quantity into shared memory a piece of at most
+// STAGE_FEATS image rows at a time, in the bytes of the image, and its
+// storer thread sends the piece on by one bulk copy; STAGE_DEPTH slots a
+// consumer, filled in turn
+constexpr int STAGE_FEATS = 128;
+constexpr int STAGE_DEPTH = 2;
+constexpr int STAGE_PIECE = STAGE_FEATS * 128;
+constexpr int PIECE_FRAGS = STAGE_FEATS / 16;   // A fragments (k-steps) a piece
+static_assert(STAGE_FEATS % 64 == 0 && HID % STAGE_FEATS == 0 && STAGE_DEPTH >= 1,
+              "whole 64-row quantities a piece, whole pieces a hidden layer");
+
 // K5a's shared memory (bytes from a 1024-aligned base): encodings, direction
 // encodings, resident parameters, the ReLU mask bits of h0..h7 ([consumer,
-// layer, word, thread]), the barriers, then the ring of 32 KB stages
+// layer, word, thread]), the ring's barriers, the staging's ([consumer,
+// full / empty, slot]), the staging slots ([consumer, slot]), then the ring
+// of 32 KB stages
 constexpr int SMEM_MAX = 232448;
 constexpr int STAGES_MAX = 6;
 constexpr int OFF_ENC = 0;
@@ -93,12 +116,15 @@ constexpr int OFF_PAR = OFF_DENC + 2 * ENC_TILE;
 constexpr int OFF_MASK = OFF_PAR + P_FLOATS * 4;
 constexpr int MASK_WORDS = 8 * 4 * 128;   // a consumer's: 8 layers x 128 bits x 128 threads
 constexpr int OFF_BAR = OFF_MASK + 2 * MASK_WORDS * 4;
-constexpr int OFF_RING = (OFF_BAR + 2 * STAGES_MAX * 8 + 1023) / 1024 * 1024;
+constexpr int OFF_SBAR = OFF_BAR + 2 * STAGES_MAX * 8;
+constexpr int OFF_STAGE = (OFF_SBAR + 2 * 2 * STAGE_DEPTH * 8 + 1023) / 1024 * 1024;
+constexpr int OFF_RING = OFF_STAGE + 2 * STAGE_DEPTH * STAGE_PIECE;
 constexpr int ROW_STAGES = (SMEM_MAX - 1024 - OFF_RING) / CHUNK_BIG < STAGES_MAX
                            ? (SMEM_MAX - 1024 - OFF_RING) / CHUNK_BIG
                            : STAGES_MAX;
 constexpr size_t ROWS_SMEM = 1024 + OFF_RING + size_t(ROW_STAGES) * CHUNK_BIG;
-static_assert(OFF_PAR % 1024 == 0 && OFF_MASK % 16 == 0 && OFF_BAR % 8 == 0 && ROW_STAGES >= 2,
+static_assert(OFF_PAR % 1024 == 0 && OFF_MASK % 16 == 0 && OFF_BAR % 8 == 0 &&
+              OFF_RING % 1024 == 0 && ROW_STAGES >= 2,
               "K5a's shared memory");
 using Ring = RingT<CHUNK_BIG, STAGES_MAX>;
 
@@ -117,8 +143,8 @@ struct RowsParams {
 // Sample s of a block sits at image position P = 16 (s / 16) + 2 (s % 8) +
 // (s / 8) % 2: a consumer thread's two rows (s0 = 16 w + g, s0 + 8) are
 // neighbours, so it stores one 4-byte pair per feature, and a warp's stores
-// of a feature fill a 32-byte sector. K5b's sums run over all samples, so
-// their order in the image does not change a product.
+// of features 8 m + 2 q (q = 0..3) hit 32 distinct banks. K5b's sums run over
+// all samples, so their order in the image does not change a product.
 __device__ __forceinline__ int sample_pos(int s) {
   return (s & 0x30) | ((s & 7) << 1) | ((s >> 3) & 1);
 }
@@ -129,46 +155,148 @@ __device__ __forceinline__ int sample_pos(int s) {
 __device__ __forceinline__ uint32_t fm_off(int f, int P) {
   return uint32_t(f) * 128 + ((((P >> 3) ^ f) & 7) << 4) + ((P & 7) << 1);
 }
-__device__ __forceinline__ void st_bf16(unsigned char* img, int f, int P, uint32_t bits) {
-  *reinterpret_cast<uint16_t*>(img + fm_off(f, P)) = uint16_t(bits);
+// stores into an image in shared memory (img: its shared address)
+__device__ __forceinline__ void st_bf16(uint32_t img, int f, int P, uint32_t bits) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(img + fm_off(f, P)), "h"(uint16_t(bits))
+               : "memory");
 }
 // features 8 m + 2 q and 8 m + 2 q + 1 of the thread's rows (atom = img +
 // 1024 m; o0, o1 = fm_off(2 q (+ 1), P0)), from u0 = the pair of row s0 and
 // u1 = that of row s0 + 8: one 4-byte word per feature, at position P0
-__device__ __forceinline__ void st_pairs(unsigned char* atom, uint32_t o0, uint32_t o1,
-                                         uint32_t u0, uint32_t u1) {
-  *reinterpret_cast<uint32_t*>(atom + o0) = __byte_perm(u0, u1, 0x5410);
-  *reinterpret_cast<uint32_t*>(atom + o1) = __byte_perm(u0, u1, 0x7632);
+__device__ __forceinline__ void st_pairs(uint32_t atom, uint32_t o0, uint32_t o1, uint32_t u0,
+                                         uint32_t u1) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(atom + o0), "r"(__byte_perm(u0, u1, 0x5410))
+               : "memory");
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(atom + o1), "r"(__byte_perm(u0, u1, 0x7632))
+               : "memory");
 }
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Features f0 + 8 j + 2 q (+ 1) of rows s0 and s0 + 8 (image position P0 =
-// 16 w + 2 g; o0, o1 = fm_off(2 q (+ 1), P0)), for j < NJ, from A fragments
-// (the accumulator layout's bf16 pairs, epilogue_to_a) into the sample
-// block's image; with `mk`, also the ReLU mask bits (bit 4 j + e of the 128:
-// nonzero bf16) as four words, mk[word * 128 + t].
-template <int NJ, int R>
-__device__ __forceinline__ void save_rows(const uint32_t (&a)[R][4], unsigned char* img, int f0,
-                                          uint32_t o0, uint32_t o1, uint32_t* mk, int t) {
-  static_assert(NJ <= 2 * R, "the fragments hold 16 columns a row");
-  uint32_t m[4] = {0u, 0u, 0u, 0u};
-  unsigned char* base = img + f0 * 128;   // f0: a multiple of 8
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const uint32_t u0 = a[j >> 1][(j & 1) * 2], u1 = a[j >> 1][(j & 1) * 2 + 1];
-    st_pairs(base + j * 1024, o0, o1, u0, u1);
-    if (mk) {
-      const uint32_t bits = ((u0 & 0x7fffu) != 0) | (((u0 & 0x7fff0000u) != 0) << 1) |
-                            (((u1 & 0x7fffu) != 0) << 2) | (((u1 & 0x7fff0000u) != 0) << 3);
-      m[j >> 3] |= bits << (4 * (j & 7));
+// bytes from shared to global memory, in the thread's open bulk group, the
+// lines written first in line to leave L2: the scratch is read back only
+// after the pass, and would otherwise push out the weight stream, which
+// every tile reads again
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 policy;\ncreatepolicy.fractional.L2::evict_first.b64 policy, 1.0;\n"
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, policy;\n}\n" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of the thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// until every bulk group of the thread has completed its writes
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// A consumer's view of its staging: acquire() waits until the next slot is
+// free and returns its shared address; the threads write a piece there, and
+// commit() hands it to the storer (one arrival per warp, after every lane's
+// writes are fenced for the bulk copies' proxy). The full barrier of slot s
+// is at bars + 8 s, its empty barrier at bars + 8 (STAGE_DEPTH + s).
+struct Staging {
+  uint32_t slots, bars;
+  int slot;
+  uint32_t phase;
+  bool lane0;
+  __device__ __forceinline__ uint32_t acquire() const {
+    mbar_wait(bars + 8 * (STAGE_DEPTH + slot), phase ^ 1);
+    return slots + slot * STAGE_PIECE;
+  }
+  __device__ __forceinline__ void commit() {
+    fence_async_smem();
+    __syncwarp();
+    if (lane0) mbar_arrive(bars + 8 * slot);
+    if (++slot == STAGE_DEPTH) {
+      slot = 0;
+      phase ^= 1;
     }
   }
-  if (mk) {
-#pragma unroll
-    for (int w = 0; w < 4; ++w) mk[w * 128 + t] = m[w];
+};
+
+// the ReLU mask bits of one 8-row atom (bit e: nonzero bf16 e of u0, u1)
+__device__ __forceinline__ uint32_t atom_mask(uint32_t u0, uint32_t u1) {
+  return ((u0 & 0x7fffu) != 0) | (((u0 & 0x7fff0000u) != 0) << 1) |
+         (((u1 & 0x7fffu) != 0) << 2) | (((u1 & 0x7fff0000u) != 0) << 3);
+}
+
+// The stores of a quantity held as A fragments f (the accumulator layout's
+// bf16 pairs, epilogue_to_a), a fragment at a time: store(x) writes fragment
+// x (features 16 x .. 16 x + 15, j = 2 x, 2 x + 1: features 8 j + 2 q (+ 1)
+// of rows s0 and s0 + 8, at image position P0 = 16 w + 2 g; o0, o1 = fm_off(2
+// q (+ 1), P0)) into a staging slot, PIECE_FRAGS to a piece (or the R the
+// quantity has); the storer sends piece k to image rows STAGE_FEATS k .. of
+// the quantity. With `mk`, also the ReLU mask bits (bit 4 (j % 8) + e of
+// word j / 8), mk[word * 128 + t].
+template <int R>
+struct FragStores {
+  const uint32_t (&f)[R][4];
+  Staging& st;
+  uint32_t o0, o1;
+  uint32_t* mk;
+  int t;
+  uint32_t slot = 0u, m = 0u;
+  __device__ __forceinline__ void store(int x) {
+    if (x % PIECE_FRAGS == 0) slot = st.acquire();
+    const uint32_t atom = slot + (2 * x) % (2 * PIECE_FRAGS) * 1024;
+    st_pairs(atom, o0, o1, f[x][0], f[x][1]);
+    st_pairs(atom + 1024, o0, o1, f[x][2], f[x][3]);
+    if (mk) m |= (atom_mask(f[x][0], f[x][1]) | atom_mask(f[x][2], f[x][3]) << 4) << (8 * (x & 3));
+    if (mk && (x & 3) == 3) {
+      mk[(x >> 2) * 128 + t] = m;
+      m = 0u;
+    }
+    if (x % PIECE_FRAGS == PIECE_FRAGS - 1 || x == R - 1) st.commit();
   }
+};
+
+// hidden_layer (wgmma_common.cuh) that also stores its input a: a commit
+// group per k-step, and beside each product the fragment of the k-step
+// before it, which no product in flight reads any more (wait<1>); the last
+// fragment beside the skip chunk, or after the products.
+__device__ __forceinline__ void hidden_layer_storing(float (&acc)[128], uint32_t (&a)[16][4],
+                                                     Ring& ring, bool leader, bool skip,
+                                                     uint64_t enc_desc, FragStores<16>& fs) {
+  fence_regs(acc);
+  fence_regs(a);
+  wgmma_fence();
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    const uint64_t b = sw128_desc(ring.acquire());
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs_n256(acc, a[ch * 4 + kk], b + 2 * kk, (ch | kk) != 0);
+      wgmma_commit();
+      if (ch * 4 + kk > 0) {
+        wgmma_wait<1>();
+        fs.store(ch * 4 + kk - 1);
+      }
+    }
+    wgmma_wait<0>();
+    ring.release(leader);
+  }
+  if (skip) {
+    const uint64_t b = sw128_desc(ring.acquire());
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss_n256(acc, enc_desc + 2 * kk, b + 2 * kk, 1);
+    wgmma_commit();
+    fs.store(15);
+    wgmma_wait<0>();
+    ring.release(leader);
+  } else {
+    fs.store(15);
+  }
+  fence_regs(acc);
 }
 
 // a = bf16(mask ? acc (+ dsp[row] * wsig[col]) : 0): the cotangent of a trunk
@@ -209,6 +337,8 @@ __device__ __forceinline__ void rows_consumer(const RowsParams& p, unsigned char
   const uint64_t enc_desc = sw128_desc(smem_u32(enc)), denc_desc = sw128_desc(smem_u32(denc));
   uint32_t* mask = reinterpret_cast<uint32_t*>(sm + OFF_MASK) + c * MASK_WORDS;
   Ring ring{smem_u32(sm + OFF_RING), smem_u32(sm + OFF_BAR), ROW_STAGES, 0, 0u, 0};
+  Staging st{smem_u32(sm + OFF_STAGE) + c * STAGE_DEPTH * STAGE_PIECE,
+             smem_u32(sm + OFF_SBAR) + c * 16 * STAGE_DEPTH, 0, 0u, lane == 0};
   const int s0 = 16 * warp + g;   // this thread's rows: s0 and s0 + 8 of the block
   const int P0 = 16 * warp + 2 * g;   // their image positions P0, P0 + 1
   const uint32_t o0 = fm_off(2 * q, P0), o1 = fm_off(2 * q + 1, P0);
@@ -217,7 +347,6 @@ __device__ __forceinline__ void rows_consumer(const RowsParams& p, unsigned char
 
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
     const long long n0 = (long long)tile * BW_TILE + c * BW_ROWS;
-    unsigned char* img = p.scratch + (n0 / BW_ROWS) * SCR_BLOCK_BYTES;
     named_sync(bar_id);   // the previous tile's products are done with enc and denc
 
     // 1. the encodings of position and direction (thread t: row t % 64, half
@@ -236,8 +365,10 @@ __device__ __forceinline__ void rows_consumer(const RowsParams& p, unsigned char
         if (net.normalize_dirs) normalize_dir(d);
       }
       const int sw = row & 7, P = sample_pos(row);
-      // one encoding into its swizzled A tile (columns 32 half ..) and the scratch
-      auto put = [&](const uint32_t (&v)[16], unsigned char* tile, int f0) {
+      // one encoding into its swizzled A tile (columns 32 half ..) and,
+      // through the staging, the scratch's 64 rows of it (the thread's rows
+      // 32 half .. 32 half + 31 of them)
+      auto put = [&](const uint32_t (&v)[16], unsigned char* tile) {
         unsigned char* dst = tile + (row >> 3) * 1024 + sw * 128;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -245,31 +376,32 @@ __device__ __forceinline__ void rows_consumer(const RowsParams& p, unsigned char
           *reinterpret_cast<uint4*>(dst + ((ck ^ sw) << 4)) =
               make_uint4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
         }
+        const uint32_t s = st.acquire();   // one piece of 64 rows
 #pragma unroll
-        for (int k = 0; k < 32; ++k)
-          st_bf16(img, f0 + 32 * half + k, P, k & 1 ? v[k >> 1] >> 16 : v[k >> 1]);
+        for (int k = 0; k < 32; ++k) st_bf16(s, 32 * half + k, P, k & 1 ? v[k >> 1] >> 16 : v[k >> 1]);
+        st.commit();
       };
       uint32_t v[16];
       if (half == 0)
         encode_half<0>(x[0], x[1], x[2], valid ? net.Lp : -1, net.band_scale, v);
       else
         encode_half<1>(x[0], x[1], x[2], valid ? net.Lp : -1, net.band_scale, v);
-      put(v, enc, SCR_ENC);
+      put(v, enc);
       if (half == 0) {
         encode_half<0>(d[0], d[1], d[2], valid ? net.Ld : -1, net.band_scale, v);
       } else {
 #pragma unroll
         for (int k = 0; k < 16; ++k) v[k] = 0u;   // KDIR <= 32: the rest is padding
       }
-      put(v, denc, SCR_DENC);
+      put(v, denc);
     }
     fence_async_smem();   // the encodings are read by the tensor cores' proxy
     named_sync(bar_id);
 
     // 2. the trunk: layer 0 from the encoding, layers 1..7 with the skip;
-    //    each h_i to the scratch and its mask bits to shared memory. The
-    //    accumulators are set here, so the last tile's are not kept alive
-    //    through the encodings
+    //    each h_i to the scratch and its mask bits to shared memory under the
+    //    next layer's products. The accumulators are set here, so the last
+    //    tile's are not kept alive through the encodings
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.f;
     fence_regs(acc);
@@ -284,11 +416,10 @@ __device__ __forceinline__ void rows_consumer(const RowsParams& p, unsigned char
     }
     fence_regs(acc);
     epilogue_to_a(acc, a, par + P_B0, q, true);
-    save_rows<32>(a, img, SCR_H, o0, o1, mask, t);
-    for (int i = 1; i < 8; ++i) {
-      hidden_layer(acc, a, ring, leader, i == net.skip_pos, enc_desc);
+    for (int i = 1; i < 8; ++i) {   // h_{i-1} and its mask bits stored under layer i
+      FragStores<16> fs{a, st, o0, o1, mask + (i - 1) * 512, t};
+      hidden_layer_storing(acc, a, ring, leader, i == net.skip_pos, enc_desc, fs);
       epilogue_to_a(acc, a, par + P_BT + (i - 1) * HID, q, true);
-      save_rows<32>(a, img, SCR_H + i * HID, o0, o1, mask + i * 512, t);
     }
 
     // 3. density from h7 (its pre-activation kept for the mask)
@@ -309,27 +440,36 @@ __device__ __forceinline__ void rows_consumer(const RowsParams& p, unsigned char
 
     // 4. the color layer: h7 @ wc0 (4 slabs) + denc @ wdir (one slab, K =
     //    32), into 64 accumulators of their own, so that the trunk's 128 are
-    //    free until the input gradients
+    //    free until the input gradients; h7 and its mask bits are stored
+    //    under them
     float cacc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) cacc[i] = 0.f;
     fence_regs(cacc);
     fence_regs(a);
     wgmma_fence();
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch) {
-      const uint64_t b = sw128_desc(ring.acquire());
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(cacc, a[ch * 4 + kk], b + 2 * kk, 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      ring.release(leader);
-    }
     {
+      FragStores<16> fs{a, st, o0, o1, mask + 7 * 512, t};
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        const uint64_t b = sw128_desc(ring.acquire());
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs_n128(cacc, a[ch * 4 + kk], b + 2 * kk, 1);
+          wgmma_commit();
+          if (ch * 4 + kk > 0) {
+            wgmma_wait<1>();
+            fs.store(ch * 4 + kk - 1);
+          }
+        }
+        wgmma_wait<0>();
+        ring.release(leader);
+      }
       const uint64_t b = sw128_desc(ring.acquire());
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) wgmma_ss_n128(cacc, denc_desc + 2 * kk, b + 2 * kk, 1);
       wgmma_commit();
+      fs.store(15);
       wgmma_wait<0>();
       ring.release(leader);
     }
@@ -356,7 +496,11 @@ __device__ __forceinline__ void rows_consumer(const RowsParams& p, unsigned char
         r1[k] = fmaf(bf_hi(u1), w[3 + k], fmaf(bf_lo(u1), w[k], r1[k]));
       }
     }
-    save_rows<16>(cf, img, SCR_C, o0, o1, nullptr, t);
+    {
+      FragStores<8> fs{cf, st, o0, o1, nullptr, t};
+#pragma unroll
+      for (int x = 0; x < 8; ++x) fs.store(x);
+    }
 
     // 6. the heads' cotangents: dz1 = bf16(drgb rgb (1 - rgb)), dsp =
     //    bf16(sigma_pre > 0 ? dsigma : 0); [dz1, dsp, 0 x 4] is dy8
@@ -384,10 +528,11 @@ __device__ __forceinline__ void rows_consumer(const RowsParams& p, unsigned char
       const float v1 = q == 0 ? dz0[1] : (q == 1 ? dsp0 : 0.f);
       const float v2 = q == 0 ? dz1[0] : (q == 1 ? dz1[2] : 0.f);
       const float v3 = q == 0 ? dz1[1] : (q == 1 ? dsp1 : 0.f);
-      st_pairs(img + SCR_DY8 * 128, o0, o1, pack_bf16(v0, v1), pack_bf16(v2, v3));
+      st_pairs(st.acquire(), o0, o1, pack_bf16(v0, v1), pack_bf16(v2, v3));
+      st.commit();
     }
 
-    // 7. dc_pre = bf16(c > 0 ? dz1 @ wc1^T : 0), as A fragments, stored
+    // 7. dc_pre = bf16(c > 0 ? dz1 @ wc1^T : 0), as A fragments
     uint32_t dcf[8][4];
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -407,35 +552,91 @@ __device__ __forceinline__ void rows_consumer(const RowsParams& p, unsigned char
       dcf[j >> 1][(j & 1) * 2 + 1] =
           pack_bf16(c1 & 0x7fffu ? d10 : 0.f, c1 & 0x7fff0000u ? d11 : 0.f);
     }
-    save_rows<16>(dcf, img, SCR_DC, o0, o1, nullptr, t);
 
-    // 8. dh7 = dc_pre @ wc0^T (two slabs of the transposed image), + dsp wsig
-    //    in the mask epilogue: dpre7
+    // 8. dh7 = dc_pre @ wc0^T (two slabs of the transposed image), dc_pre
+    //    stored under them, + dsp wsig in the mask epilogue: dpre7
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.f;
     fence_regs(acc);
     fence_regs(dcf);
     wgmma_fence();
+    {
+      FragStores<8> fs{dcf, st, o0, o1, nullptr, t};
 #pragma unroll
-    for (int ch = 0; ch < 2; ++ch) {
-      const uint64_t b = sw128_desc(ring.acquire());
+      for (int ch = 0; ch < 2; ++ch) {
+        const uint64_t b = sw128_desc(ring.acquire());
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n256(acc, dcf[ch * 4 + kk], b + 2 * kk, (ch | kk) != 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      ring.release(leader);
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs_n256(acc, dcf[ch * 4 + kk], b + 2 * kk, (ch | kk) != 0);
+          wgmma_commit();
+          if (ch * 4 + kk > 0) {
+            wgmma_wait<1>();
+            fs.store(ch * 4 + kk - 1);
+          }
+        }
+        wgmma_wait<0>();
+        ring.release(leader);
+      }
+      fs.store(7);
     }
     fence_regs(acc);
     mask_to_a(acc, a, mask + 7 * 512, t, q, true, dsp0, dsp1, par + P_WSIG);
-    save_rows<32>(a, img, SCR_DPRE + 7 * HID, o0, o1, nullptr, t);
 
-    // 9. dh_{i-1} = dpre_i @ wt[i-1]^T, then dpre_{i-1}, for i = 7..1
+    // 9. dh_{i-1} = dpre_i @ wt[i-1]^T (dpre_i stored under it), then
+    //    dpre_{i-1}, for i = 7..1; dpre0 stored last
     for (int i = 7; i >= 1; --i) {
-      hidden_layer(acc, a, ring, leader, false, 0);
+      FragStores<16> fs{a, st, o0, o1, nullptr, t};
+      hidden_layer_storing(acc, a, ring, leader, false, 0, fs);
       mask_to_a(acc, a, mask + (i - 1) * 512, t, q, false, 0.f, 0.f, nullptr);
-      save_rows<32>(a, img, SCR_DPRE + (i - 1) * HID, o0, o1, nullptr, t);
+    }
+    {
+      FragStores<16> fs{a, st, o0, o1, nullptr, t};
+#pragma unroll
+      for (int x = 0; x < 16; ++x) fs.store(x);
     }
   }
+}
+
+// The quantities a consumer stores, in its order (ops/train_kernel.STORE_ORDER):
+// enc, denc, h0..h7, c, dy8, dc_pre, dpre7..dpre0, as (first image row, rows)
+constexpr int N_STORED = 21;
+__device__ __forceinline__ int2 store_span(int i) {
+  if (i < 2) return make_int2(SCR_ENC + 64 * i, 64);
+  if (i < 10) return make_int2(SCR_H + HID * (i - 2), HID);
+  if (i == 10) return make_int2(SCR_C, CH);
+  if (i == 11) return make_int2(SCR_DY8, 8);
+  if (i == 12) return make_int2(SCR_DC, CH);
+  return make_int2(SCR_DPRE + HID * (20 - i), HID);
+}
+
+// K5a's storer of consumer c (one thread of the producer warpgroup): sends
+// each piece the consumer stages to its rows of the consumer's sample block,
+// in the consumer's order, and frees a slot once its bulk copy has read it;
+// STAGE_DEPTH - 1 copies in flight, the last slot the consumer's to fill. n
+// counts the pieces sent (slot n % STAGE_DEPTH), so that the loop fits the
+// producer warpgroup's 24 registers.
+__device__ __forceinline__ void rows_storer(const RowsParams& p, unsigned char* sm, int c) {
+  const uint32_t slots = smem_u32(sm + OFF_STAGE) + c * STAGE_DEPTH * STAGE_PIECE;
+  const uint32_t bars = smem_u32(sm + OFF_SBAR) + c * 16 * STAGE_DEPTH;
+  uint32_t n = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    unsigned char* img = p.scratch + (2ll * tile + c) * SCR_BLOCK_BYTES;
+    for (int i = 0; i < N_STORED; ++i) {
+      const int2 span = store_span(i);
+      for (int f = 0; f < span.y; f += STAGE_FEATS, ++n) {
+        const uint32_t slot = n % STAGE_DEPTH;
+        mbar_wait(bars + 8 * slot, (n / STAGE_DEPTH) & 1);   // the piece is in the slot
+        bulk_store(img + (span.x + f) * 128, slots + slot * STAGE_PIECE,
+                   (span.y - f < STAGE_FEATS ? span.y - f : STAGE_FEATS) * 128);
+        bulk_commit();
+        if (n + 1 >= STAGE_DEPTH) {   // piece n + 1 - STAGE_DEPTH has been read
+          bulk_wait_read<STAGE_DEPTH - 1>();
+          mbar_arrive(bars + 8 * (STAGE_DEPTH + (n + 1 - STAGE_DEPTH) % STAGE_DEPTH));
+        }
+      }
+    }
+  }
+  bulk_wait_all();   // the scratch is written before the kernel ends
 }
 
 // K5a's producer: one thread streams the N_CHUNKS chunks once per tile.
@@ -483,12 +684,19 @@ __global__ void __launch_bounds__(BW_THREADS, 1) bwd_rows_wgmma_kernel(const __g
       mbar_init(bars + 8 * s, 1);                  // the producer's expect_tx
       mbar_init(bars + 8 * (STAGES_MAX + s), 2);   // one arrival per consumer
     }
+    const uint32_t sbars = smem_u32(sm + OFF_SBAR);
+    for (int s = 0; s < 2 * STAGE_DEPTH; ++s) {    // [consumer, slot]
+      const uint32_t b = sbars + 16 * STAGE_DEPTH * (s / STAGE_DEPTH) + 8 * (s % STAGE_DEPTH);
+      mbar_init(b, 4);                             // full: one arrival per warp
+      mbar_init(b + 8 * STAGE_DEPTH, 1);           // empty: the storer's
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   if (threadIdx.x < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) rows_producer(p, sm);
+    else if (threadIdx.x == 32 || threadIdx.x == 64) rows_storer(p, sm, threadIdx.x / 32 - 1);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     rows_consumer(p, sm, threadIdx.x / 128 - 1);
@@ -650,6 +858,9 @@ int bwd_scratch_features() { return SCR_FEATS; }
 int bwd_stream_chunks() { return N_CHUNKS; }
 long long bwd_rows_smem_bytes() { return (long long)ROWS_SMEM; }
 int bwd_rows_stages() { return ROW_STAGES; }
+// K5a's staging of the scratch: the bytes of a piece (i = 0), slots a
+// consumer (i = 1)
+int bwd_rows_staging(int i) { return i == 0 ? STAGE_PIECE : STAGE_DEPTH; }
 long long wgrad_smem_bytes() { return (long long)WG_SMEM; }
 int wgrad_job_ints() { return JOB_INTS; }
 

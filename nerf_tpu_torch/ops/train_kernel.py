@@ -14,7 +14,14 @@ Counterpart of ``nerf_tpu/ops/train_kernel.py``:
   (``bwd_rows_wgmma``; plain version ``bwd_rows_plain``) recomputes the
   forward, walks back to every cotangent and stores, bf16, the quantities the
   weight gradients contract over (``SCRATCH``) to a scratch, each 64-sample
-  block as the feature-major image K5b's descriptors read (``scratch_image``);
+  block as the feature-major image K5b's descriptors read (``scratch_image``).
+  The scratch reaches global memory by asynchronous bulk copies, not by the
+  consumers' stores: a consumer writes each quantity into a slot in shared
+  memory, in the image's bytes, one A fragment between each two products of
+  the next layer, and a storer thread sends each piece of at most
+  ``STAGE_FEATS`` rows (``store_schedule``) by ``cp.async.bulk``, its lines
+  the first to leave L2, so that the scratch does not push the weight stream
+  out;
   the weight-gradient pass K5b (``wgrad_wgmma``; plain version
   ``wgrad_split_plain``) computes ``X^T @ dY`` over the sample axis for every
   job of ``wgrad_jobs``, each block over a fixed range of sample blocks
@@ -102,6 +109,36 @@ SCRATCH = (("enc", POS_ROWS), ("denc", 64), *((f"h{i}", HID) for i in range(8)),
 SCRATCH_ROW = dict(zip((name for name, _ in SCRATCH),
                        accumulate((width for _, width in SCRATCH), initial=0)))
 SCRATCH_FEATURES = sum(width for _, width in SCRATCH)   # 4488: 8,976 bytes a row
+# K5a's stores of the scratch (csrc/mlp_backward_wgmma.cu, Staging,
+# rows_storer): each quantity goes out a piece of at most STAGE_FEATS image
+# rows (128 bytes each) at a time, written into one of STAGE_DEPTH slots a
+# consumer in shared memory and sent by one bulk copy, in the order a
+# consumer computes the quantities
+STAGE_FEATS = 128
+STAGE_DEPTH = 2
+STAGE_PIECE = STAGE_FEATS * 128
+STORE_ORDER = ("enc", "denc", *(f"h{i}" for i in range(8)), "c", "dy8", "dc_pre",
+               *(f"dpre{i}" for i in range(7, -1, -1)))
+# K5a's shared memory on the H100 (232,448 bytes a block): 1,024 for the
+# alignment, ROWS_FIXED_BYTES (encodings, resident parameters, ReLU mask
+# bits, barriers), both consumers' staging, then as many 32 KB ring stages
+# as fit, at most 6
+ROWS_SMEM_MAX = 232448
+ROWS_FIXED_BYTES = 77824
+RING_STAGE_BYTES = 32768
+ROW_STAGES = min(6, (ROWS_SMEM_MAX - 1024 - ROWS_FIXED_BYTES - 2 * STAGE_DEPTH * STAGE_PIECE)
+                 // RING_STAGE_BYTES)
+ROWS_SMEM_BYTES = (1024 + ROWS_FIXED_BYTES + 2 * STAGE_DEPTH * STAGE_PIECE
+                   + ROW_STAGES * RING_STAGE_BYTES)
+
+
+def store_schedule() -> List[Tuple[str, int, int]]:
+    """K5a's bulk copies of one sample block's image, in the order a consumer
+    issues them: ``(quantity, first image row, image rows)``; a copy's bytes
+    are its rows times 128, at byte ``128 * first row`` of the block."""
+    width = dict(SCRATCH)
+    return [(name, SCRATCH_ROW[name] + f, min(STAGE_FEATS, width[name]))
+            for name in STORE_ORDER for f in range(0, width[name], STAGE_FEATS)]
 
 
 def _require_reference(cfg: ModelConfig) -> None:
@@ -365,6 +402,7 @@ _SIGNATURES = {
               "bwd_stream_chunks": ([], ctypes.c_int),
               "bwd_rows_smem_bytes": ([], ctypes.c_longlong),
               "bwd_rows_stages": ([], ctypes.c_int),
+              "bwd_rows_staging": ([ctypes.c_int], ctypes.c_int),
               "wgrad_smem_bytes": ([], ctypes.c_longlong),
               "wgrad_job_ints": ([], ctypes.c_int)},
     WMMA_LIBRARY: {"mlp_backward": (_WMMA_ARGTYPES, ctypes.c_int),

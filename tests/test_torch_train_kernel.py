@@ -285,3 +285,72 @@ def test_k5_adam_steps_lower_the_loss(setup):
         opt.step()
         losses.append(float(loss.detach()))
     assert losses[-1] < losses[0] * 0.9, losses
+
+
+# -- K5a's stores of the scratch (the mirror of csrc/mlp_backward_wgmma.cu) -----
+
+
+def test_k5a_store_schedule_tiles_each_block_image_once_and_fits_shared_memory():
+    sched = train_kernel.store_schedule()
+    # a piece per quantity of at most STAGE_FEATS rows, in the consumers' order
+    assert [name for name, _, _ in sched] == [
+        name for name in train_kernel.STORE_ORDER
+        for _ in range(-(-dict(train_kernel.SCRATCH)[name] // train_kernel.STAGE_FEATS))]
+    assert sorted(train_kernel.STORE_ORDER) == sorted(name for name, _ in train_kernel.SCRATCH)
+    hits = np.zeros(train_kernel.SCRATCH_FEATURES, dtype=np.int64)
+    for name, row, rows in sched:
+        offset, nbytes = 128 * row, 128 * rows
+        assert offset % 16 == 0 and nbytes % 16 == 0 and 0 < nbytes <= train_kernel.STAGE_PIECE
+        assert train_kernel.SCRATCH_ROW[name] <= row
+        assert row + rows <= train_kernel.SCRATCH_ROW[name] + dict(train_kernel.SCRATCH)[name]
+        hits[row:row + rows] += 1
+    assert (hits == 1).all()   # every 128-byte image row of a 64-sample block once
+    # the staging of both consumers beside the ring, in the H100's 232,448 bytes
+    staging = 2 * train_kernel.STAGE_DEPTH * train_kernel.STAGE_PIECE
+    assert train_kernel.ROW_STAGES >= 2 and train_kernel.STAGE_DEPTH >= 1
+    assert train_kernel.ROWS_SMEM_BYTES == (1024 + train_kernel.ROWS_FIXED_BYTES + staging
+                                            + train_kernel.ROW_STAGES * train_kernel.RING_STAGE_BYTES)
+    assert train_kernel.ROWS_SMEM_BYTES <= train_kernel.ROWS_SMEM_MAX
+    assert (train_kernel.ROWS_SMEM_BYTES + train_kernel.RING_STAGE_BYTES
+            > train_kernel.ROWS_SMEM_MAX or train_kernel.ROW_STAGES == 6)
+
+
+def _fm_off(f, p):
+    """csrc/mlp_backward_wgmma.cu fm_off: byte (feature f, image position p)."""
+    return f * 128 + ((((p >> 3) ^ f) & 7) << 4) + ((p & 7) << 1)
+
+
+@pytest.mark.parametrize("name", ["h3", "c", "dpre0"])
+def test_k5a_staged_fragments_are_the_bytes_of_the_image(name):
+    # the consumers' writes emulated: thread (w, g, q) holds A fragment x as
+    # bf16 pairs of rows s0 = 16 w + g and s0 + 8 at features 16 x + 2 q (+ 1)
+    # (atom 2 x) and 16 x + 8 + 2 q (+ 1) (atom 2 x + 1), and writes each
+    # feature's pair of rows as one word at fm_off into slot byte (2 x mod 2
+    # PIECE_FRAGS) 1024; the storer's copy of each slot lands on the image
+    width = dict(train_kernel.SCRATCH)[name]
+    row0 = train_kernel.SCRATCH_ROW[name]
+    feats = torch.zeros(train_kernel.BLOCK, train_kernel.SCRATCH_FEATURES, dtype=torch.bfloat16)
+    vals = torch.randn(train_kernel.BLOCK, width, generator=torch.Generator().manual_seed(width))
+    feats[:, row0:row0 + width] = vals.to(torch.bfloat16)
+    bits = feats.view(torch.int16).numpy().view(np.uint16)
+    want = train_kernel.scratch_image(feats).view(torch.int16).numpy().view(np.uint16)
+    image = want.copy()
+    pieces = [(r, n) for q, r, n in train_kernel.store_schedule() if q == name]
+    image[row0 * 64:(row0 + width) * 64] = 0
+    frags = train_kernel.STAGE_FEATS // 16
+    for k, (row, rows) in enumerate(pieces):
+        slot = np.zeros(train_kernel.STAGE_PIECE // 2, dtype=np.uint16)
+        for x in range(k * frags, min((k + 1) * frags, width // 16)):
+            for w in range(4):
+                for g in range(8):
+                    for q in range(4):
+                        s0, p0 = 16 * w + g, 16 * w + 2 * g
+                        atom = (2 * x) % (2 * frags) * 1024
+                        for half in range(2):            # atoms 2 x, 2 x + 1
+                            for e in range(2):           # features 2 q, 2 q + 1
+                                f = 16 * x + 8 * half + 2 * q + e
+                                at = (atom + half * 1024 + _fm_off(2 * q + e, p0)) // 2
+                                slot[at] = bits[s0, row0 + f]
+                                slot[at + 1] = bits[s0 + 8, row0 + f]
+        image[row * 64:(row + rows) * 64] = slot[:rows * 64]
+    assert np.array_equal(image, want)
