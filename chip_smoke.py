@@ -8,22 +8,20 @@ holds each kernel against its plain PyTorch version at the main paths'
 shapes: K1 uniform ray kernel, K2 compositor, K3 per-ray-depth ray kernel
 (K1 and K3 with raw output and in their composited modes (B9), on every
 weight route: the Hopper kernels of ``csrc/ray_wgmma.cu``, the bf16 build
-for bf16, int8 and int16 weights and one for int8 compute, each route also
-timed against the WMMA build of ``csrc/render_samples.cu`` it replaced), the
+for bf16, int8 and int16 weights and one for int8 compute), the
 dequantize prologue ``dequant_stream`` (``csrc/dequant_stream.cu``: the intN
 stream and resident parameters to bf16 once a call, bit for bit against its
 plain version on int8 and int16 weights, ``dequant_check``), K4 per-sample
 MLP forward (the per-sample Hopper kernel of
-``csrc/ray_wgmma.cu``, timed against the WMMA build ``csrc/mlp_forward.cu``
-it replaced), K5 MLP backward (the Hopper row pass and weight-gradient pass
-of ``csrc/mlp_backward_wgmma.cu``, each against its plain version, the pair
-against float32 and bf16 autograd, run twice for bit equality, and timed
-against the WMMA build it replaced; the digests of the row pass's scratch
+``csrc/ray_wgmma.cu``), K5 MLP backward (the Hopper row pass and
+weight-gradient pass of ``csrc/mlp_backward_wgmma.cu``, each against its
+plain version, the pair against float32 and bf16 autograd, run twice for
+bit equality, and timed; the digests of the row pass's scratch
 image and of the partials at 131,072, 393,216 and 65,537 rows,
 ``tools/k5_digest.py``, equal to those in ``--k5-reference``, a file
 another commit's ``k5_digest`` wrote, when one is given), K6 planar compositor, K7 per-sample MLP
 on int8 and int16 weights (the same Hopper kernel, on the prologue's bf16
-stream, timed against ``csrc/mlp_quant.cu``), the ray kernels on quantized
+stream), the ray kernels on quantized
 weights (dequantized once a call), the int8-compute route (K8)
 in K7, K1 and K3, the bf16 and planar raw outputs of K1 and K3 (B10), and
 K3 at one depth per ray on every route (``c1_check``: the per-sample kernel
@@ -32,13 +30,12 @@ of the route's build, then K2, with and without its weights). K2
 plain version at S = 1, 16, 32, 45, 64, 128, 192, 200 and 300 (the chunked
 body) on float32 and bfloat16 raws, broadcast and per-ray depths and 1,
 1,001 and 16,384 rays (``k2_check``; without weights bit-equal to with
-them), its schedule
-against ``ops/composite_kernel.py``'s (``k2_build``), and timed against
-the first K2 (``composite_kernel``, on no path) in turns at every case at
-16,384 rays beside an empty kernel, the launch floor (``kernel_times``
-float32, ``kernel_times_quant`` bfloat16). Then it drives each path of the port,
-with every launch count set to 0 just before and read just after, and fails
-unless every kernel of the path ran its expected number of times:
+them), its schedule against ``ops/composite_kernel.py``'s (``k2_build``),
+and timed at every case at 16,384 rays beside an empty kernel, the launch
+floor (``kernel_times`` float32, ``kernel_times_quant`` bfloat16). Then it
+drives each path of the port, with every launch count set to 0 just before
+and read just after, and fails unless every kernel of the path ran its
+expected number of times:
 
 - ``frame``: the benchmark render, 64 uniform samples (K1 -> K2);
 - ``hier_frame``: the hierarchical render, 64 coarse + 128 importance
@@ -76,7 +73,8 @@ unless every kernel of the path ran its expected number of times:
 - ``train_steps``: ``NeRFTrainer`` on the procedural sphere scene at the
   default ``TrainConfig`` (2,048 rays, 64 + 128, bf16, jitter), full-width
   model from seed ``TRAIN_SEED``: 2 launches of K4 and 8 of each K5 kernel
-  per step (passes of 65,536 samples), none of the WMMA K5, no render kernel; the loss must fall, and the first step's loss must match
+  per step (passes of 65,536 samples), no render kernel; the loss must
+  fall, and the first step's loss must match
   the same step through bf16 autograd of ``apply_nerf``; its ``train_epoch``
   is a CUDA graph of 8 steps, and the ``apply_nerf`` trainer's two epochs
   are one too (no kernel launched);
@@ -221,7 +219,6 @@ K1_TOL = 2e-2                 # rgb abs; sigma relative to max|sigma|
 K2_TOL = 1e-5                 # rgb/acc abs; depth relative to max|depth|
 B9_TOL = 1e-5                 # composited vs plain on the kernel's own raw: rgb/acc/w abs
 K2_KERNEL = "composite_rays_kernel"   # K2 (csrc/composite.cu)
-K2_OLD_KERNEL = "composite_kernel"   # the first K2: timed in turns with it, on no path
 K2_RAYS = (1, 1001, 16384)    # k2_check's ray counts
 K2_BODIES = 2 * (6 + 6 + 3 + 6 + 1)   # K2's instantiations: raw type x (run 1 at six
                               # segment widths, runs 2-7 at 32, EVEN runs 2, 4, 6, runs of 4
@@ -237,14 +234,12 @@ K2_DESIGN = ("a lane a contiguous run of ceil(S / P) samples (at most 7; past S 
              "(occupancy x SMs) walking groups of rays")
 PSNR_MIN = 40.0
 PSNR_FLOOR = {"benchmark": 57.4, "hierarchical": 61.3}   # the bf16 CudaEngine against the
-                              # float32 engine: 0.5 dB under the WMMA kernels' 57.9 / 61.8 dB
+                              # float32 engine: 0.5 dB under the 57.9 / 61.8 dB of the
+                              # kernels the floor was first set on
 WGMMA = {"render_samples": "ray_wgmma_kernel", "render_zvals": "ray_z_wgmma_kernel"}
-# the composited modes (B9) on the Hopper body, and the WMMA kernels of
-# csrc/render_samples.cu they replaced (timed in turns, never on a path)
+# the composited modes (B9) on the Hopper body
 WGMMA_COMPOSITED = {"render_samples_composited": "ray_composite_wgmma_kernel",
                     "render_zvals_composited": "ray_z_composite_wgmma_kernel"}
-WMMA_COMPOSITED = {"render_samples_composited": "ray_composite_kernel",
-                   "render_zvals_composited": "ray_z_composite_kernel"}
 B9_DESIGN = ("the raw kernels' Hopper body; each consumer warpgroup a lane of whole rays (2 x "
              "grid contiguous ranges of near-equal count) walked 64 rows a step in order; after "
              "the heads the quads put (sigma, r, g, b) into a 64 x 4 slot of the consumer, whose "
@@ -317,9 +312,8 @@ SUITE_VIEWS = 2
 # both counts. K1 on cuda, compressed (dequantize route, each call after
 # dequant_stream) and int8 (int8 compute); K3 on accel; K2 after each of the
 # four; K4 the accel bake, once (128^3 points, 262,144 a launch)
-SUITE_LAUNCHES = {"render_samples": 396, "wgmma_samples": 396, "dequant": 132,
-                  "dequant_stream": 132, "int8": 132, "render_zvals": 132, "wgmma_zvals": 132,
-                  "composite": 528, "mlp_forward": 8}
+SUITE_LAUNCHES = {"render_samples": 396, "dequant": 132, "dequant_stream": 132, "int8": 132,
+                  "render_zvals": 132, "composite": 528, "mlp_forward": 8}
 SUITE_DB = {"cuda": 40.0, "compressed": 40.0, "int8": 30.0}   # quality_report, every
                               # informative cell against the torch engine (PERF.md section 2)
 
@@ -414,9 +408,8 @@ def composite_ptxas(log):
                 entry = (f"{m[1]}<{m[2]}, {m[3]}, {'float' if m[4] == 'f' else 'bf16'}, "
                          f"{m[5] == '1'}, {m[6] == '1'}>")
             else:
-                m = re.search(r"(composite_kernel|composite_planar_kernel|empty_kernel)", name)
-                entry = (m[1] + ("<bf16>" if "nv_bfloat16" in name else "<float>"
-                                 if "kernelI" in name else "")) if m else name
+                m = re.search(r"(composite_planar_kernel|empty_kernel)", name)
+                entry = m[1] if m else name
         elif entry and "spill" in ln:
             nums = [int(t) for t in ln.replace(",", " ").split() if t.isdigit()]
             out[entry] = dict(stack_bytes=nums[0], spill_store_bytes=nums[1],
@@ -1081,8 +1074,7 @@ def render_zvals_phase(dev, smi, paths, poses, focal, cfg_ref, fine, coarse):
     sync((runs, sigma_q, rgb_q, one))
     counts = paths["render_zvals"] = read_counts()
     passes = len(train_kernel.pass_bounds(n)) + 1
-    expect = {"render_zvals": 3, "wgmma_zvals": 3, "dequant": 1, "dequant_stream": 1,
-              "mlp_forward": 1,
+    expect = {"render_zvals": 3, "dequant": 1, "dequant_stream": 1, "mlp_forward": 1,
               "bwd_rows": passes, "wgrad": passes}
     require({k: v for k, v in counts.items() if v} == expect,
             f"render_zvals: launches {counts}, expected {expect}")
@@ -1664,8 +1656,8 @@ def reset_counts():
         quant.launches[k] = 0
     composite_kernel.launches = composite_kernel.planar_launches = 0
     composite_kernel.bf16_launches = composite_kernel.weightless_launches = 0
-    composite_kernel.old_launches = composite_kernel.edges_launches = 0
-    mlp_kernel.launches = mlp_kernel.wmma_launches = 0
+    composite_kernel.edges_launches = 0
+    mlp_kernel.launches = 0
     dequant_stream.launches = 0
     for k in train_kernel.launches:
         train_kernel.launches[k] = 0
@@ -1680,9 +1672,8 @@ def read_counts():
             "composite": composite_kernel.launches,
             "composite_bf16": composite_kernel.bf16_launches,
             "composite_planar": composite_kernel.planar_launches,
-            "composite_old": composite_kernel.old_launches,
             "composite_edges": composite_kernel.edges_launches,
-            "mlp_forward": mlp_kernel.launches, "mlp_forward_wmma": mlp_kernel.wmma_launches,
+            "mlp_forward": mlp_kernel.launches,
             **train_kernel.launches}
 
 
@@ -1711,8 +1702,8 @@ def main():
     from nerf_tpu_torch.tools import composite_ab as k2_ab
     from nerf_tpu_torch.tools import k5_ab, k5_digest
 
-    require(K2_KERNEL == composite_kernel.KERNEL and K2_OLD_KERNEL == composite_kernel.OLD_KERNEL,
-            "K2's kernel names differ from ops/composite_kernel.py's")
+    require(K2_KERNEL == composite_kernel.KERNEL,
+            "K2's kernel name differs from ops/composite_kernel.py's")
     dev = torch.device("cuda")
     smi = nvidia_smi()
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
@@ -1723,7 +1714,6 @@ def main():
     ptxas = {n: [ln.strip() for ln in _ext.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln or "Function properties" in ln]
              for n in _ext.LIBRARIES}
-    backward_lib = train_kernel.load(train_kernel.WMMA_LIBRARY)
 
     def kernel_ptxas(name, kernels):
         """ptxas's report of a library, per kernel: stack, spill bytes and
@@ -1792,11 +1782,9 @@ def main():
         scratch_features=k5_lib.bwd_scratch_features(), stream_chunks=k5_lib.bwd_stream_chunks(),
         wgrad_jobs=len(train_kernel.wgrad_jobs(default_config().model)))
     dq_ptxas, _ = kernel_ptxas(dequant_stream.LIBRARY, (DEQUANT_KERNEL,))
-    emit("build", seconds=secs, sources=list(_ext.SOURCES),
+    emit("build", seconds=secs, libraries=len(_ext.LIBRARIES), sources=list(_ext.SOURCES),
          variants={k: list(v) for k, v in _ext.VARIANTS.items()}, ptxas=ptxas,
-         dequant_stream={"ptxas": dq_ptxas},
-         mlp_backward_wmma_dynamic_smem_bytes=backward_lib.mlp_backward_smem_bytes(),
-         ray_wgmma=wgmma_builds, mlp_backward_wgmma=k5_build)
+         dequant_stream={"ptxas": dq_ptxas}, ray_wgmma=wgmma_builds, mlp_backward_wgmma=k5_build)
     for k in WGMMA.values():         # the bf16 route: no spill (the quantized builds: reported)
         r = wgmma_builds[ray_wgmma.LIBRARY]["ptxas"].get(k, {})
         require(r.get("spill_store_bytes") == 0 and r.get("spill_load_bytes") == 0,
@@ -1923,11 +1911,11 @@ def main():
         for name, mcfg, p_coarse, p_fine in variants:
             packed_c = pack_params(p_coarse, mcfg, torch.bfloat16)
             packed_f = pack_params(p_fine, mcfg, torch.bfloat16)
-            n_wgmma = render_kernel.launches["wgmma_samples"]
+            n_k1 = render_kernel.launches["render_samples"]
             raw_k, _ = render_kernel.fused_render_samples(packed_f, ro_chk, rd_chk, 2.0, 6.0, SPP,
                                                           mcfg, raw=True)
-            require(render_kernel.launches["wgmma_samples"] == n_wgmma + 1,
-                    "K1 on bf16 weights did not reach csrc/ray_wgmma.cu")
+            require(render_kernel.launches["render_samples"] == n_k1 + 1,
+                    "K1 on bf16 weights did not launch csrc/ray_wgmma.cu")
             raw_p = render_kernel.fused_render_samples_plain(packed_f, ro_chk, rd_chk, 2.0, 6.0,
                                                              SPP, mcfg)
             torch.cuda.synchronize()
@@ -1944,10 +1932,10 @@ def main():
                               rd_chk, mcfg, rcfg)
             require(bool(torch.isfinite(z_f).all()) and bool((z_f[:, 1:] >= z_f[:, :-1]).all()),
                     f"K3 {name}: fine depths not finite and sorted")
-            n_wgmma = render_kernel.launches["wgmma_zvals"]
+            n_k3 = render_kernel.launches["render_zvals"]
             raw3_k = render_kernel.fused_render_zvals_raw(packed_f, ro_chk, rd_chk, z_f, mcfg)
-            require(render_kernel.launches["wgmma_zvals"] == n_wgmma + 1,
-                    "K3 on bf16 weights did not reach csrc/ray_wgmma.cu")
+            require(render_kernel.launches["render_zvals"] == n_k3 + 1,
+                    "K3 on bf16 weights did not launch csrc/ray_wgmma.cu")
             raw3_p = render_kernel.fused_render_zvals_plain(packed_f, ro_chk, rd_chk, z_f, mcfg)
             torch.cuda.synchronize()
             require(bool(torch.isfinite(raw3_k).all()), f"K3 {name}: non-finite output")
@@ -1981,8 +1969,7 @@ def main():
                               packed_f, ro_chk, rd_chk, z100, mcfg), z100)]
             for S, raw, zz in cases:
                 kname = "render_samples_composited" if zz is None else "render_zvals_composited"
-                counter = "wgmma_samples" if zz is None else "wgmma_zvals"
-                before = render_kernel.launches[counter]
+                before = render_kernel.launches[kname]
                 if zz is None:
                     out, w, zz = render_kernel.fused_render_samples_composited(
                         packed_f, ro_chk, rd_chk, 2.0, 6.0, S, mcfg, with_weights=True,
@@ -1995,8 +1982,8 @@ def main():
                         eps=eps)
                     ref = composite_kernel.fused_volume_render_interleaved_plain(raw, zz, rd_chk,
                                                                                  sent, eps)
-                require(render_kernel.launches[counter] == before + 1,
-                        f"{kname} on bf16 weights did not reach csrc/ray_wgmma.cu")
+                require(render_kernel.launches[kname] == before + 1,
+                        f"{kname} on bf16 weights did not launch csrc/ray_wgmma.cu")
                 torch.cuda.synchronize()
                 require(bool(torch.isfinite(out).all() and torch.isfinite(w).all()),
                         f"{kname} {name}: non-finite output")
@@ -2222,41 +2209,30 @@ def main():
     torch.cuda.empty_cache()
 
     def time_k2(raw_dtype):
-        """K2 against the first K2 in turns (old, new, new, old; device ms per
-        launch by the profiler) at every case of a raw type at the chunk: S
-        in k2_ab.SAMPLE_COUNTS, broadcast and per-ray depths, with and without
-        the weights (the first K2 always writes them); each with its bound
-        (the new body's bytes: no weights where none are written; the old
-        body's with them). Returns {case: times}."""
+        """K2 in two turns (device ms per launch by the profiler) at every
+        case of a raw type at the chunk: S in k2_ab.SAMPLE_COUNTS, broadcast
+        and per-ray depths, with and without the weights; each with its
+        bound (its bytes: no weights where none are written). Returns {case:
+        times}."""
         res = {}
         sent, eps = rcfg.dist_sentinel, rcfg.transmittance_eps
         out8 = torch.empty(CHUNK, 8, device=dev)
         for i, (S2, dt, per_ray, with_w) in enumerate(k2_ab.cases((raw_dtype,))):
             raw2, zz, d2 = k2_ab.inputs(CHUNK, S2, dt, per_ray, dev, seed=200 + i)
-            new = lambda: composite_kernel._launch(raw2, zz, d2, sent, eps, with_w)
-            old = lambda: composite_kernel._launch(raw2, zz, d2, sent, eps,
-                                                   kernel=K2_OLD_KERNEL)
-            turns = k2_ab.device_ms_in_turns([("old", old, (K2_OLD_KERNEL,)),
-                                              ("new", new, (K2_KERNEL,)),
-                                              ("new", new, (K2_KERNEL,)),
-                                              ("old", old, (K2_OLD_KERNEL,))],
+            k2 = lambda: composite_kernel._launch(raw2, zz, d2, sent, eps, with_w)
+            turns = k2_ab.device_ms_in_turns([("k2", k2, (K2_KERNEL,))] * 2,
                                              tries=1 + RETRACES)
             require(turns is not None,
                     f"K2 S={S2} {dt}: {1 + RETRACES} traces lost kernel records")
             w_out = torch.empty(CHUNK, S2, device=dev)
-            b_new = bound_ms(0, 20 * CHUNK * S2, nbytes(raw2, zz, d2, out8, w_out if with_w
-                                                        else None))
-            b_old = bound_ms(0, 20 * CHUNK * S2, nbytes(raw2, zz, d2, out8, w_out))
-            ms_new, ms_old = float(np.mean(turns["new"])), float(np.mean(turns["old"]))
+            b = bound_ms(0, 20 * CHUNK * S2, nbytes(raw2, zz, d2, out8, w_out if with_w
+                                                    else None))
+            ms = float(np.mean(turns["k2"]))
             res[f"S={S2} {'per-ray' if per_ray else 'broadcast'} z "
                 f"{'with' if with_w else 'without'} w"] = dict(
                 samples=S2, per_ray_z=per_ray, with_weights=with_w,
-                chunks=len(composite_kernel.ray_chunks(S2)),
-                ms=ms_new, old_ms=ms_old, turns_old_new_new_old=[
-                    turns["old"][0], *turns["new"], turns["old"][1]],
-                new_over_old=ms_new / ms_old, bound_ms=b_new[0], bound_by=b_new[1],
-                bound_share=b_new[0] / ms_new, old_bound_ms=b_old[0],
-                old_bound_share=b_old[0] / ms_old)
+                chunks=len(composite_kernel.ray_chunks(S2)), ms=ms, turns=turns["k2"],
+                bound_ms=b[0], bound_by=b[1], bound_share=b[0] / ms)
             del raw2, zz, d2, w_out
         return res
 
@@ -2379,23 +2355,8 @@ def main():
             "render_zvals_composited": bound_ms(k1_flops(mcfg, CHUNK, S3), comp_ops * CHUNK * S3,
                                                 nbytes(ro, rd, z3, out8) + weights_bytes),
         }
-        # the Hopper kernels against the WMMA build of the same entry (raw and
-        # composited), in turns (old, new, new, old), and the L2 probe: 132
-        # blocks stream the 1 MiB weight stream through a ring as the
-        # producer does
-        comp = dict(composited=True, sentinel=sent, eps=eps)
-        ab = {k: {"wmma": [], "wgmma": []} for k in (*WGMMA, *WGMMA_COMPOSITED)}
-        for lib in ("render_samples", None, None, "render_samples"):
-            for name, a in (("render_samples", dict(near=2.0, far=6.0, S=SPP)),
-                            ("render_zvals", dict(near=0.0, far=0.0, S=S3, z_vals=z3)),
-                            ("render_samples_composited",
-                             dict(near=2.0, far=6.0, S=SPP, with_weights=True, **comp)),
-                            ("render_zvals_composited",
-                             dict(near=0.0, far=0.0, S=S3, z_vals=z3, **comp))):
-                ab[name]["wmma" if lib else "wgmma"].append(call_ms(
-                    lambda: render_kernel._launch(packed, ro, rd, cfg=mcfg, library=lib, **a),
-                    10 if a["S"] == SPP else 4))
-        wmma_ms = {k: float(np.mean(v["wmma"])) for k, v in ab.items()}
+        # the L2 probe: 132 blocks stream the 1 MiB weight stream through a
+        # ring as the producer does
         stream = ray_wgmma.stream_for(packed, mcfg)
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         probe_reps = 50
@@ -2408,8 +2369,8 @@ def main():
                                              for k in WGMMA},
                   at_bound_bytes_per_s={k: tiles[k] * stream_bytes / (bounds[k][0] * 1e-3)
                                         for k in WGMMA})
-        # K2 against the first K2 in turns at every case on a float32 raw,
-        # the launch floor (an empty kernel's device time), and K6 again
+        # K2 at every case on a float32 raw, the launch floor (an empty
+        # kernel's device time), and K6 again
         k2_turns = time_k2(torch.float32)
         floor_ms = k2_ab.launch_floor_ms()
         g6 = torch.Generator(device=dev).manual_seed(8)
@@ -2431,18 +2392,15 @@ def main():
              call_ms=t_call, plain_ms=t_plain,
              bound_ms={k: v[0] for k, v in bounds.items()},
              bound_by={k: v[1] for k, v in bounds.items()},
-             wgmma_vs_wmma_call_ms={k: {"wmma_ms": v["wmma"], "wgmma_ms": v["wgmma"],
-                                        "order": "wmma, wgmma, wgmma, wmma"}
-                                    for k, v in ab.items()},
-             l2_probe=l2, k2_vs_first_k2_f32=k2_turns, launch_floor_ms=floor_ms,
+             l2_probe=l2, k2_f32=k2_turns, launch_floor_ms=floor_ms,
              k6_at_16384x128={"ms": k6_times["ms"], "turns": k6_times["turns"],
                               "bound_ms": k6_times["bound"][0]},
              nvidia_smi=smi)
-        return t_call, t_plain, bounds, chunk_abs, wmma_ms, l2, k2_turns, floor_ms, k6_times
+        return t_call, t_plain, bounds, chunk_abs, l2, k2_turns, floor_ms, k6_times
 
     # each phase's tensors are freed before the frames, so a frame's peak
     # device memory is the weights and the frame's own
-    (t_call, t_plain, bounds, chunk_abs, wmma_ms, l2_probe, k2_f32, k2_floor,
+    (t_call, t_plain, bounds, chunk_abs, l2_probe, k2_f32, k2_floor,
      k6_times) = time_kernels()
     torch.cuda.empty_cache()
 
@@ -2472,32 +2430,22 @@ def main():
                 o = apply_nerf(tree, pos, dirs, mcfg, compute_dtype=torch.bfloat16)
                 torch.autograd.grad(o, leaves, (dsig, drgb))
 
-            # the Hopper K4 and the WMMA build it replaced, in turns (old,
-            # new, new, old)
+            # K4 in two turns
             k4 = lambda: mlp_kernel._launch(pk, pos, dirs, mcfg)
-            k4_old = lambda: mlp_kernel._launch(pk, pos, dirs, mcfg,
-                                                library=mlp_kernel.WMMA_LIBRARY)
-            turns = [call_ms(k4_old, 10), call_ms(k4, 10), call_ms(k4, 10), call_ms(k4_old, 10)]
+            turns = [call_ms(k4, 10), call_ms(k4, 10)]
             res["mlp_forward"][n] = dict(
-                device_ms=profiled_ms(k4, K4_KERNEL, 5),
-                call_ms=(turns[1] + turns[2]) / 2, wmma_ms=(turns[0] + turns[3]) / 2,
-                call_ms_turns_old_new_new_old=turns,
-                wmma_device_ms=profiled_ms(k4_old, "mlp_kernel", 5),
+                device_ms=profiled_ms(k4, K4_KERNEL, 5), call_ms=float(np.mean(turns)),
+                call_ms_turns=turns,
                 plain_ms=call_ms(lambda: mlp_kernel.fused_nerf_apply_plain(pk, pos, dirs, mcfg), 3),
                 bound=bound_ms(2 * fwd * n, 0, nbytes(pos, dirs) + weights_bytes + n * 16))
-            # the Hopper K5 and the WMMA build it replaced, in turns (old,
-            # new, new, old); the bound is the algorithm's, whatever runs it
-            new = lambda: train_kernel._launch(pk, pos, dirs, dsig, drgb, mcfg)
-            old = lambda: train_kernel._launch(pk, pos, dirs, dsig, drgb, mcfg,
-                                               library=train_kernel.WMMA_LIBRARY)
-            turns = [call_ms(old, 5), call_ms(new, 5), call_ms(new, 5), call_ms(old, 5)]
-            by_kernel = profiled_kernels_ms(new, K5_KERNELS, 5)
+            # K5 in two turns; the bound is the algorithm's, whatever runs it
+            k5 = lambda: train_kernel._launch(pk, pos, dirs, dsig, drgb, mcfg)
+            turns = [call_ms(k5, 5), call_ms(k5, 5)]
+            by_kernel = profiled_kernels_ms(k5, K5_KERNELS, 5)
             res["mlp_backward"][n] = dict(
                 device_ms=None if by_kernel is None else sum(v["ms"] for v in by_kernel.values()),
-                device_ms_by_kernel=by_kernel,
-                call_ms=(turns[1] + turns[2]) / 2, wmma_ms=(turns[0] + turns[3]) / 2,
-                call_ms_turns_old_new_new_old=turns,
-                wmma_device_ms=profiled_ms(old, "mlp_backward_kernel", 3),
+                device_ms_by_kernel=by_kernel, call_ms=float(np.mean(turns)),
+                call_ms_turns=turns,
                 plain_ms=call_ms(lambda: train_kernel.packed_grads_plain(pk, pos, dirs, dsig, drgb,
                                                                          mcfg), 2),
                 library_ms=call_ms(lambda: torch.autograd.grad(out, leaves, (dsig, drgb),
@@ -2527,10 +2475,7 @@ def main():
                          "bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
                 for n, v in by_n.items()} for k, by_n in res.items()},
             library="mlp_backward: the backward (and forward + backward) of bf16 autograd "
-                    "through apply_nerf, a chain of library products",
-            wmma="wmma_ms: call ms of the WMMA build (mlp_forward: csrc/mlp_forward.cu; "
-                 "mlp_backward: csrc/mlp_backward.cu), timed in turns with the Hopper kernels "
-                 "(old, new, new, old)")
+                    "through apply_nerf, a chain of library products")
         return res
 
     new_times = time_new_kernels()
@@ -2616,11 +2561,11 @@ def main():
                         (ro_s, rd_s),):
                     R = ro.shape[0]
                     phase = "k8_check" if k8 else "quant_ray_check"
-                    hopper = render_kernel.launches["wgmma_samples"]
+                    hopper = render_kernel.launches["render_samples"]
                     raw1, z1 = render_kernel.fused_render_samples(q, ro, rd, 2.0, 6.0, SPP, mcfg,
                                                                   raw=True)
-                    require(render_kernel.launches["wgmma_samples"] == hopper + 1,
-                            f"K1 on {route} weights did not reach csrc/ray_wgmma.cu")
+                    require(render_kernel.launches["render_samples"] == hopper + 1,
+                            f"K1 on {route} weights did not launch csrc/ray_wgmma.cu")
                     e1 = held(phase, f"render_samples {route} {vname} {R} rays", raw1,
                               render_kernel.fused_render_samples_plain(q, ro, rd, 2.0, 6.0, SPP,
                                                                        mcfg), tol,
@@ -2628,18 +2573,18 @@ def main():
                               library=render_kernel.kernel_library(quant.route_of(q), False))
                     z_f = hier_depths(render_kernel, composite_kernel, sample_pdf, packed_c, ro,
                                       rd, mcfg, rcfg)
-                    hopper = render_kernel.launches["wgmma_zvals"]
+                    hopper = render_kernel.launches["render_zvals"]
                     raw3 = render_kernel.fused_render_zvals_raw(q, ro, rd, z_f, mcfg)
-                    require(render_kernel.launches["wgmma_zvals"] == hopper + 1,
-                            f"K3 on {route} weights did not reach csrc/ray_wgmma.cu")
+                    require(render_kernel.launches["render_zvals"] == hopper + 1,
+                            f"K3 on {route} weights did not launch csrc/ray_wgmma.cu")
                     e3 = held(phase, f"render_zvals {route} {vname} {R} rays", raw3,
                               render_kernel.fused_render_zvals_plain(q, ro, rd, z_f, mcfg), tol,
                               kernel=WGMMA["render_zvals"],
                               library=render_kernel.kernel_library(quant.route_of(q), False))
                     # B9 on this route: the composited Hopper entries vs the plain
                     # compositing of the route's raw Hopper output
-                    hopper = (render_kernel.launches["wgmma_samples"],
-                              render_kernel.launches["wgmma_zvals"])
+                    hopper = (render_kernel.launches["render_samples_composited"],
+                              render_kernel.launches["render_zvals_composited"])
                     out1, w1, _ = render_kernel.fused_render_samples_composited(
                         q, ro, rd, 2.0, 6.0, SPP, mcfg, with_weights=True, sentinel=sent, eps=eps)
                     ref1 = composite_kernel.fused_volume_render_interleaved_plain(
@@ -2648,9 +2593,10 @@ def main():
                         q, ro, rd, z_f, mcfg, with_weights=True, sentinel=sent, eps=eps)
                     ref3 = composite_kernel.fused_volume_render_interleaved_plain(raw3, z_f, rd,
                                                                                   sent, eps)
-                    require((render_kernel.launches["wgmma_samples"],
-                             render_kernel.launches["wgmma_zvals"]) == (hopper[0] + 1, hopper[1] + 1),
-                            f"composited K1/K3 on {route} weights did not reach csrc/ray_wgmma.cu")
+                    require((render_kernel.launches["render_samples_composited"],
+                             render_kernel.launches["render_zvals_composited"])
+                            == (hopper[0] + 1, hopper[1] + 1),
+                            f"composited K1/K3 on {route} weights did not launch csrc/ray_wgmma.cu")
                     torch.cuda.synchronize()
                     require(all(bool(torch.isfinite(t).all()) for t in (out1, w1, out3, w3)),
                             f"{phase} composited {route} {vname}: non-finite output")
@@ -2807,8 +2753,7 @@ def main():
                 prologues = 5 if route in ("int8", "int16") else 0
                 require(moved.get(entry) == 5 and moved.get("composite") == 2
                         and moved.get("dequant_stream", 0) == prologues
-                        and not any(moved.get(k) for k in WGMMA) and not any(
-                            moved.get(k) for k in ("wgmma_zvals", "render_zvals_composited")),
+                        and not any(moved.get(k) for k in (*WGMMA, *WGMMA_COMPOSITED)),
                         f"c1_check {route} {vname}: launches {moved}, expected 5 of {entry} "
                         f"and 2 of composite, {prologues} of dequant_stream, no ray kernel")
                 require(all(bool(torch.isfinite(t).all()) for t in (raw, out, wts)),
@@ -2878,10 +2823,7 @@ def main():
         comp = dict(composited=True, sentinel=sent, eps=eps)
         for route, w in weights.items():
             # the Hopper kernels on every route, raw and composited (B9, K1
-            # with its weights as the hierarchical coarse pass takes them);
-            # beside them, in turns (old, new, new, old), the WMMA build of
-            # the same entry on the same weights (csrc/render_samples.cu),
-            # which they replaced
+            # with its weights as the hierarchical coarse pass takes them)
             wr = 0 if route == "bf16" else quant.route_of(w)
             plain = {
                 "render_samples": lambda: render_kernel.fused_render_samples_plain(
@@ -2900,50 +2842,35 @@ def main():
                      CHUNK * 32 + CHUNK * SPP * 4),
                     ("render_zvals_composited", S3, dict(near=0.0, far=0.0, z_vals=z3, **comp), 3,
                      CHUNK * 32)):
-                turns = {"wmma": [], "wgmma": []}
-                for lib in (render_kernel._LIBRARY[wr], None, None, render_kernel._LIBRARY[wr]):
-                    turns["wmma" if lib else "wgmma"].append(call_ms(
-                        lambda: render_kernel._launch(w, ro, rd, S=S, cfg=mcfg, library=lib, **kw),
-                        reps))
                 res[f"{name} {route}"] = timed(
                     lambda: render_kernel._launch(w, ro, rd, S=S, cfg=mcfg, **kw),
                     {**WGMMA, **WGMMA_COMPOSITED}[name], reps, plain[name],
                     ray_bound(route, S, nbytes(ro, rd, kw.get("z_vals")), out_bytes,
                               f32_ops=20 * CHUNK * S if "composited" in name else 0),
-                    library=render_kernel.kernel_library(wr, "composited" in name),
-                    wmma_library=render_kernel._LIBRARY[wr],
-                    wmma_call_ms=turns["wmma"], wgmma_call_ms=turns["wgmma"],
-                    order="wmma, wgmma, wgmma, wmma")
+                    library=render_kernel.kernel_library(wr, "composited" in name))
                 if wr in ray_wgmma.DEQUANTIZED:     # the call's prologue, beside the kernel
                     res[f"{name} {route}"]["prologue_device_ms"] = profiled_ms(
                         lambda: render_kernel._launch(w, ro, rd, S=S, cfg=mcfg, **kw),
                         DEQUANT_KERNEL, reps)
             torch.cuda.empty_cache()
         # K4 and K7 at the uniform hierarchical frame's two chunks: the Hopper
-        # kernel in the build of each route and, in turns (old, new, new,
-        # old), the WMMA build it replaced, on the same weights
+        # kernel in the build of each route
         for S in (SPP, N_FINE):
             pos, dirs = sample_batch(CHUNK, S, seed=S)
             n = CHUNK * S
             for route, w in weights.items():
                 if route == "bf16":
-                    run = lambda lib=None: mlp_kernel._launch(w, pos, dirs, mcfg, library=lib)
+                    run = lambda: mlp_kernel._launch(w, pos, dirs, mcfg)
                     plain = lambda: mlp_kernel.fused_nerf_apply_plain(w, pos, dirs, mcfg)
-                    key, wmma = f"mlp_forward bf16 x{S}", mlp_kernel.WMMA_LIBRARY
-                    lib_name = ray_wgmma.LIBRARY
+                    key, lib_name = f"mlp_forward bf16 x{S}", ray_wgmma.LIBRARY
                 else:
-                    run = lambda lib=None: quant._launch(w, pos, dirs, mcfg, library=lib)
+                    run = lambda: quant._launch(w, pos, dirs, mcfg)
                     plain = lambda: quant.quantized_nerf_apply_plain(w, pos, dirs, mcfg)
-                    key, wmma = f"mlp_quant {route} x{S}", quant.WMMA_LIBRARY
+                    key = f"mlp_quant {route} x{S}"
                     lib_name = ray_wgmma.LIBRARIES[quant.route_of(w)]
-                old = lambda: run(wmma)
-                turns = [call_ms(old, 3), call_ms(run, 3), call_ms(run, 3), call_ms(old, 3)]
                 res[key] = timed(run, K4_KERNEL, 3, plain,
                                  ray_bound(route, S, nbytes(pos, dirs), n * 16, per_sample_dirs=True),
-                                 library=lib_name, wmma_library=wmma,
-                                 wmma_call_ms=[turns[0], turns[3]],
-                                 wgmma_call_ms=[turns[1], turns[2]], order="wmma, wgmma, wgmma, wmma")
-                res[key]["wgmma_over_wmma"] = (turns[1] + turns[2]) / (turns[0] + turns[3])
+                                 library=lib_name)
                 if route in ("int8", "int16"):
                     res[key]["prologue_device_ms"] = profiled_ms(run, DEQUANT_KERNEL, 3)
             del pos, dirs
@@ -3003,7 +2930,7 @@ def main():
                         "bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
                     for k, v in res.items()},
              int8_peak="1,979 TOP/s for the trunk products of the int8_compute rows, "
-                       "989 TFLOP/s bf16 for the rest", k2_vs_first_k2_bf16=k2_bf16,
+                       "989 TFLOP/s bf16 for the rest", k2_bf16=k2_bf16,
              launch_floor_ms=k2_ab.launch_floor_ms(), nvidia_smi=smi)
         return res, k2_bf16
 
@@ -3076,7 +3003,7 @@ def main():
     # -- path 1: the benchmark frame (K1 -> K2) -------------------------------
     engine = CudaEngine(shared, chunk_rays=CHUNK)
     frame_res = drive(engine, "benchmark", "benchmark",
-                      {"render_samples": 1, "wgmma_samples": 1, "composite": 1}, weightless=1)
+                      {"render_samples": 1, "composite": 1}, weightless=1)
     emit("frame", mode="benchmark", samples=SPP, **frame_res)
     per_launch, prof = frame_profile(engine, "benchmark",
                                      {WGMMA["render_samples"]: 1, K2_KERNEL: 1})
@@ -3094,8 +3021,7 @@ def main():
     # -- path 2: the hierarchical frame (K1 -> K2 -> sample_pdf -> K3 -> K2) ---
     emit("hier_frame", mode="hierarchical", samples=[SPP, N_FINE], **drive(
         engine, "hierarchical", "hierarchical",
-        {"render_samples": 1, "composite": 2, "render_zvals": 1, "wgmma_samples": 1,
-         "wgmma_zvals": 1}, weightless=1))
+        {"render_samples": 1, "composite": 2, "render_zvals": 1}, weightless=1))
     per_launch, prof = frame_profile(engine, "hierarchical",
                                      {WGMMA["render_samples"]: 1, K2_KERNEL: 2,
                                       WGMMA["render_zvals"]: 1})
@@ -3117,22 +3043,19 @@ def main():
             f"hierarchical PSNR {p_db} dB against the float32 torch engine")
 
     # -- path 3: fuse_composite=True in both modes (the composited K1/K3 on
-    #    the Hopper body: every launch counts in wgmma_*; the profile shows
-    #    the kernels by name, and none of the WMMA build's)
+    #    the Hopper body; the profile shows the kernels by name)
     fused = CudaEngine(shared, chunk_rays=CHUNK, fuse_composite=True)
     fused_res = {}
     for mode, expect, ref_rgb in (
-            ("benchmark", {"render_samples_composited": 1, "wgmma_samples": 1}, ref_bench),
-            ("hierarchical", {"render_samples_composited": 1, "render_zvals_composited": 1,
-                              "wgmma_samples": 1, "wgmma_zvals": 1}, ref_hier)):
+            ("benchmark", {"render_samples_composited": 1}, ref_bench),
+            ("hierarchical", {"render_samples_composited": 1, "render_zvals_composited": 1},
+             ref_hier)):
         res = drive(fused, mode, f"fused_{mode}", expect)
         res["psnr_db"], res["max_abs_err"] = against_torch(fused, mode, ref_rgb)
         require(res["psnr_db"] >= PSNR_MIN,
                 f"fused {mode} PSNR {res['psnr_db']} dB against the float32 torch engine")
         per_launch, res["profile"] = frame_profile(
             fused, mode, {WGMMA_COMPOSITED[k]: 1 for k in expect if k in WGMMA_COMPOSITED})
-        require(not any(k in res["profile"]["launches_by_kernel"] for k in WMMA_COMPOSITED.values()),
-                f"fused {mode}: a WMMA composited kernel ran")
         for k, v in per_launch.items():
             device_ms[f"fused_{mode} {k}"] = v
         fused_res[mode] = res
@@ -3182,22 +3105,17 @@ def main():
         k7_int8 = {"mlp_quant_int8": 2} if route_key == "int8" else {}
         # on the dequantize route every K1/K3/K7 call runs dequant_stream first
         prologue = lambda n: {"dequant_stream": n} if route_key == "dequant" else {}
-        # every K1/K3 launch, raw or composited, on the Hopper kernels
-        # (wgmma_samples, wgmma_zvals)
         for path, eng, mode, expect, views in (
                 ("benchmark", cls(shared, chunk_rays=CHUNK, **kw), "benchmark",
-                 {"render_samples": 1, "composite": 1, route_key: 1, "wgmma_samples": 1,
-                  **prologue(1)}, 3),
+                 {"render_samples": 1, "composite": 1, route_key: 1, **prologue(1)}, 3),
                 ("hierarchical", cls(shared, chunk_rays=CHUNK, **kw), "hierarchical",
                  {"render_samples": 1, "render_zvals": 1, "composite": 2, route_key: 2,
-                  "wgmma_samples": 1, "wgmma_zvals": 1, **prologue(2)}, 3),
+                  **prologue(2)}, 3),
                 ("fused_benchmark", cls(shared, chunk_rays=CHUNK, fuse_composite=True, **kw),
-                 "benchmark", {"render_samples_composited": 1, route_key: 1, "wgmma_samples": 1,
-                               **prologue(1)}, 2),
+                 "benchmark", {"render_samples_composited": 1, route_key: 1, **prologue(1)}, 2),
                 ("fused_hierarchical", cls(shared, chunk_rays=CHUNK, fuse_composite=True, **kw),
                  "hierarchical", {"render_samples_composited": 1, "render_zvals_composited": 1,
-                                  route_key: 2, "wgmma_samples": 1, "wgmma_zvals": 1,
-                                  **prologue(2)}, 2),
+                                  route_key: 2, **prologue(2)}, 2),
                 ("uniform_hierarchical", cls(shared_u, chunk_rays=CHUNK, **kw), "hierarchical",
                  {"mlp_quant": 2, "composite_planar": 2, **k7_int8, **prologue(2)}, 2)):
             r = drive(eng, mode, f"{phase}_{path}", expect, views)
@@ -3221,9 +3139,6 @@ def main():
             elif path == "fused_hierarchical":
                 per_launch, r["profile"] = frame_profile(
                     eng, mode, {k: 1 for k in WGMMA_COMPOSITED.values()})
-                require(not any(k in r["profile"]["launches_by_kernel"]
-                                for k in WMMA_COMPOSITED.values()),
-                        f"{phase} {path}: a WMMA composited kernel ran")
                 for k, v in per_launch.items():
                     device_ms[f"{phase} fused {k}"] = v
             elif path == "uniform_hierarchical":
@@ -3240,8 +3155,7 @@ def main():
     quant_frames("int8_frames", Int8ComputeEngine, "int8", PSNR_MIN_INT8)
     eng16 = CompressedEngine(shared, chunk_rays=CHUNK, bits=16)
     res16 = drive(eng16, "benchmark", "compressed16_benchmark",
-                  {"render_samples": 1, "composite": 1, "dequant": 1, "dequant_stream": 1,
-                   "wgmma_samples": 1}, 2)
+                  {"render_samples": 1, "composite": 1, "dequant": 1, "dequant_stream": 1}, 2)
     res16["psnr_db_vs_torch_f32"], res16["max_abs_err_vs_torch_f32"] = against_torch(
         eng16, "benchmark", ref_bench)
     emit("compressed16_frame", min_db=PSNR_MIN, psnr_resolution=[qw, qh],
@@ -3254,10 +3168,9 @@ def main():
     for key, eng, expect in (
             ("raw_bf16", CudaEngine(shared, chunk_rays=CHUNK, raw_dtype="bfloat16"),
              {"render_samples": 1, "render_zvals": 1, "composite": 2, "raw_bf16": 2,
-              "composite_bf16": 2, "wgmma_samples": 1, "wgmma_zvals": 1}),
+              "composite_bf16": 2}),
             ("planar", CudaEngine(shared, chunk_rays=CHUNK, planar=True),
-             {"render_samples": 1, "render_zvals": 1, "planar": 2, "composite_planar": 2,
-              "wgmma_samples": 1, "wgmma_zvals": 1})):
+             {"render_samples": 1, "render_zvals": 1, "planar": 2, "composite_planar": 2})):
         r = drive(eng, "hierarchical", f"{key}_hierarchical", expect, 2)
         r["psnr_db"], r["max_abs_err"] = against_torch(eng, "hierarchical", ref_hier)
         small = eng.render_image(poses[1], (qw, qh), SPP, focal=qfocal, mode="hierarchical",
@@ -3379,7 +3292,7 @@ def main():
     accel_res, accel_small = {}, {}
     for spp in ACCEL_SPP:
         r = drive(acc, "benchmark", f"accel_{spp}",
-                  {"render_zvals": 1, "wgmma_zvals": 1, "composite": 1}, spp=spp,
+                  {"render_zvals": 1, "composite": 1}, spp=spp,
                   weightless=1)
         per_launch, prof = frame_profile(acc, "benchmark",
                                          {WGMMA["render_zvals"]: 1, K2_KERNEL: 1}, spp)
@@ -3389,7 +3302,7 @@ def main():
                  glue_device_ms=sum(glue.values()), glue_device_ms_by_kernel=glue)
         device_ms[f"accel_{spp} render_zvals"] = per_launch.get(WGMMA["render_zvals"])
         u = drive(engine, "benchmark", f"uniform_{spp}",
-                  {"render_samples": 1, "wgmma_samples": 1, "composite": 1}, spp=spp)
+                  {"render_samples": 1, "composite": 1}, spp=spp)
         small = {name: eng.render_image(poses[1], (qw, qh), spp, focal=qfocal,
                                         monitor=False).rgb
                  for name, eng in (("accel", acc), ("uniform", engine), ("plain", acc_cpu))}
@@ -3410,7 +3323,7 @@ def main():
     accf = AccelEngine(shared, chunk_rays=CHUNK, fuse_composite=True)
     spp = ACCEL_SPP[-1]
     rf = drive(accf, "benchmark", f"accel_fused_{spp}",
-               {"render_zvals_composited": 1, "wgmma_zvals": 1}, spp=spp)
+               {"render_zvals_composited": 1}, spp=spp)
     per_launch, rf["profile"] = frame_profile(
         accf, "benchmark", {WGMMA_COMPOSITED["render_zvals_composited"]: 1}, spp)
     rf["k3_composited_device_ms_per_launch"] = per_launch.get(
@@ -3478,7 +3391,7 @@ def main():
     paths["train"] = counts
     train_expect = {"mlp_forward": 2 * TRAIN_STEPS, "bwd_rows": K5_PASSES * TRAIN_STEPS,
                     "wgrad": K5_PASSES * TRAIN_STEPS}
-    for k, n in counts.items():     # the WMMA K5 among the zeros
+    for k, n in counts.items():     # every render kernel among the zeros
         want = train_expect.get(k, 0)
         require(n == want, f"train: {k} launched {n} times in {TRAIN_STEPS} steps, expected {want}")
     require(trainer.state.step == TRAIN_STEPS and all(np.isfinite(losses)),
@@ -4095,11 +4008,10 @@ def main():
     bake = cli_cfg.accel.grid_resolution ** 3 // BAKE_CHUNK
     # the train loop's first chunk runs eagerly (counted), then its graph is
     # captured and replayed (not counted); the suite's rule as in `suite`
-    pipeline_expect = {"render_samples": 3 * per_engine_frames,
-                       "wgmma_samples": 3 * per_engine_frames, "dequant": per_engine_frames,
+    pipeline_expect = {"render_samples": 3 * per_engine_frames, "dequant": per_engine_frames,
                        "dequant_stream": per_engine_frames,
                        "int8": per_engine_frames, "render_zvals": per_engine_frames,
-                       "wgmma_zvals": per_engine_frames, "composite": 4 * per_engine_frames,
+                       "composite": 4 * per_engine_frames,
                        "mlp_forward": bake + 2 * train_chunk, "bwd_rows": K5_PASSES * train_chunk,
                        "wgrad": K5_PASSES * train_chunk}
     cli_engines = ["cuda", "compressed", "int8", "accel"]
@@ -4143,9 +4055,8 @@ def main():
     render_res = {}
     for mode, traced in (("benchmark", True), ("hierarchical", True), ("benchmark", False)):
         out_dir = os.path.join(cli_root, f"render_{mode}_{'traced' if traced else 'untraced'}")
-        per = {"render_samples": 1, "wgmma_samples": 1, "composite": 1} if mode == "benchmark" \
-            else {"render_samples": 1, "wgmma_samples": 1, "composite": 2, "render_zvals": 1,
-                  "wgmma_zvals": 1}
+        per = {"render_samples": 1, "composite": 1} if mode == "benchmark" \
+            else {"render_samples": 1, "composite": 2, "render_zvals": 1}
         lines, secs = run_cli(f"cli_render_{mode}" + ("" if traced else "_untraced"), [
             "render", "--device", "cuda", "--weights", PARAMS, "--engine", "cuda", "--width",
             str(W), "--height", str(H), "--samples", str(SPP), "--mode", mode, "--out", out_dir,
@@ -4215,9 +4126,9 @@ def main():
     cmp_size, cmp_spp = 128, 32
     cmp_dir = os.path.join(cli_root, "compare")
     one = math.ceil(cmp_size * cmp_size / CHUNK)            # chunks a frame (1)
-    cmp_expect = {"render_samples": 6 * one, "wgmma_samples": 6 * one, "dequant": 2 * one,
+    cmp_expect = {"render_samples": 6 * one, "dequant": 2 * one,
                   "dequant_stream": 2 * one,
-                  "int8": 2 * one, "render_zvals": 2 * one, "wgmma_zvals": 2 * one,
+                  "int8": 2 * one, "render_zvals": 2 * one,
                   "composite": 8 * one, "mlp_forward": bake}
     lines, secs = run_cli("cli_compare", [
         "compare", "--device", "cuda", "--checkpoint", PARAMS, "--size", str(cmp_size),
@@ -4298,14 +4209,14 @@ def main():
     # max_abs_err: the largest of the 1,001-ray checks and the chunk check
     rw = "nerf_tpu_torch/csrc/ray_wgmma.cu"
     summary = (
-        ("render_samples", "wgmma_samples", rw, "nerf_tpu/ops/render_kernel.py:203", "benchmark",
+        ("render_samples", "render_samples", rw, "nerf_tpu/ops/render_kernel.py:203", "benchmark",
          max(*k1_err.values(), chunk_abs["render_samples"]),
          f"{CHUNK} rays x {SPP} samples, bf16, raw out", mlp),
         ("composite", "composite", "nerf_tpu_torch/csrc/composite.cu",
          "nerf_tpu/ops/composite_kernel.py:90", "hierarchical",
          max(k2_err, chunk_abs["composite"], chunk_abs["composite_192"]),
          f"{CHUNK} rays x {SPP} samples, f32", "the log-space transmittance scan and its sums"),
-        ("render_zvals", "wgmma_zvals", rw, "nerf_tpu/ops/render_kernel.py:455", "hierarchical",
+        ("render_zvals", "render_zvals", rw, "nerf_tpu/ops/render_kernel.py:455", "hierarchical",
          max(*k3_err.values(), chunk_abs["render_zvals"]),
          f"{CHUNK} rays x {S3} per-ray depths, bf16, raw out", mlp),
         ("render_samples_composited", "render_samples_composited", rw,
@@ -4330,9 +4241,7 @@ def main():
             "library_ms": None, "library_note": f"{no_library} ({what})", "shape": shape})
         if name in WGMMA:
             kernels[-1].update(
-                cuda_kernel=WGMMA[name], wmma_ms=wmma_ms[name],
-                wmma_note="call ms of the WMMA build of the same raw entry "
-                          "(csrc/render_samples.cu), timed in turns with this kernel",
+                cuda_kernel=WGMMA[name],
                 design="warpgroup wgmma m64n256k16 / m64n128k16, activations in registers "
                        "(RS form), a producer warp streaming the weights by cp.async.bulk "
                        "into an mbarrier ring, persistent blocks (grid = SMs)",
@@ -4345,31 +4254,22 @@ def main():
             routes = {}
             for r, ms_frame in in_frame.items():
                 t = quant_times[f"{name} {r}"]
-                routes[r] = {f: t[f] for f in ("device_ms", "call_ms", "wmma_call_ms",
-                                                "wgmma_call_ms", "plain_ms")}
+                routes[r] = {f: t[f] for f in ("device_ms", "call_ms", "plain_ms")}
                 routes[r].update(bound_ms=t["bound"][0], device_ms_in_fused_frame=ms_frame)
-            kernels[-1].update(
-                cuda_kernel=ck, wmma_ms=wmma_ms[name], wmma_cuda_kernel=WMMA_COMPOSITED[name],
-                wmma_note="call ms of the WMMA build of the same composited entry "
-                          "(csrc/render_samples.cu), timed in turns with this kernel",
-                design=B9_DESIGN, routes=routes, max_abs_err_quantized_routes=quant_err["b9"],
-                launches_hopper=paths[path]["wgmma_samples" if "samples" in name
-                                            else "wgmma_zvals"])
+            kernels[-1].update(cuda_kernel=ck, design=B9_DESIGN, routes=routes,
+                               max_abs_err_quantized_routes=quant_err["b9"])
     kernels[1]["at_192"] = {"call_ms": t_call["composite_192"],
                             "plain_ms": t_plain["composite_192"],
                             "bound_ms": bounds["composite_192"][0]}
-    # K2's bodies, and every case timed against the first K2 in turns
-    k2_summary = lambda res: {k: {f: v[f] for f in ("ms", "old_ms", "new_over_old", "bound_ms",
-                                                    "bound_share", "chunks")}
+    # K2's bodies, and every case timed
+    k2_summary = lambda res: {k: {f: v[f] for f in ("ms", "bound_ms", "bound_share", "chunks")}
                               for k, v in res.items()}
     kernels[1].update(
         cuda_kernel=K2_KERNEL, design=K2_DESIGN,
         shape=f"{CHUNK} rays x {SPP} samples, f32, without weights (the benchmark frame)",
-        old_kernel=K2_OLD_KERNEL, launch_floor_ms=k2_floor,
-        vs_first_k2={"f32": k2_summary(k2_f32), "bf16": k2_summary(k2_bf16),
-                     "order": "old, new, new, old; device ms by the profiler"},
-        launches_old_kernel=sum(c.get("composite_old", 0) for c in paths.values()))
-    require(kernels[1]["launches_old_kernel"] == 0, "a path launched the first K2")
+        launch_floor_ms=k2_floor,
+        cases={"f32": k2_summary(k2_f32), "bf16": k2_summary(k2_bf16),
+               "order": "two turns; device ms by the profiler"})
     # the accel engine's paths (its K3 at the accel frames' sample counts,
     # K2 after it, K4 in its bake), and K3 at one depth per ray
     accel_paths = lambda counter: {p: c[counter] for p, c in paths.items()
@@ -4437,35 +4337,23 @@ def main():
                                         "bound_ms": k6_times["bound"][0],
                                         "from": "kernel_times, the profiler in one trace"}
         if name == "mlp_forward":
-            c = new_times[name][N_COARSE_TRAIN]
-            row["at_coarse_pass"]["wmma_ms"] = c["wmma_ms"]
             row["launches_accel"] = accel_paths("mlp_forward")
             row["accel_bake"] = {"points": grid_res ** 3, "launches": first["mlp_forward"],
                                  "k4_device_ms": us_b.get(K4_KERNEL, 0.0) / 1e3}
             chunk = {f"{CHUNK}x{S}": {k: quant_times[f"mlp_forward bf16 x{S}"][k] for k in
-                                      ("device_ms", "call_ms", "wmma_call_ms", "plain_ms")}
+                                      ("device_ms", "call_ms", "plain_ms")}
                      | {"bound_ms": quant_times[f"mlp_forward bf16 x{S}"]["bound"][0]}
                      for S in (SPP, N_FINE)}
-            row.update(cuda_kernel=K4_KERNEL, library=ray_wgmma.LIBRARY, wmma_ms=t["wmma_ms"],
-                       wmma_device_ms=t["wmma_device_ms"],
-                       wmma_note="call ms of the WMMA build csrc/mlp_forward.cu on the same "
-                                 "inputs, timed in turns with the Hopper kernel",
-                       design=K4_DESIGN, at_uniform_chunks=chunk,
+            row.update(cuda_kernel=K4_KERNEL, library=ray_wgmma.LIBRARY, design=K4_DESIGN, at_uniform_chunks=chunk,
                        device_ms_in_uniform_frame=device_ms.get("uniform mlp_forward"),
                        weight_stream="in a train step the prefix of K5's stream, gathered once "
                                      "per network in the forward")
         if name == "mlp_backward":
-            c = new_times[name][N_COARSE_TRAIN]
-            row["at_coarse_pass"]["wmma_ms"] = c["wmma_ms"]
             row.update(
-                cuda_kernels={k: {"launches": paths[path][cnt], "launches_wmma_build":
-                                  paths[path]["mlp_backward_wmma"],
+                cuda_kernels={k: {"launches": paths[path][cnt],
                                   "device_ms_per_call": None if t["device_ms_by_kernel"] is None
                                   else t["device_ms_by_kernel"][k]}
                               for k, cnt in zip(K5_KERNELS, ("bwd_rows", "wgrad"))},
-                wmma_ms=t["wmma_ms"], wmma_device_ms=t["wmma_device_ms"],
-                wmma_note="call ms of the WMMA build csrc/mlp_backward.cu on the same "
-                          "inputs, timed in turns with the Hopper kernels",
                 design="K5a: warpgroup wgmma over the forward recompute and the input "
                        "gradients (pre-transposed weight images), a producer warp "
                        "streaming by cp.async.bulk, persistent blocks, a bf16 scratch; "
@@ -4523,15 +4411,11 @@ def main():
             if name == "mlp_quant" else f"{no_library} (a chunked image and its scales)"
             if name == "dequant_stream" else f"{no_library} ({mlp})",
             "shape": shape, "times_key": key})
-        if "wmma_call_ms" in t:
-            kernels[-1].update(cuda_kernel=t["cuda_kernel"], library=t["library"],
-                               wmma_ms=float(np.mean(t["wmma_call_ms"])),
-                               wmma_note=f"call ms of the WMMA build {t['wmma_library']} of the "
-                                         "same entry, timed in turns with this kernel")
+        if "library" in t:
+            kernels[-1].update(cuda_kernel=t["cuda_kernel"], library=t["library"])
         if name == "mlp_quant":
             kernels[-1].update(design=K4_DESIGN, routes={
-                k: {f: quant_times[k][f] for f in ("device_ms", "call_ms", "wmma_call_ms",
-                                                   "wgmma_over_wmma", "plain_ms", "library")}
+                k: {f: quant_times[k][f] for f in ("device_ms", "call_ms", "plain_ms", "library")}
                 | {"bound_ms": quant_times[k]["bound"][0]}
                 for k in quant_times if k.startswith("mlp_quant")},
                 device_ms_in_uniform_frame=device_ms.get(
@@ -4541,7 +4425,7 @@ def main():
             kernels[-1]["at_k7"] = {
                 "shape": f"{CHUNK} x {N_FINE} samples", "cuda_kernel": K4_KERNEL,
                 "library": k7["library"], "ms": k7["device_ms"], "call_ms": k7["call_ms"],
-                "wmma_call_ms": k7["wmma_call_ms"], "bound_ms": k7["bound"][0],
+                "bound_ms": k7["bound"][0],
                 "launches": paths["int8_frames_uniform_hierarchical"]["mlp_quant_int8"],
                 "device_ms_in_uniform_frame": device_ms.get(f"int8_frames uniform {K4_KERNEL}")}
     for row in kernels:

@@ -51,12 +51,10 @@
 //   and walk groups of rays; the schedule is mirrored in
 //   ops/composite_kernel.py (`rays_schedule`) and exported here
 //   (`composite_rays_*`).
-// - composite_ray (K6, and the first K2, `composite_kernel`, kept only as a
-//   timed comparison that no path reaches): one warp per ray, the samples
-//   32 at a time; each chunk's loads wait on the previous chunk's scan and
-//   carry. Interleaved: a 16-byte (bf16: 8-byte) load a lane. Planar: four
-//   4-byte loads a lane from strided [N, S] views (contiguous across the
-//   warp for separate planes). The prefix sum runs across the warp with
+// - composite_ray (K6): one warp per ray, the samples 32 at a time; each
+//   chunk's loads wait on the previous chunk's scan and carry. Four 4-byte
+//   loads a lane from strided [N, S] views (contiguous across the warp for
+//   separate planes). The prefix sum runs across the warp with
 //   __shfl_up_sync and a carried offset (the TPU kernels used a triangular
 //   matmul); the sums are warp-shuffle reductions.
 // z may be a broadcast view: its row stride is an argument (0 for one shared
@@ -141,29 +139,6 @@ __device__ __forceinline__ void composite_ray(Load load, const float* __restrict
     const float vals[5] = {sr, sg, sb, sd, sa};
     out8[lane] = lane < 5 ? vals[lane] : 0.f;
   }
-}
-
-// RAW: float (16 bytes a sample) or __nv_bfloat16 (8 bytes).
-template <typename RAW>
-__global__ void __launch_bounds__(THREADS) composite_kernel(
-    const RAW* __restrict__ raw, const float* __restrict__ z, long long z_stride,
-    const float* __restrict__ rays_d, int n_rays, int S, float sentinel, float eps,
-    float* __restrict__ out, float* __restrict__ w) {
-  const long long r = ((long long)blockIdx.x * THREADS + threadIdx.x) >> 5;
-  if (r >= n_rays) return;  // uniform across the warp
-  const RAW* row = raw + r * 4 * S;
-  composite_ray(
-      [row](int s) {
-        if constexpr (sizeof(RAW) == 4) {
-          return reinterpret_cast<const float4*>(row)[s];
-        } else {
-          const uint2 u = reinterpret_cast<const uint2*>(row)[s];
-          const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-          return make_float4(__bfloat162float(h[0]), __bfloat162float(h[1]),
-                             __bfloat162float(h[2]), __bfloat162float(h[3]));
-        }
-      },
-      z + r * z_stride, rays_d + r * 3, S, sentinel, eps, out + r * 8, w + r * S);
 }
 
 // sigma and the color planes cr, cg, cb are [N, S] views given by a row
@@ -660,25 +635,6 @@ int composite_edges(const void* raw, int raw_bf16, const float* t, long long t_s
 // the launch floor: one empty kernel
 int composite_empty(void* stream) {
   empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
-  return int(cudaGetLastError());
-}
-
-// The first K2 (composite_kernel), kept as a timed comparison; w is required
-// raw_bf16: raw holds bf16 values, else fp32
-int composite(const void* raw, int raw_bf16, const float* z, long long z_stride,
-              const float* rays_d, int n_rays, int n_samples, float sentinel, float eps,
-              float* out, float* w, void* stream) {
-  if (n_samples < 1) return int(cudaErrorInvalidValue);
-  const long long blocks = ((long long)n_rays * 32 + THREADS - 1) / THREADS;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (raw_bf16)
-    composite_kernel<<<unsigned(blocks), THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(raw), z, z_stride, rays_d, n_rays, n_samples,
-        sentinel, eps, out, w);
-  else
-    composite_kernel<<<unsigned(blocks), THREADS, 0, s>>>(
-        static_cast<const float*>(raw), z, z_stride, rays_d, n_rays, n_samples, sentinel, eps,
-        out, w);
   return int(cudaGetLastError());
 }
 

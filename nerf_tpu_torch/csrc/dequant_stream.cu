@@ -38,7 +38,7 @@
 // Arithmetic: bf16(f32(q) * s[col]), round to nearest even: the integer to
 // float by the exact construction ray_wgmma.cu's producer uses (the bits of
 // 2^23 + (q + 2^(b-1)), minus that offset), the product by __fmul_rn; the
-// resident values by ray_wgmma.cu's weight_at (mlp_body.cuh). The values are
+// resident values by ray_wgmma.cu's weight_at (wgmma_common.cuh). The values are
 // those the quantized builds put in front of their tensor cores.
 
 #include <cuda_bf16.h>

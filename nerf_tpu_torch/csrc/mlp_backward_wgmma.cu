@@ -12,10 +12,10 @@
 // What bounds it: tensor-core operations (per sample ~0.53 M multiply-adds of
 // forward recompute, as many for the weight gradients and ~0.49 M for the
 // input gradients), against 40 bytes read a sample and 2.1 MB of gradients
-// written once. What the design does about the three costs of the WMMA build
-// (mlp_backward.cu, kept only as a timed comparison):
-// 1. The per-tile read-modify-write of per-block gradient copies (2 x 2.4 MB
-//    per 128 rows, 14.7 GB at 393,216 samples) is gone. The row pass K5a
+// written once. What the design does about the costs of a backward in one
+// pass that keeps a copy of every gradient per block:
+// 1. No per-tile read-modify-write of per-block gradient copies (2 x 2.4 MB
+//    per 128 rows, 14.7 GB at 393,216 samples). The row pass K5a
 //    writes the quantities the weight gradients contract over (bf16: the
 //    encodings, h0..h7, every rounded cotangent) once to a scratch, and the
 //    weight-gradient pass K5b reads them back once per output tile: ~9 KB a

@@ -18,7 +18,7 @@
 //   positions and directions [N, 3] -> (sigma, r, g, b) [N, 4] fp32) and, on
 //   the quantized routes, `_quant_kernel` of nerf_tpu/ops/quant.py (K7);
 // all through `_nerf_math` (nerf_tpu/ops/mlp_kernel.py). This source is
-// built once per weight route (-DNERF_WQ, the routes of mlp_body.cuh):
+// built once per weight route (-DNERF_WQ, the routes of wgmma_common.cuh):
 // - 0, bf16 weights;
 // - 1 and 2, int8 and int16 weights dequantized in the kernel (`quant_w_dict`,
 //   nerf_tpu/ops/quant.py): bf16(f32(q) * s[col]), bf16 products;
@@ -165,19 +165,18 @@
 // - the heads: softplus(sigma + density_bias) and sigmoid * rgb_scale -
 //   rgb_padding. The output is the raw form (fp32 or bf16).
 //
-// Arithmetic contract (the WMMA body's, ops/render_kernel.py; the
-// compositing's is csrc/render_samples.cu composite_tile's: ||d|| in fp32
-// without FMA, expf/logf without fast math): pos = o + d z
+// Arithmetic contract (ops/render_kernel.py; the compositing's: ||d|| in
+// fp32 without FMA, expf/logf without fast math): pos = o + d z
 // in fp32 without FMA, K1's z = near + span * (s / (S - 1)); sinf/cosf at
 // full range reduction; the direction term per ray in fp32 from a bf16
 // encoding (per sample: a bf16 product accumulated in fp32); bf16 products
 // with fp32 accumulation; the fp32 bias (and the ray kernels' direction
 // term) added before the bf16 rounding; a quantized matrix
 // rounded once, bf16(f32(q) * s[col]); the int8-compute route's scales and
-// roundings in _int8_mm's order. The sums run in another order than WMMA's,
-// so the two agree to bf16's rounding, not bit for bit (the int8-compute
-// route: to its own quantization noise, where a flipped bf16 rounding moves
-// a row's absmax).
+// roundings in _int8_mm's order. The sums run in another order than the
+// plain versions', so the two agree to bf16's rounding, not bit for bit
+// (the int8-compute route: to its own quantization noise, where a flipped
+// bf16 rounding moves a row's absmax).
 
 #include <type_traits>
 
@@ -1476,7 +1475,7 @@ int mlp_wgmma_stages() { return ring_stages(0); }
 int mlp_wgmma_stream_chunks(int bmild) { return stream_chunks(bmild) + 1; }
 
 // `scales`: null on the bf16 route, else the eight matrices' scales and
-// enc_scale (mlp_body.cuh make_net); the matrices' own pointers serve the
+// enc_scale (wgmma_common.cuh make_net); the matrices' own pointers serve the
 // resident heads and wdir, the stream the rest. `composited`: out is [R, 8]
 // fp32 (out_mode 0) and w [R, S] or null; dz is K1's constant step.
 int ray_wgmma_render(const float* rays_o, const float* rays_d, const float* z, long long z_stride,

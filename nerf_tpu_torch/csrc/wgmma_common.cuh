@@ -4,12 +4,162 @@
 // shared memory or from registers), the consumers' view of a weight ring, the
 // position encoding of a row as bf16 pairs, and the epilogue that hands a
 // layer's accumulators on as the next product's A fragments.
+//
+// They share the network's constants, its weights (Net, make_net) and the
+// element a product sees of a matrix (weight_at). Weight routes (template
+// parameter WQ, the -DNERF_WQ of ray_wgmma.cu's builds;
+// nerf_tpu_torch/ops/quant.py has the plain versions):
+// - WQ_BF16: bf16 matrices;
+// - WQ_INT8, WQ_INT16 (the TPU kernels' `quant_w_dict`): the matrices are
+//   int8 / int16 in global memory with one fp32 scale per output column, and
+//   a product sees bf16(f32(q) * s[col]); the scalar heads dequantize the
+//   same way;
+// - WQ_INT8_COMPUTE (the TPU kernels' `_int8_mm` hook): layer 0, the trunk
+//   layers and the skip product are s8 x s8 -> s32 products. The encoding
+//   is quantized at a fixed scale, clip(rint(enc * (enc_scale[k] * 127)),
+//   +-127); the bf16 activations per layer and row,
+//   rint(a * (127 / max(max|a|, 1e-20))). The s32 result goes to fp32 as
+//   (acc * ax[row]) * (s[col] * (1 / 127)), without ax for the encoding
+//   products. The skip layer's two products carry different scales, so each
+//   is scaled to fp32 before they are added. The heads, the bottleneck, the
+//   color layers and the direction branch take WQ_INT8 (head_route).
 
 #pragma once
 
-#include "mlp_body.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
 
 namespace {
+
+constexpr int M = 128;          // rows (samples) per tile
+constexpr int HID = 256;
+constexpr int CH = 128;         // color layer width
+constexpr int KPOS = 64;        // padded position-encoding width
+constexpr int KDIR = 32;        // padded direction-encoding width
+constexpr unsigned FULL = 0xffffffffu;
+
+// weight routes
+constexpr int WQ_BF16 = 0, WQ_INT8 = 1, WQ_INT16 = 2, WQ_INT8_COMPUTE = 3;
+
+// element type of the matrices in global memory, and the route the heads take
+template <int WQ> struct WeightType { typedef bf16 T; };
+template <> struct WeightType<WQ_INT8> { typedef int8_t T; };
+template <> struct WeightType<WQ_INT16> { typedef int16_t T; };
+template <> struct WeightType<WQ_INT8_COMPUTE> { typedef int8_t T; };
+__host__ __device__ constexpr int head_route(int wq) { return wq == WQ_INT8_COMPUTE ? WQ_INT8 : wq; }
+
+// The network: weights in pack_params' layout (nerf_tpu_torch/ops/mlp_kernel.py)
+// and the architecture switches.
+// A matrix is bf16 on the WQ_BF16 route, else int8 / int16 with its scales
+// (one fp32 per output column; wt_s is [7, 256]) beside it.
+struct Net {
+  const void* w0;
+  const float* b0;
+  const void* wt;
+  const float* bt;
+  const void* wskip;
+  const void* wsig;
+  const float* bsig;
+  const void* wbn;
+  const float* bbn;
+  const void* wc0;
+  const float* bc0;
+  const void* wdir;
+  const void* wc1;
+  const float* bc1;
+  const float *w0_s, *wt_s, *wskip_s, *wsig_s, *wbn_s, *wc0_s, *wdir_s, *wc1_s;
+  const float* enc_scale;  // [KPOS], int8 compute only
+  int Lp, Ld, skip_pos, bmild, relu_sigma, normalize_dirs;
+  float band_scale;
+};
+
+// `w`: the 14 weight pointers in PackedWeights order (wbn, bbn null unless
+// bmild). `scales`: null on the bf16 route, else the eight matrices' scales
+// in the same order and enc_scale.
+inline Net make_net(const void* const* w, const void* const* scales, int Lp, int Ld,
+                    int skip_pos, int bmild, int relu_sigma, int normalize_dirs,
+                    float band_scale) {
+  Net n;
+  n.w0 = w[0];
+  n.b0 = static_cast<const float*>(w[1]);
+  n.wt = w[2];
+  n.bt = static_cast<const float*>(w[3]);
+  n.wskip = w[4];
+  n.wsig = w[5];
+  n.bsig = static_cast<const float*>(w[6]);
+  n.wbn = w[7];
+  n.bbn = static_cast<const float*>(w[8]);
+  n.wc0 = w[9];
+  n.bc0 = static_cast<const float*>(w[10]);
+  n.wdir = w[11];
+  n.wc1 = w[12];
+  n.bc1 = static_cast<const float*>(w[13]);
+  const float* sc[9];
+  for (int i = 0; i < 9; ++i) sc[i] = scales ? static_cast<const float*>(scales[i]) : nullptr;
+  n.w0_s = sc[0];
+  n.wt_s = sc[1];
+  n.wskip_s = sc[2];
+  n.wsig_s = sc[3];
+  n.wbn_s = sc[4];
+  n.wc0_s = sc[5];
+  n.wdir_s = sc[6];
+  n.wc1_s = sc[7];
+  n.enc_scale = sc[8];
+  n.Lp = Lp;
+  n.Ld = Ld;
+  n.skip_pos = skip_pos;
+  n.bmild = bmild;
+  n.relu_sigma = relu_sigma;
+  n.normalize_dirs = normalize_dirs;
+  n.band_scale = band_scale;
+  return n;
+}
+
+inline bool net_fits(const Net& n) { return 3 + 6 * n.Lp <= KPOS && 3 + 6 * n.Ld <= KDIR; }
+
+// The quantized routes need every scale (and int8 compute its enc_scale).
+inline bool net_has_scales(const Net& n, int wq) {
+  if (wq == WQ_BF16) return true;
+  return n.w0_s && n.wt_s && n.wskip_s && n.wsig_s && n.wc0_s && n.wdir_s && n.wc1_s &&
+         (!n.bmild || n.wbn_s) && (wq != WQ_INT8_COMPUTE || n.enc_scale);
+}
+
+// Element idx of a matrix as the products see it: the bf16 value, or
+// bf16(f32(q) * s[col]) on the quantized routes (HQ: WQ_BF16, WQ_INT8 or
+// WQ_INT16).
+template <int HQ>
+__device__ __forceinline__ float weight_at(const void* w, const float* s, int idx, int col) {
+  if constexpr (HQ == WQ_BF16) {
+    return __bfloat162float(static_cast<const bf16*>(w)[idx]);
+  } else {
+    const float q = float(static_cast<const typename WeightType<HQ>::T*>(w)[idx]);
+    return __bfloat162float(__float2bfloat16_rn(__fmul_rn(q, s[col])));
+  }
+}
+
+// Column k of the positional encoding of x (3 coordinates), in the
+// reference layout [x, sin(f0 x), cos(f0 x), sin(f1 x), ...], f_i = 2^i * scale.
+// Columns past the encoding are zero padding.
+__device__ __forceinline__ float encode_col(const float x[3], int k, int L, float scale) {
+  if (k < 3) return x[k];
+  int j = k - 3;
+  if (j >= 6 * L) return 0.f;
+  int band = j / 6, w = j % 6;
+  float phase = __fmul_rn(x[w % 3], ldexpf(scale, band));
+  return w < 3 ? sinf(phase) : cosf(phase);
+}
+
+// d * rsqrt(|d|^2 + 1e-12), in fp32 without fused multiply-adds
+__device__ __forceinline__ void normalize_dir(float d[3]) {
+  const float ss = __fadd_rn(__fadd_rn(__fmul_rn(d[0], d[0]), __fmul_rn(d[1], d[1])),
+                             __fmul_rn(d[2], d[2]));
+  const float inv = rsqrtf(__fadd_rn(ss, 1e-12f));
+#pragma unroll
+  for (int c = 0; c < 3; ++c) d[c] = __fmul_rn(d[c], inv);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -235,7 +385,7 @@ __device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// encode_col (mlp_body.cuh) on a point held as three scalars: the same
+// encode_col on a point held as three scalars: the same
 // operations, with the coordinate chosen by selects, not by an index into a
 // local array
 __device__ __forceinline__ float encode_xyz(float x0, float x1, float x2, int k, int L,

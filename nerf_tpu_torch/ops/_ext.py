@@ -4,13 +4,13 @@ Each ``nerf_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface and loaded
 with ``ctypes``. No PyTorch headers are included, so a source builds in
 seconds. ``VARIANTS`` are further libraries built from one of the sources
-with a preprocessor definition: the ray kernels on the weight routes of the
-shared MLP body that need a build of their own. The libraries go to
+with a preprocessor definition: the Hopper MLP kernels on the int8-compute
+weight route, which needs a build of its own. The libraries go to
 ``build/nerf_tpu_torch/`` beside the package, named by a hash of the
-source, the shared headers
-(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
-unchanged one is reused. ``build`` starts one ``nvcc`` per missing library,
-all at once, and waits for every one of them.
+source, the headers it includes (``#include "..."``, transitively) and the
+flags, so an edited source or header rebuilds the libraries that include it
+and an unchanged one is reused. ``build`` starts one ``nvcc`` per missing
+library, all at once, and waits for every one of them.
 
 Calling convention of every C entry point: pointers and the CUDA stream are
 ``void*`` (``ctypes.c_void_p``; a bare Python int would be cut to 32 bits),
@@ -25,27 +25,22 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_tpu_torch"
-SOURCES = ("render_samples", "composite", "mlp_forward", "mlp_backward", "mlp_quant", "ray_wgmma",
-           "mlp_backward_wgmma", "dequant_stream")
-# library -> (source, definition): the WMMA ray kernels on int8 and int16
-# weights dequantized in the kernel, and the WMMA and Hopper ray kernels on
-# the int8-compute route (the Hopper kernels take int8 and int16 weights in
-# their bf16 build, after dequant_stream)
-VARIANTS = {
-    **{f"render_samples_{suffix}": ("render_samples", f"-DNERF_WQ={route}")
-       for route, suffix in ((1, "q8"), (2, "q16"), (3, "i8"))},
-    "ray_wgmma_i8": ("ray_wgmma", "-DNERF_WQ=3"),
-}
+SOURCES = ("composite", "ray_wgmma", "mlp_backward_wgmma", "dequant_stream")
+# library -> (source, definition): the Hopper MLP kernels on the int8-compute
+# route (they take int8 and int16 weights in their bf16 build, after
+# dequant_stream)
+VARIANTS = {"ray_wgmma_i8": ("ray_wgmma", "-DNERF_WQ=3")}
 LIBRARIES = SOURCES + tuple(VARIANTS)
 # no --use_fast_math: the positional encoding takes sinf/cosf of phases up
 # to 2^9 * pi * |x| (thousands of radians), which the fast intrinsics'
@@ -70,10 +65,27 @@ def _source_and_flags(name: str):
     return CSRC / f"{source}.cu", NVCC_FLAGS + ((define,) if define else ())
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _included(source: Path) -> List[Path]:
+    """The files ``source`` includes by ``#include "..."``, transitively,
+    each once, in the order they are first reached."""
+    seen: List[Path] = []
+    todo = [source]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            header = source.parent / name.decode()
+            if header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
 def library_path(name: str) -> Path:
     source, flags = _source_and_flags(name)
     digest = hashlib.sha256(source.read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    for header in _included(source):
         digest.update(header.read_bytes())
     digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"

@@ -39,14 +39,11 @@ arithmetic (no sentinel, no ReLU, ``exp(-cumsum)`` transmittance, depth at
 the midpoints, normalized and clipped in the kernel).
 
 K2 is ``composite_rays_kernel``. Its launch, ``_launch(raw, z_vals, rays_d,
-sentinel, eps, with_weights=True, kernel=KERNEL)``, writes the weights
-``w [N, S]`` only with ``with_weights``, and returns ``(out [N, 8], w or
-None)``; ``composite_rays(raw, z_vals, rays_d, cfg, with_weights)`` is the
-engines' entry, ``fused_volume_render_interleaved`` the same with the
-weights. ``kernel=OLD_KERNEL`` launches the first K2 (``composite_kernel``,
-one warp a ray, 32 samples a step, always writing ``w``), a timed
-comparison that no path asks for (``old_launches``). The schedule of the
-new body (``segment_lanes``, ``run_length``, ``rays_per_warp``,
+sentinel, eps, with_weights=True)``, writes the weights ``w [N, S]`` only
+with ``with_weights``, and returns ``(out [N, 8], w or None)``;
+``composite_rays(raw, z_vals, rays_d, cfg, with_weights)`` is the engines'
+entry, ``fused_volume_render_interleaved`` the same with the weights. Its
+schedule (``segment_lanes``, ``run_length``, ``rays_per_warp``,
 ``rays_grid``, ``rays_schedule``) is the one the library exports.
 """
 
@@ -68,12 +65,10 @@ from nerf_tpu_torch.utils.rendering import RenderOutputs, composite_intervals, v
 launches = 0          # K2, interleaved
 bf16_launches = 0     # those of K2's launches that read a bfloat16 raw
 weightless_launches = 0   # those of K2's launches that wrote no weights
-old_launches = 0      # the first K2 (OLD_KERNEL), a timed comparison only
 planar_launches = 0   # K6, planar
 edges_launches = 0    # K2's edges form (EDGES_KERNEL), the mip variant's intervals
 
 KERNEL = "composite_rays_kernel"            # K2
-OLD_KERNEL = "composite_kernel"             # the first K2: timed comparisons only
 EDGES_KERNEL = "composite_edges_kernel"     # K2's edges form
 
 
@@ -182,13 +177,10 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, 
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
-def _launch(raw, z_vals, rays_d, sentinel, eps, with_weights=True, kernel=KERNEL):
+def _launch(raw, z_vals, rays_d, sentinel, eps, with_weights=True):
     """Launch K2 on CUDA tensors: ``(out [N, 8], w [N, S] or None)``, the
-    weights written only ``with_weights``. ``kernel=OLD_KERNEL`` launches
-    the first K2 instead (a timed comparison: it always writes them)."""
-    global launches, bf16_launches, weightless_launches, old_launches
-    if kernel not in (KERNEL, OLD_KERNEL):
-        raise ValueError(f"K2 is {KERNEL} (or {OLD_KERNEL}), not {kernel}")
+    weights written only ``with_weights``."""
+    global launches, bf16_launches, weightless_launches
     n, s4 = raw.shape
     s = s4 // 4
     dev = raw.device
@@ -207,22 +199,18 @@ def _launch(raw, z_vals, rays_d, sentinel, eps, with_weights=True, kernel=KERNEL
                          "float32, 8-byte for bfloat16")
     rays_d = rays_d.contiguous()
     out = torch.empty(n, 8, dtype=torch.float32, device=dev)
-    w = (torch.empty(n, s, dtype=torch.float32, device=dev)
-         if with_weights or kernel == OLD_KERNEL else None)
+    w = torch.empty(n, s, dtype=torch.float32, device=dev) if with_weights else None
     if n == 0:
-        return out, (w if with_weights else None)
+        return out, w
     lib = _ext.load("composite")
-    fn = lib.composite_rays if kernel == KERNEL else lib.composite
+    fn = lib.composite_rays
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     err = fn(_ext.ptr(raw), int(raw_bf16), _ext.ptr(z_vals), z_vals.stride(0), _ext.ptr(rays_d),
              n, s, float(sentinel), float(eps), _ext.ptr(out),
              None if w is None else _ext.ptr(w), _ext.stream_ptr(dev))
-    _ext.check(lib, err, f"{kernel} launch")
+    _ext.check(lib, err, f"{KERNEL} launch")
     ran = _ext.ran()
-    if kernel == OLD_KERNEL:
-        old_launches += ran
-        return out, (w if with_weights else None)
     launches += ran
     bf16_launches += ran * int(raw_bf16)
     weightless_launches += ran * int(not with_weights)

@@ -12,9 +12,7 @@ Counterpart of ``nerf_tpu/ops/mlp_kernel.py``:
   same arithmetic in plain PyTorch. Nothing falls back: a CUDA launch either
   runs or raises. Under a profiler each ``mlp_forward`` call records one
   span ``kernel.k4`` (``utils/monitor.span``), from that choice until the
-  launch is enqueued. The WMMA build it replaced (``csrc/mlp_forward.cu``) is
-  reached only through ``_launch(..., library=WMMA_LIBRARY)``, a timed
-  comparison, and counted in ``wmma_launches``. Its gradient, as in the JAX
+  launch is enqueued. Its gradient, as in the JAX
   package, is a recompute through ``apply_nerf`` under autograd; gradients
   reach the params only.
 - ``pack_params`` lays the weights out for every kernel that evaluates the
@@ -43,7 +41,6 @@ as the TPU kernels do.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -57,12 +54,9 @@ from nerf_tpu_torch.utils.device import disable_tf32
 from nerf_tpu_torch.utils.monitor import span
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
-# Launches of the CUDA kernel (not of the plain version), and of the WMMA
-# build it replaced (which no path of the port calls). A launch recorded
+# Launches of the CUDA kernel (not of the plain version). A launch recorded
 # into a CUDA graph is not one (_ext.ran).
 launches = 0
-wmma_launches = 0
-WMMA_LIBRARY = "mlp_forward"
 
 HID = 256
 POS_ROWS = 64   # padded position-encoding width (3 + 6 * 10 = 63)
@@ -248,29 +242,14 @@ def fused_nerf_apply_plain(packed: PackedWeights, positions: torch.Tensor,
     return torch.cat([sigma[:, None], rgb], dim=-1)
 
 
-_ARGTYPES = (
-    [ctypes.c_void_p] * 2                 # positions, directions
-    + [ctypes.c_longlong]                 # N
-    + [ctypes.c_void_p]                   # weights (PackedWeights order)
-    + [ctypes.c_int] * 6 + [ctypes.c_float]   # net_args
-    + [ctypes.c_void_p] * 2               # out, stream
-)
-
-
 def _launch(packed: PackedWeights, positions: torch.Tensor, directions: torch.Tensor,
-            cfg: ModelConfig, stream: Optional[torch.Tensor] = None,
-            library: Optional[str] = None) -> torch.Tensor:
+            cfg: ModelConfig, stream: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K4 on float32 ``[N, 3]`` CUDA tensors: ``[N, 4]``. The Hopper
     kernel reads ``stream`` (the weights' per-sample stream, or one that
-    begins with it), by default ``ray_wgmma.sample_stream_for(packed)``.
-    ``library=WMMA_LIBRARY`` launches the WMMA build instead (a timed
-    comparison: no path of the port asks for it)."""
-    global launches, wmma_launches
+    begins with it), by default ``ray_wgmma.sample_stream_for(packed)``."""
+    global launches
     from nerf_tpu_torch.ops import ray_wgmma      # it imports this module
 
-    library = library or ray_wgmma.LIBRARY
-    if library not in (ray_wgmma.LIBRARY, WMMA_LIBRARY):
-        raise ValueError(f"K4 is built as {ray_wgmma.LIBRARY} (or {WMMA_LIBRARY}), not {library}")
     dev = positions.device
     n = positions.shape[0]
     for name, t in (("positions", positions), ("directions", directions)):
@@ -282,18 +261,8 @@ def _launch(packed: PackedWeights, positions: torch.Tensor, directions: torch.Te
     out = torch.empty(n, 4, dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    if library == WMMA_LIBRARY:
-        lib = _ext.load(library)
-        fn = lib.mlp_forward
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        err = fn(_ext.ptr(positions), _ext.ptr(directions), n, _ext.pointer_array(packed),
-                 *net_args(cfg), _ext.ptr(out), _ext.stream_ptr(dev))
-        _ext.check(lib, err, "mlp_forward launch")
-        wmma_launches += _ext.ran()
-        return out
     stream = ray_wgmma.sample_stream_for(packed, cfg) if stream is None else stream
-    ray_wgmma.forward_samples(library, packed, positions, directions, cfg, stream, out)
+    ray_wgmma.forward_samples(ray_wgmma.LIBRARY, packed, positions, directions, cfg, stream, out)
     launches += _ext.ran()
     return out
 

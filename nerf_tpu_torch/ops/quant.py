@@ -17,9 +17,7 @@ Counterpart of ``nerf_tpu/ops/quant.py``:
   (``ray_wgmma.LIBRARIES``): on int8 and int16 weights the bf16 build, on
   the bf16 stream that ``dequant_stream`` writes from the intN one once a
   call, into scratch that goes with the call (``ops/dequant_stream.py``);
-  on the int8-compute route its own build. The WMMA build it replaced
-  (``csrc/mlp_quant.cu``) is reached only through ``_launch(...,
-  library=WMMA_LIBRARY)``, a timed comparison. On a CPU tensor it runs
+  on the int8-compute route its own build. On a CPU tensor it runs
   ``quantized_nerf_apply_plain``. Inference only.
   Under a profiler each call records one span ``kernel.k7``
   (``utils/monitor.span``), from that choice until the launch is enqueued.
@@ -39,7 +37,6 @@ biases in float32.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -55,18 +52,15 @@ from nerf_tpu_torch.ops.mlp_kernel import (
     PackedWeights,
     flat_inputs,
     fused_nerf_apply_plain,
-    net_args,
     pack_params,
 )
 from nerf_tpu_torch.utils.monitor import span
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
 # Launches of the CUDA kernel (not of the plain version): every launch of
-# K7, those of them on the int8-compute route (K8), and those of the WMMA
-# build it replaced (which no path of the port calls). A launch recorded
+# K7, and those of them on the int8-compute route (K8). A launch recorded
 # into a CUDA graph is not one (_ext.ran).
-launches = {"mlp_quant": 0, "mlp_quant_int8": 0, "mlp_quant_wmma": 0}
-WMMA_LIBRARY = "mlp_quant"
+launches = {"mlp_quant": 0, "mlp_quant_int8": 0}
 
 MATRICES = ("w0", "wt", "wskip", "wsig", "wbn", "wc0", "wdir", "wc1")
 
@@ -413,32 +407,15 @@ def weight_pointers(q: Quantized):
     return _ext.pointer_array(mats), _ext.pointer_array(scales)
 
 
-_ARGTYPES = (
-    [ctypes.c_void_p] * 2                 # positions, directions
-    + [ctypes.c_longlong]                 # N
-    + [ctypes.c_void_p] * 2               # weights (PackedWeights order), scales
-    + [ctypes.c_int]                      # weight route
-    + [ctypes.c_int] * 6 + [ctypes.c_float]   # net_args
-    + [ctypes.c_void_p] * 2               # out, stream
-)
-
-
 def _launch(q: Quantized, positions: torch.Tensor, directions: torch.Tensor,
-            cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
-            library: Optional[str] = None) -> torch.Tensor:
-    """Launch K7 on float32 ``[N, 3]`` CUDA tensors: ``[N, 4]``, by default
-    in the build of ``csrc/ray_wgmma.cu`` for the weights' route, on their
-    cached per-sample stream (on int8 and int16 weights, on what
-    ``dequant_stream`` makes of it). ``library=WMMA_LIBRARY`` launches the
-    WMMA build instead (a timed comparison: no path of the port asks for
-    it)."""
+            cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Launch K7 on float32 ``[N, 3]`` CUDA tensors: ``[N, 4]``, in the
+    build of ``csrc/ray_wgmma.cu`` for the weights' route, on their cached
+    per-sample stream (on int8 and int16 weights, on what ``dequant_stream``
+    makes of it)."""
     from nerf_tpu_torch.ops import ray_wgmma      # it imports this module
 
     route = route_of(q)
-    library = library or ray_wgmma.LIBRARIES[route]
-    if library not in (ray_wgmma.LIBRARIES[route], WMMA_LIBRARY):
-        raise ValueError(f"K7 on route {route} is built as {ray_wgmma.LIBRARIES[route]} "
-                         f"(or {WMMA_LIBRARY}), not {library}")
     dev = positions.device
     n = positions.shape[0]
     for name, t in (("positions", positions), ("directions", directions)):
@@ -450,18 +427,7 @@ def _launch(q: Quantized, positions: torch.Tensor, directions: torch.Tensor,
     out = torch.empty(n, 4, dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    if library == WMMA_LIBRARY:
-        lib = _ext.load(library)
-        fn = lib.mlp_quant
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        mats, scales = weight_pointers(q)
-        err = fn(_ext.ptr(positions), _ext.ptr(directions), n, mats, scales, route,
-                 *net_args(cfg), _ext.ptr(out), _ext.stream_ptr(dev))
-        _ext.check(lib, err, "mlp_quant launch")
-        launches["mlp_quant_wmma"] += _ext.ran()
-        return out
-    ray_wgmma.forward_samples(library, q, positions, directions, cfg,
+    ray_wgmma.forward_samples(ray_wgmma.LIBRARIES[route], q, positions, directions, cfg,
                               ray_wgmma.sample_stream_for(q, cfg), out)
     ran = _ext.ran()
     launches["mlp_quant"] += ran

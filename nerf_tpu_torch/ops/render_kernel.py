@@ -48,9 +48,7 @@ modes' schedule of whole rays per consumer is written out, by
 for bf16 weights and, after the ``dequant_stream`` prologue, for int8 and
 int16 ones; the int8-compute build. K3 at one depth per ray runs each ray
 as one row of the per-sample kernel of that build (``mlp_wgmma_kernel``),
-composited by K2. The WMMA builds of ``csrc/render_samples.cu`` they
-replaced are reached only through ``library=``, to time them beside the
-Hopper kernels.
+composited by K2.
 
 The mip variant (Mip-NeRF, ``models/mip.py``) has two ray kernels of its
 own on the same body (``csrc/ray_wgmma.cu``, bf16 weights, raw output
@@ -81,7 +79,6 @@ occasional other bf16 rounding of an activation.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple, Union
 
 import torch
@@ -109,24 +106,14 @@ from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
 # Launches of each CUDA kernel (not of the plain versions), and of the
 # routes through them: a launch adds one to its function's count (K1 or K3,
-# raw or composited), to each route it takes (planar or bfloat16 raw output;
-# intN weights dequantized on chip; int8 compute) and, on the Hopper
-# kernels of csrc/ray_wgmma.cu (raw or composited), to wgmma_samples (K1) or
-# wgmma_zvals (K3). A launch recorded into a CUDA graph is not one
-# (_ext.ran).
+# raw or composited), and to each route it takes (planar or bfloat16 raw
+# output; intN weights dequantized on chip; int8 compute). A launch recorded
+# into a CUDA graph is not one (_ext.ran).
 launches = {"render_samples": 0, "render_zvals": 0,
             "render_samples_composited": 0, "render_zvals_composited": 0,
             "planar": 0, "raw_bf16": 0, "dequant": 0, "int8": 0,
-            "wgmma_samples": 0, "wgmma_zvals": 0,
             "render_mip": 0, "render_edges_mip": 0}
 
-# the WMMA build of csrc/render_samples.cu for each weight route (0: bf16
-# weights), which the Hopper kernels replaced: reached only through library=
-_LIBRARY = {0: "render_samples", quant.ROUTE_INT8: "render_samples_q8",
-            quant.ROUTE_INT16: "render_samples_q16",
-            quant.ROUTE_INT8_COMPUTE: "render_samples_i8"}
-_WEIGHTS = {0: "bf16", quant.ROUTE_INT8: "int8", quant.ROUTE_INT16: "int16",
-            quant.ROUTE_INT8_COMPUTE: "int8-compute"}
 _OUT_F32, _OUT_BF16, _OUT_PLANAR = 0, 1, 2
 
 
@@ -209,32 +196,16 @@ def fused_render_zvals_composited_plain(packed, rays_o, rays_d, z_vals, cfg,
     return fused_volume_render_interleaved_plain(raw, z_vals, rays_d, sentinel, eps)
 
 
-_ARGTYPES = (
-    [ctypes.c_void_p] * 3                 # rays_o, rays_d, z_vals (NULL: uniform)
-    + [ctypes.c_longlong]                 # z row stride
-    + [ctypes.c_int] * 2                  # n_rays, n_samples
-    + [ctypes.c_float] * 2                # near, far - near
-    + [ctypes.c_void_p] * 2               # weights (PackedWeights order), scales
-    + [ctypes.c_int] * 6 + [ctypes.c_float]   # net_args
-    + [ctypes.c_int] * 2                  # composited, raw output form
-    + [ctypes.c_float] * 3                # uniform step dz, sentinel, eps
-    + [ctypes.c_void_p] * 3               # out, w (NULL: none), stream
-)
-
-
 def _launch(packed, rays_o, rays_d, near, far, S,
             cfg: ModelConfig, z_vals: Optional[torch.Tensor] = None,
             composited: bool = False, with_weights: bool = False,
             sentinel: float = 1e10, eps: float = 1e-10,
             raw_dtype: torch.dtype = torch.float32, planar: bool = False,
-            dtype: torch.dtype = torch.bfloat16, library: Optional[str] = None):
+            dtype: torch.dtype = torch.bfloat16):
     """Launch a ray kernel, in the library ``kernel_library`` picks: depths
     uniform (``z_vals`` None, K1) or per ray (K3), output raw ``[R, 4S]``
     (float32 or bfloat16), planar ``(sigma [R, S], (r, g, b))`` or
-    composited ``(out [R, 8], w [R, S] or None)``. ``library`` names
-    another library of the same function on the same weight route; only
-    ``chip_smoke.py`` passes it, to time the WMMA build
-    (``csrc/render_samples.cu``) beside the Hopper kernel."""
+    composited ``(out [R, 8], w [R, S] or None)``."""
     dev = rays_o.device
     R = rays_o.shape[0]
     for name, t in (("rays_o", rays_o), ("rays_d", rays_d)):
@@ -263,12 +234,7 @@ def _launch(packed, rays_o, rays_d, near, far, S,
         z_stride = z_vals.stride(0)
     elif S < 2:
         raise ValueError("need at least 2 samples for uniform depths")
-    hopper = library in (None, kernel_library(route, composited))
-    library = library or kernel_library(route, composited)
-    if not hopper and library != _LIBRARY[route]:
-        raise ValueError(f"{library} is no build for {_WEIGHTS[route]} weights: "
-                         f"{kernel_library(route, composited)} or {_LIBRARY[route]}")
-    if hopper and z_vals is not None and S == 1:
+    if z_vals is not None and S == 1:
         return _one_depth(packed, rays_o, rays_d, z_vals, cfg, composited, with_weights,
                           sentinel, eps, raw_dtype, planar, dtype)
     rays_o = rays_o.contiguous()
@@ -292,35 +258,21 @@ def _launch(packed, rays_o, rays_d, near, far, S,
     z_arg = None if z_vals is None else _ext.ptr(z_vals)
     w_arg = None if w is None else _ext.ptr(w)
     dz = (far - near) / (S - 1) if z_vals is None else 0.0
-    if hopper:
-        stream, weights, scales, scratch = ray_wgmma.launch_operands(
-            packed, cfg, ray_wgmma.stream_for(packed, cfg), False)
-        lib = ray_wgmma.load(library)
-        err = lib.ray_wgmma_render(_ext.ptr(rays_o), _ext.ptr(rays_d), z_arg, z_stride, R, S,
-                                   float(near), float(far - near), _ext.ptr(stream), weights,
-                                   scales, *net_args(cfg), out_mode, int(composited), float(dz),
-                                   float(sentinel), float(eps), _ext.ptr(out), w_arg,
-                                   _ext.stream_ptr(dev))
-        del scratch
-    else:
-        weights, scales = (quant.weight_pointers(packed) if route
-                           else (_ext.pointer_array(packed), None))
-        lib = _ext.load(library)
-        fn = lib.ray_render
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        err = fn(_ext.ptr(rays_o), _ext.ptr(rays_d), z_arg, z_stride, R, S,
-                 float(near), float(far - near),
-                 weights, scales, *net_args(cfg),
-                 int(composited), out_mode, float(dz), float(sentinel), float(eps),
-                 _ext.ptr(out), w_arg, _ext.stream_ptr(dev))
+    library = kernel_library(route, composited)
+    stream, weights, scales, scratch = ray_wgmma.launch_operands(
+        packed, cfg, ray_wgmma.stream_for(packed, cfg), False)
+    lib = ray_wgmma.load(library)
+    err = lib.ray_wgmma_render(_ext.ptr(rays_o), _ext.ptr(rays_d), z_arg, z_stride, R, S,
+                               float(near), float(far - near), _ext.ptr(stream), weights,
+                               scales, *net_args(cfg), out_mode, int(composited), float(dz),
+                               float(sentinel), float(eps), _ext.ptr(out), w_arg,
+                               _ext.stream_ptr(dev))
+    del scratch
     name = ("render_samples" if z_vals is None else "render_zvals") + (
         "_composited" if composited else "")
     _ext.check(lib, err, f"{name} launch ({library})")
     ran = _ext.ran()
     launches[name] += ran
-    if hopper:
-        launches["wgmma_samples" if z_vals is None else "wgmma_zvals"] += ran
     if planar:
         launches["planar"] += ran
     if out_mode == _OUT_BF16:

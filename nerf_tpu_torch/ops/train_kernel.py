@@ -28,9 +28,7 @@ Counterpart of ``nerf_tpu/ops/train_kernel.py``:
   (``split_bounds``), writing float32 partials into its own slot. The slots
   are summed here in one fixed-order reduction: no atomics, nothing
   zero-filled, two runs agree bit for bit. ``packed_grads_composed`` is the
-  plain version of that whole pipeline. The WMMA build it replaced
-  (``csrc/mlp_backward.cu``, per-block gradient copies) is reached only
-  through ``library="mlp_backward"``, as a timed comparison.
+  plain version of that whole pipeline.
 - ``unpack_grads`` maps those to the params tree: the skip layer's hidden
   and encoding rows are joined again, as are the color layer's trunk and
   direction rows, and the zero-padded encoding rows (63 -> 64, 27 -> 32)
@@ -78,19 +76,16 @@ from nerf_tpu_torch.ops.mlp_kernel import (
 from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 
 LIBRARY = "mlp_backward_wgmma"     # K5a + K5b
-WMMA_LIBRARY = "mlp_backward"      # the WMMA build, a timed comparison only
-# Launches of the CUDA kernels (not of the plain versions): the row pass, the
-# weight-gradient pass, and the WMMA build (which no path of the port calls);
-# a launch recorded into a CUDA graph is not one (_ext.ran)
-launches = {"bwd_rows": 0, "wgrad": 0, "mlp_backward_wmma": 0}
+# Launches of the CUDA kernels (not of the plain versions): the row pass and
+# the weight-gradient pass; a launch recorded into a CUDA graph is not one
+# (_ext.ran)
+launches = {"bwd_rows": 0, "wgrad": 0}
 
 PASS_ROWS = 65536   # rows of one pass of K5a + K5b: the scratch holds one pass
 BLOCK = 64          # samples per 128-byte image row of the scratch (a sample block)
 SPLITS = 6          # sample-block ranges of K5b per pass (22 jobs x 6 = 132 blocks)
-WMMA_TILE = 128     # rows per tile of the WMMA build
 CH = HID // 2
-# Packed-layout gradients, in the order of the flat partials (and of the
-# WMMA build's C entry point)
+# Packed-layout gradients, in the order of the flat partials
 GRAD_SHAPES = {
     "d_w0": (POS_ROWS, HID), "d_b0": (HID,), "d_wt": (7, HID, HID), "d_bt": (7, HID),
     "d_wskip": (POS_ROWS, HID), "d_wsig": (HID,), "d_bsig": (1,),
@@ -386,37 +381,22 @@ _WGRAD_ARGTYPES = (
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong]   # partials, first slot, floats a slot
     + [ctypes.c_void_p]                   # stream
 )
-_WMMA_ARGTYPES = (
-    [ctypes.c_void_p] * 4                 # positions, directions, dsigma, drgb
-    + [ctypes.c_longlong]                 # N
-    + [ctypes.c_void_p]                   # weights (PackedWeights order)
-    + [ctypes.c_int] * 6 + [ctypes.c_float]   # net_args
-    + [ctypes.c_void_p] * 2               # activation scratch, gradient arrays
-    + [ctypes.c_int]                      # blocks
-    + [ctypes.c_void_p]                   # stream
-)
-_SIGNATURES = {
-    LIBRARY: {"bwd_rows_wgmma": (_ROWS_ARGTYPES, ctypes.c_int),
-              "wgrad_wgmma": (_WGRAD_ARGTYPES, ctypes.c_int),
-              "bwd_scratch_features": ([], ctypes.c_int),
-              "bwd_stream_chunks": ([], ctypes.c_int),
-              "bwd_rows_smem_bytes": ([], ctypes.c_longlong),
-              "bwd_rows_stages": ([], ctypes.c_int),
-              "bwd_rows_staging": ([ctypes.c_int], ctypes.c_int),
-              "wgrad_smem_bytes": ([], ctypes.c_longlong),
-              "wgrad_job_ints": ([], ctypes.c_int)},
-    WMMA_LIBRARY: {"mlp_backward": (_WMMA_ARGTYPES, ctypes.c_int),
-                   "mlp_backward_scratch_elems": ([], ctypes.c_longlong),
-                   "mlp_backward_smem_bytes": ([], ctypes.c_longlong)},
-}
+_SIGNATURES = {"bwd_rows_wgmma": (_ROWS_ARGTYPES, ctypes.c_int),
+               "wgrad_wgmma": (_WGRAD_ARGTYPES, ctypes.c_int),
+               "bwd_scratch_features": ([], ctypes.c_int),
+               "bwd_stream_chunks": ([], ctypes.c_int),
+               "bwd_rows_smem_bytes": ([], ctypes.c_longlong),
+               "bwd_rows_stages": ([], ctypes.c_int),
+               "bwd_rows_staging": ([ctypes.c_int], ctypes.c_int),
+               "wgrad_smem_bytes": ([], ctypes.c_longlong),
+               "wgrad_job_ints": ([], ctypes.c_int)}
 _JOBS: Dict[tuple, torch.Tensor] = {}
 
 
-def load(library: str = LIBRARY) -> ctypes.CDLL:
-    """A bound build of K5 (``LIBRARY`` or ``WMMA_LIBRARY``), its signatures
-    set once."""
-    lib = _ext.load(library)
-    for name, (argtypes, restype) in _SIGNATURES[library].items():
+def load() -> ctypes.CDLL:
+    """The bound build of K5 (``LIBRARY``), its signatures set once."""
+    lib = _ext.load(LIBRARY)
+    for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
             fn.argtypes, fn.restype = argtypes, restype
@@ -483,19 +463,12 @@ def launch_wgrad(scratch: torch.Tensor, rows: int, cfg: ModelConfig, partials: t
 
 
 def _launch(packed: PackedWeights, positions, directions, dsigma, drgb,
-            cfg: ModelConfig, stream: Optional[torch.Tensor] = None,
-            library: str = LIBRARY) -> Dict[str, torch.Tensor]:
+            cfg: ModelConfig, stream: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Launch K5: per pass of at most ``PASS_ROWS`` rows, the row pass K5a
     into one scratch and the weight-gradient pass K5b into the pass's slots
     of partials; the slots are summed here. ``stream``: ``bwd_stream`` of
-    ``packed`` if the caller has it (made here otherwise).
-    ``library=WMMA_LIBRARY`` launches the WMMA build instead (a timed
-    comparison: no path of the port asks for it)."""
+    ``packed`` if the caller has it (made here otherwise)."""
     _check_inputs(packed, positions, directions, dsigma, drgb, cfg)
-    if library == WMMA_LIBRARY:
-        return _launch_wmma(packed, positions, directions, dsigma, drgb, cfg)
-    if library != LIBRARY:
-        raise ValueError(f"K5 is built as {LIBRARY} (or {WMMA_LIBRARY}), not {library}")
     dev = positions.device
     n = positions.shape[0]
     if n == 0:
@@ -514,34 +487,6 @@ def _launch(packed: PackedWeights, positions, directions, dsigma, drgb,
                     cfg, scratch, stream)
         slot = launch_wgrad(scratch, p1 - p0, cfg, partials, slot)
     return grads_from_flat(partials.sum(0))
-
-
-def _launch_wmma(packed: PackedWeights, positions, directions, dsigma, drgb,
-                 cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """Launch ``csrc/mlp_backward.cu``: a persistent grid of at most one
-    block per SM, each with its own float32 copy of every gradient (zeroed
-    here) and a scratch for the activations of one tile; the copies are
-    summed here."""
-    dev = positions.device
-    n = positions.shape[0]
-    if n == 0:
-        return {k: torch.zeros(s, dtype=torch.float32, device=dev)
-                for k, s in GRAD_SHAPES.items()}
-    positions, directions = positions.contiguous(), directions.contiguous()
-    dsigma, drgb = dsigma.contiguous(), drgb.contiguous()
-    blocks = min(-(-n // WMMA_TILE), torch.cuda.get_device_properties(dev).multi_processor_count)
-    grads = [torch.zeros(blocks, *s, dtype=torch.float32, device=dev)
-             for s in GRAD_SHAPES.values()]
-    lib = load(WMMA_LIBRARY)
-    scratch = torch.empty(blocks, lib.mlp_backward_scratch_elems(), dtype=torch.bfloat16,
-                          device=dev)
-    err = lib.mlp_backward(_ext.ptr(positions), _ext.ptr(directions), _ext.ptr(dsigma),
-                           _ext.ptr(drgb), n, _ext.pointer_array(packed), *net_args(cfg),
-                           _ext.ptr(scratch), _ext.pointer_array(grads), blocks,
-                           _ext.stream_ptr(dev))
-    _ext.check(lib, err, "mlp_backward launch")
-    launches["mlp_backward_wmma"] += _ext.ran()
-    return {k: g.sum(0) for k, g in zip(GRAD_SHAPES, grads)}
 
 
 def packed_grads(packed: PackedWeights, positions, directions, dsigma, drgb,

@@ -6,9 +6,8 @@ Each copy of ``csrc/composite.cu`` is built with the package's flags next to
 the package's headers and bound with ctypes. At 16,384 rays and every case of
 ``cases`` (S in ``SAMPLE_COUNTS``, a float32 or bfloat16 raw, broadcast or
 per-ray depths, with or without the weights), each copy's K2 entry
-(``composite_rays``) and the first copy's first K2 (``composite``, which
-always writes the weights) run in turns, forward then backward (old, A, B,
-B, A, old), each turn ``REPS`` launches, device time per launch by
+(``composite_rays``) runs in turns, forward then backward (A, B, B, A),
+each turn ``REPS`` launches, device time per launch by
 torch.profiler, one trace per case; beside them an empty kernel's, the
 launch floor. Each copy's output is held against the plain version (rgb and
 acc absolute, depth relative, weights absolute: 1e-5) and bit for bit
@@ -146,9 +145,8 @@ def build(copies, out: Path):
                                                     or "Function properties" in ln]}),
               flush=True)
         lib = ctypes.CDLL(str(out / f"{name}.so"))
-        for entry in (lib.composite_rays, lib.composite):
-            entry.argtypes = composite_kernel._ARGTYPES
-            entry.restype = ctypes.c_int
+        lib.composite_rays.argtypes = composite_kernel._ARGTYPES
+        lib.composite_rays.restype = ctypes.c_int
         lib.error_string.restype = ctypes.c_char_p
         lib.error_string.argtypes = [ctypes.c_int]
         libs[name] = lib
@@ -166,17 +164,16 @@ def main(argv):
     dev = torch.device("cuda")
     sent, eps = 1e10, 1e-10
 
-    def launch(lib, entry, raw, z, rd, with_w):
+    def launch(lib, raw, z, rd, with_w):
         n, S = z.shape
         out = torch.empty(n, 8, device=dev)
-        w = torch.empty(n, S, device=dev) if with_w or entry == "composite" else None
-        err = getattr(lib, entry)(_ext.ptr(raw), int(raw.dtype == torch.bfloat16), _ext.ptr(z),
-                                  z.stride(0), _ext.ptr(rd), n, S, sent, eps, _ext.ptr(out),
-                                  None if w is None else _ext.ptr(w), _ext.stream_ptr(dev))
-        _ext.check(lib, err, f"{entry} launch")
+        w = torch.empty(n, S, device=dev) if with_w else None
+        err = lib.composite_rays(_ext.ptr(raw), int(raw.dtype == torch.bfloat16), _ext.ptr(z),
+                                 z.stride(0), _ext.ptr(rd), n, S, sent, eps, _ext.ptr(out),
+                                 None if w is None else _ext.ptr(w), _ext.stream_ptr(dev))
+        _ext.check(lib, err, "composite_rays launch")
         return out, w
 
-    first = next(iter(libs))
     print(json.dumps({"launch_floor_ms": launch_floor_ms()}), flush=True)
     for i, (S, dt, per_ray, with_w) in enumerate(cases()):
         raw, z, rd = inputs(RAYS, S, dt, per_ray, dev, seed=i)
@@ -184,16 +181,14 @@ def main(argv):
                                                                                eps)
         errors, equal, got0 = {}, {}, None
         for name, lib in libs.items():
-            out, w = launch(lib, "composite_rays", raw, z, rd, with_w)
+            out, w = launch(lib, raw, z, rd, with_w)
             torch.cuda.synchronize()
             errors[name] = composited_errors(out, w, ref_out, ref_w if with_w else None)
             if got0 is None:
                 got0 = (out, w)
             equal[name] = torch.equal(out, got0[0]) and (w is None or torch.equal(w, got0[1]))
-        run = lambda lib, entry: (lambda: launch(lib, entry, raw, z, rd, with_w))
-        order = [("old", run(libs[first], "composite"), (composite_kernel.OLD_KERNEL,))]
-        order += [(name, run(lib, "composite_rays"), ("composite_rays",))
-                  for name, lib in libs.items()]
+        run = lambda lib: (lambda: launch(lib, raw, z, rd, with_w))
+        order = [(name, run(lib), ("composite_rays",)) for name, lib in libs.items()]
         ms = device_ms_in_turns(order + order[::-1])
         print(json.dumps({"rays": RAYS, "samples": S, "raw": str(dt).split(".")[-1],
                           "z": "per-ray" if per_ray else "broadcast", "with_weights": with_w,

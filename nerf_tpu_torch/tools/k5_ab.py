@@ -76,7 +76,7 @@ def build(copies, out: Path):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(str(out / f"{name}.so"))
-        for fn, (argtypes, restype) in train_kernel._SIGNATURES[train_kernel.LIBRARY].items():
+        for fn, (argtypes, restype) in train_kernel._SIGNATURES.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
         lib.error_string.restype = ctypes.c_char_p

@@ -305,10 +305,10 @@ def test_composition_matches_jax(monkeypatch, cfgs, weights, dtype):
 
 class _Fn:
     """A C entry point that records its calls and the assignments of its
-    signature, and returns cudaSuccess (or ``value``)."""
+    signature, and returns cudaSuccess."""
 
-    def __init__(self, name, calls, value=0):
-        self.name, self.calls, self.value = name, calls, value
+    def __init__(self, name, calls):
+        self.name, self.calls = name, calls
         self._argtypes, self.restype, self.set_count = None, None, 0
 
     @property
@@ -323,14 +323,14 @@ class _Fn:
     def __call__(self, *args):
         assert len(args) == len(self._argtypes)
         self.calls.append(self.name)
-        return self.value
+        return 0
 
 
 class _Lib:
     def __init__(self, name, calls):
         self.name = name
-        for fn, (argtypes, _) in train_kernel._SIGNATURES.get(name, {}).items():
-            setattr(self, fn, _Fn(f"{name}.{fn}", calls, 1 if fn.endswith("elems") else 0))
+        for fn in train_kernel._SIGNATURES:
+            setattr(self, fn, _Fn(f"{name}.{fn}", calls))
 
 
 @pytest.fixture
@@ -342,8 +342,6 @@ def recorded(monkeypatch):
 
     monkeypatch.setattr(_ext, "load", load)
     monkeypatch.setattr(_ext, "stream_ptr", lambda dev: ctypes.c_void_p(0))
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda dev: type("P", (), {"multi_processor_count": 132})())
     return calls, libs
 
 
@@ -369,26 +367,11 @@ def test_launch_reaches_the_hopper_kernels_and_fills_nothing(monkeypatch, record
     lib = f"{train_kernel.LIBRARY}"
     assert calls == [f"{lib}.bwd_rows_wgmma", f"{lib}.wgrad_wgmma"] * passes * 2
     assert {k: train_kernel.launches[k] - before[k] for k in before} == {
-        "bwd_rows": 2 * passes, "wgrad": 2 * passes, "mlp_backward_wmma": 0}
+        "bwd_rows": 2 * passes, "wgrad": 2 * passes}
     assert {k: tuple(v.shape) for k, v in g.items()} == GRAD_SHAPES
     # the signatures were set once, when the library was first loaded
     assert all(fn.set_count == 1 for fn in vars(libs[lib]).values() if isinstance(fn, _Fn))
     assert train_kernel.LIBRARY in _ext.SOURCES
-
-
-def test_launch_reaches_the_wmma_build_only_when_asked(recorded, cfgs, weights):
-    calls, libs = recorded
-    _, tc = cfgs
-    packed = pack_params(weights[1], tc, torch.bfloat16)
-    args = [torch.zeros(300, 3), torch.zeros(300, 3), torch.zeros(300), torch.zeros(300, 3)]
-    before = dict(train_kernel.launches)
-    train_kernel._launch(packed, *args, tc, library=train_kernel.WMMA_LIBRARY)
-    lib = train_kernel.WMMA_LIBRARY
-    assert calls == [f"{lib}.mlp_backward_scratch_elems", f"{lib}.mlp_backward"]
-    assert train_kernel.launches["mlp_backward_wmma"] == before["mlp_backward_wmma"] + 1
-    assert train_kernel.launches["bwd_rows"] == before["bwd_rows"]
-    with pytest.raises(ValueError, match="built as"):
-        train_kernel._launch(packed, *args, tc, library="ray_wgmma")
     # the CPU path of packed_grads is the plain version: no library at all
     calls.clear()
     train_kernel.packed_grads(packed, *args, tc)

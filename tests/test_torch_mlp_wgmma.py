@@ -246,7 +246,7 @@ class _Fn:
 
 class _Lib:
     def __init__(self, name, calls):
-        for fn in ("mlp_wgmma_forward", "mlp_forward", "mlp_quant", "dequant_stream"):
+        for fn in ("mlp_wgmma_forward", "dequant_stream"):
             setattr(self, fn, _Fn(f"{name}.{fn}", calls))
 
 
@@ -259,16 +259,16 @@ def recorded(monkeypatch):
     return calls
 
 
-def _launch(weights, tc, *args, **kw):
+def _launch(weights, tc, *args):
     pos, dirs = torch.zeros(300, 3), torch.ones(300, 3)
     if quant.is_quantized(weights):
-        return quant._launch(weights, pos, dirs, tc, torch.bfloat16, *args, **kw)
-    return mlp_kernel._launch(weights, pos, dirs, tc, *args, **kw)
+        return quant._launch(weights, pos, dirs, tc, torch.bfloat16, *args)
+    return mlp_kernel._launch(weights, pos, dirs, tc, *args)
 
 
 def _counts():
-    return {"mlp_forward": mlp_kernel.launches, "mlp_forward_wmma": mlp_kernel.wmma_launches,
-            "dequant_stream": dequant_stream.launches, **quant.launches}
+    return {"mlp_forward": mlp_kernel.launches, "dequant_stream": dequant_stream.launches,
+            **quant.launches}
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -297,24 +297,6 @@ def test_launch_reaches_the_hopper_build_of_the_route(recorded, route):
         assert moved == {"mlp_quant": 1, "mlp_quant_int8": 1}
     else:
         assert moved == {"mlp_quant": 1, "dequant_stream": 1}
-
-
-@pytest.mark.parametrize("route", ROUTES)
-def test_wmma_build_only_when_asked(recorded, route):
-    _, tc, _, w = _carried("reference", route, seed=9)
-    wmma = quant.WMMA_LIBRARY if route else mlp_kernel.WMMA_LIBRARY
-    before = _counts()
-    _launch(w, tc, library=wmma)
-    assert [name for name, _ in recorded] == [f"{wmma}.{wmma}"]
-    moved = {k: v - before[k] for k, v in _counts().items() if v != before[k]}
-    assert moved == {"mlp_quant_wmma" if route else "mlp_forward_wmma": 1}
-    # another route's build, or another source, is refused before any call
-    other = next(n for n in ray_wgmma.LIBRARIES.values() if n != ray_wgmma.LIBRARIES[route])
-    with pytest.raises(ValueError, match="built as"):
-        _launch(w, tc, library=other)
-    with pytest.raises(ValueError, match="built as"):
-        _launch(w, tc, library="render_samples")
-    assert len(recorded) == 1
 
 
 def test_hopper_entry_refuses_a_short_stream(recorded):

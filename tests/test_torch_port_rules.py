@@ -76,17 +76,13 @@ def test_kernels_build_for_hopper_without_fast_math():
     for name in _ext.SOURCES:
         assert (_ext.CSRC / f"{name}.cu").exists()
         assert _ext.library_path(name).parent == ROOT / "build" / "nerf_tpu_torch"
-    # the variants: one more library per quantized weight route of the WMMA
-    # body's source, and the int8-compute route's of the Hopper kernels' (they
+    # the one variant: the Hopper MLP kernels on the int8-compute route (they
     # take int8 and int16 weights in their bf16 build, after dequant_stream),
-    # from the same source with a definition, each under its own name
+    # from the same source with a definition, under its own name
     assert _ext.LIBRARIES == _ext.SOURCES + tuple(_ext.VARIANTS)
-    for source, routes in (("render_samples", (1, 2, 3)), ("ray_wgmma", (3,))):
-        assert sorted(d for s, d in _ext.VARIANTS.values() if s == source) == [
-            f"-DNERF_WQ={i}" for i in routes]
-    assert {s for s, _ in _ext.VARIANTS.values()} == {"render_samples", "ray_wgmma"}
+    assert _ext.VARIANTS == {"ray_wgmma_i8": ("ray_wgmma", "-DNERF_WQ=3")}
     paths = {_ext.library_path(n) for n in _ext.LIBRARIES}
-    assert len(paths) == len(_ext.LIBRARIES) == 12
+    assert len(paths) == len(_ext.LIBRARIES) == 5
 
 
 def _run_smoke(cwd):
@@ -109,23 +105,25 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert '"ok": true' not in res.stdout
 
 
-def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
-    # a library is named by a hash of its source, the shared headers and the
-    # flags, so an edit of the MLP body rebuilds every kernel that includes it
+CSRC_FILES = sorted(p.name for p in _ext.CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+@pytest.mark.parametrize("name", _ext.LIBRARIES)
+@pytest.mark.parametrize("edited", CSRC_FILES)
+def test_library_name_follows_what_it_includes(tmp_path, monkeypatch, name, edited):
+    # a library is named by a hash of its source, the headers it includes
+    # and the flags: an edit of a file renames (rebuilds) exactly the
+    # libraries built from it or from a source that includes it
     for path in _ext.CSRC.iterdir():
         shutil.copy(path, tmp_path / path.name)
     monkeypatch.setattr(_ext, "CSRC", tmp_path)
-    before = {n: _ext.library_path(n).name for n in _ext.SOURCES}
-    with open(tmp_path / "mlp_body.cuh", "a") as f:
+    source = _ext._source_and_flags(name)[0]
+    builds_from_it = edited == source.name or (
+        edited.endswith(".cuh") and f'#include "{edited}"' in source.read_text())
+    before = _ext.library_path(name).name
+    with open(tmp_path / edited, "a") as f:
         f.write("// edited\n")
-    assert all(_ext.library_path(n).name != before[n] for n in _ext.SOURCES)
-    # and a variant follows its source
-    before = {n: _ext.library_path(n).name for n in _ext.LIBRARIES}
-    with open(tmp_path / "render_samples.cu", "a") as f:
-        f.write("// edited\n")
-    changed = {n for n in _ext.LIBRARIES if _ext.library_path(n).name != before[n]}
-    assert changed == {"render_samples", *(n for n, (s, _) in _ext.VARIANTS.items()
-                                           if s == "render_samples")}
+    assert (_ext.library_path(name).name != before) == builds_from_it
 
 
 # public functions whose `device` is the device of what they make, given

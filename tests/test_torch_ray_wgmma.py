@@ -162,10 +162,10 @@ ROUTES = [0, quant.ROUTE_INT8, quant.ROUTE_INT16, quant.ROUTE_INT8_COMPUTE]
 def test_kernel_library_by_route_and_form(route, form):
     # every form and mode on every weight route goes to that route's build
     # of ray_wgmma.cu: the bf16 build on the dequantize routes too (after
-    # dequant_stream); the WMMA builds of render_samples.cu stay built
+    # dequant_stream)
     lib = render_kernel.kernel_library(route, form == "composited")
     assert lib == ray_wgmma.LIBRARIES[route] and lib.startswith("ray_wgmma")
-    assert lib in _ext.LIBRARIES and render_kernel._LIBRARY[route] in _ext.LIBRARIES
+    assert lib in _ext.LIBRARIES
     assert ray_wgmma.LIBRARIES[0] == ray_wgmma.LIBRARY == "ray_wgmma"
     assert (lib == ray_wgmma.LIBRARY) == (route != quant.ROUTE_INT8_COMPUTE)
 
@@ -185,7 +185,6 @@ class _Fn:
 class _Lib:
     def __init__(self, name, calls):
         self.name = name
-        self.ray_render = _Fn(f"{name}.ray_render", calls)
         self.ray_wgmma_render = _Fn(f"{name}.ray_wgmma_render", calls)
         self.ray_wgmma_render.argtypes = ray_wgmma.ARGTYPES     # what ray_wgmma.load sets
         self.mlp_wgmma_forward = _Fn(f"{name}.mlp_wgmma_forward", calls)
@@ -210,8 +209,8 @@ def _weights_of_route(route, variant="reference", seed=0):
 @pytest.mark.parametrize("form", FORMS)
 def test_launch_reaches_the_library_of_the_rule(monkeypatch, form, depths, route):
     # _launch on each weight route, with the libraries replaced by
-    # recorders: every form and mode calls the route's Hopper entry (and
-    # counts wgmma_*); on the dequantize routes dequant_stream runs first
+    # recorders: every form and mode calls the route's Hopper entry; on the
+    # dequantize routes dequant_stream runs first
     # and the bf16 build reads its scratch; nothing else is called
     calls = []
     monkeypatch.setattr(_ext, "load", lambda name: _Lib(name, calls))
@@ -230,8 +229,7 @@ def test_launch_reaches_the_library_of_the_rule(monkeypatch, form, depths, route
     assert calls == ["dequant_stream.dequant_stream"] * dequantized + [
         f"{ray_wgmma.LIBRARIES[route]}.ray_wgmma_render"]
     assert dequant_stream.launches == prologues + dequantized
-    counted = {f"{fn}_composited" if form == "composited" else fn,
-               "wgmma_samples" if z is None else "wgmma_zvals"}
+    counted = {f"{fn}_composited" if form == "composited" else fn}
     counted |= {"raw_bf16"} if form == "raw_bf16" else {"planar"} if form == "planar" else set()
     counted |= {quant.ROUTE_INT8_COMPUTE: {"int8"}, 0: set()}.get(route, {"dequant"})
     moved = {k for k in before if render_kernel.launches[k] != before[k]}
@@ -322,43 +320,11 @@ def test_one_depth_per_ray_is_the_plain_k3(monkeypatch, form, route):
         torch.testing.assert_close(raw, plain.to(dt), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("route", ROUTES)
-@pytest.mark.parametrize("depths", ["uniform", "per_ray"])
-def test_wmma_build_is_reached_only_when_named(monkeypatch, depths, route):
-    # library= names the route's WMMA build of render_samples.cu (chip_smoke's
-    # timings): its composited entry is called, the launch counts as the
-    # composited function's and its route's, and not as a Hopper launch
-    calls = []
-    monkeypatch.setattr(_ext, "load", lambda name: _Lib(name, calls))
-    monkeypatch.setattr(ray_wgmma, "load", lambda name=ray_wgmma.LIBRARY: _Lib(name, calls))
-    monkeypatch.setattr(_ext, "stream_ptr", lambda dev: ctypes.c_void_p(0))
-    weights, tc = _weights_of_route(route)
-    R, S = 3, 8
-    z = torch.linspace(2.0, 6.0, S).expand(R, S).contiguous() if depths == "per_ray" else None
-    before = dict(render_kernel.launches)
-    render_kernel._launch(weights, torch.zeros(R, 3), torch.ones(R, 3), 2.0, 6.0, S, tc,
-                          z_vals=z, composited=True, library=render_kernel._LIBRARY[route])
-    assert calls == [f"{render_kernel._LIBRARY[route]}.ray_render"]
-    counted = {"render_samples_composited" if z is None else "render_zvals_composited"}
-    counted |= {quant.ROUTE_INT8_COMPUTE: {"int8"}, 0: set()}.get(route, {"dequant"})
-    moved = {k for k in before if render_kernel.launches[k] != before[k]}
-    assert moved == counted and all(render_kernel.launches[k] == before[k] + 1 for k in moved)
-
-
 def test_hopper_library_refuses_what_it_does_not_compute(monkeypatch):
     packed, tc = _packed("reference")
     ro, rd = torch.zeros(3, 3), torch.ones(3, 3)
     with pytest.raises(ValueError, match="planar"):
-        render_kernel._launch(packed, ro, rd, 2.0, 6.0, 8, tc, composited=True, planar=True,
-                              library=ray_wgmma.LIBRARY)
-    # int8 weights reach the bf16 build only through dequant_stream, never
-    # the int8-compute build, and bf16 weights never the int8-compute build
-    q = quant.quantize_packed(packed, 8)
-    i8 = ray_wgmma.LIBRARIES[quant.ROUTE_INT8_COMPUTE]
-    with pytest.raises(ValueError, match="no build for int8 weights"):
-        render_kernel._launch(q, ro, rd, 2.0, 6.0, 8, tc, library=i8)
-    with pytest.raises(ValueError, match="no build for bf16 weights"):
-        render_kernel._launch(packed, ro, rd, 2.0, 6.0, 8, tc, library=i8)
+        render_kernel._launch(packed, ro, rd, 2.0, 6.0, 8, tc, composited=True, planar=True)
 
 
 # -- the streamed weights against the JAX kernel -----------------------------
