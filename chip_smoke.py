@@ -63,9 +63,11 @@ expected number of times:
   autograd of ``apply_nerf`` at the same points;
 - ``accel_frames``: ``AccelEngine`` in the benchmark mode at 16, 32 and 64
   samples per ray (the occupancy grid, baked through K4 in the first frame's
-  warm frame, places the depths: K3 -> K2; ``accel_bake`` and
-  ``accel_depths`` hold the bake and the depths against their plain
-  versions), its fused frame at 64 (composited K3), and the uniform
+  warm frame, places the depths by one launch a chunk of the depths kernel
+  ``occupancy_z_kernel``: depths -> K3 -> K2; ``accel_bake`` and
+  ``accel_depths`` hold the bake and the depths kernel, in every weight
+  mode, stride and drawn form, against their plain versions, and time the
+  kernel), its fused frame at 64 (composited K3), and the uniform
   benchmark frame at each count; both scored against float32 truth at 256
   uniform samples (the accel frame no more than 0.5 dB under the uniform,
   the JAX package's gate), and the accel frame against its plain versions
@@ -247,6 +249,7 @@ B9_DESIGN = ("the raw kernels' Hopper body; each consumer warpgroup a lane of wh
              "ray segment, carrying each lane's state from step to step")
 K4_KERNEL = "mlp_wgmma_kernel"   # K4 and K7: the per-sample kernel of csrc/ray_wgmma.cu
 DEQUANT_KERNEL = "dequant_stream_kernel"   # the dequantize routes' prologue (csrc/dequant_stream.cu)
+OCC_KERNEL = "occupancy_z_kernel"   # the accel engine's depths (csrc/occupancy.cu)
 K4_DESIGN = ("the ray kernels' body (warpgroup wgmma m64n256k16 / m64n128k16, activations in "
              "registers, a producer warp streaming the weights by cp.async.bulk into an "
              "mbarrier ring, persistent blocks) with per-row positions and directions; the "
@@ -313,7 +316,7 @@ SUITE_VIEWS = 2
 # dequant_stream) and int8 (int8 compute); K3 on accel; K2 after each of the
 # four; K4 the accel bake, once (128^3 points, 262,144 a launch)
 SUITE_LAUNCHES = {"render_samples": 396, "dequant": 132, "dequant_stream": 132, "int8": 132,
-                  "render_zvals": 132, "composite": 528, "mlp_forward": 8}
+                  "render_zvals": 132, "composite": 528, "mlp_forward": 8, "occupancy": 132}
 SUITE_DB = {"cuda": 40.0, "compressed": 40.0, "int8": 30.0}   # quality_report, every
                               # informative cell against the torch engine (PERF.md section 2)
 
@@ -1647,8 +1650,8 @@ def mip_phase(dev, smi):
 
 def reset_counts():
     """Every kernel wrapper's launch count set to 0."""
-    from nerf_tpu_torch.ops import (composite_kernel, dequant_stream, mlp_kernel, quant,
-                                    render_kernel, train_kernel)
+    from nerf_tpu_torch.ops import (composite_kernel, dequant_stream, mlp_kernel, occupancy,
+                                    quant, render_kernel, train_kernel)
 
     for k in render_kernel.launches:
         render_kernel.launches[k] = 0
@@ -1659,21 +1662,22 @@ def reset_counts():
     composite_kernel.edges_launches = 0
     mlp_kernel.launches = 0
     dequant_stream.launches = 0
+    occupancy.launches = 0
     for k in train_kernel.launches:
         train_kernel.launches[k] = 0
 
 
 def read_counts():
     """Every kernel wrapper's launch count, by counter."""
-    from nerf_tpu_torch.ops import (composite_kernel, dequant_stream, mlp_kernel, quant,
-                                    render_kernel, train_kernel)
+    from nerf_tpu_torch.ops import (composite_kernel, dequant_stream, mlp_kernel, occupancy,
+                                    quant, render_kernel, train_kernel)
 
     return {**render_kernel.launches, **quant.launches, "dequant_stream": dequant_stream.launches,
             "composite": composite_kernel.launches,
             "composite_bf16": composite_kernel.bf16_launches,
             "composite_planar": composite_kernel.planar_launches,
             "composite_edges": composite_kernel.edges_launches,
-            "mlp_forward": mlp_kernel.launches,
+            "mlp_forward": mlp_kernel.launches, "occupancy": occupancy.launches,
             **train_kernel.launches}
 
 
@@ -1704,6 +1708,8 @@ def main():
 
     require(K2_KERNEL == composite_kernel.KERNEL,
             "K2's kernel name differs from ops/composite_kernel.py's")
+    require(OCC_KERNEL == occupancy.KERNEL,
+            "the depths kernel's name differs from ops/occupancy.py's")
     dev = torch.device("cuda")
     smi = nvidia_smi()
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
@@ -3202,9 +3208,11 @@ def main():
     acc.render_image(poses[0], (W, H), ACCEL_SPP[0], focal=focal, monitor=True)
     paths["accel_first_frame"] = first = read_counts()
     require(first["mlp_forward"] == bake_launches and first["render_zvals"] == 2 * per_frame
-            and first["composite"] == 2 * per_frame and first["render_samples"] == 0,
+            and first["composite"] == 2 * per_frame and first["occupancy"] == 2 * per_frame
+            and first["render_samples"] == 0,
             f"accel: the first frame (warm + timed) launched {first}, expected "
-            f"{bake_launches} of K4 (the bake) and {2 * per_frame} of K3 and K2")
+            f"{bake_launches} of K4 (the bake) and {2 * per_frame} of the depths kernel, K3 "
+            f"and K2")
 
     def bake():
         """A fresh accel engine's bake, between two synchronize fences:
@@ -3257,27 +3265,82 @@ def main():
             f"accel bake: K4 vs float32 apply_nerf {e_f32}, {flips} flips of {occupied}")
     del dens
 
-    # the depths on the card against the same function on the CPU, at the
-    # first chunk of a frame (scanline order, as the engine's groups are)
+    # the depths kernel on the card against the plain version on the CPU, at
+    # the first chunk of a frame (scanline order, as the engine's groups
+    # are), each call one launch; every sample count, weight mode and stride
+    # (the binary grid for the occupancy weights); the stochastic form
+    # against the plain version on the card from the same generator state
     ro_f, rd_f = generate_rays(poses[1], W, H, focal, dev)
     ro_f, rd_f = ro_f.reshape(-1, 3)[:CHUNK].contiguous(), rd_f.reshape(-1, 3)[:CHUNK].contiguous()
-    grid_cpu = occupancy.OccupancyGrid(grid.occupancy.cpu(), grid.aabb_lo.cpu(),
-                                       grid.aabb_hi.cpu(), grid.resolution)
+    binary = grid._replace(occupancy=(grid.occupancy > th).float())
+    on_cpu = lambda g: occupancy.OccupancyGrid(g.occupancy.cpu(), g.aabb_lo.cpu(),
+                                               g.aabb_hi.cpu(), g.resolution)
+    grid_cpu, binary_cpu = on_cpu(grid), on_cpu(binary)
+    lib = occupancy.load()
+    require(lib.occupancy_max_probes() == occupancy.MAX_PROBES
+            and lib.occupancy_max_sorted() == occupancy.MAX_SORTED,
+            "the depths kernel's limits differ from ops/occupancy.py's")
     z_err = {}
-    for spp in ACCEL_SPP:
-        kw = dict(n_probe=acc.n_probe, ray_stride=acc.probe_ray_stride,
-                  weight_mode=acc.weight_mode)
-        zc = occupancy.grid_guided_z_vals(grid, ro_f, rd_f, rcfg.near, rcfg.far, spp, **kw)
-        zp = occupancy.grid_guided_z_vals(grid_cpu, ro_f.cpu(), rd_f.cpu(), rcfg.near, rcfg.far,
-                                          spp, **kw)
+
+    def depths_err(zc, zp, key, n_launches):
         zc = zc.cpu()
-        z_err[spp] = dict(max_abs=(zc - zp).abs().max().item(),
-                          share_equal=(zc == zp).float().mean().item(),
-                          sorted=bool((zc[:, 1:] >= zc[:, :-1]).all()))
-        require(z_err[spp]["max_abs"] <= Z_TOL and z_err[spp]["sorted"],
-                f"accel depths at spp {spp}: card vs CPU {z_err[spp]}")
+        e = dict(max_abs=(zc - zp.cpu()).abs().max().item(),
+                 share_equal=(zc == zp.cpu()).float().mean().item(),
+                 sorted=bool((zc[:, 1:] >= zc[:, :-1]).all()), launches=n_launches)
+        z_err[key] = e
+        require(e["max_abs"] <= Z_TOL and e["sorted"] and n_launches == 1,
+                f"accel depths {key}: kernel vs plain {e}")
+
+    for spp in ACCEL_SPP:
+        for mode in occupancy.WEIGHT_MODES:
+            for stride in (1, 4):
+                g_card, g_cpu = (binary, binary_cpu) if mode == "occupancy" else (grid, grid_cpu)
+                kw = dict(n_probe=acc.n_probe, ray_stride=stride, weight_mode=mode)
+                before = occupancy.launches
+                zc = occupancy.grid_guided_z_vals(g_card, ro_f, rd_f, rcfg.near, rcfg.far, spp,
+                                                  **kw)
+                n_launches = occupancy.launches - before
+                zp = occupancy.grid_guided_z_vals(g_cpu, ro_f.cpu(), rd_f.cpu(), rcfg.near,
+                                                  rcfg.far, spp, **kw)
+                depths_err(zc, zp, f"{spp} {mode} stride {stride}", n_launches)
+                gen = lambda: torch.Generator(device=dev).manual_seed(spp * 10 + stride)
+                before = occupancy.launches
+                zc = occupancy.grid_guided_z_vals(g_card, ro_f, rd_f, rcfg.near, rcfg.far, spp,
+                                                  generator=gen(), **kw)
+                n_launches = occupancy.launches - before
+                zp = occupancy.grid_guided_z_vals_plain(g_card, ro_f, rd_f, rcfg.near, rcfg.far,
+                                                        spp, generator=gen(), **kw)
+                depths_err(zc, zp, f"{spp} {mode} stride {stride} drawn", n_launches)
+    # its time at the engine's settings and the frame's sample count (32, as
+    # ref-accel32), against the least bytes it must move: the depths out, the
+    # leader rays in, each grid cell the probes reach once
+    kw = dict(n_probe=acc.n_probe, ray_stride=acc.probe_ray_stride, weight_mode=acc.weight_mode)
+    spp = ACCEL_SPP[1]
+    depths = lambda: occupancy.grid_guided_z_vals(grid, ro_f, rd_f, rcfg.near, rcfg.far, spp,
+                                                  **kw)
+    plain_card = lambda: occupancy.grid_guided_z_vals_plain(grid, ro_f, rd_f, rcfg.near,
+                                                            rcfg.far, spp, **kw)
+    step = acc.probe_ray_stride
+    t_p = (torch.arange(acc.n_probe, device=dev, dtype=torch.float32) + 0.5) / acc.n_probe
+    pts = (ro_f[::step, None, :] + rd_f[::step, None, :]
+           * (rcfg.near + (rcfg.far - rcfg.near) * t_p)[None, :, None])
+    cell = torch.floor((pts - grid.aabb_lo) / (grid.aabb_hi - grid.aabb_lo) * grid.resolution)
+    inside = ((cell >= 0) & (cell < grid.resolution)).all(dim=-1)
+    flat = ((cell[..., 0] * grid.resolution + cell[..., 1]) * grid.resolution
+            + cell[..., 2])[inside]
+    cells = int(torch.unique(flat).numel())
+    depth_bytes = CHUNK * spp * 4 + ro_f[::step].numel() * 4 * 2 + cells * 4
+    occ_bound = bound_ms(0, 0, depth_bytes)
+    occ_times = dict(device_ms=profiled_ms(depths, OCC_KERNEL, 20), call_ms=call_ms(depths, 20),
+                     plain_call_ms=call_ms(plain_card, 20), bytes=depth_bytes, cells_read=cells,
+                     bound_ms=occ_bound[0], bound_by=occ_bound[1])
+    _, us_p, n_p = profile_frame(plain_card)
+    occ_times.update(plain_device_ms=sum(us_p.values()) / 1e3, plain_launches=sum(n_p.values()))
     emit("accel_depths", rays=CHUNK, n_probe=acc.n_probe, ray_stride=acc.probe_ray_stride,
-         weight_mode=acc.weight_mode, card_vs_cpu=z_err, tol=Z_TOL)
+         weight_mode=acc.weight_mode, kernel_vs_plain=z_err, tol=Z_TOL,
+         times={"samples": spp, "shape": f"{CHUNK} rays, {acc.n_probe} probes, stride "
+                f"{acc.probe_ray_stride}, {acc.weight_mode} weights, {spp} depths", **occ_times},
+         nvidia_smi=smi)
 
     # the frames, the profile of each, and their quality against float32
     # truth at 256 uniform samples (the JAX suite's gt_quality_report): the
@@ -3292,13 +3355,15 @@ def main():
     accel_res, accel_small = {}, {}
     for spp in ACCEL_SPP:
         r = drive(acc, "benchmark", f"accel_{spp}",
-                  {"render_zvals": 1, "composite": 1}, spp=spp,
+                  {"occupancy": 1, "render_zvals": 1, "composite": 1}, spp=spp,
                   weightless=1)
         per_launch, prof = frame_profile(acc, "benchmark",
-                                         {WGMMA["render_zvals"]: 1, K2_KERNEL: 1}, spp)
+                                         {WGMMA["render_zvals"]: 1, K2_KERNEL: 1, OCC_KERNEL: 1},
+                                         spp)
         glue = {k: v for k, v in prof["device_ms_by_kernel"].items()
-                if k not in (WGMMA["render_zvals"], K2_KERNEL)}
+                if k not in (WGMMA["render_zvals"], K2_KERNEL, OCC_KERNEL)}
         r.update(profile=prof, k3_device_ms_per_launch=per_launch.get(WGMMA["render_zvals"]),
+                 depths_device_ms_per_launch=per_launch.get(OCC_KERNEL),
                  glue_device_ms=sum(glue.values()), glue_device_ms_by_kernel=glue)
         device_ms[f"accel_{spp} render_zvals"] = per_launch.get(WGMMA["render_zvals"])
         u = drive(engine, "benchmark", f"uniform_{spp}",
@@ -3323,7 +3388,7 @@ def main():
     accf = AccelEngine(shared, chunk_rays=CHUNK, fuse_composite=True)
     spp = ACCEL_SPP[-1]
     rf = drive(accf, "benchmark", f"accel_fused_{spp}",
-               {"render_zvals_composited": 1}, spp=spp)
+               {"occupancy": 1, "render_zvals_composited": 1}, spp=spp)
     per_launch, rf["profile"] = frame_profile(
         accf, "benchmark", {WGMMA_COMPOSITED["render_zvals_composited"]: 1}, spp)
     rf["k3_composited_device_ms_per_launch"] = per_launch.get(
@@ -3343,6 +3408,7 @@ def main():
                                CHUNK * (6 + spp) * 4 + nbytes(*[t for t in packed_f if t is not None])
                                + CHUNK * spp * 16)[0] for spp in ACCEL_SPP}
     del engine_u, engine, fused, ref_engine, eng16, shared_u, acc, accf, acc_cpu, grid, grid_cpu
+    del binary, binary_cpu
     torch.cuda.empty_cache()
 
     # -- path 8: training (NeRFTrainer: K4 + K5 twice a step) ------------------
@@ -4011,7 +4077,7 @@ def main():
     pipeline_expect = {"render_samples": 3 * per_engine_frames, "dequant": per_engine_frames,
                        "dequant_stream": per_engine_frames,
                        "int8": per_engine_frames, "render_zvals": per_engine_frames,
-                       "composite": 4 * per_engine_frames,
+                       "occupancy": per_engine_frames, "composite": 4 * per_engine_frames,
                        "mlp_forward": bake + 2 * train_chunk, "bwd_rows": K5_PASSES * train_chunk,
                        "wgrad": K5_PASSES * train_chunk}
     cli_engines = ["cuda", "compressed", "int8", "accel"]
@@ -4128,7 +4194,7 @@ def main():
     one = math.ceil(cmp_size * cmp_size / CHUNK)            # chunks a frame (1)
     cmp_expect = {"render_samples": 6 * one, "dequant": 2 * one,
                   "dequant_stream": 2 * one,
-                  "int8": 2 * one, "render_zvals": 2 * one,
+                  "int8": 2 * one, "render_zvals": 2 * one, "occupancy": 2 * one,
                   "composite": 8 * one, "mlp_forward": bake}
     lines, secs = run_cli("cli_compare", [
         "compare", "--device", "cuda", "--checkpoint", PARAMS, "--size", str(cmp_size),
@@ -4428,6 +4494,25 @@ def main():
                 "bound_ms": k7["bound"][0],
                 "launches": paths["int8_frames_uniform_hierarchical"]["mlp_quant_int8"],
                 "device_ms_in_uniform_frame": device_ms.get(f"int8_frames uniform {K4_KERNEL}")}
+    # the accel engine's depths: no TPU kernel (the JAX package's is jnp)
+    kernels.append({
+        "name": "occupancy_z_vals", "route": "cuda", "source": "nerf_tpu_torch/csrc/occupancy.cu",
+        "replaces": "none: nerf_tpu/ops/occupancy.py grid_guided_z_vals is jnp (about 70 ATen "
+                    "launches a chunk in eager PyTorch)",
+        "status": "new", "cuda_kernel": OCC_KERNEL, "launches": paths["accel_32"]["occupancy"],
+        "launches_path": "accel_32",
+        "launches_by_path": {p: c["occupancy"] for p, c in paths.items()},
+        "max_abs_err": max(e["max_abs"] for e in z_err.values()),
+        "ms": occ_times["device_ms"] if occ_times["device_ms"] is not None
+        else occ_times["call_ms"],
+        "ms_from": "profiler" if occ_times["device_ms"] is not None else "events",
+        "call_ms": occ_times["call_ms"], "plain_ms": occ_times["plain_call_ms"],
+        "plain_device_ms": occ_times["plain_device_ms"], "bound_ms": occ_times["bound_ms"],
+        "bound_by": occ_times["bound_by"], "library_ms": None,
+        "library_note": f"{no_library} (probes, weights, a CDF and its inverse a group)",
+        "design": "a warp a stride group: a lane a run of probes, warp scans for the CDF in "
+                  "shared memory, a binary search a draw, the depth to each row of the group",
+        "shape": f"{CHUNK} rays, stride 4, {ACCEL_SPP[1]} depths"})
     for row in kernels:
         require(row["launches"] > 0, f"{row['name']} was launched no time on {row['launches_path']}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,23 +15,45 @@ spent where the scene is.
 - ``query_occupancy``: the nearest cell, 0 outside the box;
 - ``grid_guided_z_vals``: the probe profile's weights (``occupancy``,
   ``alpha`` or ``transmittance``) and ``sample_pdf`` over them, once per
-  group of ``ray_stride`` rays.
+  group of ``ray_stride`` rays: ``occupancy_z_kernel`` of
+  ``csrc/occupancy.cu``, one launch a call, for rays on the card;
+  ``grid_guided_z_vals_plain``, the same function in plain PyTorch, for rays
+  on the CPU. ``launches`` counts the kernel's launches.
 
 Each function keeps its JAX counterpart's arithmetic in the same order, so
-equal float32 points fall in equal cells in both packages. Everything here
-is plain PyTorch glue on the device of its inputs.
+equal float32 points fall in equal cells in both packages, and the kernel
+keeps the plain version's. The rest is plain PyTorch on the device of its
+inputs.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from nerf_tpu_torch.config import ModelConfig
 from nerf_tpu_torch.models.nerf import apply_nerf
-from nerf_tpu_torch.utils.rendering import sample_pdf
+from nerf_tpu_torch.ops import _ext
+from nerf_tpu_torch.utils.rendering import draw_uniforms, sample_pdf
 from nerf_tpu_torch.utils.tree import tree_leaves
+
+LIBRARY = "occupancy"
+KERNEL = "occupancy_z_kernel"
+WEIGHT_MODES = {"occupancy": 0, "alpha": 1, "transmittance": 2}   # the kernel's codes
+MAX_PROBES = 1024      # the kernel's knots a warp in shared memory (csrc/occupancy.cu)
+MAX_SORTED = 256       # its sort of a ray's depths in the stochastic form
+
+# Launches of the CUDA kernel (not of the plain version); one a chunk of the
+# accel engine's benchmark mode. A launch recorded into a CUDA graph is not
+# one (_ext.ran).
+launches = 0
+
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4        # grid, G, lo, hi, ro, rd
+             + [ctypes.c_int] * 5                                           # N, stride, P, S, mode
+             + [ctypes.c_float] * 4                                         # near, span, dz, floor
+             + [ctypes.c_void_p] * 3)                                       # u, out, stream
 
 
 class OccupancyGrid(NamedTuple):
@@ -102,7 +124,7 @@ def query_occupancy(grid: OccupancyGrid, points: torch.Tensor) -> torch.Tensor:
     return occ * in_bounds.to(occ.dtype)
 
 
-def grid_guided_z_vals(
+def grid_guided_z_vals_plain(
     grid: OccupancyGrid,
     rays_o: torch.Tensor,
     rays_d: torch.Tensor,
@@ -162,3 +184,90 @@ def grid_guided_z_vals(
     z = sample_pdf(z_probe_row.expand(n_rays, n_probe), weights, n_samples,
                    generator=generator)
     return torch.sort(z, dim=-1).values
+
+
+def load() -> ctypes.CDLL:
+    """The bound library, its signature set once."""
+    lib = _ext.load(LIBRARY)
+    if lib.occupancy_z_vals.argtypes is None:
+        lib.occupancy_z_vals.argtypes = _ARGTYPES
+        lib.occupancy_z_vals.restype = ctypes.c_int
+    return lib
+
+
+def _check(grid: OccupancyGrid, rays_o: torch.Tensor, rays_d: torch.Tensor, n_samples: int,
+           n_probe: int, u: Optional[torch.Tensor], ray_stride: int) -> None:
+    """What the kernel takes: float32 contiguous rays ``[N, 3]``, the grid's
+    ``G^3`` values and its corners, and the draws ``[N, n_samples]`` if
+    given, on one device; ``n_probe`` knots that fit a warp's shared memory
+    and, drawn at random, ``n_samples`` depths that fit its sort."""
+    if not 1 <= n_probe <= MAX_PROBES:
+        raise ValueError(f"the depths kernel takes 1 to {MAX_PROBES} probes (MAX_PROBES, its "
+                         f"knots in shared memory), not {n_probe}")
+    if u is not None and not 1 <= n_samples <= MAX_SORTED:
+        raise ValueError(f"the depths kernel sorts 1 to {MAX_SORTED} random depths a ray "
+                         f"(MAX_SORTED), not {n_samples}")
+    if n_samples < 1 or ray_stride < 1:
+        raise ValueError(f"n_samples and ray_stride must be positive, not {n_samples}, "
+                         f"{ray_stride}")
+    dev, n, g = rays_o.device, rays_o.shape[0], grid.resolution
+    for name, t, shape in (("rays_o", rays_o, (n, 3)), ("rays_d", rays_d, (n, 3)),
+                           ("grid.occupancy", grid.occupancy, (g ** 3,)),
+                           ("grid.aabb_lo", grid.aabb_lo, (3,)),
+                           ("grid.aabb_hi", grid.aabb_hi, (3,)),
+                           *((("u", u, (n, n_samples)),) if u is not None else ())):
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != dev):
+            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on {dev}")
+
+
+def _launch(grid: OccupancyGrid, rays_o: torch.Tensor, rays_d: torch.Tensor, near: float,
+            far: float, n_samples: int, n_probe: int, u: Optional[torch.Tensor], floor: float,
+            ray_stride: int, mode: int) -> torch.Tensor:
+    """Launch the kernel: ``[N, n_samples]`` float32 depths in a new tensor
+    on the rays' device. ``u`` gives each ray's draws ``[N, n_samples]``
+    (None: the midpoints); ``mode`` is ``WEIGHT_MODES``' code. The box's
+    corners reach the kernel as the grid's device tensors: nothing is read
+    back to the host."""
+    global launches
+    # a frame without padding hands on generate_rays' broadcast origins
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+    _check(grid, rays_o, rays_d, n_samples, n_probe, u, ray_stride)
+    n_rays, dev = rays_o.shape[0], rays_o.device
+    out = torch.empty(n_rays, n_samples, dtype=torch.float32, device=dev)
+    lib = load()
+    err = lib.occupancy_z_vals(
+        _ext.ptr(grid.occupancy), grid.resolution, _ext.ptr(grid.aabb_lo), _ext.ptr(grid.aabb_hi),
+        _ext.ptr(rays_o), _ext.ptr(rays_d), n_rays, ray_stride, n_probe, n_samples, mode,
+        near, far - near, (far - near) / n_probe, floor,
+        None if u is None else _ext.ptr(u), _ext.ptr(out), _ext.stream_ptr(dev))
+    _ext.check(lib, err, "occupancy_z_vals launch")
+    launches += _ext.ran()
+    return out
+
+
+def grid_guided_z_vals(
+    grid: OccupancyGrid,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    near: float,
+    far: float,
+    n_samples: int,
+    n_probe: int = 128,
+    generator: Optional[torch.Generator] = None,
+    floor: float = 1e-3,
+    ray_stride: int = 1,
+    weight_mode: str = "occupancy",
+) -> torch.Tensor:
+    """``grid_guided_z_vals_plain``'s depths: the plain version for rays on
+    the CPU, one launch of the kernel for any other device. With
+    ``generator`` the kernel takes ``draw_uniforms``' ``[N, n_samples]``
+    draws, the ones the plain version's ``sample_pdf`` makes."""
+    if rays_o.device.type == "cpu":
+        return grid_guided_z_vals_plain(grid, rays_o, rays_d, near, far, n_samples, n_probe,
+                                        generator, floor, ray_stride, weight_mode)
+    if weight_mode not in WEIGHT_MODES:
+        raise ValueError(f"unknown weight_mode {weight_mode!r}")
+    u = None if generator is None else draw_uniforms(rays_o, n_samples, generator)
+    return _launch(grid, rays_o, rays_d, near, far, n_samples, n_probe, u, floor, ray_stride,
+                   WEIGHT_MODES[weight_mode])

@@ -82,7 +82,7 @@ def test_kernels_build_for_hopper_without_fast_math():
     assert _ext.LIBRARIES == _ext.SOURCES + tuple(_ext.VARIANTS)
     assert _ext.VARIANTS == {"ray_wgmma_i8": ("ray_wgmma", "-DNERF_WQ=3")}
     paths = {_ext.library_path(n) for n in _ext.LIBRARIES}
-    assert len(paths) == len(_ext.LIBRARIES) == 5
+    assert len(paths) == len(_ext.LIBRARIES) == 6
 
 
 def _run_smoke(cwd):
@@ -258,6 +258,15 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch):
     composite_kernel.composite_edges(torch.empty(4, 32, device="meta"),
                                      torch.empty(4, 9, device="meta"), meta, mip.render, False)
     assert calls == ["uniform", "edges", "composite_edges"]
+    # the accel engine's grid-guided depths
+    from nerf_tpu_torch.ops import occupancy
+
+    grid = occupancy.OccupancyGrid(torch.empty(8, device="meta"), meta[0], meta[0], 2)
+    monkeypatch.setattr(occupancy, "grid_guided_z_vals_plain", plain)
+    monkeypatch.setattr(occupancy, "_launch", lambda *a: calls.append("occupancy"))
+    del calls[:]
+    occupancy.grid_guided_z_vals(grid, meta, meta, 2.0, 6.0, 8, n_probe=16, ray_stride=2)
+    assert calls == ["occupancy"]
 
 
 # -- every public name of the JAX package has a counterpart ------------------
