@@ -203,6 +203,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import zlib
 
 import numpy as np
@@ -1648,10 +1649,245 @@ def mip_phase(dev, smi):
     return errs
 
 
+MIP360_ONLY = sys.argv[1:2] == ["--mip360-only"]   # the build and mip360_check alone
+MIP360_KERNELS = ("ray_z_prop360_wgmma_kernel", "mip360_encode_kernel",
+                  "mip360_dense_wgmma_kernel", "mip360_dir_kernel")
+MIP360_RAYS = 16384           # mip360_check: one chunk of the engine
+MIP360_SIDE = (1237, 822)     # the 360 outdoor scenes at the published factor 4
+MIP360_ANGLE_X = 1.10
+MIP360_TOL = 2e-2             # the new kernels against their plain versions on the card: rgb abs,
+                              # density relative to max|density|; bf16 activations summed in
+                              # another order through 8 layers of 1,024 flip roundings that the
+                              # plain version keeps (8.0e-3 rgb and 9.6e-3 density read on the
+                              # H100 at one chunk on seeded weights)
+MIP360_PSNR_MIN = 30.0        # the bf16 frame against the float32 torch engine
+
+
+def mip360_phase(dev, smi):
+    """``mip360_check``: the Mip-NeRF 360 kernels against their plain versions
+    on the card at one 16,384-ray chunk of the engine on seeded weights, at
+    the edges each level draws from the level before: the proposal entry
+    (``ray_z_prop360_wgmma_kernel``) at both proposal levels' 64 intervals,
+    K2's opaque edges form (both entries through their wrappers, 1e-5), the NeRF pass (encoder,
+    eight trunk layers, bottleneck and density, direction term, color) at
+    32; each launch counted. Device ms of each kernel by the profiler at
+    that chunk, beside its bound and, for the NeRF trunk's layers,
+    ``torch.matmul`` on the same bf16 shapes (the library's time; the port
+    never calls it). Then ``mip360_frame``: ``CudaEngine`` on
+    ``mip360_config()`` at 1,237 x 822 in the hierarchical mode, counting
+    every launch a frame, and its PSNR against the float32
+    ``TorchEngine`` at 124 x 82."""
+    import dataclasses
+
+    from nerf_tpu_torch.config import mip360_config
+    from nerf_tpu_torch.models.mip360 import N_PROP_LEVELS, init_mip360_params, resample_360
+    from nerf_tpu_torch.ops import composite_kernel, mip360_kernel, ray_wgmma, render_kernel
+    from nerf_tpu_torch.render.engines import CudaEngine, SharedModel, TorchEngine
+    from nerf_tpu_torch.utils.cameras import (focal_from_angle, generate_rays, pixel_radius,
+                                              spherical_pose)
+    from nerf_tpu_torch.utils.rendering import first_level_360, s_to_t
+
+    cfg = mip360_config()
+    mcfg, rcfg = cfg.model, cfg.render
+    params = init_mip360_params(torch.Generator().manual_seed(5), mcfg, dev)
+    packed = mip360_kernel.pack_mip360(params, mcfg)
+    w, h = MIP360_SIDE
+    focal = focal_from_angle(w, MIP360_ANGLE_X)
+    radius = pixel_radius(focal)
+    pose = spherical_pose(40.0, -15.0, 1.0)
+    lib = mip360_kernel.load()
+    rlib = ray_wgmma.load()
+    emit("mip360_build", kernels=list(MIP360_KERNELS),
+         dense_smem_bytes=[lib.mip360_dense_smem(e) for e in range(3)],
+         stages=lib.mip360_stages(), tile_rows=lib.mip360_tile_rows(),
+         prop_smem_bytes=rlib.ray_mip_wgmma_smem_bytes(rcfg.n_coarse),
+         prop_ring_stages=rlib.ray_mip_wgmma_stages(rcfg.n_coarse))
+    require(lib.mip360_tile_rows() == mip360_kernel.TILE
+            and lib.mip360_enc_chunks() * mip360_kernel.CHUNK_K == mip360_kernel.ENC_K,
+            "the NeRF pass's layout differs from ops/mip360_kernel.py")
+    ro, rd = generate_rays(pose, w, h, focal, dev)
+    idx = torch.randperm(w * h, generator=torch.Generator().manual_seed(2))[:MIP360_RAYS].to(dev)
+    ro, rd = ro.reshape(-1, 3)[idx].contiguous(), rd.reshape(-1, 3)[idx].contiguous()
+    errs = {}
+    prod, wts = 1, None
+    for level in range(N_PROP_LEVELS):
+        s = (first_level_360(rcfg.n_coarse, MIP360_RAYS, dev) if level == 0
+             else resample_360(s, wts, rcfg.n_coarse, prod, rcfg))
+        prod *= rcfg.n_coarse
+        t = t_prop = s_to_t(s, rcfg.near, rcfg.far)
+        n0 = render_kernel.launches["prop_mip360"]
+        dens_k = render_kernel.fused_render_prop_mip360(packed["coarse"], ro, rd, radius, t, mcfg)
+        require(render_kernel.launches["prop_mip360"] == n0 + 1,
+                "the proposal entry did not reach csrc/ray_wgmma.cu")
+        dens_p = render_kernel.fused_render_prop_mip360_plain(packed["coarse"], ro, rd, radius,
+                                                              t, mcfg)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(dens_k).all()), "the proposal entry: non-finite output")
+        scale = dens_p.abs().max().item()
+        err = (dens_k - dens_p).abs().max().item() / max(scale, 1e-6)
+        errs[f"prop level {level}"] = err
+        emit("mip360_check", kernel="ray_z_prop360_wgmma_kernel", level=level, rays=MIP360_RAYS,
+             intervals=rcfg.n_coarse, density_max_rel_err=err, max_abs_density=scale,
+             density_mean_abs_err=(dens_k - dens_p).abs().mean().item(),
+             share_bit_equal=(dens_k == dens_p).float().mean().item(), tol=MIP360_TOL)
+        require(err <= MIP360_TOL, f"the proposal entry (level {level}): density rel err {err}")
+        ne = composite_kernel.edges360_launches
+        wts = composite_kernel.composite_weights_360(dens_k, t, rd)
+        require(composite_kernel.edges360_launches == ne + 1,
+                "K2's opaque edges form did not reach csrc/composite.cu")
+        w_p = composite_kernel.composite_weights_360_plain(dens_k, t, rd)
+        e_w = (wts - w_p).abs().max().item()
+        emit("mip360_check", kernel=composite_kernel.EDGES360_KERNEL, entry="weights", level=level,
+             w_max_abs_err=e_w, tol=K2_TOL)
+        require(e_w <= K2_TOL, f"K2's opaque edges form (weights): {e_w}")
+    s = resample_360(s, wts, rcfg.n_fine, prod, rcfg)
+    t = s_to_t(s, rcfg.near, rcfg.far)
+    require(bool(torch.isfinite(t).all()) and bool((s[:, 1:] >= s[:, :-1]).all()),
+            "resample_360: the NeRF level's edges not finite and sorted")
+    before = dict(mip360_kernel.launches)
+    raw_k = mip360_kernel.nerf_mip360_raw(packed["fine"], ro, rd, radius, t, mcfg)
+    ran = {k: mip360_kernel.launches[k] - before[k] for k in before}
+    require(ran == {"encode": 1, "dense": mcfg.n_layers, "bottleneck": 1, "dir": 1, "color": 1},
+            f"the NeRF pass's launches: {ran}")
+    raw_p = mip360_kernel.nerf_mip360_plain(packed["fine"], ro, rd, radius, t, mcfg)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(raw_k).all()), "the NeRF pass: non-finite output")
+    rgb_err, sig_err, sig_scale = rgb_sigma_err(raw_k, raw_p)
+    errs["nerf"] = (rgb_err, sig_err)
+    emit("mip360_check", kernel="NeRF pass", rays=MIP360_RAYS, intervals=rcfg.n_fine,
+         rgb_max_abs_err=rgb_err, density_max_rel_err=sig_err, max_abs_density=sig_scale,
+         launches=ran, tol=MIP360_TOL, **agreement(raw_k, raw_p))
+    require(rgb_err <= MIP360_TOL and sig_err <= MIP360_TOL,
+            f"the NeRF pass: rgb err {rgb_err}, density rel err {sig_err} > {MIP360_TOL}")
+    ne = composite_kernel.edges360_launches
+    res_k = composite_kernel.composite_edges_360(raw_k, t, rd, rcfg)
+    require(composite_kernel.edges360_launches == ne + 1,
+            "K2's opaque edges form did not reach csrc/composite.cu")
+    res_p = composite_kernel._outputs(composite_kernel.composite_edges_360_plain(raw_k, t, rd),
+                                      None, rcfg)
+    torch.cuda.synchronize()
+    out_k, out_p = (torch.cat([r.rgb, r.depth[:, None], r.acc[:, None]], 1)
+                    for r in (res_k, res_p))          # composited_err's columns
+    e_rgb, e_depth, _ = composited_err(out_k, None, out_p, None)
+    emit("mip360_check", kernel=composite_kernel.EDGES360_KERNEL, entry="raw",
+         rgb_acc_max_abs_err=e_rgb, depth_max_rel_err=e_depth, tol=K2_TOL)
+    require(max(e_rgb, e_depth) <= K2_TOL, f"K2's opaque edges form (raw): {e_rgb}, {e_depth}")
+
+    # device ms of each kernel at the chunk, beside its bound; the trunk's
+    # layers beside torch.matmul on the same bf16 shapes. A trace that does
+    # not hold every launch (this machine's profiler drops records now and
+    # then) gives way to CUDA events around the calls
+    reps = 3
+
+    def by_kernel(fn, expect):
+        """``(ms a call, {kernel: (ms a call, launches)}, [(kernel, ms) of
+        each launch in order], source)``: the profiler's device times when
+        the trace holds ``expect[k]`` launches of each kernel ``k`` a call,
+        else CUDA events' time a call and no breakdown."""
+        def run():
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+        cuda = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        order = [(n, us * 1e-3) for n, us in
+                 device_events(types.SimpleNamespace(events=lambda: cuda))
+                 if not n.startswith("kernel.")]          # the spans' mirrors
+        out = {}
+        for n, ms in order:
+            t, k = out.get(n, (0.0, 0))
+            out[n] = (t + ms / reps, k + 1)
+        if all(out.get(k, (0, 0))[1] == reps * c for k, c in expect.items()):
+            return sum(t for t, _ in out.values()), out, order, "profiler"
+        emit("profiler_note", kernels=expect, reps=reps, traced={k: v[1] for k, v in out.items()},
+             note="the trace does not hold every launch; timed by CUDA events instead")
+        return call_ms(fn, reps), None, [], "events"
+
+    rows = MIP360_RAYS * rcfg.n_fine
+    nerf_flops = 2.0 * rows * (mcfg.pos_dim * mcfg.hidden_dim
+                               + (mcfg.n_layers - 2) * mcfg.hidden_dim ** 2
+                               + (mcfg.hidden_dim + mcfg.pos_dim) * mcfg.hidden_dim
+                               + mcfg.hidden_dim * (1 + mcfg.bottleneck_dim)
+                               + mcfg.bottleneck_dim * mcfg.color_hidden_dim
+                               + mcfg.color_hidden_dim * 3)
+    prop_rows = MIP360_RAYS * rcfg.n_coarse
+    prop_flops = 2.0 * prop_rows * (mcfg.pos_dim * 256 + 3 * 256 * 256 + 256)
+    nerf_ms, nerf_t, order, nerf_from = by_kernel(
+        lambda: mip360_kernel.nerf_mip360_raw(packed["fine"], ro, rd, radius, t, mcfg),
+        {"mip360_encode_kernel": 1, "mip360_dense_wgmma_kernel": mcfg.n_layers + 2,
+         "mip360_dir_kernel": 1})
+    layers_ms = [ms for n, ms in order if n == "mip360_dense_wgmma_kernel"][:mcfg.n_layers + 2]
+    prop_ms, prop_t, _, prop_from = by_kernel(lambda: render_kernel.fused_render_prop_mip360(
+        packed["coarse"], ro, rd, radius, t_prop, mcfg), {"ray_z_prop360_wgmma_kernel": 1})
+    a = torch.randn(rows, mcfg.hidden_dim, device=dev).to(torch.bfloat16)
+    wm = torch.randn(mcfg.hidden_dim, mcfg.hidden_dim, device=dev).to(torch.bfloat16)
+    lib_ms, lib_t, _, lib_from = by_kernel(lambda: torch.matmul(a, wm), {})
+    if not lib_t or len(lib_t) != 1 or next(iter(lib_t.values()))[1] != reps:
+        lib_ms, lib_from = call_ms(lambda: torch.matmul(a, wm), reps), "events"
+    layer_flops = 2.0 * rows * mcfg.hidden_dim ** 2
+    emit("mip360_times", chunk_rays=MIP360_RAYS, device_ms=nerf_t, prop_device_ms=prop_t,
+         nerf_pass_ms=nerf_ms, nerf_from=nerf_from, nerf_bound_ms=nerf_flops / 989e12 * 1e3,
+         nerf_roofline_pct=100 * nerf_flops / 989e12 / (nerf_ms * 1e-3),
+         prop_ms=prop_ms, prop_from=prop_from, prop_bound_ms=prop_flops / 989e12 * 1e3,
+         prop_roofline_pct=100 * prop_flops / 989e12 / (prop_ms * 1e-3),
+         dense_ms_by_launch=dict(zip(["layer0", *[f"layer{i}" for i in range(1, 8)],
+                                      "bottleneck", "color"], layers_ms)),
+         trunk_layer_library_ms=lib_ms, library_from=lib_from,
+         trunk_layer_bound_ms=layer_flops / 989e12 * 1e3, nvidia_smi=smi)
+    del a, wm, raw_p
+
+    # mip360_frame: the engine's path, launches counted
+    shared = SharedModel(cfg, device=dev)
+    shared.params = params
+    engine = CudaEngine(shared, chunk_rays=MIP360_RAYS)
+    engine.render_image(pose, (w, h), SPP, focal=focal, mode="hierarchical", monitor=True)
+    reset_counts()
+    frames = [engine.render_image(spherical_pose(40.0 + 60.0 * k, -15.0, 1.0), (w, h), SPP,
+                                  focal=focal, mode="hierarchical", monitor=True)
+              for k in range(2)]
+    counts = read_counts()
+    chunks = -(-w * h // MIP360_RAYS)
+    expect = {"prop_mip360": N_PROP_LEVELS * chunks, "nerf_mip360": chunks,
+              "composite_edges_360": (N_PROP_LEVELS + 1) * chunks,
+              "mip360_encode": chunks, "mip360_dense": mcfg.n_layers * chunks,
+              "mip360_bottleneck": chunks, "mip360_dir": chunks, "mip360_color": chunks}
+    for k, n in counts.items():
+        want = expect.get(k, 0) * len(frames)
+        require(n == want, f"mip360_frame: {k} launched {n} times, expected {want}")
+    require(all(np.isfinite(f.rgb).all() and np.isfinite(f.depth).all() for f in frames),
+            "mip360_frame: non-finite frame")
+    qw, qh = 124, 82
+    qfocal = focal_from_angle(qw, MIP360_ANGLE_X)
+    cfg32 = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="float32"))
+    shared32 = SharedModel(cfg32, device=dev)
+    shared32.params = params
+    truth = TorchEngine(shared32, chunk_rays=2048).render_image(
+        pose, (qw, qh), SPP, focal=qfocal, mode="hierarchical", monitor=False).rgb
+    got = engine.render_image(pose, (qw, qh), SPP, focal=qfocal, mode="hierarchical",
+                              monitor=False).rgb
+    db = psnr(got, truth)
+    wall = float(np.median([f.stats.wall_time_s for f in frames]))
+    emit("mip360_frame", resolution=[w, h], intervals=[rcfg.n_coarse] * N_PROP_LEVELS
+         + [rcfg.n_fine], ms_per_frame=wall * 1e3, rays_per_s=w * h / wall,
+         peak_device_mb=max(f.stats.peak_device_mb for f in frames), launches=counts,
+         expected_per_frame=expect, rgb_mean=float(frames[0].rgb.mean()),
+         rgb_std=float(frames[0].rgb.std()), psnr_vs_torch_f32_db=db, min_db=MIP360_PSNR_MIN,
+         nvidia_smi=smi)
+    require(db >= MIP360_PSNR_MIN, f"mip360_frame: {db} dB against the float32 torch engine")
+    reset_counts()
+    return errs
+
+
 def reset_counts():
     """Every kernel wrapper's launch count set to 0."""
-    from nerf_tpu_torch.ops import (composite_kernel, dequant_stream, mlp_kernel, occupancy,
-                                    quant, render_kernel, train_kernel)
+    from nerf_tpu_torch.ops import (composite_kernel, dequant_stream, mip360_kernel, mlp_kernel,
+                                    occupancy, quant, render_kernel, train_kernel)
 
     for k in render_kernel.launches:
         render_kernel.launches[k] = 0
@@ -1659,7 +1895,9 @@ def reset_counts():
         quant.launches[k] = 0
     composite_kernel.launches = composite_kernel.planar_launches = 0
     composite_kernel.bf16_launches = composite_kernel.weightless_launches = 0
-    composite_kernel.edges_launches = 0
+    composite_kernel.edges_launches = composite_kernel.edges360_launches = 0
+    for k in mip360_kernel.launches:
+        mip360_kernel.launches[k] = 0
     mlp_kernel.launches = 0
     dequant_stream.launches = 0
     occupancy.launches = 0
@@ -1669,14 +1907,16 @@ def reset_counts():
 
 def read_counts():
     """Every kernel wrapper's launch count, by counter."""
-    from nerf_tpu_torch.ops import (composite_kernel, dequant_stream, mlp_kernel, occupancy,
-                                    quant, render_kernel, train_kernel)
+    from nerf_tpu_torch.ops import (composite_kernel, dequant_stream, mip360_kernel, mlp_kernel,
+                                    occupancy, quant, render_kernel, train_kernel)
 
     return {**render_kernel.launches, **quant.launches, "dequant_stream": dequant_stream.launches,
             "composite": composite_kernel.launches,
             "composite_bf16": composite_kernel.bf16_launches,
             "composite_planar": composite_kernel.planar_launches,
             "composite_edges": composite_kernel.edges_launches,
+            "composite_edges_360": composite_kernel.edges360_launches,
+            **{f"mip360_{k}": n for k, n in mip360_kernel.launches.items()},
             "mlp_forward": mlp_kernel.launches, "occupancy": occupancy.launches,
             **train_kernel.launches}
 
@@ -1841,6 +2081,21 @@ def main():
     if MIP_ONLY:
         mip_phase(dev, smi)
         print(json.dumps({"mip_only": True, "device": torch.cuda.get_device_name(0)}), flush=True)
+        return
+    # the Mip-NeRF 360 kernels: no spill; mip360_check and mip360_frame run
+    # last (--mip360-only: here)
+    m360_ptxas, m360_notes = kernel_ptxas(ray_wgmma.LIBRARY, MIP360_KERNELS[:1])
+    m360_ptxas.update(kernel_ptxas("mip360_wgmma", MIP360_KERNELS[1:])[0])
+    emit("mip360_ptxas", ptxas=m360_ptxas, notes=m360_notes,
+         notes_nerf_pass=kernel_ptxas("mip360_wgmma", MIP360_KERNELS[1:])[1])
+    for k in MIP360_KERNELS:
+        r = m360_ptxas.get(k, {})
+        require(r.get("spill_store_bytes") == 0 and r.get("spill_load_bytes") == 0,
+                f"ptxas: {k} spills ({r})")
+    if MIP360_ONLY:
+        mip360_phase(dev, smi)
+        print(json.dumps({"mip360_only": True, "device": torch.cuda.get_device_name(0)}),
+              flush=True)
         return
     mip_phase(dev, smi)
 
@@ -4516,6 +4771,9 @@ def main():
     for row in kernels:
         require(row["launches"] > 0, f"{row['name']} was launched no time on {row['launches_path']}")
     print(json.dumps({"kernels": kernels}), flush=True)
+    # last, so that its full-size plain versions and frames leave nothing
+    # behind for the phases above
+    mip360_phase(dev, smi)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Tuple
 
-from nerf_tpu_torch.models.encoding import encoded_dim
+from nerf_tpu_torch.models.encoding import N_BASIS, encoded_dim
 
 
 @dataclass(frozen=True)
@@ -33,6 +33,13 @@ class ModelConfig:
     #   ipe_max_deg - 1, no identity), skip concat [h, enc],
     #   density softplus(raw + density_bias), rgb padded by rgb_padding;
     #   one network serves the coarse and the fine pass.
+    # "mip360": Mip-NeRF 360 (models/mip360.py): the IPE of contracted
+    #   full-covariance Gaussians on the 21 directions of a twice-subdivided
+    #   icosahedron (2 x 21 x (ipe_max_deg - ipe_min_deg) features); a
+    #   proposal network (prop_layers x prop_hidden_dim, density only) for
+    #   the proposal levels and a NeRF network (n_layers x hidden_dim, skip
+    #   [h, enc] after layer skip_layer, a bottleneck of bottleneck_dim,
+    #   [b, dir_enc] -> color_hidden_dim -> 3) for the last one.
     variant: str = "reference"
     pos_freqs: int = 10          # L for position encoding -> 3 + 6L = 63 dims
     dir_freqs: int = 4           # L for direction encoding -> 27 dims
@@ -46,11 +53,16 @@ class ModelConfig:
     ipe_max_deg: int = 16
     density_bias: float = 0.0    # mip: added to the raw density before the softplus
     rgb_padding: float = 0.0     # mip: rgb = sigmoid * (1 + 2 pad) - pad
+    bottleneck_dim: int = 256    # mip360: the NeRF network's bottleneck width
+    prop_hidden_dim: int = 256   # mip360: the proposal network's width ...
+    prop_layers: int = 4         # ... and depth
 
     @property
     def pos_dim(self) -> int:
         if self.variant == "mip":
             return 6 * (self.ipe_max_deg - self.ipe_min_deg)
+        if self.variant == "mip360":
+            return 2 * N_BASIS * (self.ipe_max_deg - self.ipe_min_deg)
         return encoded_dim(3, self.pos_freqs)
 
     @property
@@ -184,6 +196,28 @@ def mip_config() -> Config:
             density_bias=-1.0, rgb_padding=0.001),
         render=dataclasses.replace(cfg.render, n_coarse=128, n_fine=128,
                                    white_background=True),
+    )
+
+
+def mip360_config() -> Config:
+    """Mip-NeRF 360's unbounded-scene configuration (google-research/multinerf,
+    configs/360.gin; ``Model``, ``PropMLP``, ``NerfMLP``): IPE degrees
+    0..11 on the icosahedral basis of two subdivisions (504 features), a
+    4 x 256 proposal network at 64 intervals on each of two proposal
+    levels, an 8 x 1,024 NeRF network (skip after layer 4, bottleneck 256,
+    view layer 128 on directions at 4 degrees) at 32 intervals, density
+    bias -1, rgb padding 0.001, disparity spacing between near 0.2 and far
+    1e6, no resample padding, background 1. The level count, the dilation
+    and the opaque last interval are the variant's own (``models/mip360.py``)."""
+    cfg = default_config()
+    return dataclasses.replace(
+        cfg,
+        model=dataclasses.replace(
+            cfg.model, variant="mip360", hidden_dim=1024, posenc_pi=False, normalize_dirs=True,
+            ipe_min_deg=0, ipe_max_deg=12, density_bias=-1.0, rgb_padding=0.001),
+        render=dataclasses.replace(
+            cfg.render, near=0.2, far=1e6, n_coarse=64, n_fine=32, perturb=False,
+            white_background=True, resample_padding=0.0),
     )
 
 

@@ -74,6 +74,17 @@
 // mip cells' S), the run scanned serially and the runs' totals by shuffles,
 // the sum carried from chunk to chunk; persistent blocks. It is bound by
 // memory: 16 bytes of raw and 4 of edges an interval, 4 of weights out.
+//
+// K2's opaque edges form, composite_edges_360_kernel, replaces no TPU kernel
+// either: it composites Mip-NeRF 360's levels (multinerf
+// compute_alpha_weights with opaque_background; plain twins
+// composite_weights_360_plain and composite_edges_360_plain), the last
+// interval's density x delta infinite (its alpha 1). Two entries of one
+// body: WEIGHTS, a proposal level's weights w [N, S] alone from its density
+// [N, S] fp32; otherwise the NeRF level's raw [N, 4S] fp32 to out [N, 8] =
+// (r, g, b, depth, acc, 0, 0, 0), depth as the edges form has it. The body
+// is the edges form's (a warp a ray, runs of 4, shuffle scan); bound by
+// memory: 4 (or 16) bytes in and 4 of edges an interval.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -519,6 +530,87 @@ __global__ void __launch_bounds__(EDGES_THREADS) composite_edges_kernel(
   }
 }
 
+// K2's opaque edges form: the last interval's alpha is 1
+template <bool WEIGHTS>
+__global__ void __launch_bounds__(EDGES_THREADS) composite_edges_360_kernel(
+    const float* __restrict__ raw, const float* __restrict__ t, long long t_stride,
+    const float* __restrict__ rays_d, int n_rays, int S, float* __restrict__ out,
+    float* __restrict__ w) {
+  constexpr int WARPS = EDGES_THREADS / 32;
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * WARPS;
+  for (long long r = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5); r < n_rays; r += warps) {
+    const float* tr = t + r * t_stride;
+    const float dnorm = ray_norm(rays_d + r * 3);
+    float carry = 0.f, sr = 0.f, sg = 0.f, sb = 0.f, sd = 0.f, sa = 0.f;
+    for (int c0 = 0; c0 < S; c0 += 32 * EDGES_RUN) {
+      const int s0 = c0 + lane * EDGES_RUN;
+      float4 v[EDGES_RUN];
+      float e[EDGES_RUN + 1];
+#pragma unroll
+      for (int j = 0; j < EDGES_RUN; ++j) {
+        const bool in = s0 + j < S;
+        if constexpr (WEIGHTS)
+          v[j] = make_float4(in ? raw[r * S + s0 + j] : 0.f, 0.f, 0.f, 0.f);
+        else
+          v[j] = in ? reinterpret_cast<const float4*>(raw + r * 4 * S)[s0 + j]
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int j = 0; j <= EDGES_RUN; ++j) e[j] = s0 + j <= S ? tr[s0 + j] : 0.f;
+      float dd[EDGES_RUN], pre[EDGES_RUN], run = 0.f;
+#pragma unroll
+      for (int j = 0; j < EDGES_RUN; ++j) {
+        dd[j] = s0 + j < S ? __fmul_rn(v[j].x, __fmul_rn(__fsub_rn(e[j + 1], e[j]), dnorm)) : 0.f;
+        if (s0 + j == S - 1) dd[j] = __int_as_float(0x7f800000);   // opaque: +inf
+        pre[j] = run;
+        run = __fadd_rn(run, dd[j]);
+      }
+      float incl = run;   // the runs' totals: an inclusive shuffle scan
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float u = __shfl_up_sync(FULL, incl, off);
+        if (lane >= off) incl = __fadd_rn(incl, u);
+      }
+      float base = __shfl_up_sync(FULL, incl, 1);
+      base = __fadd_rn(carry, lane == 0 ? 0.f : base);
+#pragma unroll
+      for (int j = 0; j < EDGES_RUN; ++j) {
+        if (s0 + j >= S) continue;
+        const float wv = __fmul_rn(1.f - expf(-dd[j]), expf(-__fadd_rn(base, pre[j])));
+        if constexpr (WEIGHTS) {
+          w[r * S + s0 + j] = wv;
+        } else {
+          sr = fmaf(wv, v[j].y, sr);
+          sg = fmaf(wv, v[j].z, sg);
+          sb = fmaf(wv, v[j].w, sb);
+          sd = fmaf(wv, __fmul_rn(0.5f, __fadd_rn(e[j], e[j + 1])), sd);
+          sa += wv;
+        }
+      }
+      carry = __fadd_rn(carry, __shfl_sync(FULL, incl, 31));
+    }
+    if constexpr (!WEIGHTS) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        sr += __shfl_xor_sync(FULL, sr, off);
+        sg += __shfl_xor_sync(FULL, sg, off);
+        sb += __shfl_xor_sync(FULL, sb, off);
+        sd += __shfl_xor_sync(FULL, sd, off);
+        sa += __shfl_xor_sync(FULL, sa, off);
+      }
+      if (lane == 0) {
+        float depth = __fdiv_rn(sd, sa);
+        if (depth != depth) depth = 0.f;   // 0 / 0
+        depth = fminf(fmaxf(depth, tr[0]), tr[S]);
+        float4* o = reinterpret_cast<float4*>(out + r * 8);
+        o[0] = make_float4(sr, sg, sb, depth);
+        o[1] = make_float4(sa, 0.f, 0.f, 0.f);
+      }
+    }
+  }
+}
+
 // the launch floor: an empty kernel, timed beside K2
 __global__ void empty_kernel() {}
 
@@ -629,6 +721,29 @@ int composite_edges(const void* raw, int raw_bf16, const float* t, long long t_s
   else
     composite_edges_kernel<<<unsigned(blocks), EDGES_THREADS, 0, s>>>(
         static_cast<const float*>(raw), t, t_stride, rays_d, n_rays, n_intervals, out, w);
+  return int(cudaGetLastError());
+}
+
+// K2's opaque edges form (composite_edges_360_kernel): `weights` 1, a
+// proposal level's density [N, S] fp32 -> w [N, S]; 0, the NeRF level's raw
+// [N, 4S] fp32 -> out [N, 8]. t [N, S + 1] the metric edges (row stride
+// t_stride).
+int composite_edges_360(const float* raw, int weights, const float* t, long long t_stride,
+                        const float* rays_d, int n_rays, int n_intervals, float* out, float* w,
+                        void* stream) {
+  if (n_intervals < 1 || n_rays < 1 || !raw || !t || !rays_d || (weights ? !w : !out))
+    return int(cudaErrorInvalidValue);
+  const long long warps = EDGES_THREADS / 32;
+  long long blocks = (n_rays + warps - 1) / warps;
+  const long long resident = 8LL * sm_count();
+  if (blocks > resident) blocks = resident;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (weights)
+    composite_edges_360_kernel<true><<<unsigned(blocks), EDGES_THREADS, 0, s>>>(
+        raw, t, t_stride, rays_d, n_rays, n_intervals, nullptr, w);
+  else
+    composite_edges_360_kernel<false><<<unsigned(blocks), EDGES_THREADS, 0, s>>>(
+        raw, t, t_stride, rays_d, n_rays, n_intervals, out, nullptr);
   return int(cudaGetLastError());
 }
 

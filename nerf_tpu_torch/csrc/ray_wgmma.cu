@@ -165,6 +165,30 @@
 // - the heads: softplus(sigma + density_bias) and sigmoid * rgb_scale -
 //   rgb_padding. The output is the raw form (fp32 or bf16).
 //
+// The proposal entry (ray_z_prop360_wgmma_kernel, ENC_PROP360) runs Mip-NeRF
+// 360's proposal network (models/mip360.py, the `mip360` variant: 4 x 256,
+// density only) at per-ray edges [R, S + 1] on the same body, bf16 weights
+// only. What changes, and only there:
+// - a row is the interval [t_s, t_s+1] of its ray's cone: the row's two
+//   threads each work out its contracted full-covariance Gaussian
+//   (mip360.cuh gaussian_360), kept in registers through layer 0;
+// - the encoding is 504 features (12 degrees x 21 directions of the
+//   icosahedral basis, each a sine and a shifted sine), K padded to 512, in
+//   the kernels' pair order (mip360.cuh: direction by direction, a degree's
+//   two features side by side; w0's rows are laid out to match). A 64 x
+//   512 bf16 tile is 64 KB a consumer, which would leave the ring two
+//   stages, so the consumer writes the encoding 64 features at a time, into
+//   its two 8 KB tiles in turn (the mip kernels' encoding tile and second
+//   tile), and multiplies each piece with its 64-row slab of w0 before it
+//   writes the next: layer 0 is eight products into one accumulator set.
+//   The other consumer's products fill the tensor cores meanwhile;
+// - the basis [3][21] rides in the resident parameters where bc0 lies (the
+//   entry has no color layer), net.Lp and net.Ld carry the degrees and the
+//   basis's size;
+// - three hidden layers follow (the stream: w0 in eight slabs, then wt[0..2]),
+//   no skip, then density softplus(h3 . wsig + bsig + density_bias) alone,
+//   one fp32 a row.
+//
 // Arithmetic contract (ops/render_kernel.py; the compositing's: ||d|| in
 // fp32 without FMA, expf/logf without fast math): pos = o + d z
 // in fp32 without FMA, K1's z = near + span * (s / (S - 1)); sinf/cosf at
@@ -181,6 +205,7 @@
 #include <type_traits>
 
 #include "wgmma_common.cuh"
+#include "mip360.cuh"
 
 #ifndef NERF_WQ
 #define NERF_WQ 0
@@ -206,7 +231,9 @@ constexpr int OUT_F32 = 0, OUT_BF16 = 1, OUT_PLANAR = 2;
 // per-sample positions and directions
 constexpr int RAYS_UNIFORM = 0, RAYS_Z = 1, SAMPLES = 2;
 // the encoder and heads: a point's encoding, or Mip-NeRF's interval
-constexpr int ENC_POINT = 0, ENC_MIP = 1;
+constexpr int ENC_POINT = 0, ENC_MIP = 1, ENC_PROP360 = 2;
+constexpr int PROP_ENC_CHUNKS = 8;   // the proposal entry: K 512 of the encoding, 64 a piece
+constexpr int PROP_LAYERS = 4;       // the proposal network's trunk
 constexpr float HALF_PI_F = 1.5707963705062866f;   // fp32(pi / 2)
 constexpr float C4_15 = float(4.0 / 15.0), C5_12 = float(5.0 / 12.0);
 constexpr int N_SMALL_RAYS = 4, N_SMALL_SAMPLES = 5;   // the 128-wide chunks at a stream's end
@@ -749,6 +776,64 @@ __device__ __forceinline__ void mip_skip(float (&acc)[128], RingT_& ring, bool l
   fence_regs(acc);
 }
 
+// The proposal entry's steps 2-4 for one consumer (ENC_PROP360): the row's
+// contracted Gaussian, then layer 0 over the encoding's eight 64-feature
+// pieces, each written into one of the consumer's two tiles in turn (the
+// encoding tile, the second tile at p.enc2_off) and multiplied with its slab
+// of w0 before the next is written (the barrier before each product also
+// tells the writers of the piece after next that the product before has
+// read its tile); then the three hidden layers. Leaves h3 in a.
+__device__ __forceinline__ void prop_trunk(const RwParams& p, unsigned char* sm, int c, int t,
+                                           long long n0, long long n_end, Ring& ring, bool leader,
+                                           int q, float (&acc)[128], uint32_t (&a)[16][4]) {
+  const int bar_id = 1 + c;
+  const float* par = reinterpret_cast<const float*>(sm + OFF_PAR);
+  const float* basis = par + P_BC0;
+  const int row = t & (RW_ROWS - 1), half = t / RW_ROWS;
+  const long long n = n0 + row;
+  const bool valid = n < n_end;
+  float m[3] = {0.f, 0.f, 0.f}, cv[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (valid) {
+    const long long r = n / p.S;
+    const int s = int(n - r * p.S);
+    const float* zr = p.z + r * p.z_stride;
+    gaussian_360(p.rays_o + r * 3, p.rays_d + r * 3, zr[s], zr[s + 1], p.radius, m, cv);
+  }
+  const int nb = p.net.Ld, n_deg = p.net.Lp;
+  unsigned char* tiles0 = sm + OFF_ENC + c * ENC_TILE;
+  unsigned char* tiles1 = sm + p.enc2_off + c * ENC_TILE;
+  Ipe360Run run;
+  for (int j = 0; j < PROP_ENC_CHUNKS; ++j) {
+    unsigned char* tile = (j & 1) ? tiles1 : tiles0;
+    unsigned char* dst = tile + (row >> 3) * 1024 + (row & 7) * 128;
+    // the thread's 16 pairs of the piece: K 32 half .. 32 half + 31 of the tile
+    run.start(32 * j + 16 * half, n_deg);
+#pragma unroll 1
+    for (int pc = 0; pc < 4; ++pc) {
+      const int ck = 4 * half + pc;   // 16-byte piece of the tile's row
+      *reinterpret_cast<uint4*>(dst + ((ck ^ (row & 7)) << 4)) =
+          run.next4(m, cv, basis, nb, n_deg, valid);
+    }
+    fence_async_smem();   // the piece is read by the tensor cores' proxy
+    named_sync(bar_id);
+    fence_regs(acc);
+    wgmma_fence();
+    const uint64_t b = sw128_desc(ring.acquire());
+    const uint64_t ad = sw128_desc(smem_u32(tile));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss_n256(acc, ad + 2 * kk, b + 2 * kk, (j | kk) != 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    ring.release(leader);
+  }
+  fence_regs(acc);
+  epilogue_to_a(acc, a, par + P_B0, q, true);
+  for (int i = 1; i < PROP_LAYERS; ++i) {
+    hidden_layer(acc, a, ring, leader, false, 0);
+    epilogue_to_a(acc, a, par + P_BT + (i - 1) * HID, q, true);
+  }
+}
+
 // One consumer warpgroup (c = 0, 1). The raw forms and the per-sample
 // kernel: rows n0 .. n0 + 63 of every tile of this block. The composited
 // modes (COMP): the rows of its lane of rays, 64 at a time, in order.
@@ -756,7 +841,10 @@ template <int MODE, bool COMP, int ENC = ENC_POINT>
 __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, int c) {
   constexpr bool RAYS = MODE != SAMPLES;
   constexpr bool MIP = ENC == ENC_MIP;
+  constexpr bool PROP = ENC == ENC_PROP360;
   static_assert(RAYS || !COMP, "the per-sample kernel has no composited mode");
+  static_assert(!PROP || (MODE == RAYS_Z && !COMP && WQ == WQ_BF16),
+                "the proposal entry is a ray kernel at per-ray edges, bf16 weights");
   static_assert(!MIP || (RAYS && !COMP && WQ == WQ_BF16),
                 "the mip kernels are ray kernels, raw form, bf16 weights");
   const int t = threadIdx.x - 128 * (c + 1);
@@ -799,7 +887,7 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
     // 1. the ray kernels' direction branch once per ray of these rows:
     //    cdir = bf16(denc) @ wdir
     named_sync(bar_id);   // the previous tile is done with cdir, enc and the encoding tile
-    if constexpr (RAYS) {
+    if constexpr (RAYS && !PROP) {
       for (int e = t; e < nr * KDIR; e += 128) {
         const int sl = e / KDIR, k = e % KDIR;
         const long long r = r_lo + sl;
@@ -830,6 +918,9 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
     //    interval, its Gaussian and the half of its IPE the thread writes
     //    (half 0 the sines, K 0..47; half 1 the shifted sines, K 48..95:
     //    pieces 6, 7 of the encoding tile and 0..3 of the second tile)
+    if constexpr (PROP) {
+      prop_trunk(p, sm, c, t, n0, n_end, ring, leader, q, acc, a);
+    } else {
     if constexpr (MIP) {
       const int row = t & (RW_ROWS - 1);
       const long long n = n0 + row;
@@ -997,8 +1088,9 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
         epilogue_to_a(acc, a, par + P_BT + (i - 1) * HID, q, true);
       }
     }
+    }   // PROP
 
-    // 5. density from h7: partial dot products over the thread's 64
+    // 5. density from h7 (the proposal entry: h3): partial dot products over the thread's 64
     //    columns, summed across the quad
     float sg0 = 0.f, sg1 = 0.f;
 #pragma unroll
@@ -1018,9 +1110,15 @@ __device__ __forceinline__ void consumer(const RwParams& p, unsigned char* sm, i
       sg0 = fmaxf(sg0, 0.f);
       sg1 = fmaxf(sg1, 0.f);
     }
-    if constexpr (MIP) {
+    if constexpr (MIP || PROP) {
       sg0 = softplus(__fadd_rn(sg0, p.density_bias));
       sg1 = softplus(__fadd_rn(sg1, p.density_bias));
+    }
+    if constexpr (PROP) {
+      // the density alone: lane q = 0 of the quad writes row g, q = 1 row g + 8
+      const long long n = n0 + 16 * warp + g + 8 * q;
+      if (q < 2 && n < n_end) static_cast<float*>(p.out)[n] = q ? sg1 : sg0;
+      continue;
     }
 
     // 6. bmild bottleneck (no activation)
@@ -1359,6 +1457,10 @@ __global__ void __launch_bounds__(RW_THREADS, 1) ray_z_mip_wgmma_kernel(const __
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   ray_wgmma_body<RAYS_Z, false, ENC_MIP>(p, smem_raw);
 }
+__global__ void __launch_bounds__(RW_THREADS, 1) ray_z_prop360_wgmma_kernel(const __grid_constant__ RwParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  ray_wgmma_body<RAYS_Z, false, ENC_PROP360>(p, smem_raw);
+}
 #endif
 
 // The L2 probe: every block streams a buffer of 32 KB chunks `reps` times
@@ -1640,6 +1742,66 @@ int ray_mip_wgmma_render(const float* rays_o, const float* rays_d, const float* 
   if (err != cudaSuccess) return int(err);
   const long long grid = p.tiles < sm_count() ? p.tiles : sm_count();
   kernel<<<unsigned(grid), RW_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return int(cudaGetLastError());
+#endif
+}
+// The proposal entry (bf16 build only): Mip-NeRF 360's proposal network at
+// the intervals of edges [R, S + 1] (row stride edge_stride), metric depths;
+// out [R * S] fp32, the density of each interval. `weights`: the 14 pointers
+// in PackedWeights order, of which the kernel reads b0, bt (7 x 256 floats,
+// zero past the three hidden layers), wsig, bsig, wc1 (384 zeros), bc1 (3
+// zeros) and bc0: the basis [3][n_basis], row-major, padded to 128 floats.
+// The stream: w0 in eight 64-row slabs (K 512: the 2 n_basis n_deg features
+// and zero rows), then wt[0..2], four slabs each.
+int ray_prop360_wgmma_render(const float* rays_o, const float* rays_d, const float* edges,
+                             long long edge_stride, int n_rays, int n_intervals, float radius,
+                             const void* wstream, const void* const* weights, int n_deg,
+                             int n_basis, float density_bias, float* out, void* stream) {
+#if NERF_WQ != 0
+  return int(cudaErrorInvalidValue);
+#else
+  RwParams p;
+  p.net = make_net(weights, nullptr, n_deg, n_basis, 4, 0, 0, 0, 1.f);
+  p.wstream = static_cast<const unsigned char*>(wstream);
+  p.rays_o = rays_o;
+  p.rays_d = rays_d;
+  p.z = edges;
+  p.z_stride = edge_stride;
+  p.pos = p.dirs = nullptr;
+  p.out = out;
+  p.w = nullptr;
+  p.total = (long long)n_rays * n_intervals;
+  p.tiles = (p.total + RW_TILE - 1) / RW_TILE;
+  p.n_rays = n_rays;
+  p.S = n_intervals;
+  p.nr_max = n_intervals > 0 ? (RW_ROWS - 1) / n_intervals + 2 : 2;
+  p.n_chunks = PROP_ENC_CHUNKS + (PROP_LAYERS - 1) * 4;
+  p.n_small = 0;
+  p.out_mode = OUT_F32;
+  p.composited = p.lanes = 0;
+  p.near = p.span = 0.f;
+  p.dz = p.sentinel = p.eps = 0.f;
+  p.enc2_off = mip_enc2_offset(p.nr_max);
+  p.far = 0.f;
+  p.radius = radius;
+  p.density_bias = density_bias;
+  p.rgb_scale = 1.f;
+  p.rgb_padding = 0.f;
+  p.ring_off = mip_ring_offset(p.nr_max);
+  p.stages = mip_ring_stages(p.nr_max);
+  p.land_off = p.ring_off + p.stages * CHUNK_BIG;
+  if (n_intervals < 1 || p.stages < 2 || n_deg < 1 || n_basis < 1 || 3 * n_basis > CH ||
+      2 * n_basis * n_deg > PROP_ENC_CHUNKS * CHUNK_K || n_rays < 0 || !wstream || !edges ||
+      !out)
+    return int(cudaErrorInvalidValue);
+  if (p.total == 0) return int(cudaSuccess);
+  if (p.tiles > 0x7fffffff) return int(cudaErrorInvalidValue);
+  const size_t smem = mip_smem_bytes(p.nr_max);
+  cudaError_t err = cudaFuncSetAttribute(ray_z_prop360_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const long long grid = p.tiles < sm_count() ? p.tiles : sm_count();
+  ray_z_prop360_wgmma_kernel<<<unsigned(grid), RW_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return int(cudaGetLastError());
 #endif
 }

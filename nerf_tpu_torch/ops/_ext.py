@@ -36,7 +36,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_tpu_torch"
-SOURCES = ("composite", "ray_wgmma", "mlp_backward_wgmma", "dequant_stream", "occupancy")
+SOURCES = ("composite", "ray_wgmma", "mlp_backward_wgmma", "dequant_stream", "occupancy",
+           "mip360_wgmma")
 # library -> (source, definition): the Hopper MLP kernels on the int8-compute
 # route (they take int8 and int16 weights in their bf16 build, after
 # dequant_stream)

@@ -38,6 +38,13 @@ between edges ``[N, S + 1]``, ``utils/rendering.composite_intervals``'
 arithmetic (no sentinel, no ReLU, ``exp(-cumsum)`` transmittance, depth at
 the midpoints, normalized and clipped in the kernel).
 
+K2's opaque edges form (``composite_edges_360_kernel``, counted in
+``edges360_launches``, span ``kernel.k2``) composites Mip-NeRF 360's levels,
+the last interval opaque: ``composite_weights_360`` the weights ``[N, S]``
+of a proposal level from its density ``[N, S]`` (plain twin
+``composite_weights_360_plain``), ``composite_edges_360`` the NeRF level's
+``raw [N, 4S]`` (plain twin ``composite_edges_360_plain``).
+
 K2 is ``composite_rays_kernel``. Its launch, ``_launch(raw, z_vals, rays_d,
 sentinel, eps, with_weights=True)``, writes the weights ``w [N, S]`` only
 with ``with_weights``, and returns ``(out [N, 8], w or None)``;
@@ -67,9 +74,11 @@ bf16_launches = 0     # those of K2's launches that read a bfloat16 raw
 weightless_launches = 0   # those of K2's launches that wrote no weights
 planar_launches = 0   # K6, planar
 edges_launches = 0    # K2's edges form (EDGES_KERNEL), the mip variant's intervals
+edges360_launches = 0  # K2's opaque edges form (EDGES360_KERNEL), Mip-NeRF 360's levels
 
 KERNEL = "composite_rays_kernel"            # K2
 EDGES_KERNEL = "composite_edges_kernel"     # K2's edges form
+EDGES360_KERNEL = "composite_edges_360_kernel"   # K2's opaque edges form
 
 
 # -- K2's schedule (csrc/composite.cu segment_lanes, run_length, rays_grid) ----
@@ -327,6 +336,96 @@ def composite_edges(raw: torch.Tensor, edges: torch.Tensor, rays_d: torch.Tensor
         else:
             out, w = _launch_edges(raw, edges, rays_d, with_weights)
     return _outputs(out, w, cfg)
+
+
+# -- K2's opaque edges form: Mip-NeRF 360's levels ------------------------------
+
+def composite_weights_360_plain(density: torch.Tensor, edges: torch.Tensor,
+                                rays_d: torch.Tensor) -> torch.Tensor:
+    """Plain-PyTorch version of ``composite_edges_360_kernel``'s weights
+    entry: a proposal level's ``w [N, S]`` from ``density [N, S]`` between
+    the metric ``edges [N, S + 1]``, the last interval opaque."""
+    rgb = density.new_zeros(*density.shape, 3)
+    return composite_intervals(density.float(), rgb, edges.float(), rays_d.float(), False,
+                               opaque=True).weights
+
+
+def composite_edges_360_plain(raw: torch.Tensor, edges: torch.Tensor,
+                              rays_d: torch.Tensor) -> torch.Tensor:
+    """Plain-PyTorch version of ``composite_edges_360_kernel``'s NeRF entry:
+    ``raw [N, 4S]`` float32 between ``edges [N, S + 1]``, the last interval
+    opaque -> ``out [N, 8] = (r, g, b, depth, acc, 0, 0, 0)`` without the
+    background."""
+    raw = raw.float()
+    dens = raw[:, 0::4]
+    rgb = torch.stack([raw[:, 1::4], raw[:, 2::4], raw[:, 3::4]], dim=-1)
+    res = composite_intervals(dens, rgb, edges.float(), rays_d.float(), False, opaque=True)
+    zeros = torch.zeros(raw.shape[0], 3, dtype=torch.float32, device=raw.device)
+    return torch.cat([res.rgb, res.depth[:, None], res.acc[:, None], zeros], dim=-1)
+
+
+_EDGES360_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _launch_edges_360(x, edges, rays_d, weights: bool):
+    """Launch ``composite_edges_360_kernel`` on CUDA tensors: the weights
+    ``[N, S]`` of a density ``x [N, S]`` (``weights``), or ``out [N, 8]`` of a
+    raw ``x [N, 4S]``, both float32."""
+    global edges360_launches
+    n = x.shape[0]
+    s = x.shape[1] if weights else x.shape[1] // 4
+    dev = x.device
+    for name, t in (("density" if weights else "raw", x), ("edges", edges), ("rays_d", rays_d)):
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"{name} must be float32 on {dev}")
+    if (not x.is_contiguous() or edges.shape != (n, s + 1) or edges.stride(1) != 1
+            or rays_d.shape != (n, 3) or (not weights and x.shape[1] != 4 * s)):
+        raise ValueError("the density must be contiguous [N, S] (raw [N, 4S]), edges [N, S + 1] "
+                         "with unit stride along the ray and rays_d [N, 3]")
+    if not weights and x.data_ptr() % 16:
+        raise ValueError("raw must start on a sample's boundary")
+    rays_d = rays_d.contiguous()
+    out = None if weights else torch.empty(n, 8, dtype=torch.float32, device=dev)
+    w = torch.empty(n, s, dtype=torch.float32, device=dev) if weights else None
+    if n == 0:
+        return w if weights else out
+    lib = _ext.load("composite")
+    fn = lib.composite_edges_360
+    fn.argtypes = _EDGES360_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(_ext.ptr(x), int(weights), _ext.ptr(edges), edges.stride(0), _ext.ptr(rays_d), n, s,
+             None if out is None else _ext.ptr(out), None if w is None else _ext.ptr(w),
+             _ext.stream_ptr(dev))
+    _ext.check(lib, err, f"{EDGES360_KERNEL} launch")
+    edges360_launches += _ext.ran()
+    return w if weights else out
+
+
+def composite_weights_360(density: torch.Tensor, edges: torch.Tensor,
+                          rays_d: torch.Tensor) -> torch.Tensor:
+    """K2's opaque edges form, weights entry: a proposal level's ``w [N, S]``
+    from its ``density [N, S]`` between the metric ``edges [N, S + 1]``."""
+    with span("kernel.k2"):
+        if density.device.type == "cpu":
+            return composite_weights_360_plain(density, edges, rays_d)
+        return _launch_edges_360(density, edges, rays_d, True)
+
+
+def composite_edges_360(raw: torch.Tensor, edges: torch.Tensor, rays_d: torch.Tensor,
+                        cfg: RenderConfig = RenderConfig()) -> RenderOutputs:
+    """K2's opaque edges form, NeRF entry: the NeRF level's ``raw [N, 4S]``
+    composited over ``edges [N, S + 1]``, the last interval opaque, the
+    background added here; no weights."""
+    if raw.shape[1] % 4:
+        raise ValueError(f"raw must be [N, 4S], got {tuple(raw.shape)}")
+    with span("kernel.k2"):
+        if raw.device.type == "cpu":
+            out = composite_edges_360_plain(raw, edges, rays_d)
+        else:
+            out = _launch_edges_360(raw, edges, rays_d, False)
+    return _outputs(out, None, cfg)
 
 
 def fused_volume_render_plain(sigma, planes, z_vals, rays_d, sentinel=1e10, eps=1e-10):

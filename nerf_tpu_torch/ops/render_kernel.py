@@ -60,6 +60,14 @@ encoding of its Gaussian. Their plain twins ``fused_render_mip_plain`` and
 ``fused_render_edges_mip_plain``; spans ``kernel.k1`` and ``kernel.k3``;
 launches ``render_mip`` and ``render_edges_mip``.
 
+Mip-NeRF 360 (``models/mip360.py``): ``fused_render_prop_mip360`` runs its
+proposal network at per-ray metric edges on the same body
+(``ray_z_prop360_wgmma_kernel``; plain twin
+``fused_render_prop_mip360_plain``; span ``kernel.prop``; launches
+``prop_mip360``): density ``[R, S]`` alone. Its NeRF pass
+(``ops/mip360_kernel.nerf_mip360_raw``, span ``kernel.nerf``) counts its
+calls under ``nerf_mip360``.
+
 Arithmetic shared by both versions, and the tolerances it sets:
 
 - positions and phases in float32, ``sin``/``cos`` at full range reduction;
@@ -79,16 +87,24 @@ occasional other bf16 rounding of an activation.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple, Union
 
 import torch
 
 from nerf_tpu_torch.config import ModelConfig, RenderConfig
-from nerf_tpu_torch.models.encoding import cast_intervals, integrated_pos_enc, mip_dir_encoding
+from nerf_tpu_torch.models.encoding import (
+    N_BASIS,
+    cast_intervals,
+    encode_intervals_360,
+    integrated_pos_enc,
+    mip_dir_encoding,
+)
 from nerf_tpu_torch.models.mip import softplus
 from nerf_tpu_torch.models.nerf import apply_nerf
 from nerf_tpu_torch.ops import _ext, composite_kernel, mlp_kernel, quant, ray_wgmma, train_kernel
 from nerf_tpu_torch.ops.composite_kernel import fused_volume_render_interleaved_plain
+from nerf_tpu_torch.ops.mip360_kernel import ENC_K, PropWeights, prop_fits
 from nerf_tpu_torch.ops.mlp_kernel import (
     DIR_ROWS,
     MIP_ROWS,
@@ -112,7 +128,7 @@ from nerf_tpu_torch.utils.tree import tree_from_leaves, tree_leaves
 launches = {"render_samples": 0, "render_zvals": 0,
             "render_samples_composited": 0, "render_zvals_composited": 0,
             "planar": 0, "raw_bf16": 0, "dequant": 0, "int8": 0,
-            "render_mip": 0, "render_edges_mip": 0}
+            "render_mip": 0, "render_edges_mip": 0, "prop_mip360": 0, "nerf_mip360": 0}
 
 _OUT_F32, _OUT_BF16, _OUT_PLANAR = 0, 1, 2
 
@@ -682,3 +698,82 @@ def fused_render_edges_mip_raw(params, rays_o: torch.Tensor, rays_d: torch.Tenso
                                                 cfg).to(raw_dtype)
         return _launch_mip(packed, rays_o, rays_d, radius, 0.0, 0.0, edges.shape[1] - 1, cfg,
                            edges=edges, raw_dtype=raw_dtype)
+
+
+# -- Mip-NeRF 360's proposal network (the ray kernels' body) ----------------------
+
+def fused_render_prop_mip360_plain(packed: PropWeights, rays_o, rays_d, radius: float,
+                                   edges: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Plain-PyTorch version of ``ray_z_prop360_wgmma_kernel``: the proposal
+    network at the intervals between the metric ``edges [R, S + 1]``,
+    ``density [R, S]`` float32. The encoding in float32, each product on
+    bf16 operands summed in float32, the bias added before the rounding;
+    density ``softplus(h . wsig + bsig + density_bias)``."""
+    disable_tf32()
+    o, d = rays_o.float(), rays_d.float()
+    R, S = edges.shape[0], edges.shape[1] - 1
+    bf = torch.bfloat16
+
+    def mm(a, w):
+        return a.to(bf).float() @ w.float()
+
+    r = torch.full((R,), radius, dtype=torch.float32, device=o.device)
+    enc = encode_intervals_360(o, d, r, edges.float(), cfg.ipe_min_deg,
+                               cfg.ipe_max_deg).reshape(R * S, -1)
+    enc = torch.nn.functional.pad(enc, (0, ENC_K - enc.shape[1]))
+    h = torch.relu(mm(enc, packed.w0) + packed.b0).to(bf)
+    for i in range(packed.wt.shape[0]):
+        h = torch.relu(mm(h, packed.wt[i]) + packed.bt[i]).to(bf)
+    density = softplus((mm(h, packed.wsig[:, None])[:, 0] + packed.bsig) + cfg.density_bias)
+    return density.reshape(R, S)
+
+
+_PROP_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+                  + [ctypes.c_float] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                  + [ctypes.c_float] + [ctypes.c_void_p] * 2)
+
+
+def _launch_prop(packed: PropWeights, rays_o, rays_d, radius: float, edges, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    dev = rays_o.device
+    R, S = edges.shape[0], edges.shape[1] - 1
+    for name, t in (("rays_o", rays_o), ("rays_d", rays_d)):
+        if t.dtype != torch.float32 or t.shape != (R, 3) or t.device != dev:
+            raise ValueError(f"{name} must be float32 [R, 3] on {dev}")
+    if edges.dtype != torch.float32 or edges.device != dev or edges.stride(1) != 1 or S < 1:
+        raise ValueError("edges must be float32 [R, S + 1] with unit stride along the ray")
+    if not prop_fits(cfg) or packed.stream.numel() == 0:
+        raise ValueError("the proposal entry computes the mip360 variant's 4 x 256 network on "
+                         "at most 512 encoding features from degree 0")
+    if packed.stream.device != dev:
+        raise ValueError(f"the proposal weights must be on {dev}")
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+    out = torch.empty(R, S, dtype=torch.float32, device=dev)
+    if R == 0:
+        return out
+    lib = ray_wgmma.load()
+    fn = lib.ray_prop360_wgmma_render
+    fn.argtypes = _PROP_ARGTYPES
+    fn.restype = ctypes.c_int
+    weights = [packed.w0, packed.b0, packed.wt, packed.bt, packed.wskip, packed.wsig,
+               packed.bsig, packed.wbn, packed.bbn, packed.wc0, packed.basis, packed.wdir,
+               packed.wc1, packed.bc1]
+    err = fn(_ext.ptr(rays_o), _ext.ptr(rays_d), _ext.ptr(edges), edges.stride(0), R, S,
+             float(radius), _ext.ptr(packed.stream), _ext.pointer_array(weights),
+             cfg.ipe_max_deg - cfg.ipe_min_deg, N_BASIS, float(cfg.density_bias), _ext.ptr(out),
+             _ext.stream_ptr(dev))
+    _ext.check(lib, err, f"ray_prop360_wgmma_render launch ({ray_wgmma.LIBRARY})")
+    launches["prop_mip360"] += _ext.ran()
+    return out
+
+
+def fused_render_prop_mip360(packed: PropWeights, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                             radius: float, edges: torch.Tensor, cfg: ModelConfig
+                             ) -> torch.Tensor:
+    """Mip-NeRF 360's proposal network at the intervals between the metric
+    ``edges [R, S + 1]`` of every ray's cone, base radius ``radius``
+    (``ray_z_prop360_wgmma_kernel``): ``density [R, S]`` float32."""
+    with span("kernel.prop"):
+        if rays_o.device.type == "cpu":
+            return fused_render_prop_mip360_plain(packed, rays_o, rays_d, radius, edges, cfg)
+        return _launch_prop(packed, rays_o, rays_d, radius, edges, cfg)

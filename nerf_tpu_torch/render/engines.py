@@ -45,6 +45,16 @@ at the frame's pixel radius (``utils/cameras.pixel_radius``, threaded from
 ``_render``). The compressed, int8 and accel engines, and ``planar`` or
 ``fuse_composite`` on the cuda engine, refuse it.
 
+The mip360 variant (Mip-NeRF 360, ``models/mip360.py``; params ``coarse``
+the proposal network, ``fine`` the NeRF network) also takes its own path,
+in the hierarchical mode only: ``TorchEngine`` runs ``render_mip360_rays``;
+``CudaEngine.mip360_passes`` runs each proposal level as ``resample_360``
+(span ``mip360.resample``) -> the proposal entry of the ray kernels' body
+(``render_kernel.fused_render_prop_mip360``) -> K2's opaque edges form
+(weights), then the NeRF level as ``resample_360`` -> the NeRF pass
+(``ops/mip360_kernel.nerf_mip360_raw``) -> K2's opaque edges form. The
+engines that refuse the mip variant refuse it too.
+
 ``ENGINE_CLASSES`` and ``available_engines`` are the registry of these five,
 named as the JAX package's (``torch`` and ``cuda`` for ``xla`` and
 ``pallas``); each says in ``description`` which kernels it runs on the card,
@@ -69,6 +79,12 @@ import torch
 
 from nerf_tpu_torch.config import Config, RenderConfig, default_config
 from nerf_tpu_torch.models.mip import render_mip_rays
+from nerf_tpu_torch.models.mip360 import (
+    init_mip360_params,
+    level_sizes,
+    render_mip360_rays,
+    resample_360,
+)
 from nerf_tpu_torch.models.nerf import (
     NeRFParams,
     apply_nerf,
@@ -79,9 +95,12 @@ from nerf_tpu_torch.models.nerf import (
 )
 from nerf_tpu_torch.ops.composite_kernel import (
     composite_edges,
+    composite_edges_360,
     composite_rays,
+    composite_weights_360,
     fused_volume_render,
 )
+from nerf_tpu_torch.ops.mip360_kernel import nerf_mip360_raw, pack_mip360
 from nerf_tpu_torch.ops.mlp_kernel import make_cuda_apply_fn, pack_params
 from nerf_tpu_torch.ops.occupancy import (
     OccupancyGrid,
@@ -96,6 +115,7 @@ from nerf_tpu_torch.ops.render_kernel import (
     fused_render_samples_composited,
     fused_render_edges_mip_raw,
     fused_render_mip_raw,
+    fused_render_prop_mip360,
     fused_render_zvals_composited,
     fused_render_zvals_planar,
     fused_render_zvals_raw,
@@ -115,7 +135,9 @@ from nerf_tpu_torch.utils.monitor import (
     span,
 )
 from nerf_tpu_torch.utils.rendering import (
+    first_level_360,
     mip_resample,
+    s_to_t,
     sample_pdf,
     sample_points_on_rays,
     uniform_edges,
@@ -164,8 +186,11 @@ class SharedModel:
                 warnings.warn(f"checkpoint {checkpoint_path} not found; using "
                               f"randomly initialized weights (seed {seed})")
             g = torch.Generator().manual_seed(seed)
-            self.params = {"coarse": init_nerf_params(g, cfg.model, dev),
-                           "fine": init_nerf_params(g, cfg.model, dev)}
+            if cfg.model.variant == "mip360":
+                self.params = init_mip360_params(g, cfg.model, dev)
+            else:
+                self.params = {"coarse": init_nerf_params(g, cfg.model, dev),
+                               "fine": init_nerf_params(g, cfg.model, dev)}
         if cfg.model.variant == "mip":              # one network serves both passes
             self.params["coarse"] = self.params["fine"]
         return self
@@ -278,10 +303,18 @@ def to_host(x: torch.Tensor) -> np.ndarray:
 
 
 def refuse_mip(cfg: Config, what: str) -> None:
-    """Raise for the mip variant, which ``what`` does not compute."""
-    if cfg.model.variant == "mip":
-        raise ValueError(f"{what} does not compute the mip variant (Mip-NeRF); "
-                         "render it with the torch or cuda engine")
+    """Raise for the mip and mip360 variants, which ``what`` does not
+    compute."""
+    if cfg.model.variant in ("mip", "mip360"):
+        raise ValueError(f"{what} does not compute the {cfg.model.variant} variant (Mip-NeRF, "
+                         "Mip-NeRF 360); render it with the torch or cuda engine")
+
+
+def refuse_mip360_benchmark(cfg: Config, mode: str) -> None:
+    """Raise for the mip360 variant outside the hierarchical mode: its
+    levels are drawn from one another."""
+    if cfg.model.variant == "mip360" and mode != "hierarchical":
+        raise ValueError("the mip360 variant renders in the hierarchical mode only")
 
 
 class TorchEngine(Engine):
@@ -289,6 +322,11 @@ class TorchEngine(Engine):
     description = "plain PyTorch: apply_nerf and volume_render, no kernel of the port"
 
     def render_chunk(self, params, ro, rd, spp, rcfg, mode, radius=None):
+        if self.cfg.model.variant == "mip360":
+            refuse_mip360_benchmark(self.cfg, mode)
+            out = render_mip360_rays(params, ro, rd, radius, self.cfg.model, rcfg,
+                                     self.compute_dtype).out
+            return out.rgb, out.depth
         if self.cfg.model.variant == "mip":
             res = render_mip_rays(params["fine"], ro, rd, radius, self.cfg.model, rcfg,
                                   self.compute_dtype, spp if mode == "benchmark" else None)
@@ -325,9 +363,9 @@ class CudaEngine(Engine):
                  fuse_composite: bool = False, planar: bool = False,
                  raw_dtype: str = "float32"):
         super().__init__(shared, chunk_rays)
-        if self.cfg.model.variant == "mip" and (planar or fuse_composite):
-            raise ValueError("the mip variant's kernels write the raw form only "
-                             "(no planar or composited output)")
+        if self.cfg.model.variant in ("mip", "mip360") and (planar or fuse_composite):
+            raise ValueError(f"the {self.cfg.model.variant} variant's kernels write the raw "
+                             "form only (no planar or composited output)")
         self.planar = planar
         self.fuse_composite = fuse_composite and not planar
         self.raw_dtype = torch_dtype(raw_dtype)
@@ -342,6 +380,9 @@ class CudaEngine(Engine):
         params = super().engine_params()
         source = (params, params["coarse"], params["fine"])
         if self._packed is None or any(a is not b for a, b in zip(self._packed[0], source)):
+            if self.cfg.model.variant == "mip360":
+                self._packed = (source, pack_mip360(params, self.cfg.model))
+                return self._packed[1]
             fine = pack_params(params["fine"], self.cfg.model, self.compute_dtype)
             coarse = (fine if params["coarse"] is params["fine"] else
                       pack_params(params["coarse"], self.cfg.model, self.compute_dtype))
@@ -367,6 +408,10 @@ class CudaEngine(Engine):
         return composite_rays(raw, z, rd, rcfg, with_weights), z
 
     def render_chunk(self, packed, ro, rd, spp, rcfg, mode, radius=None):
+        if self.cfg.model.variant == "mip360":
+            refuse_mip360_benchmark(self.cfg, mode)
+            out = self.mip360_passes(packed, ro, rd, rcfg, radius)[0]
+            return out.rgb, out.depth
         if self.cfg.model.variant == "mip":
             out, _, _ = self.mip_passes(packed["fine"], ro, rd, spp, rcfg, mode, radius)
             return out.rgb, out.depth
@@ -406,6 +451,32 @@ class CudaEngine(Engine):
                                              raw_dtype=raw_dt)
             out = composite_edges(raw, edges, rd, rcfg, with_weights=False)
         return out, edges, raw
+
+    def mip360_passes(self, packed, ro, rd, rcfg, radius):
+        """The mip360 variant's levels: each level's normalized edges from the
+        level before (``resample_360``, span ``mip360.resample``), in metric
+        depth (``s_to_t``); a proposal level's density by the proposal entry
+        of the ray kernels' body, its weights by K2's opaque edges form; the
+        NeRF level's raw by the NeRF pass, composited by K2's opaque edges
+        form. Returns
+        ``(outputs, s [N, n_fine + 1], raw [N, 4 n_fine], w [N, n_coarse])``:
+        the NeRF level's composite, edges and raw, and the last proposal
+        level's weights."""
+        mcfg = self.cfg.model
+        sizes = level_sizes(rcfg)
+        prod, w = 1, None
+        for level, k in enumerate(sizes):
+            with span("mip360.resample"):
+                s = (first_level_360(k, ro.shape[0], ro.device) if level == 0
+                     else resample_360(s, w, k, prod, rcfg))
+                t = s_to_t(s, rcfg.near, rcfg.far)
+            prod *= k
+            if level < len(sizes) - 1:
+                density = fused_render_prop_mip360(packed["coarse"], ro, rd, radius, t, mcfg)
+                w = composite_weights_360(density, t, rd)
+        raw = nerf_mip360_raw(packed["fine"], ro, rd, radius, t, mcfg)
+        out = composite_edges_360(raw, t, rd, rcfg)
+        return out, s, raw, w
 
     def _at_depths(self, packed, ro, rd, z, rcfg):
         """One network at per-ray depths ``z [N, S]`` (K3), composited:

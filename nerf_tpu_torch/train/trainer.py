@@ -364,10 +364,10 @@ class NeRFTrainer:
     loss curves. All compute lives in the step above."""
 
     def __init__(self, cfg: Config, img_hw: Tuple[int, int], apply_fn=None, device="cuda"):
-        if cfg.model.variant == "mip":
-            raise ValueError("the trainer does not train the mip variant (Mip-NeRF): its "
-                             "steps sample points, not intervals; render it with the torch "
-                             "or cuda engine")
+        if cfg.model.variant in ("mip", "mip360"):
+            raise ValueError(f"the trainer does not train the {cfg.model.variant} variant "
+                             "(Mip-NeRF, Mip-NeRF 360): its steps sample points, not "
+                             "intervals; render it with the torch or cuda engine")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.img_hw = img_hw

@@ -10,6 +10,10 @@ training; ``normalized_depth`` divides a map's depth by its opacity.
 Mip-NeRF's intervals (google/mipnerf, internal/mip.py): ``uniform_edges``,
 ``composite_intervals`` (``volumetric_rendering``) and ``mip_resample``
 (``resample_along_rays`` over ``sorted_piecewise_constant_pdf``).
+Mip-NeRF 360's proposal sampling (google-research/multinerf,
+internal/stepfun.py and the ray warps of internal/coord.py), as ATen glue
+on ``[R, K]`` rows: ``s_to_t`` (disparity spacing), ``max_dilate_weights``
+and ``sample_intervals``.
 
 A ``RayShard`` names one of ``count`` equal, contiguous row blocks of a
 batch of rays (``parallel/``: a rank's share of the data axis). The
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from nerf_tpu_torch.config import RenderConfig
@@ -250,15 +255,19 @@ def uniform_edges(near: float, far: float, n_edges: int, device) -> torch.Tensor
 
 
 def composite_intervals(density: torch.Tensor, rgb: torch.Tensor, edges: torch.Tensor,
-                        rays_d: torch.Tensor, white_background: bool) -> RenderOutputs:
+                        rays_d: torch.Tensor, white_background: bool,
+                        opaque: bool = False) -> RenderOutputs:
     """Interval compositing of ``(density [N, S], rgb [N, S, 3])`` between
     ``edges [N, S + 1]``: ``delta = (t1 - t0) ||d||``, ``w = (1 - exp(-density
     delta)) exp(-exclusive cumsum of density delta)``; depth is the weights'
     mean of the midpoints, 0 / 0 read as 0, clipped to the first and last
-    edge."""
+    edge. ``opaque``: the last interval's ``density delta`` is infinite (its
+    alpha 1: multinerf's ``opaque_background``)."""
     mids = 0.5 * (edges[:, :-1] + edges[:, 1:])
     delta = (edges[:, 1:] - edges[:, :-1]) * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     sd = density * delta
+    if opaque:
+        sd = torch.cat([sd[:, :-1], torch.full_like(sd[:, -1:], float("inf"))], dim=-1)
     alpha = 1 - torch.exp(-sd)
     trans = torch.exp(-torch.cat([torch.zeros_like(sd[:, :1]),
                                   torch.cumsum(sd[:, :-1], dim=-1)], dim=-1))
@@ -309,3 +318,121 @@ def mip_resample(edges: torch.Tensor, weights: torch.Tensor, padding: float) -> 
     e0, e1 = edges.gather(1, lo), edges.gather(1, hi)
     t = torch.clamp(torch.nan_to_num((u - cdf0) / (cdf1 - cdf0), nan=0.0), 0, 1)
     return e0 + t * (e1 - e0)
+
+
+# -- Mip-NeRF 360's proposal sampling -------------------------------------------
+
+EPS2 = float(torch.finfo(torch.float32).eps) ** 2
+_CENTER_U = {}
+
+
+def s_to_t(s: torch.Tensor, near: float, far: float) -> torch.Tensor:
+    """Metric depths of normalized distances ``s`` in disparity spacing:
+    ``1 / (s s_far + (1 - s) s_near)``, ``s_near = 1 / near`` and ``s_far =
+    1 / far`` in float32 (multinerf's ``construct_ray_warps`` with
+    ``jnp.reciprocal``)."""
+    s_near = float(np.float32(1) / np.float32(near))
+    s_far = float(np.float32(1) / np.float32(far))
+    return torch.reciprocal(s * s_far + (1 - s) * s_near)
+
+
+def _range_max(p: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """``max(p[r, lo..hi])`` for each ``[r, k]`` (0 where ``lo > hi``), from a
+    sparse table of ``p [R, n]`` (``p >= 0``): ``log2 n`` levels of maxima of
+    runs of ``2^l``, each query the larger of two overlapping runs."""
+    R, n = p.shape
+    tabs = [p]
+    while 2 ** len(tabs) <= n:
+        half = 2 ** (len(tabs) - 1)
+        prev = tabs[-1]
+        tabs.append(torch.maximum(prev[:, :-half], prev[:, half:]))
+    table = torch.stack([torch.nn.functional.pad(t, (0, n - t.shape[1])) for t in tabs])
+    length = (hi - lo + 1).clamp(min=1)
+    lvl = torch.floor(torch.log2(length.float())).long().clamp(max=len(tabs) - 1)
+    # log2 of an exact power of two can round below it: one step up where it fits
+    up = (2 ** (lvl + 1) <= length) & (lvl + 1 < len(tabs))
+    lvl = lvl + up.long()
+    a = lo.clamp(0, n - 1)
+    b = (hi - 2 ** lvl + 1).clamp(0, n - 1)
+    flat = table.reshape(-1)
+    rows = torch.arange(R, device=p.device)[:, None] * n
+    va = flat[lvl * (R * n) + rows + a]
+    vb = flat[lvl * (R * n) + rows + b]
+    return torch.where(hi >= lo, torch.maximum(va, vb), torch.zeros_like(va))
+
+
+def max_dilate_weights(s: torch.Tensor, w: torch.Tensor, dilation: float) -> tuple:
+    """multinerf's ``max_dilate_weights`` on the domain ``[0, 1]``, renormalized,
+    and the first and last edge and weight dropped: the pdf ``p = w /
+    max(eps^2, ds)``; the edges ``e = clip(sort(s, s[:-1] - dilation, s[1:] +
+    dilation), 0, 1)``; ``p'_k = max p_j`` over the ``j`` with ``s_j - dilation
+    <= e_k < s_{j+1} + dilation`` (0 where none), for every edge but the
+    last; ``w' = p' de``, over ``max(eps^2, sum w')``. ``(s [R, n + 1], w [R,
+    n])`` -> ``([R, 3n - 1], [R, 3n - 2])``. The ``j`` of an edge are a run
+    (both bounds are sorted), found by ``searchsorted``, and its maximum
+    read from a sparse table, so no ``[R, 3n + 1, n]`` mask is made."""
+    p = w / torch.clamp(s[:, 1:] - s[:, :-1], min=EPS2)
+    t0 = (s[:, :-1] - dilation).contiguous()
+    t1 = (s[:, 1:] + dilation).contiguous()
+    e = torch.sort(torch.cat([s, t0, t1], dim=-1), dim=-1).values.clamp(0, 1)
+    hi = torch.searchsorted(t0, e, right=True) - 1
+    lo = torch.searchsorted(t1, e, right=True)
+    pd = _range_max(p, lo, hi)[:, :-1]
+    wd = pd * (e[:, 1:] - e[:, :-1])
+    wd = wd / torch.clamp(wd.sum(dim=-1, keepdim=True), min=EPS2)
+    return e[:, 1:-1], wd[:, 1:-1]
+
+
+def _center_u(n: int, device) -> torch.Tensor:
+    """``linspace(1 / (2n), 1 - 1 / (2n) - eps_f32, n)`` in float64, rounded to
+    float32 once, made once per device."""
+    key = (n, torch.device(device))
+    if key not in _CENTER_U:
+        pad = 1.0 / (2 * n)
+        eps = float(np.finfo(np.float32).eps)
+        u = np.linspace(pad, 1.0 - pad - eps, n, dtype=np.float64).astype(np.float32)
+        _CENTER_U[key] = torch.from_numpy(u).to(device)
+    return _CENTER_U[key]
+
+
+def sample_intervals(s: torch.Tensor, w: torch.Tensor, n: int, padding: float = 0.0
+                     ) -> torch.Tensor:
+    """multinerf's ``sample_intervals`` in serving mode on the domain ``[0,
+    1]``: the logits ``log(w + padding)`` where ``ds > 0``, else ``-inf``; ``cw =
+    [0, min(1, cumsum(softmax[:-1])), 1]``; the centres ``sorted_interp(u, cw,
+    s)`` at ``_center_u(n)`` (knot ``i`` the last with ``cw_i <= u``, linear to
+    knot ``i + 1``, nan read as 0, clipped to ``[0, 1]``); edges at the
+    midpoints, the first and last the centres' reflections clipped to the
+    domain. ``(s [R, K + 1], w [R, K])`` -> ``[R, n + 1]``."""
+    logits = torch.where(s[:, 1:] > s[:, :-1], torch.log(w + padding),
+                         torch.full_like(w, float("-inf")))
+    pw = torch.softmax(logits, dim=-1)
+    cw = torch.clamp(torch.cumsum(pw[:, :-1], dim=-1), max=1)
+    ends = cw.new_ones(cw.shape[0], 1)
+    cw = torch.cat([ends * 0, cw, ends], dim=-1)
+    u = _center_u(n, s.device).expand(s.shape[0], n).contiguous()
+    i = (torch.searchsorted(cw, u, right=True) - 1).clamp(0, cw.shape[1] - 2)
+    c0, c1 = cw.gather(1, i), cw.gather(1, i + 1)
+    s0, s1 = s.gather(1, i), s.gather(1, i + 1)
+    off = torch.clamp(torch.nan_to_num((u - c0) / (c1 - c0), nan=0.0), 0, 1)
+    c = s0 + off * (s1 - s0)
+    mid = (c[:, 1:] + c[:, :-1]) / 2
+    first = torch.clamp(2 * c[:, :1] - mid[:, :1], min=0)
+    last = torch.clamp(2 * c[:, -1:] - mid[:, -1:], max=1)
+    return torch.cat([first, mid, last], dim=-1)
+
+
+_FIRST_LEVEL = {}
+
+
+def first_level_360(n: int, n_rays: int, device) -> torch.Tensor:
+    """The first level's normalized edges ``[n_rays, n + 1]``: ``n`` intervals
+    drawn from one interval ``[0, 1]`` of weight 1 (``sample_intervals``), the
+    same for every ray; made once per device on the host (the same bits as
+    on the card: IEEE operations alone) and broadcast, so a chunk makes no
+    copy from the host (a pageable copy waits for the stream)."""
+    key = (n, torch.device(device))
+    if key not in _FIRST_LEVEL:
+        edges = sample_intervals(torch.tensor([[0.0, 1.0]]), torch.ones(1, 1), n)
+        _FIRST_LEVEL[key] = edges.to(device)
+    return _FIRST_LEVEL[key].expand(n_rays, n + 1)

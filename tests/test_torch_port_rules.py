@@ -82,7 +82,7 @@ def test_kernels_build_for_hopper_without_fast_math():
     assert _ext.LIBRARIES == _ext.SOURCES + tuple(_ext.VARIANTS)
     assert _ext.VARIANTS == {"ray_wgmma_i8": ("ray_wgmma", "-DNERF_WQ=3")}
     paths = {_ext.library_path(n) for n in _ext.LIBRARIES}
-    assert len(paths) == len(_ext.LIBRARIES) == 6
+    assert len(paths) == len(_ext.LIBRARIES) == 7
 
 
 def _run_smoke(cwd):
@@ -267,6 +267,39 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch):
     del calls[:]
     occupancy.grid_guided_z_vals(grid, meta, meta, 2.0, 6.0, 8, n_probe=16, ray_stride=2)
     assert calls == ["occupancy"]
+
+
+def test_mip360_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch):
+    # Mip-NeRF 360's proposal entry, NeRF pass and K2's opaque edges form:
+    # anything but a CPU tensor goes to the launcher, never to the plain version
+    from nerf_tpu_torch.config import mip360_config
+    from nerf_tpu_torch.ops import composite_kernel, mip360_kernel, render_kernel
+
+    calls = []
+    meta = torch.empty(4, 3, device="meta")
+    edges = torch.empty(4, 9, device="meta")
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on a tensor that is not on the CPU")
+
+    for mod, name in ((render_kernel, "fused_render_prop_mip360_plain"),
+                      (mip360_kernel, "nerf_mip360_plain"),
+                      (composite_kernel, "composite_weights_360_plain"),
+                      (composite_kernel, "composite_edges_360_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    monkeypatch.setattr(render_kernel, "_launch_prop", lambda *a: calls.append("prop")
+                        or torch.empty(4, 8, device="meta"))
+    monkeypatch.setattr(mip360_kernel, "_launch", lambda *a: calls.append("nerf")
+                        or torch.empty(4, 32, device="meta"))
+    monkeypatch.setattr(composite_kernel, "_launch_edges_360", lambda x, e, d, weights: calls.append(
+        "k2 weights" if weights else "k2 raw") or torch.empty(4, 8 if weights else 8, device="meta"))
+    cfg = mip360_config()
+    render_kernel.fused_render_prop_mip360(None, meta, meta, 1e-3, edges, cfg.model)
+    mip360_kernel.nerf_mip360_raw(None, meta, meta, 1e-3, edges, cfg.model)
+    composite_kernel.composite_weights_360(torch.empty(4, 8, device="meta"), edges, meta)
+    composite_kernel.composite_edges_360(torch.empty(4, 32, device="meta"), edges, meta,
+                                         cfg.render)
+    assert calls == ["prop", "nerf", "k2 weights", "k2 raw"]
 
 
 # -- every public name of the JAX package has a counterpart ------------------

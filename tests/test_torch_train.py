@@ -284,9 +284,11 @@ def test_about_half_of_all_seeds_start_a_network_dead_in_both_packages():
     assert cfg.train.seed == jcfg.train.seed == 0
     ours, theirs = dataclasses.asdict(cfg.model), dataclasses.asdict(JModelConfig())
     assert {k: v for k, v in ours.items() if k in theirs} == theirs
-    # the port's own keys are the mip variant's, at values the other variants ignore
+    # the port's own keys are the mip and mip360 variants', at values the
+    # other variants ignore
     assert {k: v for k, v in ours.items() if k not in theirs} == {
-        "ipe_min_deg": 0, "ipe_max_deg": 16, "density_bias": 0.0, "rgb_padding": 0.0}
+        "ipe_min_deg": 0, "ipe_max_deg": 16, "density_bias": 0.0, "rgb_padding": 0.0,
+        "bottleneck_dim": 256, "prop_hidden_dim": 256, "prop_layers": 4}
     n = 20
     ro, rd = generate_rays(spherical_pose(30.0, -30.0, 4.0), n, n,
                            focal_from_angle(n, 0.6911112070083618), "cpu")
